@@ -8,19 +8,28 @@ package. Phases, each fatal on failure:
 1. build    - compile every CUDA kernel of ``manipose_tpu_torch/ops/csrc``
               with nvcc (one process per source, in parallel).
 2. kernels  - each kernel (K1 dense attention, K3 per-window attention,
-              K5 fused MLP) against its plain PyTorch version at the shapes
-              the flagship forward gives it, in fp32 and bf16, timed beside
-              its plain version, its roofline bound and one PyTorch library
-              call computing the same function.
+              K5 fused MLP, and their backward kernels K2, K4, K6) against
+              its plain PyTorch version at the shapes the flagship gives
+              it, in fp32 and bf16, timed beside its plain version, its
+              roofline bound and one PyTorch library call computing the
+              same function.
 3. flagship - ``Predictor.predict_video`` at ``configs/config.yaml`` (rMCL,
               fp32, 16 windows of 243 frames, TTA on) with seeded random
               weights: output checks, the manifold invariant, the kernel
               launch counts of the run, and frames/s.
 4. cpu-card - one window of the flagship model, TTA off, on the CPU (plain
               versions) and on the card (kernels) with the same weights.
-5. profile  - only with ``--profile``: one flagship ``predict_video`` under
-              ``torch.profiler``, device time by kernel class and the
-              device's busy share of the call.
+5. train    - the flagship train step (fp32, B=16 synthetic windows,
+              drop-path 0.1, Adam): every loss term finite on every step,
+              every parameter's gradient finite after the first backward,
+              the launch counts of one step, then train sequences/s over
+              10 steps and the peak device memory.
+6. cpu-card train - one flagship train step on one window, drop-path off,
+              on the CPU and on the card from the same weights: the loss
+              and every gradient.
+7. profile  - only with ``--profile``: one flagship ``predict_video`` and
+              one flagship train step under ``torch.profiler``, device time
+              by kernel class and the device's busy share of each.
 
 The last lines are the card's name and power limit (as nvidia-smi prints
 them), one JSON object ``{"kernels": [...]}``, and
@@ -31,6 +40,7 @@ package beside this file, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -58,6 +68,11 @@ TOL = {
     ("mlp", torch.float32): 5e-5,
     ("mlp", torch.bfloat16): 0.05,
 }
+# Gradient tolerances (max abs error against the plain backward): the JAX
+# package's, attention 5e-4 and MLP 5e-4 * max(1, |ref|max) in fp32; in
+# bf16 0.05 * max(1, |ref|max) for both, where kernel and plain version
+# sum in fp32 from the same bf16 inputs and round the results to bf16.
+GRAD_TOL = {torch.float32: 5e-4, torch.bfloat16: 0.05}
 # CPU vs card on the whole model: the JAX package's model-forward tolerance
 # (5e-5), relative to the output's magnitude (16 fp32 trunk blocks whose
 # sums run in another order on each side).
@@ -68,20 +83,54 @@ MODEL_TOL = 5e-5
 # the model twice per window batch
 LAUNCHES_PER_FORWARD = {"attention_dense": 10, "attention_packed": 10,
                         "fused_mlp": 20}
+# launches per flagship train step: one forward, and one backward kernel
+# for each forward launch
+LAUNCHES_PER_TRAIN_STEP = {**LAUNCHES_PER_FORWARD, "attention_dense_bwd": 10,
+                           "attention_packed_bwd": 10, "fused_mlp_bwd": 20}
 
+# the flagship train step: bench.py's batch and weight decay, the config's
+# learning rate
+TRAIN_BATCH = 16
+TRAIN_LR = 4e-5
+TRAIN_WEIGHT_DECAY = 1e-6
+TRAIN_STEPS = 10
+# CPU vs card train step on one window: each loss term relative (the JAX
+# package's model tolerance); each gradient within GRAD_TOL[fp32] of its
+# tensor's max(1, |g|max)
+TRAIN_LOSS_TOL = 5e-5
+
+ATTENTION_CU = "manipose_tpu_torch/ops/csrc/attention.cu"
+MLP_CU = "manipose_tpu_torch/ops/csrc/mlp.cu"
 KERNELS = {
     "attention_dense": dict(
-        source="manipose_tpu_torch/ops/csrc/attention.cu",
-        replaces="manipose_tpu/ops/pallas_attention.py:97",
+        source=ATTENTION_CU, replaces="manipose_tpu/ops/pallas_attention.py:97",
+    ),
+    "attention_dense_bwd": dict(
+        source=ATTENTION_CU, replaces="manipose_tpu/ops/pallas_attention.py:119",
     ),
     "attention_packed": dict(
-        source="manipose_tpu_torch/ops/csrc/attention.cu",
-        replaces="manipose_tpu/ops/pallas_attention.py:224",
+        source=ATTENTION_CU, replaces="manipose_tpu/ops/pallas_attention.py:224",
+    ),
+    "attention_packed_bwd": dict(
+        source=ATTENTION_CU, replaces="manipose_tpu/ops/pallas_attention.py:248",
     ),
     "fused_mlp": dict(
-        source="manipose_tpu_torch/ops/csrc/mlp.cu",
-        replaces="manipose_tpu/ops/pallas_mlp.py:95",
+        source=MLP_CU, replaces="manipose_tpu/ops/pallas_mlp.py:95",
     ),
+    "fused_mlp_bwd": dict(
+        source=MLP_CU, replaces="manipose_tpu/ops/pallas_mlp.py:172",
+    ),
+}
+# the device kernels (as compiled) that each wrapper launches
+DEVICE_KERNELS = {
+    "attention_dense": ("attention_dense_kernel",),
+    "attention_dense_bwd": ("attention_dense_bwd_dq_kernel",
+                            "attention_dense_bwd_dkv_kernel"),
+    "attention_packed": ("attention_packed_kernel",),
+    "attention_packed_bwd": ("attention_packed_bwd_kernel",),
+    "fused_mlp": ("fused_mlp_kernel",),
+    "fused_mlp_bwd": ("fused_mlp_bwd_rows_kernel", "fused_mlp_bwd_wgrad_kernel",
+                      "fused_mlp_bwd_reduce_kernel"),
 }
 
 
@@ -96,6 +145,23 @@ def cmd_output(cmd) -> str:
                               timeout=60).stdout.strip()
     except OSError as e:
         return f"unavailable ({e})"
+
+
+def ptxas_summary(log: str):
+    """One line per compiled kernel from ``nvcc -Xptxas -v``: the kernel
+    and its template arguments, its registers and its spills."""
+    kernel, spills = "?", ""
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '.*?\d([a-z_]+_kernel)I(\w*?)E+v", line)
+        if m:
+            targs = m.group(2).replace("13__nv_bfloat16", "bf16").replace("S1_", "bf16")
+            kernel = f"{m.group(1)}<{targs.replace('Li', ',').replace('E', '')}>"
+        elif "spill" in line:
+            spills = line.strip()
+        elif "registers" in line:
+            yield f"{kernel}: {line.split(':', 1)[1].strip()}; {spills}"
+        elif "error" in line:
+            yield line.strip()
 
 
 def time_ms(fn, reps: int = 10) -> float:
@@ -184,28 +250,136 @@ def mlp_case(trunk, m, c, h, dtype, gen):
     )
 
 
+def grad_tol(ref: torch.Tensor, dtype, relative: bool) -> float:
+    scale = max(1.0, ref.float().abs().max().item())
+    return GRAD_TOL[dtype] * (scale if relative or dtype == torch.bfloat16 else 1.0)
+
+
+def attention_bwd_case(kind, trunk, batch, heads, n, d, dtype, gen):
+    """K2/K4 at one shape: the gradient of the qkv tensor for a random
+    output gradient laid out as the kernels' outputs are, against the plain
+    backward; the library yardstick is the backward of
+    ``scaled_dot_product_attention`` on the same views."""
+    import torch.nn.functional as F
+
+    from manipose_tpu_torch.ops import cuda_attention as ca
+
+    qkv = torch.randn((batch, n, 3, heads, d), generator=gen, device="cuda")
+    q, k, v = (t.transpose(1, 2) for t in qkv.to(dtype).unbind(2))
+    dout = torch.randn((batch, n, heads, d), generator=gen, device="cuda")
+    dout = dout.to(dtype).transpose(1, 2)
+    scale = d**-0.5
+    elem = q.element_size()
+    bh = batch * heads
+    if kind == "attention_dense_bwd":
+        lse = torch.empty((batch, heads, n), dtype=torch.float32, device="cuda")
+        out = ca.attention_dense(q, k, v, scale, lse=lse)
+
+        def run():
+            return ca.attention_dense_bwd(q, k, v, out, dout, lse, scale)
+
+        # q, k, v, out, dout and the log-sum-exp read; dq, dk, dv written
+        n_bytes = 8 * bh * n * d * elem + 4 * bh * n
+    else:
+        def run():
+            return ca.attention_packed_bwd(q, k, v, dout, scale)
+
+        n_bytes = 7 * bh * n * d * elem  # q, k, v, dout read; dq, dk, dv
+    got = run()
+    want = torch.stack([g.transpose(1, 2) for g in
+                        ca.attention_plain_bwd(q, k, v, dout, scale)], dim=2)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    tol = grad_tol(want, dtype, relative=False)
+    require(err <= tol, f"{kind} {trunk} {dtype}: max abs err {err} > {tol}")
+    del got, want
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    lib_out = F.scaled_dot_product_attention(*leaves, scale=scale)
+    b_ms, b_by = bound_ms(n_bytes, 10.0 * bh * n * n * d, dtype)
+    return dict(
+        trunk=trunk, dtype=str(dtype).replace("torch.", ""),
+        shape=[batch, heads, n, d], max_abs_err=err, tol=tol,
+        ms=time_ms(run),
+        plain_ms=time_ms(lambda: ca.attention_plain_bwd(q, k, v, dout, scale)),
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=time_ms(lambda: torch.autograd.grad(
+            lib_out, leaves, dout, retain_graph=True)),
+    )
+
+
+def mlp_bwd_case(trunk, m, c, h, dtype, gen):
+    """K6 at one shape: all five gradients against the plain backward, each
+    within its own tolerance; the library yardstick is the autograd
+    backward of ``F.linear -> F.gelu -> F.linear``."""
+    import torch.nn.functional as F
+
+    from manipose_tpu_torch.ops import cuda_mlp as cm
+
+    def uniform(shape, fan_in):
+        u = torch.rand(shape, generator=gen, device="cuda") * 2 - 1
+        return (u / fan_in**0.5).to(dtype)
+
+    x = torch.randn((m, c), generator=gen, device="cuda").to(dtype)
+    w1, b1 = uniform((h, c), c), uniform((h,), c)
+    w2, b2 = uniform((c, h), h), uniform((c,), h)
+    g = torch.randn((m, c), generator=gen, device="cuda").to(dtype)
+    got = cm.fused_mlp_bwd(x, w1, b1, w2, g)
+    want = cm.mlp_plain_bwd(x, w1, b1, w2, g)
+    torch.cuda.synchronize()
+    err = 0.0
+    for name, a, r in zip(("dx", "dw1", "db1", "dw2", "db2"), got, want):
+        e = (a.float() - r.float()).abs().max().item()
+        tol = grad_tol(r, dtype, relative=True)
+        require(e <= tol, f"fused_mlp_bwd {trunk} {dtype} {name}: "
+                          f"max abs err {e} > {tol}")
+        err = max(err, e)
+    del got, want
+    leaves = [t.detach().requires_grad_() for t in (x, w1, b1, w2, b2)]
+    lib_out = F.linear(F.gelu(F.linear(leaves[0], leaves[1], leaves[2])),
+                       leaves[3], leaves[4])
+    elem = x.element_size()
+    # x, g, w1, b1, w2 read; dx, dw1, db1, dw2, db2 written
+    n_bytes = (3 * m * c + 4 * c * h + 2 * h + c) * elem
+    b_ms, b_by = bound_ms(n_bytes, 10.0 * m * c * h, dtype)
+    return dict(
+        trunk=trunk, dtype=str(dtype).replace("torch.", ""),
+        shape=[m, c, h], max_abs_err=err, tol=f"{GRAD_TOL[dtype]} * max(1, |ref|max)",
+        ms=time_ms(lambda: cm.fused_mlp_bwd(x, w1, b1, w2, g)),
+        plain_ms=time_ms(lambda: cm.mlp_plain_bwd(x, w1, b1, w2, g)),
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=time_ms(lambda: torch.autograd.grad(
+            lib_out, leaves, g, retain_graph=True)),
+    )
+
+
 def phase_kernels():
     """Every kernel against its plain version at the flagship's shapes
     (B = 16 windows, L = 243, J = 17 joints, S = 16 bones, 8 heads)."""
     gen = torch.Generator(device="cuda").manual_seed(0)
-    b, l, j, s = 16, 243, 17, 16
+    b, l, j, s = TRAIN_BATCH, 243, 17, 16
     cases = {name: [] for name in KERNELS}
     for dtype in (torch.float32, torch.bfloat16):
-        cases["attention_dense"] += [
-            attention_case("attention_dense", "rotations", b * j, 8, l, 64, dtype, gen),
-            attention_case("attention_dense", "segments", b * s, 8, l, 16, dtype, gen),
-        ]
-        cases["attention_packed"] += [
-            attention_case("attention_packed", "rotations", b * l, 8, j, 64, dtype, gen),
-            attention_case("attention_packed", "segments", b * l, 8, s, 16, dtype, gen),
-        ]
-        cases["fused_mlp"] += [
-            mlp_case("rotations", b * l * j, 512, 1024, dtype, gen),
-            mlp_case("segments", b * l * s, 128, 256, dtype, gen),
-        ]
+        for kind in ("attention_dense", "attention_dense_bwd"):
+            case = attention_case if kind == "attention_dense" else attention_bwd_case
+            cases[kind] += [
+                case(kind, "rotations", b * j, 8, l, 64, dtype, gen),
+                case(kind, "segments", b * s, 8, l, 16, dtype, gen),
+            ]
+        for kind in ("attention_packed", "attention_packed_bwd"):
+            case = attention_case if kind == "attention_packed" else attention_bwd_case
+            cases[kind] += [
+                case(kind, "rotations", b * l, 8, j, 64, dtype, gen),
+                case(kind, "segments", b * l, 8, s, 16, dtype, gen),
+            ]
+        for kind, case in (("fused_mlp", mlp_case), ("fused_mlp_bwd", mlp_bwd_case)):
+            cases[kind] += [
+                case("rotations", b * l * j, 512, 1024, dtype, gen),
+                case("segments", b * l * s, 128, 256, dtype, gen),
+            ]
+            torch.cuda.empty_cache()
     for name, rows in cases.items():
         for r in rows:
-            print(f"kernel {name:16s} {r['trunk']:9s} {r['dtype']:8s} "
+            print(f"kernel {name:20s} {r['trunk']:9s} {r['dtype']:8s} "
                   f"shape={r['shape']} err={r['max_abs_err']:.3g} "
                   f"ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
                   f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']}) "
@@ -237,8 +411,8 @@ def phase_flagship():
     counts = ops.launch_counts()
     n_batches = -(-n_windows // predictor.batch_size)
     print(f"flagship launches {counts} for {n_batches} window batch(es)")
-    for name, per_forward in LAUNCHES_PER_FORWARD.items():
-        want = 2 * per_forward * n_batches
+    for name in LAUNCHES_PER_TRAIN_STEP:
+        want = 2 * LAUNCHES_PER_FORWARD.get(name, 0) * n_batches
         require(counts[name] == want, f"{name} launched {counts[name]}, want {want}")
 
     n_hyp = cfg.multi_hyp.n_hyp
@@ -290,53 +464,191 @@ def phase_cpu_vs_card(card_predictor):
           flush=True)
 
 
+def flagship_batch(seq_len: int, batch: int):
+    """bench.py's synthetic train batch: x ~ N(0, 1) 2D keypoints, y ~
+    0.1 N(0, 1) 3D poses, from numpy seed 0."""
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=(batch, seq_len, 17, 2)).astype(np.float32)
+    y = (0.1 * rng.normal(size=(batch, seq_len, 17, 3))).astype(np.float32)
+    return torch.from_numpy(x), torch.from_numpy(y)
+
+
+def make_trainer(cfg, device, state_dict=None):
+    """The flagship model of ``cfg`` on ``device`` (seeded init, or
+    ``state_dict``), Adam and the train step."""
+    from manipose_tpu_torch.drivers import instantiate_model
+    from manipose_tpu_torch.geometry import h36m_skeleton_17
+    from manipose_tpu_torch.train import (
+        LossConfig,
+        TrainState,
+        make_optimizer,
+        make_train_step,
+    )
+
+    skeleton = h36m_skeleton_17()
+    model, _ = instantiate_model(cfg, skeleton)
+    if state_dict is not None:
+        model.load_state_dict(state_dict, strict=True)
+    opt = make_optimizer(model.parameters(), weight_decay=TRAIN_WEIGHT_DECAY)
+    state = TrainState.create(model, opt, seed=cfg.run.seed, device=device)
+    t = cfg.train
+    loss_cfg = LossConfig(sq_loss=t.sq_loss, w_loss=t.w_loss, vel_loss=t.vel_loss,
+                          smooth_reg=t.smooth_reg, rmcl_score_reg=t.rmcl_score_reg,
+                          rigid_seg_reg=t.rigid_seg_reg, rmcl=True)
+    return state, make_train_step(model, loss_cfg, skeleton, opt)
+
+
+def require_finite(metrics, what: str) -> None:
+    for k, v in metrics.items():
+        require(bool(torch.isfinite(v)), f"{what}: loss term {k} = {float(v)}")
+
+
+def phase_train():
+    """The flagship train step on the card: B = 16 synthetic windows, fp32,
+    drop-path at the config's 0.1 from the state's seeded generator."""
+    from manipose_tpu_torch import ops
+    from manipose_tpu_torch.config import load_config
+
+    cfg = load_config("config")
+    require(cfg.model.drop_path_rate > 0, "the flagship trains with drop-path on")
+    state, step = make_trainer(cfg, "cuda")
+    x, y = (t.cuda() for t in flagship_batch(cfg.data.seq_len, TRAIN_BATCH))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    ops.reset_launch_counts()
+    history = [step(state, x, y, TRAIN_LR)]
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    print(f"train launches {counts} for one step")
+    require(counts == LAUNCHES_PER_TRAIN_STEP,
+            f"one train step launched {counts}, want {LAUNCHES_PER_TRAIN_STEP}")
+    n_params = 0
+    for name, p in state.model.named_parameters():
+        require(p.grad is not None, f"{name} got no gradient")
+        require(bool(torch.isfinite(p.grad).all()), f"{name}'s gradient not finite")
+        n_params += 1
+
+    history.append(step(state, x, y, TRAIN_LR))  # second warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_STEPS):
+        history.append(step(state, x, y, TRAIN_LR))
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / TRAIN_STEPS
+    for i, metrics in enumerate(history):
+        require_finite(metrics, f"train step {i}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    seq_s = TRAIN_BATCH / dt
+    losses = " ".join(f"{float(m['loss']):.5f}" for m in history)
+    print(f"train: {n_params} parameters, every gradient finite after the first "
+          f"backward; losses per step {losses}")
+    print(f"flagship train step: {dt * 1e3:.2f} ms -> {seq_s:.2f} sequences/s "
+          f"(mean of {TRAIN_STEPS} after 2 warm-ups, B={TRAIN_BATCH}, fp32, "
+          f"drop-path {cfg.model.drop_path_rate}); peak device memory "
+          f"{peak_gb:.2f} GB", flush=True)
+    return state, step, (x, y), counts, seq_s, peak_gb
+
+
+def phase_cpu_vs_card_train(trained_state) -> None:
+    """One flagship train step on one window, drop-path off, on the CPU
+    (plain versions) and on the card (kernels) from the same weights: the
+    loss terms within 5e-5 relative, every gradient within 5e-4 of its
+    magnitude."""
+    from manipose_tpu_torch.config import load_config
+
+    cfg = load_config("config", ["model.drop_path_rate=0.0"])
+    weights = {k: v.detach().cpu() for k, v in trained_state.model.state_dict().items()}
+    x, y = (t[:1] for t in flagship_batch(cfg.data.seq_len, 1))
+    metrics, grads = {}, {}
+    for device in ("cpu", "cuda"):
+        state, step = make_trainer(cfg, device, state_dict=weights)
+        metrics[device] = {k: float(v) for k, v in step(state, x, y, TRAIN_LR).items()}
+        grads[device] = {n: p.grad.cpu() for n, p in state.model.named_parameters()}
+    worst = 0.0
+    for k, want in metrics["cpu"].items():
+        err = abs(metrics["cuda"][k] - want)
+        require(err <= TRAIN_LOSS_TOL * abs(want),
+                f"cpu vs card train {k}: {metrics['cuda'][k]} vs {want}")
+        worst = max(worst, err / abs(want))
+    worst_grad = ("", 0.0)
+    for name, want in grads["cpu"].items():
+        got = grads["cuda"][name]
+        scale = max(1.0, want.abs().max().item())
+        err = (got - want).abs().max().item()
+        require(bool(torch.isfinite(got).all()), f"card gradient {name} not finite")
+        require(err <= GRAD_TOL[torch.float32] * scale,
+                f"cpu vs card gradient {name}: {err} > {GRAD_TOL[torch.float32] * scale}")
+        if err / scale > worst_grad[1]:
+            worst_grad = (name, err / scale)
+    print(f"cpu vs card train step (one flagship window, drop-path off): loss "
+          f"{metrics['cpu']['loss']:.6f} cpu, {metrics['cuda']['loss']:.6f} card, "
+          f"worst term rel err {worst:.3g} (tol {TRAIN_LOSS_TOL}); worst gradient "
+          f"err / max(1, |g|max) {worst_grad[1]:.3g} at {worst_grad[0]} "
+          f"(tol {GRAD_TOL[torch.float32]}) over {len(grads['cpu'])} tensors",
+          flush=True)
+
+
 def kernel_group(name: str) -> str:
     """Coarse class of a device kernel, by its (mangled) name."""
-    for ours in KERNELS:
-        if f"{ours}_kernel" in name:
+    for ours, device_names in DEVICE_KERNELS.items():
+        if any(n in name for n in device_names):
             return ours
     low = name.lower()
     if any(s in low for s in ("gemm", "cutlass", "xmma", "sm90_", "cublas")):
         return "library GEMM (qkv, proj, embeddings, heads)"
     if "layer_norm" in low:
         return "LayerNorm"
+    if "multi_tensor_apply" in low or "adam" in low:
+        return "Adam update"
     if "memcpy" in low or "memset" in low:
         return "copies"
     return "other elementwise / reductions"
 
 
-def phase_profile(predictor) -> None:
-    """One flagship ``predict_video`` under ``torch.profiler``: device time
-    by kernel and by class, and the device's busy share of the call."""
+def profile_call(label: str, fn) -> None:
+    """``fn`` (warmed up already) under ``torch.profiler``: device time by
+    kernel and by class, and the device's busy share of the call."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    video = np.random.default_rng(0).normal(size=(16 * predictor.seq_len, 17, 2))
-    video = video.astype(np.float32)
-    predictor.predict_video(video)  # warm-up
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        predictor.predict_video(video)
+        fn()
+        torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     rows = [(e.key, e.count, e.self_device_time_total / 1e3)
             for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     busy_ms = sum(ms for _, _, ms in rows)
     if busy_ms == 0.0:
-        print("profile: the profiler recorded no device time (not measured)")
+        print(f"profile {label}: the profiler recorded no device time (not measured)")
         return
     groups = {}
     for key, count, ms in rows:
         g = groups.setdefault(kernel_group(key), [0, 0.0])
         g[0] += count
         g[1] += ms
-    print(f"profile: predict_video of {video.shape[0]} frames, wall {wall_ms:.2f} ms, "
+    print(f"profile: {label}, wall {wall_ms:.2f} ms, "
           f"device busy {busy_ms:.2f} ms ({100 * busy_ms / wall_ms:.1f} %)")
     for name, (count, ms) in sorted(groups.items(), key=lambda kv: -kv[1][1]):
         print(f"  group {name:45s} launches {count:5d} {ms:9.3f} ms "
               f"{100 * ms / busy_ms:5.1f} %")
     for key, count, ms in sorted(rows, key=lambda r: -r[2])[:15]:
         print(f"  kernel {key[:90]:90s} launches {count:5d} {ms:9.3f} ms")
+
+
+def phase_profile(predictor, train) -> None:
+    """One flagship ``predict_video`` and one flagship train step under the
+    profiler."""
+    video = np.random.default_rng(0).normal(size=(16 * predictor.seq_len, 17, 2))
+    video = video.astype(np.float32)
+    predictor.predict_video(video)  # warm-up
+    profile_call(f"predict_video of {video.shape[0]} frames",
+                 lambda: predictor.predict_video(video))
+    state, step, (x, y) = train
+    profile_call(f"one train step of {x.shape[0]} windows",
+                 lambda: step(state, x, y, TRAIN_LR))
 
 
 def main() -> int:
@@ -371,9 +683,8 @@ def main() -> int:
     logs = build.build_all()
     print(f"build: {sorted(logs)} in {time.perf_counter() - t0:.1f} s", flush=True)
     for name, log in logs.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line or "error" in line:
-                print(f"  nvcc {name}: {line.strip()}")
+        for line in ptxas_summary(log):
+            print(f"  nvcc {name}: {line}")
 
     t0 = time.perf_counter()
     cases = phase_kernels()
@@ -385,14 +696,26 @@ def main() -> int:
 
     t0 = time.perf_counter()
     phase_cpu_vs_card(predictor)
-    print(f"cpu-card phase: {time.perf_counter() - t0:.1f} s; "
+    print(f"cpu-card phase: {time.perf_counter() - t0:.1f} s", flush=True)
+
+    t0 = time.perf_counter()
+    state, step, batch, train_counts, seq_s, peak_gb = phase_train()
+    print(f"train phase: {time.perf_counter() - t0:.1f} s", flush=True)
+
+    t0 = time.perf_counter()
+    phase_cpu_vs_card_train(state)
+    print(f"cpu-card train phase: {time.perf_counter() - t0:.1f} s; "
           f"total {time.perf_counter() - t_start:.1f} s", flush=True)
 
     kernels = []
     for name, meta in KERNELS.items():
         head = cases[name][0]  # rotations trunk, fp32: the main path's shape
+        # each kernel's main path: serving for the forward kernels, the
+        # train step for the backward ones
+        path_counts = train_counts if name.endswith("_bwd") else counts
         kernels.append(dict(
-            name=name, route="cuda", **meta, launches=counts[name],
+            name=name, route="cuda", **meta, launches=path_counts[name],
+            launches_by_path={"serve": counts[name], "train_step": train_counts[name]},
             max_abs_err=max(c["max_abs_err"] for c in cases[name]
                             if c["dtype"] == "float32"),
             ms=head["ms"], plain_ms=head["plain_ms"],
@@ -402,8 +725,9 @@ def main() -> int:
             cases=cases[name],
         ))
     if "--profile" in sys.argv[1:]:
-        phase_profile(predictor)
-    print(f"flagship frames/s {fps:.1f} on {smi}")
+        phase_profile(predictor, (state, step, batch))
+    print(f"flagship frames/s {fps:.1f}, train {seq_s:.2f} sequences/s "
+          f"(peak {peak_gb:.2f} GB) on {smi}")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

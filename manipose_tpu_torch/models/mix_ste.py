@@ -17,8 +17,9 @@ Numerics as in the JAX package:
   is divided by ``readout_div`` under muP;
 - stochastic depth rates follow linspace(0, drop_path_rate, depth).
 
-On the card the attention cores run kernels K1/K3 and every MLP runs the
-fused kernel K5; on the CPU their plain versions run.
+On the card the attention cores run kernels K1/K3 (backward K2/K4) and
+every MLP runs the fused kernel K5 (backward K6); on the CPU their plain
+versions run.
 """
 
 from __future__ import annotations
@@ -92,30 +93,44 @@ class Attention(nn.Module):
         self.proj = nn.Linear(dim, dim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        b, n, c = x.shape
-        qkv = self.qkv(x).reshape(b, n, 3, self.num_heads, c // self.num_heads)
-        # strided (B, h, N, d) views of the one qkv tensor: the kernels
-        # read them in place
-        q, k, v = (t.transpose(1, 2) for t in qkv.unbind(2))
-        out = multi_head_attention(q, k, v, self.scale, comb=self.comb)
+        # the kernels read q, k and v in place from the qkv projection and
+        # their backward writes its gradient whole
+        out = multi_head_attention(self.qkv(x), self.num_heads, self.scale,
+                                   comb=self.comb)
         return self.proj(out)
 
 
 class DropPath(nn.Module):
     """Per-sample stochastic depth (timm semantics): the identity unless
-    training with a nonzero rate, then one mask per folded-batch row."""
+    training with a nonzero rate, then one mask per folded-batch row, drawn
+    from ``generator`` (a ``torch.Generator`` on the input's device, set by
+    :func:`set_drop_path_generator`; the global RNG is never drawn from)."""
 
     def __init__(self, rate: float = 0.0):
         super().__init__()
         self.rate = rate
+        self.generator: Optional[torch.Generator] = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training or self.rate == 0.0:
             return x
+        if self.generator is None:
+            raise RuntimeError(
+                "DropPath needs a generator in training; call "
+                "set_drop_path_generator (the train step does)"
+            )
         keep = 1.0 - self.rate
         mask = torch.rand((x.shape[0],) + (1,) * (x.dim() - 1),
-                          device=x.device) < keep
+                          generator=self.generator, device=x.device) < keep
         return x * mask / keep
+
+
+def set_drop_path_generator(model: nn.Module,
+                            generator: Optional[torch.Generator]) -> None:
+    """Give every DropPath of ``model`` the generator its masks come from."""
+    for mod in model.modules():
+        if isinstance(mod, DropPath):
+            mod.generator = generator
 
 
 class Block(nn.Module):

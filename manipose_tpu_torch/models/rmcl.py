@@ -16,6 +16,7 @@ import torch
 from torch import nn
 
 from ..geometry.skeleton import Skeleton
+from ..metrics.losses import wta_l2_loss_and_activate_head
 from .decoder import decode_poses
 from .manifold import BonesMixSTE, ManifoldConfig
 from .mix_ste import MixSTE
@@ -128,7 +129,8 @@ def aggregate_hypotheses(
 
     - ``weighted_ave``: score-weighted mean over H (the serving path);
     - ``best_score``: the argmax-score hypothesis per (B, L);
-    - ``oracle`` needs the losses of the training slice and raises.
+    - ``oracle``: the WTA winner against ``ground_truth``; returns
+      (its unweighted MPJPE per (B, L), its poses).
     """
     if mode == "weighted_ave":
         if scores is None:
@@ -139,10 +141,12 @@ def aggregate_hypotheses(
             raise ValueError("Scores required for best_score mode.")
         return poses_from_hyp_idx(hypothesis, torch.argmax(scores, dim=1)[..., 0])
     if mode == "oracle":
-        raise NotImplementedError(
-            "oracle aggregation needs metrics/losses.py, ported with the "
-            "training slice"
+        if ground_truth is None:
+            raise ValueError("Ground truth required for oracle.")
+        oracle_mpjpe, oracle_idx = wta_l2_loss_and_activate_head(
+            hypothesis, ground_truth, weights=None, squared=False
         )
+        return oracle_mpjpe, poses_from_hyp_idx(hypothesis, oracle_idx)
     raise ValueError(
         "Only best_score, weighted_ave and oracle modes are implemented. "
         f"Got {mode}."

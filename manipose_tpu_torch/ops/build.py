@@ -38,16 +38,29 @@ _F = ctypes.c_float
 # entry point -> argtypes, per library
 SIGNATURES: Dict[str, Dict[str, list]] = {
     "attention": {
+        # q, k, v, out, lse, dtype, B, H, N, D, stride_b, stride_h,
+        # stride_n, scale, device, stream
+        "mp_attention_dense": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                               _L, _L, _L, _F, _I, _P],
         # q, k, v, out, dtype, B, H, N, D, stride_b, stride_h, stride_n,
         # scale, device, stream
-        "mp_attention_dense": [_P, _P, _P, _P, _I, _I, _I, _I, _I,
-                               _L, _L, _L, _F, _I, _P],
         "mp_attention_packed": [_P, _P, _P, _P, _I, _I, _I, _I, _I,
                                 _L, _L, _L, _F, _I, _P],
+        # q, k, v, out, dout, lse, delta, dq, dk, dv, dtype, B, H, N, D,
+        # q/k/v strides (b, h, n), out/dout strides, dq/dk/dv strides,
+        # scale, device, stream
+        "mp_attention_dense_bwd": [_P] * 10 + [_I] * 5 + [_L] * 9
+                                  + [_F, _I, _P],
+        # q, k, v, dout, dq, dk, dv, then as the dense backward
+        "mp_attention_packed_bwd": [_P] * 7 + [_I] * 5 + [_L] * 9
+                                   + [_F, _I, _P],
     },
     "mlp": {
         # x, w1, b1, w2, b2, out, dtype, M, C, H, device, stream
         "mp_fused_mlp": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+        # x, g, w1, b1, w2, dx, da, h, part, grads, dtype, M, C, H, S,
+        # device, stream
+        "mp_fused_mlp_bwd": [_P] * 10 + [_I] * 6 + [_P],
     },
 }
 

@@ -1,12 +1,21 @@
-"""Attention kernels K1 (dense) and K3 (per-window, tiny N): wrappers,
-plain PyTorch versions and launch counters.
+"""Attention kernels K1/K2 (dense) and K3/K4 (per-window, tiny N):
+wrappers, plain PyTorch versions, autograd Functions and launch counters.
 
 ``attention_dense`` replaces ``manipose_tpu/ops/pallas_attention.py::
 flash_attention`` (temporal layout, N = 243 frames) and
 ``attention_packed`` replaces ``flash_attention_packed`` (spatial layout,
 N = 16 bones or 17 joints). Both compute softmax(scale * Q K^T) V per
-(batch, head) with fp32 accumulation; the kernels are in
-``csrc/attention.cu``.
+(batch, head) with fp32 accumulation. ``attention_dense_bwd`` (K2) and
+``attention_packed_bwd`` (K4) are their backward kernels, the
+``custom_vjp`` halves ``_forward_bwd`` and ``_packed_forward_bwd``. The
+kernels are in ``csrc/attention.cu``.
+
+:func:`attention` is the differentiable entry the model calls: it takes the
+qkv projection (B, N, 3*h*d) and returns the merged heads (B, N, h*d).
+When a gradient is wanted it runs :class:`DenseAttention` or
+:class:`PackedAttention`, whose backward writes dq, dk and dv straight into
+one gradient of qkv; otherwise it launches the forward kernel alone, and
+K1 writes no log-sum-exp.
 
 Dispatch depends on the device alone: a CPU tensor takes the plain
 version, a CUDA tensor launches the kernel (or the call raises). The plain
@@ -24,7 +33,8 @@ HEAD_DIMS = (8, 16, 32, 64)  # 8 is model=small's (64 channels, 8 heads)
 PACKED_MAX_N = 32
 
 # launches per kernel; reset by ``ops.reset_launch_counts``
-LAUNCHES = {"attention_dense": 0, "attention_packed": 0}
+LAUNCHES = {"attention_dense": 0, "attention_packed": 0,
+            "attention_dense_bwd": 0, "attention_packed_bwd": 0}
 
 
 def attention_plain(q, k, v, scale: float) -> torch.Tensor:
@@ -33,6 +43,22 @@ def attention_plain(q, k, v, scale: float) -> torch.Tensor:
     scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
     probs = torch.softmax(scores, dim=-1)
     return torch.matmul(probs, v.float()).to(q.dtype)
+
+
+def attention_plain_bwd(q, k, v, do, scale: float):
+    """The gradient of :func:`attention_plain`, step by step as
+    ``pallas_attention.py::_bwd_kernel`` takes it: recompute P from q and
+    k, then dV = P^T dO, dP = dO V^T, dS = P * (dP - rowsum(dP * P)),
+    dQ = dS K * scale, dK = dS^T Q * scale. fp32, cast to q's dtype; no
+    autograd. q, k, v, do: (B, h, N, d) -> (dq, dk, dv)."""
+    q32, k32, v32, do32 = (t.float() for t in (q, k, v, do))
+    probs = torch.softmax(torch.matmul(q32, k32.transpose(-1, -2)) * scale, -1)
+    dv = torch.matmul(probs.transpose(-1, -2), do32)
+    dp = torch.matmul(do32, v32.transpose(-1, -2))
+    ds = probs * (dp - torch.sum(dp * probs, dim=-1, keepdim=True))
+    dq = torch.matmul(ds, k32) * scale
+    dk = torch.matmul(ds.transpose(-1, -2), q32) * scale
+    return tuple(t.to(q.dtype) for t in (dq, dk, dv))
 
 
 def _check(q, k, v, max_n=None) -> None:
@@ -47,27 +73,46 @@ def _check(q, k, v, max_n=None) -> None:
         raise ValueError(f"head dim {d} not in {HEAD_DIMS}")
     if max_n is not None and n > max_n:
         raise ValueError(f"the per-window kernel takes N <= {max_n}, got {n}")
-    if k.stride() != q.stride() or v.stride() != q.stride():
-        raise ValueError("q, k and v must share strides (views of one qkv)")
-    if q.stride(3) != 1 or any(s % 4 for s in q.stride()[:3]):
-        raise ValueError("q/k/v rows must be contiguous and 4-element aligned")
-    for t in (q, k, v):
-        if t.data_ptr() % (4 * q.element_size()):
-            raise ValueError("q/k/v must start on a 4-element boundary")
+    _check_rows(q, (k, v), "q, k and v")
 
 
-def _launch(entry: str, q, k, v, scale: float) -> torch.Tensor:
-    b, h, n, d = q.shape
-    out = torch.empty((b, n, h, d), dtype=q.dtype, device=q.device)
-    lib = build.load("attention")
-    err = getattr(lib, entry)(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        KERNEL_DTYPES[q.dtype], b, h, n, d,
-        q.stride(0), q.stride(1), q.stride(2), float(scale),
-        q.device.index, torch.cuda.current_stream(q.device).cuda_stream,
-    )
-    build.check(lib, err, entry)
-    return out.transpose(1, 2)  # (B, h, N, d) view of (B, N, h, d)
+def _check_rows(t, others, what: str) -> None:
+    """``others`` share ``t``'s strides; rows are contiguous and every
+    stride and start is 4-element aligned (the kernels move 4 at a time)."""
+    if any(o.stride() != t.stride() for o in others):
+        raise ValueError(f"{what} must share strides (views of one tensor)")
+    if t.stride(3) != 1 or any(s % 4 for s in t.stride()[:3]):
+        raise ValueError(f"{what} rows must be contiguous and 4-element aligned")
+    for o in (t, *others):
+        if o.data_ptr() % (4 * t.element_size()):
+            raise ValueError(f"{what} must start on a 4-element boundary")
+
+
+def _check_grad_inputs(q, tensors, what: str) -> None:
+    """Backward operands other than q, k, v: same device, dtype and shape
+    as q, and (B, h, N, d) views with the kernels' alignment."""
+    for t in tensors:
+        if t.device != q.device or t.dtype != q.dtype or t.shape != q.shape:
+            raise ValueError(f"{what} must match q's device, dtype and shape")
+    _check_rows(tensors[0], tensors[1:], what)
+
+
+def _refuse_grad(*ts) -> None:
+    """A kernel's output has no ``grad_fn``: refuse to cut a gradient
+    silently. Differentiable calls go through :func:`attention`."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
+        raise RuntimeError(
+            "the attention kernels are not differentiable on their own; "
+            "call cuda_attention.attention on the qkv tensor"
+        )
+
+
+def _strides(t):
+    return t.stride(0), t.stride(1), t.stride(2)
+
+
+def _stream(t) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
 
 
 def _plain_or_raise(q) -> bool:
@@ -78,24 +123,192 @@ def _plain_or_raise(q) -> bool:
     return False
 
 
-def attention_dense(q, k, v, scale: float) -> torch.Tensor:
+def _empty_out(q) -> torch.Tensor:
+    """(B, h, N, d) view of a new (B, N, h, d) tensor."""
+    b, h, n, d = q.shape
+    return torch.empty((b, n, h, d), dtype=q.dtype, device=q.device).transpose(1, 2)
+
+
+def _empty_dqkv(q) -> torch.Tensor:
+    """A new (B, N, 3, h, d) tensor: the gradient of the qkv projection."""
+    b, h, n, d = q.shape
+    return torch.empty((b, n, 3, h, d), dtype=q.dtype, device=q.device)
+
+
+def _grad_views(dqkv):
+    """dq, dk, dv as (B, h, N, d) views of one (B, N, 3, h, d) tensor."""
+    return [t.transpose(1, 2) for t in dqkv.unbind(2)]
+
+
+def attention_dense(q, k, v, scale: float, lse=None) -> torch.Tensor:
     """K1: whole-sequence attention. q, k, v: (B, h, N, d) -> (B, h, N, d);
     on CUDA the result is a view of a (B, N, h, d) tensor, so merging
-    heads afterwards costs no copy."""
+    heads afterwards costs no copy. With ``lse`` (fp32, B*h*N elements)
+    the kernel also writes each row's log-sum-exp of the scaled scores,
+    which K2 needs."""
     if _plain_or_raise(q):
         return attention_plain(q, k, v, scale)
     _check(q, k, v)
-    out = _launch("mp_attention_dense", q, k, v, scale)
+    _refuse_grad(q, k, v)
+    b, h, n, d = q.shape
+    if lse is not None and not (lse.device == q.device and lse.dtype == torch.float32
+                                and lse.is_contiguous() and lse.numel() == b * h * n):
+        raise ValueError("lse must be a contiguous fp32 tensor of B*h*N elements")
+    out = _empty_out(q)
+    lib = build.load("attention")
+    err = lib.mp_attention_dense(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        None if lse is None else lse.data_ptr(), KERNEL_DTYPES[q.dtype],
+        b, h, n, d, *_strides(q), float(scale), q.device.index, _stream(q),
+    )
+    build.check(lib, err, "mp_attention_dense")
     LAUNCHES["attention_dense"] += 1
     return out
 
 
 def attention_packed(q, k, v, scale: float) -> torch.Tensor:
     """K3: per-window attention for N <= 32 (the spatial layout). Same
-    contract as :func:`attention_dense`."""
+    contract as :func:`attention_dense`, without the log-sum-exp: its
+    backward recomputes each tiny window whole."""
     if _plain_or_raise(q):
         return attention_plain(q, k, v, scale)
     _check(q, k, v, max_n=PACKED_MAX_N)
-    out = _launch("mp_attention_packed", q, k, v, scale)
+    _refuse_grad(q, k, v)
+    b, h, n, d = q.shape
+    out = _empty_out(q)
+    lib = build.load("attention")
+    err = lib.mp_attention_packed(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        KERNEL_DTYPES[q.dtype], b, h, n, d, *_strides(q), float(scale),
+        q.device.index, _stream(q),
+    )
+    build.check(lib, err, "mp_attention_packed")
     LAUNCHES["attention_packed"] += 1
     return out
+
+
+def attention_dense_bwd(q, k, v, out, dout, lse, scale: float) -> torch.Tensor:
+    """K2: the gradient of K1. q, k, v: (B, h, N, d) views of one qkv
+    tensor; out and dout: (B, h, N, d), sharing strides; lse: K1's
+    log-sum-exp. Returns the (B, N, 3, h, d) gradient of the qkv tensor."""
+    if _plain_or_raise(q):
+        return torch.stack(
+            [g.transpose(1, 2) for g in attention_plain_bwd(q, k, v, dout, scale)],
+            dim=2,
+        )
+    _check(q, k, v)
+    _check_grad_inputs(q, (out, dout), "out and dout")
+    b, h, n, d = q.shape
+    if not (lse.device == q.device and lse.dtype == torch.float32
+            and lse.is_contiguous() and lse.numel() == b * h * n):
+        raise ValueError("lse must be K1's contiguous fp32 log-sum-exp")
+    dqkv = _empty_dqkv(q)
+    dq, dk, dv = _grad_views(dqkv)
+    delta = torch.empty_like(lse)
+    lib = build.load("attention")
+    err = lib.mp_attention_dense_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), KERNEL_DTYPES[q.dtype], b, h, n, d,
+        *_strides(q), *_strides(dout), *_strides(dq), float(scale),
+        q.device.index, _stream(q),
+    )
+    build.check(lib, err, "mp_attention_dense_bwd")
+    LAUNCHES["attention_dense_bwd"] += 1
+    return dqkv
+
+
+def attention_packed_bwd(q, k, v, dout, scale: float) -> torch.Tensor:
+    """K4: the gradient of K3 (N <= 32), recomputing each window's scores.
+    Same contract as :func:`attention_dense_bwd` without out and lse."""
+    if _plain_or_raise(q):
+        return torch.stack(
+            [g.transpose(1, 2) for g in attention_plain_bwd(q, k, v, dout, scale)],
+            dim=2,
+        )
+    _check(q, k, v, max_n=PACKED_MAX_N)
+    _check_grad_inputs(q, (dout,), "dout")
+    b, h, n, d = q.shape
+    dqkv = _empty_dqkv(q)
+    dq, dk, dv = _grad_views(dqkv)
+    lib = build.load("attention")
+    err = lib.mp_attention_packed_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), KERNEL_DTYPES[q.dtype],
+        b, h, n, d, *_strides(q), *_strides(dout), *_strides(dq),
+        float(scale), q.device.index, _stream(q),
+    )
+    build.check(lib, err, "mp_attention_packed_bwd")
+    LAUNCHES["attention_packed_bwd"] += 1
+    return dqkv
+
+
+def split_heads(qkv, num_heads: int):
+    """(B, N, 3*h*d) -> q, k, v as strided (B, h, N, d) views: the kernels
+    read them in place."""
+    b, n, c3 = qkv.shape
+    qkv = qkv.reshape(b, n, 3, num_heads, c3 // (3 * num_heads))
+    return [t.transpose(1, 2) for t in qkv.unbind(2)]
+
+
+def merge_heads(out) -> torch.Tensor:
+    """(B, h, N, d) -> (B, N, h*d); free for the kernels' (B, N, h, d)
+    outputs."""
+    b, h, n, d = out.shape
+    return out.transpose(1, 2).reshape(b, n, h * d)
+
+
+class DenseAttention(torch.autograd.Function):
+    """K1 forward (with the log-sum-exp), K2 backward, on the qkv tensor."""
+
+    @staticmethod
+    def forward(ctx, qkv, num_heads: int, scale: float):
+        q, k, v = split_heads(qkv, num_heads)
+        b, h, n, _ = q.shape
+        lse = None
+        if qkv.is_cuda:
+            lse = torch.empty((b, h, n), dtype=torch.float32, device=qkv.device)
+        out = attention_dense(q, k, v, scale, lse=lse)
+        ctx.save_for_backward(qkv, out, lse)
+        ctx.num_heads, ctx.scale = num_heads, scale
+        return merge_heads(out)
+
+    @staticmethod
+    def backward(ctx, grad):
+        qkv, out, lse = ctx.saved_tensors
+        q, k, v = split_heads(qkv, ctx.num_heads)
+        dout = grad.contiguous().view(out.transpose(1, 2).shape).transpose(1, 2)
+        dqkv = attention_dense_bwd(q, k, v, out, dout, lse, ctx.scale)
+        return dqkv.view(qkv.shape), None, None
+
+
+class PackedAttention(torch.autograd.Function):
+    """K3 forward, K4 backward, on the qkv tensor (N <= 32)."""
+
+    @staticmethod
+    def forward(ctx, qkv, num_heads: int, scale: float):
+        q, k, v = split_heads(qkv, num_heads)
+        ctx.save_for_backward(qkv)
+        ctx.num_heads, ctx.scale = num_heads, scale
+        return merge_heads(attention_packed(q, k, v, scale))
+
+    @staticmethod
+    def backward(ctx, grad):
+        (qkv,) = ctx.saved_tensors
+        q, k, v = split_heads(qkv, ctx.num_heads)
+        b, h, n, d = q.shape
+        dout = grad.contiguous().view(b, n, h, d).transpose(1, 2)
+        dqkv = attention_packed_bwd(q, k, v, dout, ctx.scale)
+        return dqkv.view(qkv.shape), None, None
+
+
+def attention(qkv, num_heads: int, scale: float) -> torch.Tensor:
+    """Multi-head attention on the qkv projection: (B, N, 3*h*d) ->
+    (B, N, h*d). N <= 32 (the spatial layout) goes to K3/K4, longer
+    sequences (the temporal layout) to K1/K2."""
+    packed = qkv.shape[1] <= PACKED_MAX_N
+    if torch.is_grad_enabled() and qkv.requires_grad:
+        fn = PackedAttention if packed else DenseAttention
+        return fn.apply(qkv, num_heads, scale)
+    kernel = attention_packed if packed else attention_dense
+    return merge_heads(kernel(*split_heads(qkv, num_heads), scale))

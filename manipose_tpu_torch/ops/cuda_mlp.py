@@ -1,15 +1,23 @@
-"""Fused MLP kernel K5: wrapper, plain PyTorch version and launch counter.
+"""Fused MLP kernels K5 (forward) and K6 (backward): wrappers, plain
+PyTorch versions, the autograd Function and launch counters.
 
 ``fused_mlp`` replaces ``manipose_tpu/ops/pallas_mlp.py::fused_mlp``:
 gelu_exact(x W1^T + b1) W2^T + b2 with fp32 accumulation and the (M, H)
-intermediate kept on chip; the kernel is in ``csrc/mlp.cu``. Weights are in
+intermediate kept on chip. ``fused_mlp_bwd`` (K6) is the ``custom_vjp``
+half ``_backward``. The kernels are in ``csrc/mlp.cu``. Weights are in
 torch ``nn.Linear`` layout: w1 (H, C), w2 (C, H).
+
+``fused_mlp`` is differentiable: when a gradient is wanted it runs
+:class:`FusedMLP`, which saves x, w1, b1 and w2 (as the JAX VJP does) and
+whose backward is K6; otherwise it launches K5 alone.
 
 A CPU tensor takes the plain version, a CUDA tensor launches the kernel
 (or the call raises).
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -19,9 +27,14 @@ from . import build
 KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 CHANNELS = (64, 128, 256, 512)
 HIDDEN_TILE = 64
+# K6 sums dW and db over M in fp32 partials of a fixed split of M: enough
+# slices to give ~1024 blocks of 64 x 64 output tiles, each at least
+# WGRAD_MIN_ROWS rows long
+WGRAD_BLOCKS = 1024
+WGRAD_MIN_ROWS = 256
 
-# launches of the kernel; reset by ``ops.reset_launch_counts``
-LAUNCHES = {"fused_mlp": 0}
+# launches per kernel; reset by ``ops.reset_launch_counts``
+LAUNCHES = {"fused_mlp": 0, "fused_mlp_bwd": 0}
 
 
 def mlp_plain(x, w1, b1, w2, b2) -> torch.Tensor:
@@ -33,8 +46,37 @@ def mlp_plain(x, w1, b1, w2, b2) -> torch.Tensor:
     return F.linear(h, w2.float(), b2.float()).to(x.dtype)
 
 
-def _check(x, w1, b1, w2, b2) -> None:
-    ts = (x, w1, b1, w2, b2)
+def _gelu_grad(a: torch.Tensor) -> torch.Tensor:
+    """d gelu_exact / da = Phi(a) + a phi(a)."""
+    cdf = 0.5 * (1.0 + torch.erf(a * (1.0 / math.sqrt(2.0))))
+    return cdf + a * torch.exp(-0.5 * a * a) * (1.0 / math.sqrt(2.0 * math.pi))
+
+
+def mlp_plain_bwd(x, w1, b1, w2, g):
+    """The gradient of :func:`mlp_plain` for the output gradient g, step by
+    step as ``pallas_mlp.py::_bwd_kernel`` takes it: recompute a and
+    gelu(a) from x; dh = g W2, da = dh * gelu'(a), dX = da W1, dW1 = da^T x,
+    dW2 = g^T gelu(a), db1 = sum(da), db2 = sum(g). In bf16 it rounds where
+    the TPU kernel rounds (gelu(a), g and da before the products) and sums
+    dW/db in fp32 before casting to the weights' dtype. No autograd.
+    -> (dx, dw1, db1, dw2, db2)."""
+    dt = x.dtype
+    x32 = x.float()
+    a = F.linear(x32, w1.float(), b1.float())
+    hh = F.gelu(a).to(dt).float()
+    g32 = g.to(dt).float()
+    da = torch.matmul(g32, w2.float()) * _gelu_grad(a)
+    da_c = da.to(dt).float()
+    dx = torch.matmul(da_c, w1.float()).to(dt)
+    dw1 = torch.matmul(da_c.t(), x32).to(w1.dtype)
+    dw2 = torch.matmul(g32.t(), hh).to(w2.dtype)
+    db1 = da.sum(0).to(b1.dtype)
+    db2 = g.float().sum(0).to(w2.dtype)
+    return dx, dw1, db1, dw2, db2
+
+
+def _check(x, w1, b1, w2, b2=None) -> None:
+    ts = tuple(t for t in (x, w1, b1, w2, b2) if t is not None)
     if not all(t.is_cuda and t.device == x.device for t in ts):
         raise ValueError("all MLP operands must lie on one CUDA device")
     if x.dtype not in KERNEL_DTYPES or any(t.dtype != x.dtype for t in ts):
@@ -46,7 +88,7 @@ def _check(x, w1, b1, w2, b2) -> None:
     if c not in CHANNELS:
         raise ValueError(f"channels {c} not in {CHANNELS}")
     if h % HIDDEN_TILE or w1.shape != (h, c) or w2.shape != (c, h) \
-            or b1.shape != (h,) or b2.shape != (c,):
+            or b1.shape != (h,) or (b2 is not None and b2.shape != (c,)):
         raise ValueError(
             f"need w1 (H, {c}), b1 (H,), w2 ({c}, H), b2 ({c},) with H a "
             f"multiple of {HIDDEN_TILE}"
@@ -57,13 +99,25 @@ def _check(x, w1, b1, w2, b2) -> None:
         raise ValueError("MLP operands must start on a 4-element boundary")
 
 
-def fused_mlp(x, w1, b1, w2, b2) -> torch.Tensor:
-    """K5: x (M, C) -> gelu(x w1^T + b1) w2^T + b2, (M, C)."""
+def _plain_or_raise(x) -> bool:
     if x.device.type == "cpu":
-        return mlp_plain(x, w1, b1, w2, b2)
+        return True
     if x.device.type != "cuda":
         raise ValueError(f"no MLP kernel for device {x.device}")
+    return False
+
+
+def mlp_forward(x, w1, b1, w2, b2) -> torch.Tensor:
+    """K5: x (M, C) -> gelu(x w1^T + b1) w2^T + b2, (M, C). Not
+    differentiable on the card: :func:`fused_mlp` is."""
+    if _plain_or_raise(x):
+        return mlp_plain(x, w1, b1, w2, b2)
     _check(x, w1, b1, w2, b2)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, w1, b1, w2, b2)):
+        raise RuntimeError(
+            "the MLP kernel is not differentiable on its own; call fused_mlp"
+        )
     m, c = x.shape
     out = torch.empty_like(x)
     lib = build.load("mlp")
@@ -76,3 +130,62 @@ def fused_mlp(x, w1, b1, w2, b2) -> torch.Tensor:
     build.check(lib, err, "mp_fused_mlp")
     LAUNCHES["fused_mlp"] += 1
     return out
+
+
+def wgrad_splits(m: int, c: int, h: int) -> int:
+    """How many slices of M K6 sums its weight gradients over (fixed by the
+    shapes, so repeated runs sum in one order)."""
+    tiles = (h // 64) * (c // 64)
+    return max(1, min(-(-m // WGRAD_MIN_ROWS), -(-WGRAD_BLOCKS // tiles)))
+
+
+def fused_mlp_bwd(x, w1, b1, w2, g):
+    """K6: the gradient of K5 for the output gradient g (M, C).
+    -> (dx, dw1, db1, dw2, db2), each of its operand's shape and dtype."""
+    if _plain_or_raise(x):
+        return mlp_plain_bwd(x, w1, b1, w2, g)
+    _check(x, w1, b1, w2)
+    if g.shape != x.shape or g.dtype != x.dtype or g.device != x.device \
+            or not g.is_contiguous() or g.data_ptr() % (4 * g.element_size()):
+        raise ValueError("g must be a contiguous (M, C) tensor like x")
+    m, c = x.shape
+    h = w1.shape[0]
+    s = wgrad_splits(m, c, h)
+    n = 2 * h * c + h + c
+    dx = torch.empty_like(x)
+    da = torch.empty((m, h), dtype=torch.float32, device=x.device)
+    hh = torch.empty((m, h), dtype=x.dtype, device=x.device)
+    part = torch.empty((s, n), dtype=torch.float32, device=x.device)
+    grads = torch.empty((n,), dtype=x.dtype, device=x.device)
+    lib = build.load("mlp")
+    err = lib.mp_fused_mlp_bwd(
+        x.data_ptr(), g.data_ptr(), w1.data_ptr(), b1.data_ptr(),
+        w2.data_ptr(), dx.data_ptr(), da.data_ptr(), hh.data_ptr(),
+        part.data_ptr(), grads.data_ptr(), KERNEL_DTYPES[x.dtype], m, c, h, s,
+        x.device.index, torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    build.check(lib, err, "mp_fused_mlp_bwd")
+    LAUNCHES["fused_mlp_bwd"] += 1
+    dw1, db1, dw2, db2 = torch.split(grads, [h * c, h, c * h, c])
+    return dx, dw1.view(h, c), db1, dw2.view(c, h), db2
+
+
+class FusedMLP(torch.autograd.Function):
+    """K5 forward, K6 backward."""
+
+    @staticmethod
+    def forward(ctx, x, w1, b1, w2, b2):
+        ctx.save_for_backward(x, w1, b1, w2)
+        return mlp_forward(x, w1, b1, w2, b2)
+
+    @staticmethod
+    def backward(ctx, g):
+        return fused_mlp_bwd(*ctx.saved_tensors, g.contiguous())
+
+
+def fused_mlp(x, w1, b1, w2, b2) -> torch.Tensor:
+    """x (M, C) -> gelu(x w1^T + b1) w2^T + b2, (M, C), differentiable."""
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, w1, b1, w2, b2)):
+        return FusedMLP.apply(x, w1, b1, w2, b2)
+    return mlp_forward(x, w1, b1, w2, b2)

@@ -86,7 +86,12 @@ def _segments(params: Dict[str, Any], prefix: str) -> Dict[str, torch.Tensor]:
 def state_dict_from_jax(variables: Dict, arch: str) -> Dict[str, torch.Tensor]:
     """flax variables (``{"params": ...}`` or the params tree, numpy leaves)
     -> the port's state dict for ``arch`` ("mixste" | "manifold" |
-    "rmcl_manifold")."""
+    "rmcl_manifold").
+
+    The map is linear (a transpose, a split of the stacked heads), so it
+    carries any tree of the params' structure into the port's names as
+    well: a JAX gradient tree, or the params after optimizer steps, for
+    comparison with the port's ``.grad`` or parameters."""
     params = variables.get("params", variables)
     if arch == "mixste":
         return _trunk(params, "")

@@ -1,16 +1,20 @@
-"""The port's CUDA kernels on the card: each against its plain version on
-the same inputs (ragged edges, every head dim and channel count the
-kernels take, strided and contiguous operands, fp32 and bf16), what the
-wrappers refuse, and a small model and Predictor on the card against the
-CPU. Marked ``cuda``; without a CUDA device every test skips. Run them on
-the card with ``python -m pytest tests/test_torch_port_cuda.py -q
+"""The port's CUDA kernels on the card: each forward (K1, K3, K5) and
+backward (K2, K4, K6) kernel against its plain version on the same inputs
+(ragged edges, every head dim and channel count the kernels take, strided
+and contiguous operands, fp32 and bf16), what the wrappers refuse, the
+autograd Functions against autograd through the plain versions, and a
+small model's Predictor and train step on the card against the CPU.
+Marked ``cuda``; without a CUDA device every test skips. Run them on the
+card with ``python -m pytest tests/test_torch_port_cuda.py -q
 --noconftest``: tests/conftest.py sets up JAX for the rest of the suite,
 and these tests need none of it.
 
-Tolerances: attention 2e-5 and MLP 5e-5 in fp32 (the JAX package's own,
-tests/test_pallas_attention.py and tests/test_pallas_mlp.py); 0.05 in bf16,
-where kernel and plain version accumulate in fp32 from the same bf16
-inputs and differ in the final rounding."""
+Tolerances: forward attention 2e-5 and MLP 5e-5 in fp32 (the JAX
+package's own, tests/test_pallas_attention.py and tests/test_pallas_mlp.py);
+0.05 in bf16, where kernel and plain version accumulate in fp32 from the
+same bf16 inputs and differ in the final rounding. Gradients: the JAX
+package's 5e-4 (attention) and 5e-4 * max(1, |ref|max) (MLP) in fp32;
+0.05 * max(1, |ref|max) in bf16."""
 
 import numpy as np
 import pytest
@@ -18,13 +22,30 @@ import torch
 
 from manipose_tpu_torch import ops
 from manipose_tpu_torch.config import load_config
+from manipose_tpu_torch.drivers import instantiate_model
+from manipose_tpu_torch.geometry import h36m_skeleton_17
 from manipose_tpu_torch.ops.cuda_attention import (
+    attention,
     attention_dense,
+    attention_dense_bwd,
     attention_packed,
+    attention_packed_bwd,
     attention_plain,
+    attention_plain_bwd,
 )
-from manipose_tpu_torch.ops.cuda_mlp import fused_mlp, mlp_plain
+from manipose_tpu_torch.ops.cuda_mlp import (
+    fused_mlp,
+    fused_mlp_bwd,
+    mlp_plain,
+    mlp_plain_bwd,
+)
 from manipose_tpu_torch.serving import Predictor
+from manipose_tpu_torch.train import (
+    LossConfig,
+    TrainState,
+    make_optimizer,
+    make_train_step,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -155,10 +176,198 @@ def test_predictor_on_card_matches_cpu(gen):
     got = card.predict_video(video, return_hypotheses=True)
     n_batches = 2  # 3 windows of 243 frames in batches of 2
     assert ops.launch_counts() == {
-        name: 2 * n * n_batches for name, n in PER_FORWARD.items()
+        **{name: 0 for name in PER_BACKWARD},
+        **{name: 2 * n * n_batches for name, n in PER_FORWARD.items()},
     }
     want = cpu.predict_video(video, return_hypotheses=True)
     for g, w in zip(got, want):
         assert g.shape == w.shape and np.isfinite(g).all()
         atol = 5e-5 * max(1.0, float(np.abs(w).max()))
         np.testing.assert_allclose(g, w, atol=atol, rtol=0)
+
+
+# ---- backward kernels K2, K4, K6 ------------------------------------------
+
+GRAD_TOL = {torch.float32: 5e-4, torch.bfloat16: 0.05}
+
+
+def _grad_tol(ref, dtype, relative: bool):
+    scale = max(1.0, ref.float().abs().max().item())
+    return GRAD_TOL[dtype] * (scale if relative or dtype == torch.bfloat16 else 1.0)
+
+
+def _dout_like(gen, out):
+    """A gradient with the (B, h, N, d) strides of the kernels' outputs."""
+    b, h, n, d = out.shape
+    g = torch.randn((b, n, h, d), generator=gen, device="cuda")
+    return g.to(out.dtype).transpose(1, 2)
+
+
+def _plain_dqkv(q, k, v, dout, scale):
+    return torch.stack([g.transpose(1, 2)
+                        for g in attention_plain_bwd(q, k, v, dout, scale)], dim=2)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b,h,n,d,strided", [
+    (2, 8, 243, 64, True), (3, 2, 128, 32, True), (2, 8, 243, 16, False),
+    (2, 4, 17, 64, True), (1, 2, 129, 8, False), (2, 8, 243, 8, True),
+    (4, 2, 100, 16, True),
+])
+def test_dense_bwd_kernel_matches_plain(gen, b, h, n, d, strided, dtype):
+    q, k, v = _qkv(gen, b, h, n, d, dtype, strided)
+    scale = d**-0.5
+    lse = torch.empty((b, h, n), dtype=torch.float32, device="cuda")
+    out = attention_dense(q, k, v, scale, lse=lse)
+    dout = _dout_like(gen, out)
+    got = attention_dense_bwd(q, k, v, out, dout, lse, scale)
+    want = _plain_dqkv(q, k, v, dout, scale)
+    assert got.shape == (b, n, 3, h, d) and got.dtype == dtype
+    assert _max_err(got, want) <= _grad_tol(want, dtype, relative=False)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b,h,n,d,strided", [
+    (48, 8, 17, 64, True), (37, 8, 16, 16, True), (5, 3, 32, 32, False),
+    (3, 1, 1, 16, False), (9, 2, 7, 64, True), (40, 8, 17, 8, True),
+])
+def test_packed_bwd_kernel_matches_plain(gen, b, h, n, d, strided, dtype):
+    q, k, v = _qkv(gen, b, h, n, d, dtype, strided)
+    scale = d**-0.5
+    dout = _dout_like(gen, attention_packed(q, k, v, scale))
+    got = attention_packed_bwd(q, k, v, dout, scale)
+    want = _plain_dqkv(q, k, v, dout, scale)
+    assert got.shape == (b, n, 3, h, d) and got.dtype == dtype
+    assert _max_err(got, want) <= _grad_tol(want, dtype, relative=False)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("m,c,hidden", [
+    (1, 64, 128), (63, 128, 256), (1000, 256, 512), (130, 512, 1024),
+    (64, 64, 64), (5000, 128, 256),
+])
+def test_mlp_bwd_kernel_matches_plain(gen, m, c, hidden, dtype):
+    x, w1, b1, w2, _ = _mlp_operands(gen, m, c, hidden, dtype)
+    g = torch.randn((m, c), generator=gen, device="cuda").to(dtype)
+    got = fused_mlp_bwd(x, w1, b1, w2, g)
+    want = mlp_plain_bwd(x, w1, b1, w2, g)
+    for name, a, r in zip(("dx", "dw1", "db1", "dw2", "db2"), got, want):
+        assert a.shape == r.shape and a.dtype == r.dtype, name
+        assert _max_err(a, r) <= _grad_tol(r, dtype, relative=True), name
+
+
+def test_mlp_bwd_kernel_is_deterministic(gen):
+    """The weight sums run over a fixed split of M with no atomics."""
+    x, w1, b1, w2, _ = _mlp_operands(gen, 3000, 512, 1024, torch.float32)
+    g = torch.randn((3000, 512), generator=gen, device="cuda")
+    first = fused_mlp_bwd(x, w1, b1, w2, g)
+    second = fused_mlp_bwd(x, w1, b1, w2, g)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def test_backward_kernels_refuse_what_they_do_not_take(gen):
+    q, k, v = _qkv(gen, 2, 2, 17, 24, torch.float32, False)
+    with pytest.raises(ValueError, match="head dim"):
+        attention_packed_bwd(q, k, v, q, 1.0)
+    q, k, v = _qkv(gen, 2, 2, 33, 16, torch.float32, False)
+    with pytest.raises(ValueError, match="N <= 32"):
+        attention_packed_bwd(q, k, v, q, 1.0)
+    q, k, v = _qkv(gen, 2, 2, 40, 16, torch.float32, True)
+    lse = torch.empty((2, 2, 40), device="cuda")
+    out = attention_dense(q, k, v, 1.0, lse=lse)
+    with pytest.raises(ValueError, match="lse"):
+        attention_dense_bwd(q, k, v, out, _dout_like(gen, out), lse[:, :, :20], 1.0)
+    with pytest.raises(ValueError, match="out and dout"):
+        attention_dense_bwd(q, k, v, out, out.contiguous(), lse, 1.0)
+    x, w1, b1, w2, _ = _mlp_operands(gen, 10, 64, 128, torch.float32)
+    with pytest.raises(ValueError, match="g must be"):
+        fused_mlp_bwd(x, w1, b1, w2, x.t().contiguous().t())
+    with pytest.raises(ValueError, match="channels"):
+        fused_mlp_bwd(x[:, :48].contiguous(), w1[:, :48].contiguous(), b1,
+                      w2[:48].contiguous(), x[:, :48].contiguous())
+
+
+@pytest.mark.parametrize("n,d", [(243, 64), (17, 64), (16, 16)])
+def test_attention_function_matches_autograd_of_plain(gen, n, d):
+    """The Function's gradient of the qkv tensor (K1 + K2, or K3 + K4)
+    against autograd through the plain version on the CPU."""
+    b, h = 3, 4
+    qkv = torch.randn((b, n, 3 * h * d), generator=gen, device="cuda")
+    w = torch.randn((b, n, h * d), generator=gen, device="cuda")
+    card = qkv.clone().requires_grad_()
+    (attention(card, h, d**-0.5) * w).sum().backward()
+    cpu = qkv.cpu().requires_grad_()
+    q, k, v = (t.transpose(1, 2) for t in cpu.view(b, n, 3, h, d).unbind(2))
+    out = attention_plain(q, k, v, d**-0.5).transpose(1, 2).reshape(b, n, h * d)
+    (out * w.cpu()).sum().backward()
+    assert _max_err(card.grad.cpu(), cpu.grad) <= 5e-4
+
+
+def test_dense_attention_writes_lse_only_for_a_gradient(gen, monkeypatch):
+    """Serving (no gradient wanted) pays for no log-sum-exp; a
+    differentiable call asks K1 for one."""
+    from manipose_tpu_torch.ops import cuda_attention as ca
+
+    asked = []
+    kernel = ca.attention_dense
+
+    def spy(q, k, v, scale, lse=None):
+        asked.append(lse is not None)
+        return kernel(q, k, v, scale, lse=lse)
+
+    monkeypatch.setattr(ca, "attention_dense", spy)
+    qkv = torch.randn((2, 243, 3 * 4 * 16), generator=gen, device="cuda")
+    attention(qkv, 4, 0.25)
+    qkv.requires_grad_()
+    with torch.no_grad():
+        attention(qkv, 4, 0.25)
+    with torch.inference_mode():
+        attention(qkv.detach(), 4, 0.25)
+    attention(qkv, 4, 0.25)
+    assert asked == [False, False, False, True]
+
+
+def test_mlp_function_matches_autograd_of_plain(gen):
+    args = _mlp_operands(gen, 700, 128, 256, torch.float32)
+    w = torch.randn((700, 128), generator=gen, device="cuda")
+    card = [a.clone().requires_grad_() for a in args]
+    (fused_mlp(*card) * w).sum().backward()
+    cpu = [a.cpu().requires_grad_() for a in args]
+    (mlp_plain(*cpu) * w.cpu()).sum().backward()
+    for a, r in zip(card, cpu):
+        tol = 5e-4 * max(1.0, r.grad.abs().max().item())
+        assert _max_err(a.grad.cpu(), r.grad) <= tol
+
+
+# backward launches per train step of the OVERRIDES model: one per forward
+# kernel launch
+PER_BACKWARD = {"attention_dense_bwd": 3, "attention_packed_bwd": 3,
+                "fused_mlp_bwd": 6}
+
+
+def test_train_step_on_card_matches_cpu(gen):
+    """One fp32 train step (drop-path off) of a small model on the card and
+    on the CPU from the same weights: losses and every gradient."""
+    cfg = load_config("config", OVERRIDES + ["model.drop_path_rate=0.0"])
+    skeleton = h36m_skeleton_17()
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=(2, 243, 17, 2)).astype(np.float32)
+    y = 0.1 * rng.normal(size=(2, 243, 17, 3)).astype(np.float32)
+    metrics, grads = {}, {}
+    for device in ("cpu", "cuda"):
+        model, _ = instantiate_model(cfg, skeleton)
+        opt = make_optimizer(model.parameters(), weight_decay=1e-6)
+        state = TrainState.create(model, opt, seed=0, device=device)
+        step = make_train_step(model, LossConfig(), skeleton, opt)
+        ops.reset_launch_counts()
+        metrics[device] = {k: v.item() for k, v in step(state, x, y, 4e-5).items()}
+        if device == "cuda":
+            assert ops.launch_counts() == {**PER_FORWARD, **PER_BACKWARD}
+        grads[device] = {n: p.grad.cpu() for n, p in model.named_parameters()}
+    for k, want in metrics["cpu"].items():
+        assert abs(metrics["cuda"][k] - want) <= 5e-5 * max(1.0, abs(want)), k
+    for name, want in grads["cpu"].items():
+        got = grads["cuda"][name]
+        assert torch.isfinite(got).all(), name
+        tol = 5e-4 * max(1.0, want.abs().max().item())
+        assert (got - want).abs().max().item() <= tol, name

@@ -1,0 +1,147 @@
+"""PyTorch port vs the JAX package: the plain backward versions of the
+port's kernels K2, K4 and K6 against ``jax.grad`` through the Pallas
+kernels (interpret mode on the CPU), and the autograd Functions' CPU path
+against autograd through the plain forward. The backward kernels
+themselves are checked on the card by tests/test_torch_port_cuda.py and
+chip_smoke.py.
+
+Tolerances are the JAX package's own gradient ones
+(tests/test_pallas_attention.py, tests/test_pallas_mlp.py): 5e-4 for
+attention, 5e-4 * max(1, |ref|max) for the MLP in fp32 and 0.05 times
+that scale in bf16."""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from manipose_tpu.ops.pallas_attention import (
+    flash_attention,
+    flash_attention_packed,
+)
+from manipose_tpu.ops.pallas_mlp import fused_mlp as j_fused_mlp
+from manipose_tpu.ops.pallas_mlp import supported
+from manipose_tpu_torch import ops
+from manipose_tpu_torch.ops.cuda_attention import (
+    attention,
+    attention_dense_bwd,
+    attention_packed_bwd,
+    attention_plain,
+    attention_plain_bwd,
+)
+from manipose_tpu_torch.ops.cuda_mlp import fused_mlp, mlp_plain, mlp_plain_bwd
+
+ATTN_GRAD_TOL = 5e-4
+MLP_GRAD_TOL = {torch.float32: 5e-4, torch.bfloat16: 0.05}
+
+# the shapes of tests/test_pallas_attention.py: (batch, heads, N, d)
+DENSE_LAYOUTS = [(6, 4, 17, 64), (2, 4, 243, 64), (3, 2, 128, 32)]
+PACKED_LAYOUTS = [(6, 4, 17, 64), (8, 2, 17, 32), (5, 1, 17, 64)]
+
+
+def _normal(rng, shape, scale=1.0):
+    return (scale * rng.normal(size=shape)).astype(np.float32)
+
+
+@pytest.mark.parametrize("kind,b,h,n,d",
+                         [("dense", *s) for s in DENSE_LAYOUTS]
+                         + [("packed", *s) for s in PACKED_LAYOUTS])
+def test_attention_plain_bwd_matches_pallas_grad(kind, b, h, n, d):
+    rng = np.random.default_rng(10)
+    q, k, v, do = (_normal(rng, (b, h, n, d)) for _ in range(4))
+    scale = d**-0.5
+    fn = flash_attention if kind == "dense" else flash_attention_packed
+    want = jax.grad(lambda *a: jnp.sum(fn(*a, scale) * do), argnums=(0, 1, 2))(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v)
+    )
+    got = attention_plain_bwd(*map(torch.from_numpy, (q, k, v, do)), scale)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=ATTN_GRAD_TOL,
+                                   rtol=0, err_msg=name)
+
+
+@pytest.mark.parametrize("kind,n", [("dense", 243), ("dense", 40),
+                                    ("packed", 17), ("packed", 16)])
+def test_attention_wrappers_on_cpu_give_the_qkv_gradient(kind, n):
+    """The backward wrappers' CPU path: the plain gradients, laid out as
+    the (B, N, 3, h, d) gradient of the qkv tensor."""
+    b, h, d = 2, 4, 16
+    rng = np.random.default_rng(11)
+    q, k, v, do = (torch.from_numpy(_normal(rng, (b, h, n, d))) for _ in range(4))
+    if kind == "dense":
+        got = attention_dense_bwd(q, k, v, None, do, None, 0.25)
+    else:
+        got = attention_packed_bwd(q, k, v, do, 0.25)
+    assert got.shape == (b, n, 3, h, d)
+    for i, want in enumerate(attention_plain_bwd(q, k, v, do, 0.25)):
+        assert torch.equal(got[:, :, i].transpose(1, 2), want)
+
+
+def _merged_plain_attention(qkv, h, scale):
+    b, n, c3 = qkv.shape
+    q, k, v = (t.transpose(1, 2) for t in qkv.view(b, n, 3, h, c3 // (3 * h)).unbind(2))
+    out = attention_plain(q, k, v, scale)
+    return out.transpose(1, 2).reshape(b, n, -1)
+
+
+@pytest.mark.parametrize("n,h,d", [(243, 4, 16), (17, 8, 8), (16, 2, 32)])
+def test_attention_function_matches_autograd_of_plain(n, h, d):
+    rng = np.random.default_rng(12)
+    qkv = torch.from_numpy(_normal(rng, (3, n, 3 * h * d)))
+    w = torch.from_numpy(_normal(rng, (3, n, h * d)))
+    ops.reset_launch_counts()
+    ours = qkv.clone().requires_grad_()
+    (attention(ours, h, d**-0.5) * w).sum().backward()
+    ref = qkv.clone().requires_grad_()
+    (_merged_plain_attention(ref, h, d**-0.5) * w).sum().backward()
+    np.testing.assert_allclose(ours.grad.numpy(), ref.grad.numpy(),
+                               atol=ATTN_GRAD_TOL, rtol=0)
+    assert not any(ops.launch_counts().values())
+
+
+def _mlp_data(m, c, h, seed):
+    """numpy operands in flax layout (w1 (C, H), w2 (H, C)) and a
+    cotangent."""
+    rng = np.random.default_rng(seed)
+    return (_normal(rng, (m, c), 0.5), _normal(rng, (c, h), 0.1),
+            _normal(rng, (h,), 0.05), _normal(rng, (h, c), 0.1),
+            _normal(rng, (c,), 0.05), _normal(rng, (m, c)))
+
+
+@pytest.mark.parametrize("m,c,h,dtype", [
+    (256, 64, 128, torch.float32), (512, 128, 256, torch.float32),
+    (256, 64, 128, torch.bfloat16),
+])
+def test_mlp_plain_bwd_matches_pallas_grad(m, c, h, dtype):
+    assert supported(m)
+    x, w1, b1, w2, b2, g = _mlp_data(m, c, h, seed=13)
+    jdt = jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32
+    args = [jnp.asarray(a, jdt) for a in (x, w1, b1, w2, b2)]
+    cot = jnp.asarray(g, jdt)
+    want = jax.grad(lambda *a: jnp.sum((j_fused_mlp(*a) * cot).astype(jnp.float32)),
+                    argnums=tuple(range(5)))(*args)
+    t = [torch.from_numpy(np.ascontiguousarray(a)).to(dtype)
+         for a in (x, w1.T, b1, w2.T, g)]
+    dx, dw1, db1, dw2, db2 = mlp_plain_bwd(*t)
+    # the port keeps torch's (out, in) weight layout: transpose to flax's
+    got = (dx, dw1.t(), db1, dw2.t(), db2)
+    for name, a, b in zip(("dx", "dw1", "db1", "dw2", "db2"), got, want):
+        assert a.dtype == dtype, name
+        b = np.asarray(b, np.float32)
+        atol = MLP_GRAD_TOL[dtype] * max(1.0, float(np.abs(b).max()))
+        np.testing.assert_allclose(a.float().numpy(), b, atol=atol, rtol=0,
+                                   err_msg=name)
+
+
+def test_mlp_function_matches_autograd_of_plain():
+    x, w1, b1, w2, b2, g = _mlp_data(40, 64, 128, seed=14)  # M the TPU refuses
+    base = [torch.from_numpy(np.ascontiguousarray(a)) for a in (x, w1.T, b1, w2.T, b2)]
+    ours = [a.clone().requires_grad_() for a in base]
+    ref = [a.clone().requires_grad_() for a in base]
+    (fused_mlp(*ours) * torch.from_numpy(g)).sum().backward()
+    (mlp_plain(*ref) * torch.from_numpy(g)).sum().backward()
+    for a, b in zip(ours, ref):
+        atol = MLP_GRAD_TOL[torch.float32] * max(1.0, b.grad.abs().max().item())
+        np.testing.assert_allclose(a.grad.numpy(), b.grad.numpy(), atol=atol, rtol=0)

@@ -180,6 +180,16 @@ def test_aggregation_matches_jax(mode):
 
 
 def test_oracle_aggregation_waits_for_training_slice():
-    with pytest.raises(NotImplementedError):
-        tm.aggregate_hypotheses(torch.zeros(1, 2, 3, 17, 3), None, "oracle",
-                                torch.zeros(1, 3, 17, 3))
+    """Oracle aggregation came with the training slice's WTA loss: the
+    winner's MPJPE and poses, as in the JAX package."""
+    rng = np.random.default_rng(4)
+    hyps = rng.normal(size=(2, 3, 5, 17, 3)).astype(np.float32)
+    gt = rng.normal(size=(2, 5, 17, 3)).astype(np.float32)
+    want_err, want_poses = jm.aggregate_hypotheses(
+        jnp.asarray(hyps), None, "oracle", jnp.asarray(gt))
+    got_err, got_poses = tm.aggregate_hypotheses(
+        torch.from_numpy(hyps), None, "oracle", torch.from_numpy(gt))
+    np.testing.assert_allclose(got_err.numpy(), np.asarray(want_err), atol=1e-6, rtol=0)
+    np.testing.assert_array_equal(got_poses.numpy(), np.asarray(want_poses))
+    with pytest.raises(ValueError, match="Ground truth"):
+        tm.aggregate_hypotheses(torch.from_numpy(hyps), None, "oracle")

@@ -74,21 +74,30 @@ def test_packed_attention_matches_pallas(b, h, n, d):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATTN_TOL, rtol=0)
 
 
+def _qkv_projection(b, h, n, d, seed):
+    """A (B, N, 3*h*d) qkv projection and its q, k, v as (B, h, N, d)."""
+    qkv = np.random.default_rng(seed).normal(size=(b, n, 3, h, d))
+    qkv = qkv.astype(np.float32)
+    q, k, v = (np.ascontiguousarray(qkv[:, :, i].transpose(0, 2, 1, 3))
+               for i in range(3))
+    return torch.from_numpy(qkv.reshape(b, n, 3 * h * d)), (q, k, v)
+
+
 @pytest.mark.parametrize("n", [17, 243])
 def test_multi_head_attention_matches_jax_pallas_path(n):
-    q, k, v = _qkv(2, 4, n, 16, seed=3)
+    qkv, (q, k, v) = _qkv_projection(2, 4, n, 16, seed=3)
     scale = 16**-0.5
     want = j_mha(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), scale,
                  impl="pallas")
-    got = multi_head_attention(*map(torch.from_numpy, (q, k, v)), scale)
+    got = multi_head_attention(qkv, 4, scale)
     assert got.shape == (2, n, 64)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATTN_TOL, rtol=0)
 
 
 def test_comb_attention_matches_jax():
-    q, k, v = _qkv(2, 2, 17, 8, seed=4)
+    qkv, (q, k, v) = _qkv_projection(2, 2, 17, 8, seed=4)
     want = j_mha(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), 0.3, comb=True)
-    got = multi_head_attention(*map(torch.from_numpy, (q, k, v)), 0.3, comb=True)
+    got = multi_head_attention(qkv, 2, 0.3, comb=True)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATTN_TOL, rtol=0)
 
 
@@ -124,7 +133,8 @@ def test_cpu_tensors_take_the_plain_path():
         Attention(32, 4)(torch.randn(3, 17, 32))
         Mlp(32, 64)(torch.randn(3, 9, 32))
     assert ops.launch_counts() == {
-        "attention_dense": 0, "attention_packed": 0, "fused_mlp": 0,
+        "attention_dense": 0, "attention_packed": 0, "attention_dense_bwd": 0,
+        "attention_packed_bwd": 0, "fused_mlp": 0, "fused_mlp_bwd": 0,
     }
 
 

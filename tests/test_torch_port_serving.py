@@ -142,7 +142,7 @@ def test_cuda_without_a_card_raises():
 
 def test_port_imports_neither_jax_nor_the_jax_package():
     """Every module of the port, and chip_smoke.py, import without loading
-    jax, flax or manipose_tpu (matched exactly: the port shares the
+    jax, flax, optax or manipose_tpu (matched exactly: the port shares the
     prefix)."""
     code = """
 import importlib, pkgutil, sys
@@ -151,8 +151,8 @@ for m in pkgutil.walk_packages(manipose_tpu_torch.__path__, "manipose_tpu_torch.
     importlib.import_module(m.name)
 import chip_smoke
 bad = sorted(m for m in sys.modules
-             if m in ("jax", "flax", "manipose_tpu")
-             or m.startswith(("jax.", "flax.", "manipose_tpu.")))
+             if m in ("jax", "flax", "optax", "manipose_tpu")
+             or m.startswith(("jax.", "flax.", "optax.", "manipose_tpu.")))
 print(bad)
 sys.exit(1 if bad else 0)
 """
