@@ -6,13 +6,15 @@ toolkit: ``python3 chip_smoke.py``. It imports nothing of JAX or of the JAX
 package. Phases, each fatal on failure:
 
 1. build    - compile every CUDA kernel of ``manipose_tpu_torch/ops/csrc``
-              with nvcc (one process per source, in parallel).
+              with nvcc (one process per source, in parallel); print each
+              kernel's registers and spills, and each library's count of
+              tensor-core instructions in its SASS (cuobjdump).
 2. kernels  - each kernel (K1 dense attention, K3 per-window attention,
               K5 fused MLP, and their backward kernels K2, K4, K6) against
               its plain PyTorch version at the shapes the flagship gives
               it, in fp32 and bf16, timed beside its plain version, its
               roofline bound and one PyTorch library call computing the
-              same function.
+              same function (K5/K6 also with their achieved TFLOP/s).
 3. flagship - ``Predictor.predict_video`` at ``configs/config.yaml`` (rMCL,
               fp32, 16 windows of 243 frames, TTA on) with seeded random
               weights: output checks, the manifold invariant, the kernel
@@ -53,9 +55,12 @@ ROOT = Path(__file__).resolve().parent
 
 # Peak rates of one H100 SXM (NVIDIA data sheet, dense, at 700 W): the
 # roofline bound of a kernel is the larger of bytes / memory rate and
-# operations / peak rate of the operand type.
+# operations / peak rate of the operand type. fp32 products at fp32
+# accuracy run on the tensor cores as 3xTF32 (three tf32 passes over
+# operands split into big and small parts), a third of the 495 TFLOP/s
+# tf32 rate and above the CUDA cores' 67 TFLOP/s.
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
+PEAK_FLOPS = {torch.float32: 495e12 / 3, torch.bfloat16: 989e12}
 
 # Tolerances (max abs error against the plain version on the same inputs):
 # the JAX package's own - attention 2e-5 fp32 (tests/test_pallas_attention.py),
@@ -129,7 +134,7 @@ DEVICE_KERNELS = {
     "attention_packed": ("attention_packed_kernel",),
     "attention_packed_bwd": ("attention_packed_bwd_kernel",),
     "fused_mlp": ("fused_mlp_kernel",),
-    "fused_mlp_bwd": ("fused_mlp_bwd_rows_kernel", "fused_mlp_bwd_wgrad_kernel",
+    "fused_mlp_bwd": ("fused_mlp_bwd_rows_kernel", "fused_mlp_bwd_gemm_kernel",
                       "fused_mlp_bwd_reduce_kernel"),
 }
 
@@ -162,6 +167,20 @@ def ptxas_summary(log: str):
             yield f"{kernel}: {line.split(':', 1)[1].strip()}; {spills}"
         elif "error" in line:
             yield line.strip()
+
+
+def tensor_core_instructions(name: str) -> dict:
+    """SASS instructions of library ``name`` that run on the tensor cores
+    (``HMMA`` from mma.sync, ``HGMMA`` from wgmma), from ``cuobjdump
+    --dump-sass`` of the built library."""
+    from manipose_tpu_torch.ops import build
+
+    tool = Path(build.nvcc_path()).with_name("cuobjdump")
+    sass = subprocess.run([str(tool), "--dump-sass", str(build._target(name))],
+                          capture_output=True, text=True, timeout=300,
+                          check=True).stdout
+    ops = re.findall(r"\b(HGMMA|HMMA)\.", sass)
+    return {op: ops.count(op) for op in ("HMMA", "HGMMA")}
 
 
 def time_ms(fn, reps: int = 10) -> float:
@@ -236,12 +255,13 @@ def mlp_case(trunk, m, c, h, dtype, gen):
     tol = TOL[("mlp", dtype)]
     require(err <= tol, f"fused_mlp {trunk} {dtype}: max abs err {err} > {tol}")
     elem = x.element_size()
-    b_ms, b_by = bound_ms((2 * m * c + 2 * c * h + h + c) * elem,
-                          4.0 * m * c * h, dtype)
+    flops = 4.0 * m * c * h
+    b_ms, b_by = bound_ms((2 * m * c + 2 * c * h + h + c) * elem, flops, dtype)
+    ms = time_ms(lambda: cm.fused_mlp(x, w1, b1, w2, b2))
     return dict(
         trunk=trunk, dtype=str(dtype).replace("torch.", ""),
-        shape=[m, c, h], max_abs_err=err, tol=tol,
-        ms=time_ms(lambda: cm.fused_mlp(x, w1, b1, w2, b2)),
+        shape=[m, c, h], max_abs_err=err, tol=tol, ms=ms,
+        tflops=flops / ms * 1e-9,
         plain_ms=time_ms(lambda: cm.mlp_plain(x, w1, b1, w2, b2)),
         bound_ms=b_ms, bound_by=b_by,
         library_ms=time_ms(
@@ -340,11 +360,13 @@ def mlp_bwd_case(trunk, m, c, h, dtype, gen):
     elem = x.element_size()
     # x, g, w1, b1, w2 read; dx, dw1, db1, dw2, db2 written
     n_bytes = (3 * m * c + 4 * c * h + 2 * h + c) * elem
-    b_ms, b_by = bound_ms(n_bytes, 10.0 * m * c * h, dtype)
+    flops = 10.0 * m * c * h
+    b_ms, b_by = bound_ms(n_bytes, flops, dtype)
+    ms = time_ms(lambda: cm.fused_mlp_bwd(x, w1, b1, w2, g))
     return dict(
         trunk=trunk, dtype=str(dtype).replace("torch.", ""),
         shape=[m, c, h], max_abs_err=err, tol=f"{GRAD_TOL[dtype]} * max(1, |ref|max)",
-        ms=time_ms(lambda: cm.fused_mlp_bwd(x, w1, b1, w2, g)),
+        ms=ms, tflops=flops / ms * 1e-9,
         plain_ms=time_ms(lambda: cm.mlp_plain_bwd(x, w1, b1, w2, g)),
         bound_ms=b_ms, bound_by=b_by,
         library_ms=time_ms(lambda: torch.autograd.grad(
@@ -381,7 +403,9 @@ def phase_kernels():
         for r in rows:
             print(f"kernel {name:20s} {r['trunk']:9s} {r['dtype']:8s} "
                   f"shape={r['shape']} err={r['max_abs_err']:.3g} "
-                  f"ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
+                  f"ms={r['ms']:.4f} "
+                  + (f"({r['tflops']:.1f} TFLOP/s) " if "tflops" in r else "")
+                  + f"plain_ms={r['plain_ms']:.4f} "
                   f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']}) "
                   f"library_ms={r['library_ms']:.4f}", flush=True)
     return cases
@@ -685,6 +709,12 @@ def main() -> int:
     for name, log in logs.items():
         for line in ptxas_summary(log):
             print(f"  nvcc {name}: {line}")
+    for name in build.SIGNATURES:
+        counts = tensor_core_instructions(name)
+        print(f"sass {name}: tensor-core instructions {sum(counts.values())} "
+              f"({', '.join(f'{k} {v}' for k, v in counts.items())})", flush=True)
+        if name == "mlp":
+            require(sum(counts.values()) > 0, "the MLP kernels run on the tensor cores")
 
     t0 = time.perf_counter()
     cases = phase_kernels()

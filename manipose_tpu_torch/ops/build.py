@@ -58,9 +58,9 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
     "mlp": {
         # x, w1, b1, w2, b2, out, dtype, M, C, H, device, stream
         "mp_fused_mlp": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-        # x, g, w1, b1, w2, dx, da, h, part, grads, dtype, M, C, H, S,
-        # device, stream
-        "mp_fused_mlp_bwd": [_P] * 10 + [_I] * 6 + [_P],
+        # x, g, w1, b1, w2, dx, da, h, colsum, part, grads, dtype, M, C,
+        # H, S, device, stream
+        "mp_fused_mlp_bwd": [_P] * 11 + [_I] * 6 + [_P],
     },
 }
 

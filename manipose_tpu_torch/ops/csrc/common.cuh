@@ -59,14 +59,6 @@ __device__ __forceinline__ float to_float(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
 
-// fp32 value rounded through the element type (identity for fp32).
-template <typename T>
-__device__ __forceinline__ float round_to(float v) { return v; }
-template <>
-__device__ __forceinline__ float round_to<__nv_bfloat16>(float v) {
-  return __bfloat162float(__float2bfloat16(v));
-}
-
 }  // namespace mp
 
 extern "C" const char* mp_error_string(int err) {

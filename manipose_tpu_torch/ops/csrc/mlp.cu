@@ -8,68 +8,82 @@
 //   fused_mlp_bwd_*_kernel   <- _backward / _bwd_kernel (pallas_mlp.py:123-169,
 //                               172-211)
 //
-// What bounds them on an H100. At the flagship's rotations trunk (M = 66096
-// rows, C = 512, H = 1024) the forward does 4*M*C*H = 138.6 GFLOP against
-// 0.28 GB moved in fp32, so fp32 arithmetic on the CUDA cores (67 TFLOP/s)
-// bounds it at ~2.1 ms. Two plain GEMMs would also write and re-read the
-// (M, H) intermediate: 0.54 GB more. The backward does five such products
-// (recomputed a, dh, dX, dW1, dW2): 10*M*C*H = 346 GFLOP, ~5.2 ms.
+// What bounds them on an H100. Every product runs on the tensor cores
+// through mma.sync (mma.cuh): bf16 in one m16n8k16 pass, fp32 as 3xTF32,
+// three m16n8k8 tf32 passes over operands split into big and small tf32
+// parts, which keeps fp32 accuracy. Against the data sheet (dense, 700 W)
+// that is 989 TFLOP/s in bf16 and 495 / 3 = 165 TFLOP/s for fp32 products;
+// mma.sync itself peaks lower on the card (probes/mma_rate.cu: 324 tf32 and
+// 649 bf16 TFLOP/s, so 108 for 3xTF32). At the flagship's rotations trunk
+// (M = 66096 rows, C = 512, H = 1024) the forward does 4*M*C*H = 138.6
+// GFLOP against 0.28 GB of device memory (3.35 TB/s) in fp32, so
+// operations bound it (0.84 ms); two plain GEMMs would also write and
+// re-read the (M, H) intermediate, 0.54 GB more. The backward does five
+// such products, 10*M*C*H = 346 GFLOP (2.1 ms). Between the two sits L2:
+// every 64-row block re-reads x and both weight matrices chunk by chunk,
+// 6.3 GB a forward launch in fp32. In fp32 the kernels issue more than the
+// tensor cores do: the operand splits, fragment loads and fp32 adds take
+// as many issue slots as the mma (probes/run_probes.py ablates each).
 //
-// What the forward's design does about it. The TPU kernel keeps W1 and W2
-// whole in VMEM; at C = 512, H = 1024 each is 2 MB in fp32, far beyond the
-// 227 KB of shared memory a block may use. Here one block owns a tile of 64
-// rows and keeps that tile's whole (64, C) output accumulator in registers
-// (C/16 floats per thread per row group). It walks H in chunks of 64 hidden
-// units: fc1 for the chunk (the x tile and the W1 rows stream through
-// shared memory 32 columns at a time, 4 x 4 register tiles per thread),
-// bias and exact GELU (erff), the chunk parked in shared memory (rounded to
-// bf16 first under bf16, as pallas_mlp.py:86 does), then the chunk's fc2
-// partial product added into the accumulator (W2 columns streamed 16 at a
-// time). The (M, H) intermediate never reaches device memory. Rows past M
-// are masked, so any M is taken (the TPU's pick_tile restriction does not
-// apply). All shared-memory reads are 16-byte and conflict-free.
+// Design. Every kernel runs 8 warps over a cp.async ring of 3 or 4 slots
+// (16-byte copies, no register staging) that holds operand tiles laid out
+// as the mma fragments read them (ldmatrix for k-contiguous tiles,
+// mma.cuh), so the next k-slices land while the current one is
+// multiplied. The ring runs over one flat schedule of stages per block,
+// so prefetch crosses from one product to the next and from one hidden
+// chunk to the next. The tensor cores' fp32 accumulation
+// truncates (its error grows with the reduction length), so an mma
+// accumulator runs over at most one stage (64 of k) or, for the (64, C)
+// accumulators, one k-step, and is then added into an fp32 sum.
 //
-// The backward. The TPU kernel sums dW and db over its sequential grid in
-// one pass; blocks on Hopper run in no order, so the sums over all M rows
-// take a second pass. Pass 1 (rows) is shaped like the forward: per chunk
-// of 64 hidden units it recomputes a = x W1^T + b1 (one tile product),
-// keeps gelu'(a) in shared memory, forms dh = g W2 (a second tile product,
-// so a, dh and the dX accumulator are never live in registers together),
-// da = dh * gelu'(a), and adds da W1[chunk] into its (64, C) dX
-// accumulator. It writes gelu(a) and da to (M, H) scratch, 2 x 0.27 GB at
-// the flagship in fp32, which the weight sums read back. Pass 2 (wgrad)
-// computes dW1 = da^T x and dW2 = g^T gelu(a) as 64 x 64 output tiles over
-// a fixed split of M into S slices, fp32 partials per slice, and sums the
-// columns of da and g for db1 and db2 on the way. Pass 3 (reduce) adds the
-// S partials in slice order. No atomics: repeated runs agree bit for bit.
-// Under bf16 it rounds where _bwd_kernel rounds: gelu(a), g and da before
-// the products; db1 sums the unrounded da in fp32.
+// Forward (K5). The whole (64, C) fp32 output accumulator sits in mma
+// fragments over the 8 warps (each owns C/8 columns; 128 registers a
+// thread at C = 512). The block walks H in chunks of 64 hidden units: the
+// chunk of fc1 (x and W1 rows streamed as they lie in memory, both
+// k-contiguous; warps 2 x 4 over 32 x 16 tiles), bias and exact GELU in
+// registers, the chunk to shared memory once, split into the parts the
+// mma takes (rounded to bf16 under bf16, as pallas_mlp.py:86 does), then
+// the chunk's fc2 into the accumulator, W2's rows streamed k-contiguous as
+// well. The (M, H) intermediate never reaches device memory. Rows past M
+// are zero-filled on load and masked on store, so any M is taken.
 //
-// Simple first: fp32 CUDA-core arithmetic, no double buffering, one block
-// per SM for the row passes. Tensor cores (wgmma, bf16) and TMA pipelining
-// are later work.
+// Backward (K6). The TPU kernel sums dW and db over its sequential grid;
+// blocks on Hopper run in no order, so the sums over M take later passes.
+// Pass 1 (rows), per 64-row block and chunk: recompute a (as the
+// forward), write gelu(a) to (M, H) scratch and keep gelu'(a) in
+// registers; dh = g W2[:, chunk] (W2 read k-major: a transposed operand);
+// da = dh * gelu'(a), written to (M, H) scratch in the element type. It
+// also writes this block's column sums of da (for db1, from the unrounded
+// da) and of g (for db2). It holds no (64, C) accumulator, so it fits 128
+// registers and two blocks share an SM. Pass 2: three tile GEMMs on
+// 128 x 128 output tiles: dX = da W1 over all of H, and dW1 = da^T x and
+// dW2 = g^T gelu(a) over a fixed split of M into fp32 partials. Pass 3
+// (reduce) adds the slices' partials and the row blocks' column sums in
+// a fixed order. No atomics: repeated runs agree bit for bit. Under bf16
+// it rounds where _bwd_kernel rounds: gelu(a), g and da before the
+// products; db1 sums the unrounded da.
+//
+// Not yet: wgmma and TMA. wgmma's tf32 path reads B from shared memory
+// only, so its split would have to be stored there, and its accumulators
+// leave no registers for the fp32 sum that the truncating accumulation
+// needs; the bf16 path moves to wgmma once bf16 compute is on the main
+// path. 128-row tiles over a 2-CTA cluster with TMA multicast would halve
+// the per-block accumulator and the L2 traffic.
 
 #include <cmath>
 
 #include "common.cuh"
+#include "mma.cuh"
 
 namespace {
 
-constexpr int BM = 64;        // rows per block
+constexpr int BM = 64;        // rows per block of the row kernels
 constexpr int BH = 64;        // hidden units per chunk
-constexpr int BK = 32;        // reduction slice of the chunk's tile products
-constexpr int BH2 = 16;       // reduction slice of the accumulating product
-constexpr int THREADS = 256;  // 16 x 16: tx picks columns, ty picks rows
-constexpr int XS = BM + 4;    // row stride of the transposed row slice / chunk
-constexpr int WS = BH + 4;    // row stride of the weight slice
-constexpr int WT = 64;        // weight-gradient output tile edge
-constexpr int WK = 32;        // rows of M staged per weight-gradient step
-constexpr int WTS = WT + 4;
-
-template <int C>
-__host__ __device__ constexpr int smem_floats() {
-  return BK * XS + BK * WS + BH * XS + BH2 * (C + 4);
-}
+constexpr int THREADS = 256;  // 8 warps
+constexpr int STAGES = 4;     // depth of K5's cp.async ring
+constexpr int SLOT = 10240;   // 32-bit words per ring slot (40 KB)
+constexpr int BWD_STAGES = 3; // K6's row pass: two blocks an SM
+constexpr int BWD_SLOT = 8960;
 
 __device__ __forceinline__ float gelu_exact(float a) {
   return 0.5f * a * (1.f + erff(a * 0.70710678118654752f));
@@ -80,124 +94,154 @@ __device__ __forceinline__ float gelu_grad(float a) {
   return cdf + a * 0.3989422804014327f * expf(-0.5f * a * a);
 }
 
-__device__ __forceinline__ float4 lds4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
+// Tile geometry of the row kernels for element type T and C channels.
+template <typename T, int C>
+struct Rows {
+  static constexpr int EW = 4 / sizeof(T);  // elements per word
+  // words of k per stage of a C-long reduction, and its stages
+  static constexpr int KW = (C / EW < 64) ? C / EW : 64;
+  static constexpr int N1 = C / (KW * EW);
+  // K5's fc2 streams W2 rows (C of them) KW2 words of hidden units a stage
+  static constexpr int KW2 = (BH / EW < 8192 / C) ? BH / EW : 8192 / C;
+  static constexpr int N2 = BH / EW / KW2;
+  static constexpr int NLD = KW + 4;       // natural stage tiles, words
+  static constexpr int CLD = BH / EW + 4;  // the chunk tile [row][unit], words
+  // the chunk tile holds one part per Mma<T> operand part (fp32: big, small)
+  static constexpr int CHUNK = mp::Mma<T>::PARTS * BM * CLD;
+  static constexpr int NT = C / 64;        // 8-column tiles per warp, of C
+  static_assert(2 * BM * NLD <= SLOT && C * (KW2 + 4) <= SLOT, "slot");
+  static_assert(2 * BM * NLD <= BWD_SLOT, "slot");
+  static_assert(BM * NLD + KW * EW * (BH + 8) / EW <= BWD_SLOT, "slot");
+};
+
+// The warp's place in a (64 rows x 64 units) chunk product: 2 x 4 warps of
+// 32 rows x 16 units. Fragment rows / units of (mi, ni, e) are
+// chunk_row(mi, e), chunk_unit(ni, e).
+__device__ __forceinline__ int warp_id() { return threadIdx.x >> 5; }
+__device__ __forceinline__ int chunk_row(int mi, int e) {
+  return (warp_id() >> 2) * 32 + mi * 16 + mp::lane_g() + (e >> 1) * 8;
+}
+__device__ __forceinline__ int chunk_unit(int ni, int e) {
+  return (warp_id() & 3) * 16 + ni * 8 + 2 * mp::lane_t() + (e & 1);
 }
 
-__device__ __forceinline__ void sts4(float* p, float4 v) {
-  *reinterpret_cast<float4*>(p) = v;
-}
-
-// s[i][j] = sum_k A[row0 + ty*4 + i][k] * W[k][tx*4 + j] over k in [0, C):
-// the A tile (rows past M read as zeros) goes to ``xs`` transposed, and
-// ``stage_w(k0)`` fills ``ws`` with W[k0 : k0 + BK][0 : BH] (row stride WS),
-// BK columns at a time.
-template <int C, typename T, typename StageW>
-__device__ __forceinline__ void tile_product(const T* __restrict__ a, int row0,
-                                             int M, float* xs, const float* ws,
-                                             StageW stage_w, float (&s)[4][4]) {
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+// One stage of the chunk's fc1 over x and W1 rows in ``slot``.
+template <typename T, int C>
+__device__ __forceinline__ void fc1_stage(const uint32_t* slot,
+                                          float (&acc)[2][2][4]) {
+  using R = Rows<T, C>;
+  const uint32_t* xs = slot;
+  const uint32_t* ws = slot + BM * R::NLD;
+  const int wm = warp_id() >> 2, wn = warp_id() & 3;
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-  for (int k0 = 0; k0 < C; k0 += BK) {
-    __syncthreads();  // earlier reads of xs / ws (and of the chunk) are done
-    for (int e = tid; e < BM * (BK / 4); e += THREADS) {
-      const int r = e / (BK / 4), c = 4 * (e % (BK / 4));
-      const float4 t =
-          row0 + r < M
-              ? mp::load4(a + static_cast<long long>(row0 + r) * C + k0 + c)
-              : make_float4(0.f, 0.f, 0.f, 0.f);
-      xs[(c + 0) * XS + r] = t.x;
-      xs[(c + 1) * XS + r] = t.y;
-      xs[(c + 2) * XS + r] = t.z;
-      xs[(c + 3) * XS + r] = t.w;
-    }
-    stage_w(k0);
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      const float4 av = lds4(xs + kk * XS + ty * 4);
-      const float4 wv = lds4(ws + kk * WS + tx * 4);
-      const float ar[4] = {av.x, av.y, av.z, av.w};
-      const float wr[4] = {wv.x, wv.y, wv.z, wv.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(ar[i], wr[j], s[i][j]);
-    }
+  for (int ks = 0; ks < R::KW / 8; ++ks) {
+    mp::mma_step<T>(
+        acc,
+        [&](int mi, uint32_t (&w)[4]) {
+          mp::load_a_nat(w, xs, R::NLD, wm * 32 + mi * 16, ks * 8);
+        },
+        [&](int ni, uint32_t (&w)[2]) {
+          mp::load_b_nat(w, ws, R::NLD, wn * 16 + ni * 8, ks * 8);
+        });
   }
 }
 
-// W1[hc : hc + BH][k0 : k0 + BK] transposed into ws (column, unit).
-template <int C, typename T>
-__device__ __forceinline__ void stage_w1_rows(const T* __restrict__ w1, int hc,
-                                              int k0, float* ws) {
-  for (int e = threadIdx.x; e < BH * (BK / 4); e += THREADS) {
-    const int r = e / (BK / 4), c = 4 * (e % (BK / 4));
-    const float4 t = mp::load4(w1 + static_cast<long long>(hc + r) * C + k0 + c);
-    ws[(c + 0) * WS + r] = t.x;
-    ws[(c + 1) * WS + r] = t.y;
-    ws[(c + 2) * WS + r] = t.z;
-    ws[(c + 3) * WS + r] = t.w;
-  }
+// Issue the copies of fc1's stage j (k words j*KW..) for rows row0.. and
+// hidden units hc..
+template <typename T, int C>
+__device__ __forceinline__ void fc1_issue(uint32_t* slot, const T* x,
+                                          const T* w1, int row0, int M, int hc,
+                                          int j) {
+  using R = Rows<T, C>;
+  constexpr long long pitch = C * sizeof(T);
+  const int k = j * R::KW * R::EW;
+  mp::copy_tile<BM, R::KW, THREADS>(slot, R::NLD, x + static_cast<long long>(row0) * C + k,
+                                    pitch, M - row0);
+  mp::copy_tile<BH, R::KW, THREADS>(slot + BM * R::NLD, R::NLD,
+                                 w1 + static_cast<long long>(hc) * C + k, pitch, BH);
 }
 
-// acc[i][jq*4 + e] += sum_u cs[u][ty*4 + i] * Wr[u][jq*64 + tx*4 + e] over
-// the chunk's BH units; ``stage(h0)`` fills w2s with rows
-// [h0, h0 + BH2) of Wr (row stride C + 4), BH2 units at a time.
-template <int NJ, typename Stage>
-__device__ __forceinline__ void accumulate_chunk(const float* cs, float* w2s,
-                                                 Stage stage,
-                                                 float (&acc)[4][4 * NJ]) {
-  constexpr int C = 64 * NJ;
-  constexpr int W2S = C + 4;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  for (int h0 = 0; h0 < BH; h0 += BH2) {
-    __syncthreads();  // chunk written; earlier reads of w2s are done
-    stage(h0);
-    __syncthreads();
-#pragma unroll
-    for (int hh = 0; hh < BH2; ++hh) {
-      const float4 a = lds4(cs + (h0 + hh) * XS + ty * 4);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-#pragma unroll
-      for (int jq = 0; jq < NJ; ++jq) {
-        const float4 w = lds4(w2s + hh * W2S + jq * 64 + tx * 4);
-        const float wv[4] = {w.x, w.y, w.z, w.w};
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int e = 0; e < 4; ++e)
-            acc[i][jq * 4 + e] = fmaf(av[i], wv[e], acc[i][jq * 4 + e]);
-      }
-    }
+// A block's cp.async ring of NSTAGES slots of NSLOT words: ``issue(s)``
+// copies stage s of the block's flat schedule into slot s % NSTAGES (and
+// always commits a group); ``next()`` waits for the oldest stage, issues
+// the one NSTAGES - 1 ahead and returns the oldest stage's slot.
+template <int NSTAGES, int NSLOT, typename Issue>
+struct Ring {
+  uint32_t* smem;
+  Issue issue;
+  int s;
+  __device__ __forceinline__ const uint32_t* next() {
+    mp::cp_async_wait<NSTAGES - 2>();
+    __syncthreads();  // stage s landed; every warp is done with stage s - 1
+    issue(s + NSTAGES - 1);
+    return smem + (s++ % NSTAGES) * NSLOT;
   }
+};
+template <int NSTAGES, int NSLOT, typename Issue>
+__device__ __forceinline__ Ring<NSTAGES, NSLOT, Issue> start_ring(uint32_t* smem,
+                                                                 Issue issue) {
+#pragma unroll 1
+  for (int s = 0; s < NSTAGES - 1; ++s) issue(s);
+  return Ring<NSTAGES, NSLOT, Issue>{smem, issue, 0};
 }
 
-// Store the (64, C) accumulator (+ bias when given) to rows < M of out.
-template <int NJ, typename T>
+// Store the (64, C) accumulator (+ bias when given) to rows < M of out, in
+// the (4 x NT) fragment layout of a warp owning C / 8 columns.
+template <typename T, int C>
 __device__ __forceinline__ void store_rows(T* __restrict__ out,
-                                           const T* __restrict__ bias,
-                                           int row0, int M,
-                                           const float (&acc)[4][4 * NJ]) {
-  constexpr int C = 64 * NJ;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+                                           const float (&acc)[4][C / 64][4],
+                                           const T* __restrict__ bias, int row0,
+                                           int M) {
 #pragma unroll
-  for (int jq = 0; jq < NJ; ++jq) {
-    const int col = jq * 64 + tx * 4;
-    const float4 b = bias != nullptr ? mp::load4(bias + col)
-                                     : make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int mi = 0; mi < 4; ++mi)
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = row0 + ty * 4 + i;
-      if (r < M) {
-        mp::store4(out + static_cast<long long>(r) * C + col,
-                   make_float4(acc[i][jq * 4 + 0] + b.x, acc[i][jq * 4 + 1] + b.y,
-                               acc[i][jq * 4 + 2] + b.z, acc[i][jq * 4 + 3] + b.w));
+    for (int ni = 0; ni < C / 64; ++ni)
+#pragma unroll
+      for (int e = 0; e < 4; e += 2) {
+        const int r = row0 + mi * 16 + mp::lane_g() + (e >> 1) * 8;
+        const int c = warp_id() * (C / 8) + ni * 8 + 2 * mp::lane_t();
+        if (r < M) {
+          mp::store2(out + static_cast<long long>(r) * C + c,
+                     acc[mi][ni][e] + (bias ? mp::to_float(bias[c]) : 0.f),
+                     acc[mi][ni][e + 1] + (bias ? mp::to_float(bias[c + 1]) : 0.f));
+        }
       }
-    }
+}
+
+// Shared memory of a row kernel, in words: the ring and the chunk tile.
+template <typename T, int C>
+constexpr int rows_smem_words() {
+  return STAGES * SLOT + Rows<T, C>::CHUNK;
+}
+
+// The chunk tile, written once split into the parts the mma takes (so the
+// 8 warps that read it do not each split it again): (row r, units u and
+// u + 1) get v0, v1, rounded to T under bf16.
+template <typename T, int C>
+__device__ __forceinline__ void store_chunk(uint32_t* tile, int r, int u,
+                                            float v0, float v1) {
+  using R = Rows<T, C>;
+  T* at = reinterpret_cast<T*>(tile + r * R::CLD) + u;
+  if constexpr (mp::Mma<T>::PARTS == 2) {
+    const uint32_t w[2] = {__float_as_uint(v0), __float_as_uint(v1)};
+    uint32_t parts[2][2];
+    mp::Mma<T>::split(w, parts);
+    mp::store2(at, __uint_as_float(parts[0][0]), __uint_as_float(parts[0][1]));
+    mp::store2(at + BM * R::CLD * R::EW, __uint_as_float(parts[1][0]),
+               __uint_as_float(parts[1][1]));
+  } else {
+    mp::store2(at, v0, v1);  // rounded to T
+  }
+}
+
+// Row tile mi's A fragment of the chunk tile at word kw, all its parts.
+template <typename T, int C>
+__device__ __forceinline__ void load_chunk(uint32_t (&a)[mp::Mma<T>::PARTS][4],
+                                           const uint32_t* tile, int mi, int kw) {
+  using R = Rows<T, C>;
+#pragma unroll
+  for (int q = 0; q < mp::Mma<T>::PARTS; ++q) {
+    mp::load_a_nat(a[q], tile + q * BM * R::CLD, R::CLD, mi * 16, kw);
   }
 }
 
@@ -207,235 +251,364 @@ fused_mlp_kernel(const T* __restrict__ x, const T* __restrict__ w1,
                  const T* __restrict__ b1, const T* __restrict__ w2,
                  const T* __restrict__ b2, T* __restrict__ out, int M, int H) {
   constexpr int C = 64 * NJ;
-  extern __shared__ __align__(16) float smem[];
-  float* xs = smem;             // [BK][XS]  x slice, transposed (col, row)
-  float* w1s = xs + BK * XS;    // [BK][WS]  W1 slice, transposed (col, unit)
-  float* hs = w1s + BK * WS;    // [BH][XS]  hidden chunk, transposed
-  float* w2s = hs + BH * XS;    // [BH2][C+4] W2 slice, transposed (unit, col)
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  using R = Rows<T, C>;
+  constexpr int PER = R::N1 + R::N2;
+  extern __shared__ __align__(16) uint32_t smem[];
+  uint32_t* hs = smem + STAGES * SLOT;  // gelu chunk, [part][BM][CLD] of T
   const int row0 = blockIdx.x * BM;
+  const int w = warp_id();
+  const int total = (H / BH) * PER;
 
-  float acc[4][4 * NJ];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4 * NJ; ++j) acc[i][j] = 0.f;
-
-  for (int hc = 0; hc < H; hc += BH) {
-    // ---- fc1: s = x[rows] . W1[hc : hc + BH]^T, rows ty*4.., units tx*4..
-    float s[4][4];
-    tile_product<C>(x, row0, M, xs, w1s,
-                    [&](int k0) { stage_w1_rows<C>(w1, hc, k0, w1s); }, s);
-
-    // ---- bias + exact GELU; the chunk goes to shared memory (the k-loop's
-    // barriers above already ordered this after the last fc2 reads of hs)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const float bias = mp::to_float(b1[hc + tx * 4 + j]);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        hs[(tx * 4 + j) * XS + ty * 4 + i] =
-            mp::round_to<T>(gelu_exact(s[i][j] + bias));
+  auto ring = start_ring<STAGES, SLOT>(smem, [&](int s) {
+    if (s < total) {
+      uint32_t* slot = smem + (s % STAGES) * SLOT;
+      const int hc = (s / PER) * BH, j = s % PER;
+      if (j < R::N1) {
+        fc1_issue<T, C>(slot, x, w1, row0, M, hc, j);
+      } else {
+        const int u = hc + (j - R::N1) * R::KW2 * R::EW;
+        mp::copy_tile<C, R::KW2, THREADS>(slot, R::KW2 + 4, w2 + u,
+                                          static_cast<long long>(H) * sizeof(T), C);
       }
     }
+    mp::cp_async_commit();
+  });
 
-    // ---- fc2: acc += chunk . W2[:, hc : hc + BH]^T; W2's rows are read
-    // 4 units at a time and transposed into w2s (unit, col)
-    constexpr int W2S = C + 4;
-    accumulate_chunk<NJ>(hs, w2s, [&](int h0) {
-      for (int e = threadIdx.x; e < C * (BH2 / 4); e += THREADS) {
-        const int c = e / (BH2 / 4), u = 4 * (e % (BH2 / 4));
-        const float4 t =
-            mp::load4(w2 + static_cast<long long>(c) * H + hc + h0 + u);
-        w2s[(u + 0) * W2S + c] = t.x;
-        w2s[(u + 1) * W2S + c] = t.y;
-        w2s[(u + 2) * W2S + c] = t.z;
-        w2s[(u + 3) * W2S + c] = t.w;
+  float acc[4][R::NT][4];
+  mp::zero(acc);
+#pragma unroll 1
+  for (int hc = 0; hc < H; hc += BH) {
+    // ---- fc1 of the chunk
+    float a[2][2][4];
+    mp::zero(a);
+#pragma unroll 1
+    for (int j = 0; j < R::N1; ++j) {
+      float p[2][2][4];  // the stage's partial, added into a in fp32
+      mp::zero(p);
+      fc1_stage<T, C>(ring.next(), p);
+      mp::add_to(a, p);
+    }
+    // ---- bias + exact GELU; the chunk to hs (read after the next barrier)
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < 2; ++ni)
+#pragma unroll
+        for (int e = 0; e < 4; e += 2) {
+          const int r = chunk_row(mi, e), u = chunk_unit(ni, e);
+          store_chunk<T, C>(hs, r, u, gelu_exact(a[mi][ni][e] + mp::to_float(b1[hc + u])),
+                            gelu_exact(a[mi][ni][e + 1] + mp::to_float(b1[hc + u + 1])));
+        }
+    // ---- fc2: acc += the chunk . W2[:, chunk]^T
+#pragma unroll 1
+    for (int j = 0; j < R::N2; ++j) {
+      const uint32_t* slot = ring.next();
+#pragma unroll
+      for (int ks = 0; ks < R::KW2 / 8; ++ks) {
+        mp::mma_step_fresh<T>(
+            acc,
+            [&](int mi, auto& f) {
+              load_chunk<T, C>(f, hs, mi, j * R::KW2 + ks * 8);
+            },
+            [&](int ni, uint32_t (&f)[2]) {
+              mp::load_b_nat(f, slot, R::KW2 + 4, w * (C / 8) + ni * 8, ks * 8);
+            });
       }
-    }, acc);
+    }
   }
-  store_rows<NJ>(out, b2, row0, M, acc);
+  mp::cp_async_wait<0>();
+  store_rows<T, C>(out, acc, b2, row0, M);
 }
 
-// Pass 1 of the backward: dX for 64 rows, and gelu(a) and da to scratch.
+// Pass 1 of the backward, for 64 rows: gelu(a) and da to (M, H) scratch,
+// and this block's column sums: colsum[block] holds db1's partial of the
+// warp rows 0..31 (H), of rows 32..63 (H), then db2's (C). It keeps no
+// (64, C) accumulator (dX is a tile GEMM over da), so two blocks share an
+// SM.
 template <typename T, int NJ>
-__global__ void __launch_bounds__(THREADS, 1)
+__global__ void __launch_bounds__(THREADS, 2)
 fused_mlp_bwd_rows_kernel(const T* __restrict__ x, const T* __restrict__ g,
                           const T* __restrict__ w1, const T* __restrict__ b1,
-                          const T* __restrict__ w2, T* __restrict__ dx,
-                          float* __restrict__ da_out, T* __restrict__ h_out,
+                          const T* __restrict__ w2, T* __restrict__ da_out,
+                          T* __restrict__ h_out, float* __restrict__ colsum,
                           int M, int H) {
   constexpr int C = 64 * NJ;
-  extern __shared__ __align__(16) float smem[];
-  float* xs = smem;            // [BK][XS]  x or g slice, transposed (col, row)
-  float* ws = xs + BK * XS;    // [BK][WS]  weight slice (col, unit)
-  float* cs = ws + BK * WS;    // [BH][XS]  gelu'(a), then da, transposed
-  float* w1s = cs + BH * XS;   // [BH2][C+4] W1 rows (unit, col)
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  using R = Rows<T, C>;
+  constexpr int PER = 2 * R::N1;
+  constexpr int WLD = BH + 8;     // W2 k-major stage tile [c][unit], elements
+  extern __shared__ __align__(16) uint32_t smem[];
   const int row0 = blockIdx.x * BM;
+  const int w = warp_id(), wm = w >> 2, wn = w & 3;
+  const int total = (H / BH) * PER;
+  float* cs = colsum + static_cast<long long>(blockIdx.x) * (2 * H + C);
 
-  float acc[4][4 * NJ];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4 * NJ; ++j) acc[i][j] = 0.f;
+  // db2's partial: the column sums of g over this block's rows, in order
+  for (int c = threadIdx.x; c < C; c += THREADS) {
+    float t = 0.f;
+    for (int r = row0; r < min(M, row0 + BM); ++r) {
+      t += mp::to_float(g[static_cast<long long>(r) * C + c]);
+    }
+    cs[2 * H + c] = t;
+  }
 
+  auto ring = start_ring<BWD_STAGES, BWD_SLOT>(smem, [&](int s) {
+    if (s < total) {
+      uint32_t* slot = smem + (s % BWD_STAGES) * BWD_SLOT;
+      const int hc = (s / PER) * BH, j = s % PER;
+      if (j < R::N1) {
+        fc1_issue<T, C>(slot, x, w1, row0, M, hc, j);
+      } else {  // g slice, and W2[k rows][hc : hc + BH]
+        const int k = (j - R::N1) * R::KW * R::EW;
+        mp::copy_tile<BM, R::KW, THREADS>(slot, R::NLD,
+                                          g + static_cast<long long>(row0) * C + k,
+                                          C * sizeof(T), M - row0);
+        mp::copy_tile<R::KW * R::EW, BH / R::EW, THREADS>(
+            slot + BM * R::NLD, WLD / R::EW, w2 + static_cast<long long>(k) * H + hc,
+            static_cast<long long>(H) * sizeof(T), R::KW * R::EW);
+      }
+    }
+    mp::cp_async_commit();
+  });
+
+#pragma unroll 1
   for (int hc = 0; hc < H; hc += BH) {
-    // ---- a = x . W1[hc : hc + BH]^T + b1; gelu(a) to scratch, gelu'(a)
-    // to cs (each thread later reads back only what it wrote)
-    float s[4][4];
-    tile_product<C>(x, row0, M, xs, ws,
-                    [&](int k0) { stage_w1_rows<C>(w1, hc, k0, ws); }, s);
+    // ---- a = x . W1[chunk]^T + b1: gelu(a) to scratch, gelu'(a) kept
+    float a[2][2][4];
+    mp::zero(a);
+#pragma unroll 1
+    for (int j = 0; j < R::N1; ++j) {
+      float p[2][2][4];  // the stage's partial, added into a in fp32
+      mp::zero(p);
+      fc1_stage<T, C>(ring.next(), p);
+      mp::add_to(a, p);
+    }
+    float gg[2][2][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float hv[4];
+    for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float a = s[i][j] + mp::to_float(b1[hc + tx * 4 + j]);
-        hv[j] = gelu_exact(a);
-        cs[(tx * 4 + j) * XS + ty * 4 + i] = gelu_grad(a);
+      for (int ni = 0; ni < 2; ++ni)
+#pragma unroll
+        for (int e = 0; e < 4; e += 2) {
+          const int r = chunk_row(mi, e), u = chunk_unit(ni, e);
+          const float a0 = a[mi][ni][e] + mp::to_float(b1[hc + u]);
+          const float a1 = a[mi][ni][e + 1] + mp::to_float(b1[hc + u + 1]);
+          gg[mi][ni][e] = gelu_grad(a0);
+          gg[mi][ni][e + 1] = gelu_grad(a1);
+          if (row0 + r < M) {
+            mp::store2(h_out + static_cast<long long>(row0 + r) * H + hc + u,
+                       gelu_exact(a0), gelu_exact(a1));
+          }
+        }
+
+    // ---- dh = g . W2[:, chunk]
+    float dh[2][2][4];
+    mp::zero(dh);
+#pragma unroll 1
+    for (int j = 0; j < R::N1; ++j) {
+      const uint32_t* slot = ring.next();
+      const T* wt = reinterpret_cast<const T*>(slot + BM * R::NLD);
+      float p[2][2][4];
+      mp::zero(p);
+#pragma unroll
+      for (int ks = 0; ks < R::KW / 8; ++ks) {
+        mp::mma_step<T>(
+            p,
+            [&](int mi, uint32_t (&f)[4]) {
+              mp::load_a_nat(f, slot, R::NLD, wm * 32 + mi * 16, ks * 8);
+            },
+            [&](int ni, uint32_t (&f)[2]) {
+              mp::load_b_tr(f, wt, WLD, wn * 16 + ni * 8, ks * 8 * R::EW);
+            });
       }
-      const int r = row0 + ty * 4 + i;
-      if (r < M) {
-        mp::store4(h_out + static_cast<long long>(r) * H + hc + tx * 4,
-                   make_float4(hv[0], hv[1], hv[2], hv[3]));
-      }
+      mp::add_to(dh, p);
     }
 
-    // ---- dh = g . W2[:, hc : hc + BH]; da = dh * gelu'(a): fp32 to
-    // scratch, rounded to T in cs
-    tile_product<C>(g, row0, M, xs, ws, [&](int k0) {
-      for (int e = threadIdx.x; e < BK * (BH / 4); e += THREADS) {
-        const int kk = e / (BH / 4), u = 4 * (e % (BH / 4));
-        sts4(ws + kk * WS + u,
-             mp::load4(w2 + static_cast<long long>(k0 + kk) * H + hc + u));
-      }
-    }, s);
+    // ---- da = dh * gelu'(a): rounded to T into the scratch; db1's partial
+    // from the unrounded da, summed over the warp's 32 rows
+    float csum[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float dv[4];
+    for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        float* ci = cs + (tx * 4 + j) * XS + ty * 4 + i;
-        dv[j] = s[i][j] * *ci;
-        *ci = mp::round_to<T>(dv[j]);
+      for (int ni = 0; ni < 2; ++ni)
+#pragma unroll
+        for (int e = 0; e < 4; e += 2) {
+          const int r = chunk_row(mi, e), u = chunk_unit(ni, e);
+          const float d0 = dh[mi][ni][e] * gg[mi][ni][e];
+          const float d1 = dh[mi][ni][e + 1] * gg[mi][ni][e + 1];
+          csum[ni][0] += d0;
+          csum[ni][1] += d1;
+          if (row0 + r < M) {
+            mp::store2(da_out + static_cast<long long>(row0 + r) * H + hc + u, d0, d1);
+          }
+        }
+#pragma unroll
+    for (int ni = 0; ni < 2; ++ni)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float t = csum[ni][e];
+#pragma unroll
+        for (int o = 4; o < 32; o <<= 1) t += __shfl_xor_sync(0xffffffffu, t, o);
+        if (mp::lane_g() == 0) cs[wm * H + hc + chunk_unit(ni, e)] = t;
       }
-      const int r = row0 + ty * 4 + i;
-      if (r < M) {
-        sts4(da_out + static_cast<long long>(r) * H + hc + tx * 4,
-             make_float4(dv[0], dv[1], dv[2], dv[3]));
-      }
-    }
-
-    // ---- dX += da . W1[hc : hc + BH, :]
-    constexpr int W1S = C + 4;
-    accumulate_chunk<NJ>(cs, w1s, [&](int h0) {
-      for (int e = threadIdx.x; e < BH2 * (C / 4); e += THREADS) {
-        const int u = e / (C / 4), c = 4 * (e % (C / 4));
-        sts4(w1s + u * W1S + c,
-             mp::load4(w1 + static_cast<long long>(hc + h0 + u) * C + c));
-      }
-    }, acc);
   }
-  store_rows<NJ>(dx, static_cast<const T*>(nullptr), row0, M, acc);
+  mp::cp_async_wait<0>();
 }
 
+constexpr int WT = 128;  // weight-sum output tile edge
+constexpr int WK = 64;   // rows of M per weight-sum stage
+constexpr int WSTAGES = 3;  // depth of the weight sums' cp.async ring
+constexpr int WLDT = WT + 8;  // its k-major stage tiles' row stride, elements
+
+// Stage tile of one operand of the tile GEMM, in words: WK rows of k by
+// WT (k-major) or WT rows by WK of k (k-contiguous), whichever is larger.
 template <typename T>
-__device__ __forceinline__ float4 round4(float4 v) {
-  return make_float4(mp::round_to<T>(v.x), mp::round_to<T>(v.y),
-                     mp::round_to<T>(v.z), mp::round_to<T>(v.w));
+__host__ __device__ constexpr int gemm_tile_words() {
+  constexpr int ew = 4 / int(sizeof(T));
+  return (WK * WLDT / ew > WT * (WK / ew + 4)) ? WK * WLDT / ew : WT * (WK / ew + 4);
+}
+template <typename T>
+constexpr int gemm_smem_words() {
+  return WSTAGES * 2 * gemm_tile_words<T>();
 }
 
-// Pass 2: part[r][c] = sum over this block's slice of M of
-// round_T(A[m][r]) * B[m][c], one 64 x 64 tile; the blocks of column tile 0
-// also write colsum[r] = sum_m A[m][r], unrounded. Split s writes at
-// s * split_stride.
-template <typename TA, typename T>
+// Passes 2 and 3 of the backward: out[r][n] = sum over k of A(r, k) b[k][n]
+// for one 128 x 128 tile (rows past R and columns past N masked), k over
+// this block's slice [z * k_per_split, (z + 1) * k_per_split) of [0, K),
+// written at out + z * split_stride. b is k-major (row pitch N). A is
+// a[k][r] (k-major, row pitch R) for the weight sums, or a[r][k]
+// (k-contiguous, row pitch K) when A_NAT, for dX.
+template <typename T, bool A_NAT, typename OutT>
 __global__ void __launch_bounds__(THREADS)
-fused_mlp_bwd_wgrad_kernel(const TA* __restrict__ a, const T* __restrict__ bm,
-                           float* __restrict__ part, float* __restrict__ colsum,
-                           int M, int RA, int CB, int rows_per_split,
-                           long long split_stride) {
-  __shared__ __align__(16) float As[WK * WTS];
-  __shared__ __align__(16) float Bs[WK * WTS];
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int r0 = blockIdx.x * WT, c0 = blockIdx.y * WT;
-  const long long split = blockIdx.z;
-  const int m_begin = blockIdx.z * rows_per_split;
-  const int m_end = min(M, m_begin + rows_per_split);
-  const int q = 4 * (tid % 16);  // the four columns this thread stages
+fused_mlp_bwd_gemm_kernel(const T* __restrict__ a, const T* __restrict__ b,
+                          OutT* __restrict__ out, int R, int N, int K,
+                          int k_per_split, long long split_stride) {
+  constexpr int EW = 4 / sizeof(T);
+  constexpr int TILE = gemm_tile_words<T>();
+  constexpr int CH = WT / EW / 4;       // 16-byte chunks of a k-major row
+  constexpr int ALD = WK / EW + 4;      // k-contiguous A rows, words
+  extern __shared__ __align__(16) uint32_t smem[];
+  const int r0 = blockIdx.x * WT, n0 = blockIdx.y * WT;
+  const int k_begin = blockIdx.z * k_per_split;
+  const int k_end = min(K, k_begin + k_per_split);
+  const int total = (k_end - k_begin + WK - 1) / WK;
+  const int w = warp_id(), wm = w >> 2, wn = w & 3;
 
-  float acc[4][4];
+  auto ring = start_ring<WSTAGES, 2 * TILE>(smem, [&](int s) {
+    if (s < total) {
+      uint32_t* slot = smem + (s % WSTAGES) * 2 * TILE;
+      const int k0 = k_begin + s * WK;
+      if constexpr (A_NAT) {  // WT rows of A, WK of k each
+        constexpr int ACH = WK / EW / 4;
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+        for (int e = threadIdx.x; e < WT * ACH; e += THREADS) {
+          const int r = e / ACH, c = e % ACH;
+          const int k = k0 + c * 4 * EW;
+          const bool ok = r0 + r < R && k < k_end;
+          const T* p = a + (ok ? static_cast<long long>(r0 + r) * K + k : 0);
+          mp::cp_async16(slot + r * ALD + 4 * c, p, ok);
+        }
+      } else {  // WK rows of k, WT of A's rows each
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-  float4 csum = make_float4(0.f, 0.f, 0.f, 0.f);
-
-  for (int m0 = m_begin; m0 < m_end; m0 += WK) {
-    __syncthreads();
-    for (int kk = tid / 16; kk < WK; kk += THREADS / 16) {
-      const int m = m0 + kk;
-      float4 av = make_float4(0.f, 0.f, 0.f, 0.f), bv = av;
-      if (m < m_end) {
-        av = mp::load4(a + static_cast<long long>(m) * RA + r0 + q);
-        bv = mp::load4(bm + static_cast<long long>(m) * CB + c0 + q);
+        for (int e = threadIdx.x; e < WK * CH; e += THREADS) {
+          const int r = e / CH, c = e % CH, col = c * 4 * EW;
+          const bool ok = k0 + r < k_end && r0 + col < R;
+          const T* p = a + (ok ? static_cast<long long>(k0 + r) * R + r0 + col : 0);
+          mp::cp_async16(slot + r * (WLDT / EW) + 4 * c, p, ok);
+        }
       }
-      csum.x += av.x;
-      csum.y += av.y;
-      csum.z += av.z;
-      csum.w += av.w;
-      sts4(As + kk * WTS + q, round4<T>(av));
-      sts4(Bs + kk * WTS + q, bv);
+#pragma unroll
+      for (int e = threadIdx.x; e < WK * CH; e += THREADS) {  // WK rows of b
+        const int r = e / CH, c = e % CH, col = c * 4 * EW;
+        const bool ok = k0 + r < k_end && n0 + col < N;
+        const T* p = b + (ok ? static_cast<long long>(k0 + r) * N + n0 + col : 0);
+        mp::cp_async16(slot + TILE + r * (WLDT / EW) + 4 * c, p, ok);
+      }
     }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < WK; ++kk) {
-      const float4 av = lds4(As + kk * WTS + ty * 4);
-      const float4 bv = lds4(Bs + kk * WTS + tx * 4);
-      const float ar[4] = {av.x, av.y, av.z, av.w};
-      const float br[4] = {bv.x, bv.y, bv.z, bv.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(ar[i], br[j], acc[i][j]);
-    }
-  }
+    mp::cp_async_commit();
+  });
 
-  float* dst = part + split * split_stride;
+  float acc[4][4][4];
+  mp::zero(acc);
+#pragma unroll 1
+  for (int s = 0; s < total; ++s) {
+    const uint32_t* slot = ring.next();
+    const T* as = reinterpret_cast<const T*>(slot);
+    const T* bs = reinterpret_cast<const T*>(slot + TILE);
+    float p[4][4][4];  // the stage's partial, added into acc in fp32
+    mp::zero(p);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    sts4(dst + static_cast<long long>(r0 + ty * 4 + i) * CB + c0 + tx * 4,
-         make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]));
-  }
-  if (blockIdx.y == 0) {  // block-uniform
-    __syncthreads();
-    sts4(As + (tid / 16) * WTS + q, csum);  // 16 partial sums per column
-    __syncthreads();
-    if (tid < WT) {
-      float t = 0.f;
-      for (int w = 0; w < THREADS / 16; ++w) t += As[w * WTS + tid];
-      colsum[split * split_stride + r0 + tid] = t;
+    for (int ks = 0; ks < WK / (8 * EW); ++ks) {
+      mp::mma_step<T>(
+          p,
+          [&](int mi, uint32_t (&f)[4]) {
+            if constexpr (A_NAT) {
+              mp::load_a_nat(f, slot, ALD, wm * 64 + mi * 16, ks * 8);
+            } else {
+              mp::load_a_tr(f, as, WLDT, wm * 64 + mi * 16, ks * 8 * EW);
+            }
+          },
+          [&](int ni, uint32_t (&f)[2]) {
+            mp::load_b_tr(f, bs, WLDT, wn * 32 + ni * 8, ks * 8 * EW);
+          });
     }
+    mp::add_to(acc, p);
   }
+  mp::cp_async_wait<0>();
+
+  OutT* dst = out + blockIdx.z * split_stride;
+#pragma unroll
+  for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+      for (int e = 0; e < 4; e += 2) {
+        const int r = r0 + wm * 64 + mi * 16 + mp::lane_g() + (e >> 1) * 8;
+        const int n = n0 + wn * 32 + ni * 8 + 2 * mp::lane_t();
+        if (r < R && n < N) {
+          mp::store2(dst + static_cast<long long>(r) * N + n, acc[mi][ni][e],
+                     acc[mi][ni][e + 1]);
+        }
+      }
 }
 
-// Pass 3: out[e] = sum over s in order of part[s * n + e], n = 4 * n4.
+__device__ __forceinline__ void store1(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store1(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16(v);
+}
+
+// Pass 3: grads = [dW1 (H, C) | db1 (H) | dW2 (C, H) | db2 (C)]. A thread
+// per dW element sums the S slices' partials in order; a warp per db
+// element has lane l sum the column sums of row blocks l, l + 32, ... in
+// order, then adds the lanes in a fixed tree. Deterministic either way.
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
-fused_mlp_bwd_reduce_kernel(const float* __restrict__ part, T* __restrict__ out,
-                            int S, long long n4) {
-  const long long e = static_cast<long long>(blockIdx.x) * THREADS + threadIdx.x;
-  if (e >= n4) return;
-  float4 t = make_float4(0.f, 0.f, 0.f, 0.f);
-  for (int s = 0; s < S; ++s) {
-    const float4 p = lds4(part + (s * n4 + e) * 4);
-    t.x += p.x;
-    t.y += p.y;
-    t.z += p.z;
-    t.w += p.w;
+fused_mlp_bwd_reduce_kernel(const float* __restrict__ part,
+                            const float* __restrict__ colsum, T* __restrict__ out,
+                            int S, int NB, int H, int C) {
+  const long long hc = static_cast<long long>(H) * C;
+  const long long i = static_cast<long long>(blockIdx.x) * THREADS + threadIdx.x;
+  if (i < 2 * hc) {
+    float t = 0.f;
+    for (int s = 0; s < S; ++s) t += part[s * 2 * hc + i];
+    store1(out + (i < hc ? i : i + H), t);
+    return;
   }
-  mp::store4(out + 4 * e, t);
+  const int j = static_cast<int>((i - 2 * hc) / 32), lane = threadIdx.x & 31;
+  if (j >= H + C) return;  // whole warps: 2 * hc is a multiple of 32
+  const long long pitch = 2 * H + C;
+  float t = 0.f;
+  for (int blk = lane; blk < NB; blk += 32) {
+    const float* cs = colsum + blk * pitch;
+    if (j < H) {
+      t += cs[j];
+      t += cs[H + j];
+    } else {
+      t += cs[H + j];  // db2's column j - H sits at 2 * H + (j - H)
+    }
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) t += __shfl_xor_sync(0xffffffffu, t, o);
+  if (lane == 0) store1(out + (j < H ? hc + j : 2 * hc + j), t);
 }
 
 template <typename K>
@@ -448,7 +621,7 @@ template <typename T, int NJ>
 cudaError_t launch(const void* x, const void* w1, const void* b1,
                    const void* w2, const void* b2, void* out, int M, int H,
                    cudaStream_t stream) {
-  const size_t smem = sizeof(float) * smem_floats<64 * NJ>();
+  const size_t smem = 4 * rows_smem_words<T, 64 * NJ>();
   cudaError_t err = allow_smem(fused_mlp_kernel<T, NJ>, smem);
   if (err != cudaSuccess) return err;
   const int blocks = (M + BM - 1) / BM;
@@ -461,35 +634,48 @@ cudaError_t launch(const void* x, const void* w1, const void* b1,
 
 template <typename T, int NJ>
 cudaError_t launch_bwd(const void* x, const void* g, const void* w1,
-                       const void* b1, const void* w2, void* dx, float* da,
-                       void* h, float* part, void* grads, int M, int H, int S,
-                       cudaStream_t stream) {
+                       const void* b1, const void* w2, void* dx, void* da,
+                       void* h, float* colsum, float* part, void* grads, int M,
+                       int H, int S, cudaStream_t stream) {
   constexpr int C = 64 * NJ;
-  const size_t smem = sizeof(float) * smem_floats<C>();
+  const size_t smem = 4 * BWD_STAGES * BWD_SLOT;
   cudaError_t err = allow_smem(fused_mlp_bwd_rows_kernel<T, NJ>, smem);
   if (err != cudaSuccess) return err;
+  const size_t gsmem = 4 * gemm_smem_words<T>();
+  if ((err = allow_smem(fused_mlp_bwd_gemm_kernel<T, true, T>, gsmem)) != cudaSuccess ||
+      (err = allow_smem(fused_mlp_bwd_gemm_kernel<T, false, float>, gsmem)) != cudaSuccess) {
+    return err;
+  }
   const T* xt = static_cast<const T*>(x);
   const T* gt = static_cast<const T*>(g);
+  const T* w1t = static_cast<const T*>(w1);
+  T* dat = static_cast<T*>(da);
   T* ht = static_cast<T*>(h);
-  fused_mlp_bwd_rows_kernel<T, NJ><<<(M + BM - 1) / BM, THREADS, smem, stream>>>(
-      xt, gt, static_cast<const T*>(w1), static_cast<const T*>(b1),
-      static_cast<const T*>(w2), static_cast<T*>(dx), da, ht, M, H);
+  const int nb = (M + BM - 1) / BM;
+  fused_mlp_bwd_rows_kernel<T, NJ><<<nb, THREADS, smem, stream>>>(
+      xt, gt, w1t, static_cast<const T*>(b1), static_cast<const T*>(w2), dat, ht,
+      colsum, M, H);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
 
-  // partials per split: dW1 (H, C), db1 (H), dW2 (C, H), db2 (C)
+  // dX = da W1, over all of H
+  const int tm = (M + WT - 1) / WT, th = (H + WT - 1) / WT, tc = (C + WT - 1) / WT;
+  fused_mlp_bwd_gemm_kernel<T, true, T><<<dim3(tm, tc, 1), THREADS, gsmem, stream>>>(
+      dat, w1t, static_cast<T*>(dx), M, C, H, H, 0);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  // partials per split of M: dW1 = da^T x (H, C), then dW2 = g^T gelu(a) (C, H)
   const long long hc = static_cast<long long>(H) * C;
-  const long long n = 2 * hc + H + C;
   const int rows_per_split = (M + S - 1) / S;
-  fused_mlp_bwd_wgrad_kernel<float, T><<<dim3(H / WT, C / WT, S), THREADS, 0, stream>>>(
-      da, xt, part, part + hc, M, H, C, rows_per_split, n);
+  fused_mlp_bwd_gemm_kernel<T, false, float><<<dim3(th, tc, S), THREADS, gsmem, stream>>>(
+      dat, xt, part, H, C, M, rows_per_split, 2 * hc);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  fused_mlp_bwd_wgrad_kernel<T, T><<<dim3(C / WT, H / WT, S), THREADS, 0, stream>>>(
-      gt, ht, part + hc + H, part + 2 * hc + H, M, C, H, rows_per_split, n);
+  fused_mlp_bwd_gemm_kernel<T, false, float><<<dim3(tc, th, S), THREADS, gsmem, stream>>>(
+      gt, ht, part + hc, C, H, M, rows_per_split, 2 * hc);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  const long long n4 = n / 4;
-  fused_mlp_bwd_reduce_kernel<T><<<static_cast<unsigned>((n4 + THREADS - 1) / THREADS),
-                                   THREADS, 0, stream>>>(part, static_cast<T*>(grads),
-                                                         S, n4);
+  const long long n = 2 * hc + 32LL * (H + C);  // threads of the reduce
+  fused_mlp_bwd_reduce_kernel<T><<<static_cast<unsigned>((n + THREADS - 1) / THREADS),
+                                   THREADS, 0, stream>>>(part, colsum,
+                                                         static_cast<T*>(grads),
+                                                         S, nb, H, C);
   return cudaGetLastError();
 }
 
@@ -527,14 +713,15 @@ extern "C" int mp_fused_mlp(const void* x, const void* w1, const void* b1,
   });
 }
 
-// Scratch from the caller: da (M, H) fp32, h (M, H) of the element type,
-// part (S, 2*H*C + H + C) fp32. ``grads`` (2*H*C + H + C, element type)
-// receives dW1 (H, C), db1 (H), dW2 (C, H) and db2 (C) in that order.
+// Scratch from the caller, every pointer 16-byte aligned: da and h (M, H)
+// of the element type, colsum (ceil(M / 64), 2*H + C) fp32, part (S, 2*H*C)
+// fp32. ``grads`` (2*H*C + H + C, element type) receives dW1 (H, C), db1
+// (H), dW2 (C, H) and db2 (C) in that order.
 extern "C" int mp_fused_mlp_bwd(const void* x, const void* g, const void* w1,
                                 const void* b1, const void* w2, void* dx,
-                                float* da, void* h, float* part, void* grads,
-                                int dtype, int M, int C, int H, int S,
-                                int device, void* stream) {
+                                void* da, void* h, float* colsum, float* part,
+                                void* grads, int dtype, int M, int C, int H,
+                                int S, int device, void* stream) {
   if (M < 1 || H < BH || H % BH != 0 || S < 1 || S > M) {
     return cudaErrorInvalidValue;
   }
@@ -542,6 +729,6 @@ extern "C" int mp_fused_mlp_bwd(const void* x, const void* g, const void* w1,
   return with_types(dtype, C, device, [&](auto tag, auto nj) {
     using T = decltype(tag);
     return launch_bwd<T, decltype(nj)::value>(x, g, w1, b1, w2, dx, da, h,
-                                              part, grads, M, H, S, st);
+                                              colsum, part, grads, M, H, S, st);
   });
 }

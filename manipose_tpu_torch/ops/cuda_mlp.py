@@ -4,8 +4,10 @@ PyTorch versions, the autograd Function and launch counters.
 ``fused_mlp`` replaces ``manipose_tpu/ops/pallas_mlp.py::fused_mlp``:
 gelu_exact(x W1^T + b1) W2^T + b2 with fp32 accumulation and the (M, H)
 intermediate kept on chip. ``fused_mlp_bwd`` (K6) is the ``custom_vjp``
-half ``_backward``. The kernels are in ``csrc/mlp.cu``. Weights are in
-torch ``nn.Linear`` layout: w1 (H, C), w2 (C, H).
+half ``_backward``. The kernels are in ``csrc/mlp.cu``: every product on
+the tensor cores (mma.sync), bf16 in one pass, fp32 as 3xTF32 within the
+JAX package's fp32 tolerances. Weights are in torch ``nn.Linear`` layout:
+w1 (H, C), w2 (C, H).
 
 ``fused_mlp`` is differentiable: when a gradient is wanted it runs
 :class:`FusedMLP`, which saves x, w1, b1 and w2 (as the JAX VJP does) and
@@ -27,10 +29,12 @@ from . import build
 KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 CHANNELS = (64, 128, 256, 512)
 HIDDEN_TILE = 64
-# K6 sums dW and db over M in fp32 partials of a fixed split of M: enough
-# slices to give ~1024 blocks of 64 x 64 output tiles, each at least
-# WGRAD_MIN_ROWS rows long
-WGRAD_BLOCKS = 1024
+ROW_TILE = 64
+# K6 sums dW over M in fp32 partials of a fixed split of M: enough slices to
+# give ~512 blocks of 128 x 128 output tiles, each at least WGRAD_MIN_ROWS
+# rows long
+WGRAD_TILE = 128
+WGRAD_BLOCKS = 512
 WGRAD_MIN_ROWS = 256
 
 # launches per kernel; reset by ``ops.reset_launch_counts``
@@ -44,6 +48,20 @@ def mlp_plain(x, w1, b1, w2, b2) -> torch.Tensor:
     a = F.linear(x.float(), w1.float(), b1.float())
     h = F.gelu(a).to(x.dtype).float()
     return F.linear(h, w2.float(), b2.float()).to(x.dtype)
+
+
+def round_to_tf32(x: torch.Tensor) -> torch.Tensor:
+    """fp32 rounded to tf32 as ``cvt.rna.tf32.f32`` rounds: to nearest with
+    ties away from zero, keeping 10 of the 23 mantissa bits. The CPU's
+    model of the fp32 kernels' 3xTF32 split, big = tf32(x) and small =
+    tf32(x - big). The kernels round big to nearest by Veltkamp's split
+    (the same but at ties) and let the mma truncate small; the error of
+    either is far inside the fp32 tolerances."""
+    bits = x.float().view(torch.int32)
+    magnitude = bits & 0x7FFFFFFF
+    finite = magnitude < 0x7F800000
+    rounded = torch.where(finite, (bits + 0x1000) & ~0x1FFF, bits)
+    return rounded.view(torch.float32)
 
 
 def _gelu_grad(a: torch.Tensor) -> torch.Tensor:
@@ -95,8 +113,8 @@ def _check(x, w1, b1, w2, b2=None) -> None:
         )
     if not all(t.is_contiguous() for t in ts):
         raise ValueError("MLP operands must be contiguous")
-    if any(t.data_ptr() % (4 * t.element_size()) for t in ts):
-        raise ValueError("MLP operands must start on a 4-element boundary")
+    if any(t.data_ptr() % 16 for t in ts):
+        raise ValueError("MLP operands must start on a 16-byte boundary")
 
 
 def _plain_or_raise(x) -> bool:
@@ -135,7 +153,7 @@ def mlp_forward(x, w1, b1, w2, b2) -> torch.Tensor:
 def wgrad_splits(m: int, c: int, h: int) -> int:
     """How many slices of M K6 sums its weight gradients over (fixed by the
     shapes, so repeated runs sum in one order)."""
-    tiles = (h // 64) * (c // 64)
+    tiles = -(-h // WGRAD_TILE) * -(-c // WGRAD_TILE)
     return max(1, min(-(-m // WGRAD_MIN_ROWS), -(-WGRAD_BLOCKS // tiles)))
 
 
@@ -146,22 +164,23 @@ def fused_mlp_bwd(x, w1, b1, w2, g):
         return mlp_plain_bwd(x, w1, b1, w2, g)
     _check(x, w1, b1, w2)
     if g.shape != x.shape or g.dtype != x.dtype or g.device != x.device \
-            or not g.is_contiguous() or g.data_ptr() % (4 * g.element_size()):
+            or not g.is_contiguous() or g.data_ptr() % 16:
         raise ValueError("g must be a contiguous (M, C) tensor like x")
     m, c = x.shape
     h = w1.shape[0]
     s = wgrad_splits(m, c, h)
-    n = 2 * h * c + h + c
+    blocks = -(-m // ROW_TILE)
     dx = torch.empty_like(x)
-    da = torch.empty((m, h), dtype=torch.float32, device=x.device)
+    da = torch.empty((m, h), dtype=x.dtype, device=x.device)
     hh = torch.empty((m, h), dtype=x.dtype, device=x.device)
-    part = torch.empty((s, n), dtype=torch.float32, device=x.device)
-    grads = torch.empty((n,), dtype=x.dtype, device=x.device)
+    colsum = torch.empty((blocks, 2 * h + c), dtype=torch.float32, device=x.device)
+    part = torch.empty((s, 2 * h * c), dtype=torch.float32, device=x.device)
+    grads = torch.empty((2 * h * c + h + c,), dtype=x.dtype, device=x.device)
     lib = build.load("mlp")
     err = lib.mp_fused_mlp_bwd(
         x.data_ptr(), g.data_ptr(), w1.data_ptr(), b1.data_ptr(),
         w2.data_ptr(), dx.data_ptr(), da.data_ptr(), hh.data_ptr(),
-        part.data_ptr(), grads.data_ptr(), KERNEL_DTYPES[x.dtype], m, c, h, s,
+        colsum.data_ptr(), part.data_ptr(), grads.data_ptr(), KERNEL_DTYPES[x.dtype], m, c, h, s,
         x.device.index, torch.cuda.current_stream(x.device).cuda_stream,
     )
     build.check(lib, err, "mp_fused_mlp_bwd")

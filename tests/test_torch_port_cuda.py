@@ -111,11 +111,19 @@ def _mlp_operands(gen, m, c, hidden, dtype):
             uniform((c, hidden), hidden), uniform((c,), hidden))
 
 
+# ragged M around the kernels' 64-row and 128-row tiles at every channel
+# count, with a hidden width that is an odd multiple of 64 where it can be
+# (the weight sums' 128-wide tiles then end half full)
+RAGGED_MLP_SHAPES = [(m, c, hidden) for m in (1, 65, 129, 4097)
+                     for c, hidden in ((64, 192), (128, 320), (256, 512),
+                                       (512, 1024))]
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("m,c,hidden", [
     (1, 64, 128), (63, 128, 256), (1000, 256, 512), (130, 512, 1024),
     (64, 64, 64),
-])
+] + RAGGED_MLP_SHAPES)
 def test_mlp_kernel_matches_plain(gen, m, c, hidden, dtype):
     args = _mlp_operands(gen, m, c, hidden, dtype)
     got = fused_mlp(*args)
@@ -245,7 +253,7 @@ def test_packed_bwd_kernel_matches_plain(gen, b, h, n, d, strided, dtype):
 @pytest.mark.parametrize("m,c,hidden", [
     (1, 64, 128), (63, 128, 256), (1000, 256, 512), (130, 512, 1024),
     (64, 64, 64), (5000, 128, 256),
-])
+] + RAGGED_MLP_SHAPES)
 def test_mlp_bwd_kernel_matches_plain(gen, m, c, hidden, dtype):
     x, w1, b1, w2, _ = _mlp_operands(gen, m, c, hidden, dtype)
     g = torch.randn((m, c), generator=gen, device="cuda").to(dtype)
@@ -254,6 +262,19 @@ def test_mlp_bwd_kernel_matches_plain(gen, m, c, hidden, dtype):
     for name, a, r in zip(("dx", "dw1", "db1", "dw2", "db2"), got, want):
         assert a.shape == r.shape and a.dtype == r.dtype, name
         assert _max_err(a, r) <= _grad_tol(r, dtype, relative=True), name
+
+
+def test_mlp_bwd_kernel_matches_float64(gen):
+    """dX, dW1 and dW2 (3xTF32 on the card) against the plain backward in
+    fp64 on the CPU, within 5e-4 * max(1, |ref|max)."""
+    x, w1, b1, w2, _ = _mlp_operands(gen, 3000, 512, 1024, torch.float32)
+    g = torch.randn((3000, 512), generator=gen, device="cuda")
+    got = fused_mlp_bwd(x, w1, b1, w2, g)
+    want = mlp_plain_bwd(*(t.double().cpu() for t in (x, w1, b1, w2, g)))
+    for name, i in (("dx", 0), ("dw1", 1), ("dw2", 3)):
+        tol = 5e-4 * max(1.0, want[i].abs().max().item())
+        err = (got[i].double().cpu() - want[i]).abs().max().item()
+        assert err <= tol, name
 
 
 def test_mlp_bwd_kernel_is_deterministic(gen):

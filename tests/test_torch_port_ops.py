@@ -24,7 +24,7 @@ from manipose_tpu_torch.ops.cuda_attention import (
     attention_packed,
     attention_plain,
 )
-from manipose_tpu_torch.ops.cuda_mlp import fused_mlp, mlp_plain
+from manipose_tpu_torch.ops.cuda_mlp import fused_mlp, mlp_plain, round_to_tf32
 
 # the shapes of tests/test_pallas_attention.py: (batch, heads, N, d)
 DENSE_LAYOUTS = [(6, 4, 17, 64), (2, 4, 243, 64), (3, 2, 128, 32)]
@@ -117,6 +117,58 @@ def test_mlp_matches_pallas_bf16():
     assert got.dtype == torch.bfloat16
     np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
                                atol=0.05, rtol=0)
+
+
+def test_round_to_tf32_rounds_as_cvt_rna():
+    """Keeps 10 mantissa bits, rounds to nearest with ties away from zero
+    (round-to-even would take 1 + 2^-11 down to 1), leaves tf32 values,
+    infinities and NaN as they are."""
+    exact = torch.tensor([0.0, -0.0, 1.0, 1 + 2**-10, -3.5, 2.0**-126, 1e30])
+    exact = round_to_tf32(exact)
+    assert torch.equal(round_to_tf32(exact), exact)
+    ties = torch.tensor([1 + 2**-11, -(1 + 2**-11), 1 + 3 * 2**-11])
+    want = torch.tensor([1 + 2**-10, -(1 + 2**-10), 1 + 2**-9])
+    assert torch.equal(round_to_tf32(ties), want)
+    assert torch.equal(round_to_tf32(torch.tensor([1 + 2**-12])), torch.tensor([1.0]))
+    special = round_to_tf32(torch.tensor([float("inf"), float("-inf"), float("nan")]))
+    assert special[0] == float("inf") and special[1] == float("-inf")
+    assert torch.isnan(special[2])
+
+
+def test_3xtf32_forward_holds_the_fp32_tolerance():
+    """The fp32 K5 on the card runs 3xTF32: each operand x splits into
+    big = tf32(x) and small = tf32(x - big), and small*big + big*small +
+    big*big are summed in fp32. Emulated here at the flagship's width
+    (C 512, H 1024) with torch-default-init weights, it stays within the
+    JAX package's 5e-5 of an fp64 product, where one tf32 pass does not."""
+    import torch.nn.functional as F
+
+    rng = np.random.default_rng(7)
+    m, c, h = 256, 512, 1024
+    x = rng.normal(size=(m, c))
+    w1 = rng.uniform(-1, 1, size=(h, c)) / c**0.5
+    b1 = rng.uniform(-1, 1, size=h) / c**0.5
+    w2 = rng.uniform(-1, 1, size=(c, h)) / h**0.5
+    b2 = rng.uniform(-1, 1, size=c) / h**0.5
+    ref = F.linear(F.gelu(F.linear(*map(torch.from_numpy, (x, w1, b1)))),
+                   *map(torch.from_numpy, (w2, b2)))
+
+    def three_pass(a, w):
+        a_big, w_big = round_to_tf32(a), round_to_tf32(w)
+        a_small, w_small = round_to_tf32(a - a_big), round_to_tf32(w - w_big)
+        return a_small @ w_big.T + a_big @ w_small.T + a_big @ w_big.T
+
+    def one_pass(a, w):
+        return round_to_tf32(a) @ round_to_tf32(w).T
+
+    errs = {}
+    for mm in (three_pass, one_pass):
+        x32, w1_32, b1_32, w2_32, b2_32 = (torch.from_numpy(a).float()
+                                           for a in (x, w1, b1, w2, b2))
+        out = mm(F.gelu(mm(x32, w1_32) + b1_32), w2_32) + b2_32
+        errs[mm.__name__] = (out.double() - ref).abs().max().item()
+    assert errs["three_pass"] <= MLP_TOL
+    assert errs["one_pass"] > MLP_TOL
 
 
 def test_cpu_tensors_take_the_plain_path():
