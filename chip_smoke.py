@@ -8,13 +8,15 @@ package. Phases, each fatal on failure:
 1. build    - compile every CUDA kernel of ``manipose_tpu_torch/ops/csrc``
               with nvcc (one process per source, in parallel); print each
               kernel's registers and spills, and each library's count of
-              tensor-core instructions in its SASS (cuobjdump).
+              tensor-core instructions in its SASS (cuobjdump), which must
+              be more than 0.
 2. kernels  - each kernel (K1 dense attention, K3 per-window attention,
               K5 fused MLP, and their backward kernels K2, K4, K6) against
               its plain PyTorch version at the shapes the flagship gives
-              it, in fp32 and bf16, timed beside its plain version, its
-              roofline bound and one PyTorch library call computing the
-              same function (K5/K6 also with their achieved TFLOP/s).
+              it, in fp32 and bf16, timed (with its achieved TFLOP/s)
+              beside its plain version, its roofline bound and one PyTorch
+              library call computing the same function (the median of 5
+              groups of 10 launches).
 3. flagship - ``Predictor.predict_video`` at ``configs/config.yaml`` (rMCL,
               fp32, 16 windows of 243 frames, TTA on) with seeded random
               weights: output checks, the manifold invariant, the kernel
@@ -197,6 +199,13 @@ def time_ms(fn, reps: int = 10) -> float:
     return start.elapsed_time(end) / reps
 
 
+def median_ms(fn, groups: int = 5, reps: int = 10) -> float:
+    """Median over ``groups`` of the mean device time of ``reps`` launches:
+    the library yardsticks' times vary between runs more than the
+    kernels' do."""
+    return float(np.median([time_ms(fn, reps) for _ in range(groups)]))
+
+
 def bound_ms(n_bytes: float, flops: float, dtype) -> tuple:
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
@@ -222,14 +231,16 @@ def attention_case(kind, trunk, batch, heads, n, d, dtype, gen):
     require(err <= tol, f"{kind} {trunk} {dtype}: max abs err {err} > {tol}")
     elem = q.element_size()
     bh = batch * heads
-    b_ms, b_by = bound_ms(4 * bh * n * d * elem, 4.0 * bh * n * n * d, dtype)
+    flops = 4.0 * bh * n * n * d
+    b_ms, b_by = bound_ms(4 * bh * n * d * elem, flops, dtype)
+    ms = time_ms(lambda: wrapper(q, k, v, scale))
     return dict(
         trunk=trunk, dtype=str(dtype).replace("torch.", ""),
         shape=[batch, heads, n, d], max_abs_err=err, tol=tol,
-        ms=time_ms(lambda: wrapper(q, k, v, scale)),
+        ms=ms, tflops=flops / ms * 1e-9,
         plain_ms=time_ms(lambda: ca.attention_plain(q, k, v, scale)),
         bound_ms=b_ms, bound_by=b_by,
-        library_ms=time_ms(
+        library_ms=median_ms(
             lambda: F.scaled_dot_product_attention(q, k, v, scale=scale)
         ),
     )
@@ -264,7 +275,7 @@ def mlp_case(trunk, m, c, h, dtype, gen):
         tflops=flops / ms * 1e-9,
         plain_ms=time_ms(lambda: cm.mlp_plain(x, w1, b1, w2, b2)),
         bound_ms=b_ms, bound_by=b_by,
-        library_ms=time_ms(
+        library_ms=median_ms(
             lambda: F.linear(F.gelu(F.linear(x, w1, b1)), w2, b2)
         ),
     )
@@ -315,14 +326,16 @@ def attention_bwd_case(kind, trunk, batch, heads, n, d, dtype, gen):
     del got, want
     leaves = [t.detach().requires_grad_() for t in (q, k, v)]
     lib_out = F.scaled_dot_product_attention(*leaves, scale=scale)
-    b_ms, b_by = bound_ms(n_bytes, 10.0 * bh * n * n * d, dtype)
+    flops = 10.0 * bh * n * n * d
+    b_ms, b_by = bound_ms(n_bytes, flops, dtype)
+    ms = time_ms(run)
     return dict(
         trunk=trunk, dtype=str(dtype).replace("torch.", ""),
         shape=[batch, heads, n, d], max_abs_err=err, tol=tol,
-        ms=time_ms(run),
+        ms=ms, tflops=flops / ms * 1e-9,
         plain_ms=time_ms(lambda: ca.attention_plain_bwd(q, k, v, dout, scale)),
         bound_ms=b_ms, bound_by=b_by,
-        library_ms=time_ms(lambda: torch.autograd.grad(
+        library_ms=median_ms(lambda: torch.autograd.grad(
             lib_out, leaves, dout, retain_graph=True)),
     )
 
@@ -369,7 +382,7 @@ def mlp_bwd_case(trunk, m, c, h, dtype, gen):
         ms=ms, tflops=flops / ms * 1e-9,
         plain_ms=time_ms(lambda: cm.mlp_plain_bwd(x, w1, b1, w2, g)),
         bound_ms=b_ms, bound_by=b_by,
-        library_ms=time_ms(lambda: torch.autograd.grad(
+        library_ms=median_ms(lambda: torch.autograd.grad(
             lib_out, leaves, g, retain_graph=True)),
     )
 
@@ -404,8 +417,8 @@ def phase_kernels():
             print(f"kernel {name:20s} {r['trunk']:9s} {r['dtype']:8s} "
                   f"shape={r['shape']} err={r['max_abs_err']:.3g} "
                   f"ms={r['ms']:.4f} "
-                  + (f"({r['tflops']:.1f} TFLOP/s) " if "tflops" in r else "")
-                  + f"plain_ms={r['plain_ms']:.4f} "
+                  f"({r['tflops']:.1f} TFLOP/s) "
+                  f"plain_ms={r['plain_ms']:.4f} "
                   f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']}) "
                   f"library_ms={r['library_ms']:.4f}", flush=True)
     return cases
@@ -713,8 +726,7 @@ def main() -> int:
         counts = tensor_core_instructions(name)
         print(f"sass {name}: tensor-core instructions {sum(counts.values())} "
               f"({', '.join(f'{k} {v}' for k, v in counts.items())})", flush=True)
-        if name == "mlp":
-            require(sum(counts.values()) > 0, "the MLP kernels run on the tensor cores")
+        require(sum(counts.values()) > 0, f"the {name} kernels run on the tensor cores")
 
     t0 = time.perf_counter()
     cases = phase_kernels()

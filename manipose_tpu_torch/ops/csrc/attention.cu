@@ -23,63 +23,87 @@
 // strides (ob, oh, on) and write dQ, dK and dV through theirs (gb, gh, gn):
 // views of one (B, N, 3, H, D) tensor, the gradient of the qkv projection.
 //
-// What bounds them on an H100. Dense, at the flagship's rotations trunk
-// (2176 windows of 243 x 64): 4*N*N*D flop per window forward, 32.9 GFLOP
-// in all against 0.54 GB moved in fp32, so fp32 arithmetic (67 TFLOP/s on
-// the CUDA cores) bounds it at ~0.49 ms; the backward recomputes the scores
-// and does 10*N*N*D flop per window, ~1.2 ms. Packed (31104 windows of
-// 17 x 64): 2.3 GFLOP against 0.54 GB, so memory (3.35 TB/s) bounds it at
-// ~0.16 ms, and its backward, which moves seven such tensors, at ~0.28 ms.
+// What bounds them on an H100 (data sheet, dense, 700 W). Dense, at the
+// flagship's rotations trunk (2176 windows of 243 x 64): 4*N*N*D flop per
+// window forward, 32.9 GFLOP in all against 0.54 GB moved in fp32. fp32
+// products at fp32 accuracy run on the tensor cores as 3xTF32 (mma.cuh), a
+// third of the 495 TFLOP/s tf32 rate, so arithmetic bounds it at ~0.20 ms;
+// the backward recomputes the scores and does 10*N*N*D flop per window,
+// ~0.50 ms. mma.sync itself peaks lower on the card (probes/mma_rate.cu).
+// Packed (31104 windows of 17 x 64): 2.3 GFLOP against 0.54 GB, so memory
+// (3.35 TB/s) bounds it at ~0.16 ms, and its backward, which moves seven
+// such tensors, at ~0.28 ms.
 //
-// What the design does about it. The TPU kernel holds the whole N x N fp32
-// score matrix in VMEM; at N = 243 that is 236 KB, more than the 227 KB of
-// shared memory a block may use. The dense kernel instead gives every query
-// row its own thread, holding q and the output row in registers, and
-// streams K and V through shared memory 64 keys at a time with an online
-// softmax (running max and sum, rescaled every SUB keys). Each staged key
-// row is read by all threads of the block at one address (a broadcast, so
-// no bank conflicts), 16 bytes at a time. Two blocks of 128 query rows
-// cover N = 243; the ragged edge is masked. No score matrix is ever stored.
-// When a gradient is wanted it also writes each row's log-sum-exp.
+// Dense design: FlashAttention-2 on warp-level mma.sync (mma.cuh). The TPU
+// kernel holds the whole N x N fp32 score matrix in VMEM; at N = 243 that
+// is 236 KB, more than a block's shared memory. Here a block of 4 warps
+// takes 64 rows of one window, 16 per warp, and streams the other side
+// through a 2-slot cp.async ring 64 rows at a time; copies zero-fill rows
+// at or past N, and the words that pad a bf16 row of D = 8 to one 16-wide
+// k-step are zeroed once. Every product runs on the tensor cores: bf16 in
+// one m16n8k16 pass, fp32 as 3xTF32 over operands split into big and
+// small tf32 parts. Because the tensor cores' fp32 accumulation truncates,
+// no mma accumulator runs over more than 64 of k: scores over d <= 64
+// start fresh, and every product over rows (P V, dS K, P^T dO, dS^T Q)
+// runs per 64-row tile from a fresh accumulator that is then added into
+// an fp32 sum.
 //
-// The dense backward is the two-pass scheme of FlashAttention-2, without
-// atomics. Both passes rebuild P = exp(scale * q.k - lse) from the saved
-// log-sum-exp and use delta = rowsum(dO * O), which equals the TPU kernel's
-// rowsum(dP * P). The dQ pass gives a block 64 query rows and streams all
-// keys through shared memory; the dK/dV pass gives a block 64 key rows and
-// streams all queries. A row is split over TPR = D / 16 threads (each owns
-// 16 of the D columns, interleaved 4 at a time so that the threads of a
-// row read neighbouring addresses), which keeps three or four rows of
-// state per thread in registers; the two dot products per pair are summed
-// across the TPR threads with warp shuffles.
+// The scores' accumulator fragments feed the next product straight from
+// registers. Lane (g, t) holds columns 2t and 2t + 1 of rows g and g + 8
+// of each 8-column tile. Under bf16 two tiles pack into the A fragment of
+// m16n8k16 as they lie (FlashAttention-2's register reuse). tf32's
+// m16n8k8 A fragment wants columns t and t + 4 instead, so its k-index is
+// permuted (t <-> column 2t, t + 4 <-> column 2t + 1) and the B operand's
+// rows are read with the same permutation (load_b_rows); a sum over k
+// does not depend on its order.
 //
-// The TPU packs G tiny windows into one block-diagonal (G*N)^2 tile to fill
-// its 128 x 128 matrix unit. Here that trick has no use: one warp takes one
-// window, each lane one query row, K, V and Q are staged with coalesced
-// 16-byte loads, and the output is staged back through shared memory so it
-// leaves with coalesced stores. No masking is needed. Four warps per block
-// keep enough loads in flight across the 132 SMs for a memory-bound kernel.
-// The packed backward stages Q, K, V and dO of its window and works as the
-// TPU kernel does: each lane recomputes its row of P and dS in registers
-// and leaves them in shared memory; then lane j sums column j for dK and dV
-// and lane i row i for dQ, each result written over a staged input that is
-// no longer read, and all three leave with coalesced stores.
+// K1 (forward) keeps its 16 query rows of Q in registers, split once, and
+// per 64-key tile takes S = Q K^T, the online softmax on the accumulator
+// fragments (row max and sum over the quad of lanes that share a row,
+// exp2 of log2e-prescaled scores, keys past N at -inf; key 0 of every tile
+// is valid, so the running max stays finite), then P V from a fresh
+// accumulator and o = o * corr + pv in fp32. It writes o / l, and the
+// log-sum-exp m + log l when a gradient is wanted.
 //
-// Simple first: fp32 CUDA-core arithmetic in both dtypes. wgmma / TMA and
-// tensor-core bf16 are later work.
+// K2 (backward) is FlashAttention-2's two passes from K1's log-sum-exp,
+// without atomics: every output row is owned by one warp and summed in a
+// fixed order, so repeated runs agree bit for bit. Both rebuild
+// P = exp(scale * S - lse) and use delta = rowsum(dO * O), which equals
+// the TPU kernel's rowsum(dP * P). The dQ pass takes a block of 64
+// queries (Q and dO in shared memory), writes their delta, and streams K
+// and V: S = Q K^T, dP = dO V^T, dS = P * (dP - delta), dQ += dS K. The
+// dK/dV pass takes a block of 64 keys (K and V in shared memory) and
+// streams Q, dO and each query's lse and delta; it computes the transposed
+// scores S^T = K Q^T and dP^T = V dO^T, so P^T and dS^T come out in the
+// accumulator layout with one row per key, and dV += P^T dO and
+// dK += dS^T Q need no transpose through shared memory. K and V (or Q and
+// dO) stay in shared memory rather than registers, where their split
+// fragments would not fit beside the dK and dV sums.
+//
+// Packed design. The TPU packs G tiny windows into one block-diagonal
+// (G*N)^2 tile to fill its 128 x 128 matrix unit. Here that trick has no
+// use: one warp takes one window, each lane one query row, K, V and Q are
+// staged with coalesced 16-byte loads, and the output is staged back
+// through shared memory so it leaves with coalesced stores. No masking is
+// needed. Four warps per block keep enough loads in flight across the 132
+// SMs for a memory-bound kernel. The packed backward stages Q, K, V and dO
+// of its window and works as the TPU kernel does: each lane recomputes its
+// row of P and dS in registers and leaves them in shared memory; then lane
+// j sums column j for dK and dV and lane i row i for dQ, each result
+// written over a staged input that is no longer read, and all three leave
+// with coalesced stores. Both run fp32 arithmetic on the CUDA cores.
+//
+// Not yet: wgmma and TMA with warp specialisation.
 
 #include <cmath>
 #include <type_traits>
 
 #include "common.cuh"
+#include "mma.cuh"
 
 namespace {
 
-constexpr int DENSE_ROWS = 128;  // query rows (threads) per block
-constexpr int DENSE_KEYS = 64;   // keys staged in shared memory per step
 constexpr int SUB = 8;           // keys scored in registers per rescale
-constexpr int BWD_ROWS = 64;     // rows per block of the dense backward
-constexpr int BWD_TILE = 64;     // rows staged in shared memory per step
 constexpr int PACKED_WARPS = 4;  // windows per block
 constexpr int PACKED_MAX_N = 32;
 
@@ -108,6 +132,559 @@ __device__ __forceinline__ void sts4(float* p, float4 v) {
   *reinterpret_cast<float4*>(p) = v;
 }
 
+// ---- dense kernels (K1, K2) on the tensor cores ----------------------------
+
+constexpr int TROWS = 64;             // rows of a streamed tile: keys or queries
+constexpr int DSTAGES = 2;            // slots of the dense kernels' cp.async ring
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
+
+// Tile geometry of the dense kernels for element type T and head dim D.
+template <typename T, int D>
+struct Dense {
+  static constexpr int EW = 4 / int(sizeof(T));  // elements per 32-bit word
+  static constexpr int DW = D / EW;              // words of a row
+  static constexpr int KS = (DW + 7) / 8;        // k-steps of a product over d
+  static constexpr int LD = 8 * KS + 4;          // shared row stride, words
+  static constexpr int TILE = TROWS * LD;        // words of a 64-row tile
+  static constexpr int NO = D / 8;               // 8-column tiles of a row
+  static constexpr int KK = 8 * EW;              // rows a k-step over rows
+  static constexpr int PARTS = mp::Mma<T>::PARTS;
+  // A block of WARPS warps, 16 rows each, owns ROWS rows of its window; its
+  // registers are capped so that BLOCKS blocks share an SM. A third block
+  // measured faster (probes/run_probes.py, blocks3) at bf16 d = 64 (K1
+  // and K2 by 10-12 %) and fp32 d = 16 (K2 by 10 %), slower elsewhere.
+  static constexpr int WARPS = 4;
+  static constexpr int BLOCKS = (EW == 2 && D == 64) || (EW == 1 && D == 16) ? 3 : 2;
+  static constexpr int ROWS = 16 * WARPS;
+  static constexpr int THREADS = 32 * WARPS;
+  static constexpr int OWN = ROWS * LD;          // words of the block's own rows
+  static_assert(THREADS >= 2 * TROWS, "a thread for each lse and delta of a tile");
+};
+
+__device__ __forceinline__ int dense_warp() { return threadIdx.x >> 5; }
+
+template <int NT>
+__device__ __forceinline__ void zero_acc(float (&acc)[NT][4]) {
+#pragma unroll
+  for (int ni = 0; ni < NT; ++ni)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[ni][e] = 0.f;
+}
+
+template <int NT>
+__device__ __forceinline__ void add_acc(float (&acc)[NT][4], const float (&part)[NT][4]) {
+#pragma unroll
+  for (int ni = 0; ni < NT; ++ni)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[ni][e] += part[ni][e];
+}
+
+// Zero the words past the head dim up to a whole k-step (bf16 at D = 8,
+// whose k-step is 16 elements) in ``rows`` consecutive rows. The copies
+// never write them, so once a block is enough.
+template <typename T, int D>
+__device__ __forceinline__ void zero_pads(uint32_t* s, int rows) {
+  using G = Dense<T, D>;
+  constexpr int PAD = 8 * G::KS - G::DW;
+  if constexpr (PAD > 0) {
+    for (int e = threadIdx.x; e < rows * PAD; e += G::THREADS) {
+      s[(e / PAD) * G::LD + G::DW + e % PAD] = 0u;
+    }
+  }
+}
+
+// A fragment (all parts) of rows row0.. row0 + 15, words kw.. kw + 7, of a
+// [row][word] tile.
+template <typename T>
+__device__ __forceinline__ void load_a_split(uint32_t (&a)[mp::Mma<T>::PARTS][4],
+                                             const uint32_t* s, int ld, int row0,
+                                             int kw) {
+  uint32_t w[4];
+  mp::load_a_nat(w, s, ld, row0, kw);
+  mp::Mma<T>::split(w, a);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// A fragment (all parts) of k-step j of a product whose k runs over the 64
+// columns of the accumulator c (16 rows: P, dS or their transposes): bf16
+// packs tiles 2j and 2j + 1 as they lie; fp32 takes tile j with its
+// k-index permuted (t <-> column 2t, t + 4 <-> column 2t + 1).
+template <typename T>
+__device__ __forceinline__ void acc_to_a(uint32_t (&a)[mp::Mma<T>::PARTS][4],
+                                         const float (&c)[8][4], int j) {
+  if constexpr (std::is_same<T, float>::value) {
+    const uint32_t w[4] = {__float_as_uint(c[j][0]), __float_as_uint(c[j][2]),
+                           __float_as_uint(c[j][1]), __float_as_uint(c[j][3])};
+    mp::Mma<float>::split(w, a);
+  } else {
+    a[0][0] = pack_bf16(c[2 * j][0], c[2 * j][1]);
+    a[0][1] = pack_bf16(c[2 * j][2], c[2 * j][3]);
+    a[0][2] = pack_bf16(c[2 * j + 1][0], c[2 * j + 1][1]);
+    a[0][3] = pack_bf16(c[2 * j + 1][2], c[2 * j + 1][3]);
+  }
+}
+
+// B fragment of a product whose k runs over the rows of a [row][word] tile
+// (V in P V, K in dS K, dO in P^T dO, Q in dS^T Q): columns n0.. n0 + 7 of
+// the k-step at row k0. fp32 reads its rows in acc_to_a's permutation
+// (k-index t from row 2t, t + 4 from row 2t + 1; the row stride of
+// 8 * KS + 4 words keeps the 32 lanes on distinct banks); bf16 takes
+// ldmatrix.trans.
+template <typename T>
+__device__ __forceinline__ void load_b_rows(uint32_t (&w)[2], const uint32_t* s,
+                                            int ld, int n0, int k0) {
+  if constexpr (std::is_same<T, float>::value) {
+    const uint32_t* p = s + (k0 + 2 * mp::lane_t()) * ld + n0 + mp::lane_g();
+    w[0] = p[0];
+    w[1] = p[ld];
+  } else {
+    mp::load_b_tr(w, reinterpret_cast<const __nv_bfloat16*>(s), 2 * ld, n0, k0);
+  }
+}
+
+// acc[ni] += A B(ni) over one k-step for ni < NT, every pass, A split
+// already; ``load_b(ni, w)`` fetches B(ni)'s raw words, split here. The
+// passes run one after the other over the NT tiles, so consecutive mma are
+// independent.
+template <typename T, int NT, typename LB>
+__device__ __forceinline__ void mma_row(float (&acc)[NT][4],
+                                        const uint32_t (&a)[mp::Mma<T>::PARTS][4],
+                                        LB load_b) {
+  using M = mp::Mma<T>;
+  uint32_t b[NT][M::PARTS][2];
+#pragma unroll
+  for (int ni = 0; ni < NT; ++ni) {
+    uint32_t w[2];
+    load_b(ni, w);
+    M::split(w, b[ni]);
+  }
+#pragma unroll
+  for (int pass = 0; pass < M::PASSES; ++pass)
+#pragma unroll
+    for (int ni = 0; ni < NT; ++ni) M::mma(acc[ni], a, b[ni], pass);
+}
+
+// The online softmax over one 64-key tile of scores sc (rows g and g + 8 in
+// e = 0, 1 and e = 2, 3 of each 8-key tile; keys at or past kn masked):
+// sc becomes P = exp2(c * S - m) with the running max m updated, l takes
+// the tile's row sums over this lane's keys (the quad's are added at the
+// end) and corr the factor that rescales what came before.
+__device__ __forceinline__ void online_softmax(float (&sc)[8][4], float (&m)[2],
+                                               float (&l)[2], float (&corr)[2],
+                                               float c, int kn) {
+  const int t = mp::lane_t();
+  float mx[2] = {m[0], m[1]};
+#pragma unroll
+  for (int ni = 0; ni < 8; ++ni)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      sc[ni][e] = 8 * ni + 2 * t + (e & 1) < kn ? sc[ni][e] * c : -INFINITY;
+      mx[e >> 1] = fmaxf(mx[e >> 1], sc[ni][e]);
+    }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    corr[r] = exp2f(m[r] - mx[r]);  // 0 on the first tile (m = -inf)
+    m[r] = mx[r];
+    l[r] *= corr[r];
+  }
+#pragma unroll
+  for (int ni = 0; ni < 8; ++ni)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      sc[ni][e] = exp2f(sc[ni][e] - m[e >> 1]);
+      l[e >> 1] += sc[ni][e];
+    }
+}
+
+// K1: one block per (window, ROWS query rows). Shared memory: the queries,
+// then the ring's slots of (K, V) tiles.
+template <typename T, int D>
+__global__ void __launch_bounds__(Dense<T, D>::THREADS, Dense<T, D>::BLOCKS)
+attention_dense_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                       const T* __restrict__ v, T* __restrict__ out,
+                       float* __restrict__ lse, int H, int N, long long sb,
+                       long long sh, long long sn, float scale) {
+  using G = Dense<T, D>;
+  extern __shared__ __align__(16) uint32_t tiles_smem[];
+  const int tiles = (N + TROWS - 1) / TROWS;  // streamed tiles
+  const int per = (N + G::ROWS - 1) / G::ROWS;  // blocks a window
+  const int bh = blockIdx.x / per;
+  const int q0 = (blockIdx.x % per) * G::ROWS;
+  const int b = bh / H, h = bh % H;
+  const long long base = b * sb + h * sh;
+  const long long pitch = sn * static_cast<long long>(sizeof(T));
+  const int row0 = dense_warp() * 16;  // the warp's rows of the tile
+
+  zero_pads<T, D>(tiles_smem, G::ROWS + 2 * DSTAGES * TROWS);
+  mp::copy_tile<G::ROWS, G::DW, G::THREADS>(tiles_smem, G::LD, q + base + q0 * sn, pitch,
+                                            N - q0);
+  auto ring = mp::start_ring<DSTAGES, 2 * G::TILE>(tiles_smem + G::OWN, [&](int s) {
+    if (s < tiles) {
+      uint32_t* slot = tiles_smem + G::OWN + (s % DSTAGES) * 2 * G::TILE;
+      const long long off = base + static_cast<long long>(s) * TROWS * sn;
+      mp::copy_tile<TROWS, G::DW, G::THREADS>(slot, G::LD, k + off, pitch, N - s * TROWS);
+      mp::copy_tile<TROWS, G::DW, G::THREADS>(slot + G::TILE, G::LD, v + off, pitch,
+                                            N - s * TROWS);
+    }
+    mp::cp_async_commit();
+  });
+
+  uint32_t qa[G::KS][G::PARTS][4];
+  float o[G::NO][4];
+  zero_acc(o);
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  const float c = scale * LOG2E;
+#pragma unroll 1
+  for (int s = 0; s < tiles; ++s) {
+    const uint32_t* ks = ring.next();
+    const uint32_t* vs = ks + G::TILE;
+    if (s == 0) {  // Q landed with the first tile
+#pragma unroll
+      for (int kk = 0; kk < G::KS; ++kk) load_a_split<T>(qa[kk], tiles_smem, G::LD, row0, 8 * kk);
+    }
+    float sc[8][4];  // S = Q K^T: d <= 64, one fresh accumulator
+    zero_acc(sc);
+#pragma unroll
+    for (int kk = 0; kk < G::KS; ++kk) {
+      mma_row<T>(sc, qa[kk], [&](int ni, uint32_t (&w)[2]) {
+        mp::load_b_nat(w, ks, G::LD, 8 * ni, 8 * kk);
+      });
+    }
+    float corr[2];
+    online_softmax(sc, m, l, corr, c, N - s * TROWS);
+    float pv[G::NO][4];  // P V over this tile's 64 keys
+    zero_acc(pv);
+#pragma unroll
+    for (int j = 0; j < TROWS / G::KK; ++j) {
+      uint32_t a[G::PARTS][4];
+      acc_to_a<T>(a, sc, j);
+      mma_row<T>(pv, a, [&](int ni, uint32_t (&w)[2]) {
+        load_b_rows<T>(w, vs, G::LD, 8 * ni, G::KK * j);
+      });
+    }
+#pragma unroll
+    for (int ni = 0; ni < G::NO; ++ni)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[ni][e] = fmaf(o[ni][e], corr[e >> 1], pv[ni][e]);
+  }
+  mp::cp_async_wait<0>();
+
+  const int g = mp::lane_g(), t = mp::lane_t();
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    const int row = q0 + row0 + g + 8 * r;
+    if (row < N) {  // rows past N ran on zeros; they store nothing
+      const float inv = 1.f / l[r];
+      T* dst = out + ((static_cast<long long>(b) * N + row) * H + h) * D + 2 * t;
+#pragma unroll
+      for (int ni = 0; ni < G::NO; ++ni) {
+        mp::store2(dst + 8 * ni, o[ni][2 * r] * inv, o[ni][2 * r + 1] * inv);
+      }
+      if (lse != nullptr && t == 0) {
+        lse[static_cast<long long>(bh) * N + row] = (m[r] + log2f(l[r])) * LN2;
+      }
+    }
+  }
+}
+
+// dQ pass: one block per (window, ROWS query rows), K and V streamed.
+// Shared memory: Q and dO of the block's queries, the ring's slots of
+// (K, V) tiles, then the queries' delta. dQ = scale * sum_j dS_ij k_j.
+template <typename T, int D>
+__global__ void __launch_bounds__(Dense<T, D>::THREADS, Dense<T, D>::BLOCKS)
+attention_dense_bwd_dq_kernel(
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    const T* __restrict__ o, const T* __restrict__ dout,
+    const float* __restrict__ lse, float* __restrict__ delta,
+    T* __restrict__ dq, int H, int N, long long sb, long long sh, long long sn,
+    long long ob, long long oh, long long on, long long gb, long long gh,
+    long long gn, float scale) {
+  using G = Dense<T, D>;
+  extern __shared__ __align__(16) uint32_t tiles_smem[];
+  const uint32_t* qs = tiles_smem;
+  const uint32_t* gs = tiles_smem + G::OWN;
+  float* dls = reinterpret_cast<float*>(tiles_smem + 2 * G::OWN + 2 * DSTAGES * G::TILE);
+  const int tiles = (N + TROWS - 1) / TROWS;  // streamed tiles
+  const int per = (N + G::ROWS - 1) / G::ROWS;  // blocks a window
+  const int bh = blockIdx.x / per;
+  const int q0 = (blockIdx.x % per) * G::ROWS;
+  const int b = bh / H, h = bh % H;
+  const long long base = b * sb + h * sh, obase = b * ob + h * oh;
+  const long long pitch = sn * static_cast<long long>(sizeof(T));
+  const int row0 = dense_warp() * 16;
+
+  zero_pads<T, D>(tiles_smem, 2 * G::ROWS + 2 * DSTAGES * TROWS);
+  mp::copy_tile<G::ROWS, G::DW, G::THREADS>(tiles_smem, G::LD, q + base + q0 * sn, pitch,
+                                            N - q0);
+  mp::copy_tile<G::ROWS, G::DW, G::THREADS>(tiles_smem + G::OWN, G::LD,
+                                            dout + obase + q0 * on,
+                                            on * static_cast<long long>(sizeof(T)), N - q0);
+  auto ring = mp::start_ring<DSTAGES, 2 * G::TILE>(tiles_smem + 2 * G::OWN, [&](int s) {
+    if (s < tiles) {
+      uint32_t* slot = tiles_smem + 2 * G::OWN + (s % DSTAGES) * 2 * G::TILE;
+      const long long off = base + static_cast<long long>(s) * TROWS * sn;
+      mp::copy_tile<TROWS, G::DW, G::THREADS>(slot, G::LD, k + off, pitch, N - s * TROWS);
+      mp::copy_tile<TROWS, G::DW, G::THREADS>(slot + G::TILE, G::LD, v + off, pitch,
+                                            N - s * TROWS);
+    }
+    mp::cp_async_commit();
+  });
+
+  {  // delta = rowsum(dO * O), two threads a row, for the dK/dV pass too
+    const int r = threadIdx.x >> 1, half = threadIdx.x & 1, row = q0 + r;
+    float d = 0.f;
+    if (row < N) {
+      const long long off = obase + row * on + half * (D / 2);
+#pragma unroll
+      for (int c4 = 0; c4 < D / 8; ++c4) {
+        d += dot4(mp::load4(dout + off + 4 * c4), mp::load4(o + off + 4 * c4));
+      }
+    }
+    d += __shfl_xor_sync(0xffffffffu, d, 1);
+    if (half == 0) {
+      dls[r] = d;
+      if (row < N) delta[static_cast<long long>(bh) * N + row] = d;
+    }
+  }
+
+  const int g = mp::lane_g(), t = mp::lane_t();
+  float lr[2], dr[2];  // lse (log2 units) and delta of rows g and g + 8
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + row0 + g + 8 * r;
+    lr[r] = row < N ? lse[static_cast<long long>(bh) * N + row] * LOG2E : 0.f;
+  }
+  float acc[G::NO][4];
+  zero_acc(acc);
+  const float c = scale * LOG2E;
+#pragma unroll 1
+  for (int s = 0; s < tiles; ++s) {
+    const uint32_t* ks = ring.next();
+    const uint32_t* vs = ks + G::TILE;
+    if (s == 0) {  // delta is in shared memory now
+      dr[0] = dls[row0 + g];
+      dr[1] = dls[row0 + g + 8];
+    }
+    float sc[8][4];  // S = Q K^T, then P
+    zero_acc(sc);
+#pragma unroll
+    for (int kk = 0; kk < G::KS; ++kk) {
+      uint32_t a[G::PARTS][4];
+      load_a_split<T>(a, qs, G::LD, row0, 8 * kk);
+      mma_row<T>(sc, a, [&](int ni, uint32_t (&w)[2]) {
+        mp::load_b_nat(w, ks, G::LD, 8 * ni, 8 * kk);
+      });
+    }
+    const int kn = N - s * TROWS;
+#pragma unroll
+    for (int ni = 0; ni < 8; ++ni)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        sc[ni][e] = 8 * ni + 2 * t + (e & 1) < kn
+                        ? exp2f(fmaf(sc[ni][e], c, -lr[e >> 1]))
+                        : 0.f;
+      }
+    float dp[8][4];  // dP = dO V^T, then dS = P * (dP - delta)
+    zero_acc(dp);
+#pragma unroll
+    for (int kk = 0; kk < G::KS; ++kk) {
+      uint32_t a[G::PARTS][4];
+      load_a_split<T>(a, gs, G::LD, row0, 8 * kk);
+      mma_row<T>(dp, a, [&](int ni, uint32_t (&w)[2]) {
+        mp::load_b_nat(w, vs, G::LD, 8 * ni, 8 * kk);
+      });
+    }
+#pragma unroll
+    for (int ni = 0; ni < 8; ++ni)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dp[ni][e] = sc[ni][e] * (dp[ni][e] - dr[e >> 1]);
+    float part[G::NO][4];  // dS K over this tile's 64 keys
+    zero_acc(part);
+#pragma unroll
+    for (int j = 0; j < TROWS / G::KK; ++j) {
+      uint32_t a[G::PARTS][4];
+      acc_to_a<T>(a, dp, j);
+      mma_row<T>(part, a, [&](int ni, uint32_t (&w)[2]) {
+        load_b_rows<T>(w, ks, G::LD, 8 * ni, G::KK * j);
+      });
+    }
+    add_acc(acc, part);
+  }
+  mp::cp_async_wait<0>();
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + row0 + g + 8 * r;
+    if (row < N) {
+      T* dst = dq + b * gb + h * gh + row * gn + 2 * t;
+#pragma unroll
+      for (int ni = 0; ni < G::NO; ++ni) {
+        mp::store2(dst + 8 * ni, acc[ni][2 * r] * scale, acc[ni][2 * r + 1] * scale);
+      }
+    }
+  }
+}
+
+// dK/dV pass: one block per (window, ROWS key rows), Q and dO streamed
+// with each query's lse and delta. Shared memory: K and V of the block's
+// keys, the ring's slots of (Q, dO) tiles, then each slot's lse (log2
+// units; +inf past N, so P is 0 there) and delta.
+// dV = sum_i P_ij dO_i, dK = scale * sum_i dS_ij q_i.
+template <typename T, int D>
+__global__ void __launch_bounds__(Dense<T, D>::THREADS, Dense<T, D>::BLOCKS)
+attention_dense_bwd_dkv_kernel(
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    const T* __restrict__ dout, const float* __restrict__ lse,
+    const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
+    int H, int N, long long sb, long long sh, long long sn, long long ob,
+    long long oh, long long on, long long gb, long long gh, long long gn,
+    float scale) {
+  using G = Dense<T, D>;
+  extern __shared__ __align__(16) uint32_t tiles_smem[];
+  const uint32_t* ks = tiles_smem;
+  const uint32_t* vs = tiles_smem + G::OWN;
+  float* lds = reinterpret_cast<float*>(tiles_smem + 2 * G::OWN + 2 * DSTAGES * G::TILE);
+  const int tiles = (N + TROWS - 1) / TROWS;  // streamed tiles
+  const int per = (N + G::ROWS - 1) / G::ROWS;  // blocks a window
+  const int bh = blockIdx.x / per;
+  const int k0 = (blockIdx.x % per) * G::ROWS;
+  const int b = bh / H, h = bh % H;
+  const long long base = b * sb + h * sh, obase = b * ob + h * oh;
+  const long long pitch = sn * static_cast<long long>(sizeof(T));
+  const long long opitch = on * static_cast<long long>(sizeof(T));
+  const int row0 = dense_warp() * 16;
+
+  zero_pads<T, D>(tiles_smem, 2 * G::ROWS + 2 * DSTAGES * TROWS);
+  mp::copy_tile<G::ROWS, G::DW, G::THREADS>(tiles_smem, G::LD, k + base + k0 * sn, pitch,
+                                            N - k0);
+  mp::copy_tile<G::ROWS, G::DW, G::THREADS>(tiles_smem + G::OWN, G::LD, v + base + k0 * sn,
+                                            pitch, N - k0);
+  auto ring = mp::start_ring<DSTAGES, 2 * G::TILE>(tiles_smem + 2 * G::OWN, [&](int s) {
+    if (s < tiles) {
+      uint32_t* slot = tiles_smem + 2 * G::OWN + (s % DSTAGES) * 2 * G::TILE;
+      const int r0 = s * TROWS;
+      mp::copy_tile<TROWS, G::DW, G::THREADS>(slot, G::LD, q + base + r0 * sn, pitch, N - r0);
+      mp::copy_tile<TROWS, G::DW, G::THREADS>(slot + G::TILE, G::LD, dout + obase + r0 * on,
+                                            opitch, N - r0);
+      // thread i < 64: lse of query r0 + i; thread 64 + i: its delta
+      const int i = threadIdx.x, r = r0 + i % TROWS;
+      const long long ri = static_cast<long long>(bh) * N + r;
+      float* ls = lds + (s % DSTAGES) * 2 * TROWS;
+      if (i < TROWS) {
+        ls[i] = r < N ? lse[ri] * LOG2E : INFINITY;
+      } else if (i < 2 * TROWS) {
+        ls[i] = r < N ? delta[ri] : 0.f;
+      }
+    }
+    mp::cp_async_commit();
+  });
+
+  const int t = mp::lane_t();
+  float dka[G::NO][4], dva[G::NO][4];
+  zero_acc(dka);
+  zero_acc(dva);
+  const float c = scale * LOG2E;
+#pragma unroll 1
+  for (int s = 0; s < tiles; ++s) {
+    const uint32_t* qs = ring.next();
+    const uint32_t* gs = qs + G::TILE;
+    const float* ls = lds + (s % DSTAGES) * 2 * TROWS;
+    const float* dls = ls + TROWS;
+    float st[8][4];  // S^T = K Q^T (row = key, column = query), then P^T
+    zero_acc(st);
+#pragma unroll
+    for (int kk = 0; kk < G::KS; ++kk) {
+      uint32_t a[G::PARTS][4];
+      load_a_split<T>(a, ks, G::LD, row0, 8 * kk);
+      mma_row<T>(st, a, [&](int ni, uint32_t (&w)[2]) {
+        mp::load_b_nat(w, qs, G::LD, 8 * ni, 8 * kk);
+      });
+    }
+#pragma unroll
+    for (int ni = 0; ni < 8; ++ni)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        st[ni][e] = exp2f(fmaf(st[ni][e], c, -ls[8 * ni + 2 * t + (e & 1)]));
+      }
+    float part[G::NO][4];  // P^T dO over this tile's 64 queries
+    zero_acc(part);
+#pragma unroll
+    for (int j = 0; j < TROWS / G::KK; ++j) {
+      uint32_t a[G::PARTS][4];
+      acc_to_a<T>(a, st, j);
+      mma_row<T>(part, a, [&](int ni, uint32_t (&w)[2]) {
+        load_b_rows<T>(w, gs, G::LD, 8 * ni, G::KK * j);
+      });
+    }
+    add_acc(dva, part);
+    float dpt[8][4];  // dP^T = V dO^T, then dS^T = P^T * (dP^T - delta)
+    zero_acc(dpt);
+#pragma unroll
+    for (int kk = 0; kk < G::KS; ++kk) {
+      uint32_t a[G::PARTS][4];
+      load_a_split<T>(a, vs, G::LD, row0, 8 * kk);
+      mma_row<T>(dpt, a, [&](int ni, uint32_t (&w)[2]) {
+        mp::load_b_nat(w, gs, G::LD, 8 * ni, 8 * kk);
+      });
+    }
+#pragma unroll
+    for (int ni = 0; ni < 8; ++ni)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        dpt[ni][e] = st[ni][e] * (dpt[ni][e] - dls[8 * ni + 2 * t + (e & 1)]);
+      }
+    zero_acc(part);  // dS^T Q over this tile's 64 queries
+#pragma unroll
+    for (int j = 0; j < TROWS / G::KK; ++j) {
+      uint32_t a[G::PARTS][4];
+      acc_to_a<T>(a, dpt, j);
+      mma_row<T>(part, a, [&](int ni, uint32_t (&w)[2]) {
+        load_b_rows<T>(w, qs, G::LD, 8 * ni, G::KK * j);
+      });
+    }
+    add_acc(dka, part);
+  }
+  mp::cp_async_wait<0>();
+
+  const int g = mp::lane_g();
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = k0 + row0 + g + 8 * r;
+    if (row < N) {
+      const long long off = b * gb + h * gh + row * gn + 2 * t;
+#pragma unroll
+      for (int ni = 0; ni < G::NO; ++ni) {
+        mp::store2(dk + off + 8 * ni, dka[ni][2 * r] * scale, dka[ni][2 * r + 1] * scale);
+        mp::store2(dv + off + 8 * ni, dva[ni][2 * r], dva[ni][2 * r + 1]);
+      }
+    }
+  }
+}
+
+// Shared memory of the dense kernels, in bytes.
+template <typename T, int D>
+constexpr size_t dense_fwd_smem() {
+  return 4u * (Dense<T, D>::OWN + 2 * DSTAGES * Dense<T, D>::TILE);
+}
+template <typename T, int D>
+constexpr size_t dense_dq_smem() {
+  return 4u * (2 * Dense<T, D>::OWN + 2 * DSTAGES * Dense<T, D>::TILE + Dense<T, D>::ROWS);
+}
+template <typename T, int D>
+constexpr size_t dense_dkv_smem() {
+  return 4u * (2 * Dense<T, D>::OWN + 2 * DSTAGES * Dense<T, D>::TILE + 2 * DSTAGES * TROWS);
+}
+
+// ---- per-window kernels (N <= 32) -----------------------------------------
 // Fold keys [0, kn) of the staged K/V rows (row stride D floats) into one
 // query row's online-softmax state (o, m, l).
 template <int D>
@@ -162,250 +739,6 @@ __device__ __forceinline__ void attend_keys(const float (&qr)[D],
   }
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(DENSE_ROWS)
-attention_dense_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ out,
-                       float* __restrict__ lse, int H, int N, long long sb,
-                       long long sh, long long sn, float scale) {
-  __shared__ __align__(16) float Ks[DENSE_KEYS * D];
-  __shared__ __align__(16) float Vs[DENSE_KEYS * D];
-  const int tiles = (N + DENSE_ROWS - 1) / DENSE_ROWS;
-  const int bh = blockIdx.x / tiles;
-  const int row = (blockIdx.x % tiles) * DENSE_ROWS + threadIdx.x;
-  const int b = bh / H, h = bh % H;
-  const long long base = b * sb + h * sh;
-  const bool active = row < N;
-
-  float qr[D], o[D];
-#pragma unroll
-  for (int c = 0; c < D / 4; ++c) {
-    const float4 t = active ? mp::load4(q + base + row * sn + 4 * c) : zero4();
-    qr[4 * c + 0] = t.x;
-    qr[4 * c + 1] = t.y;
-    qr[4 * c + 2] = t.z;
-    qr[4 * c + 3] = t.w;
-  }
-#pragma unroll
-  for (int c = 0; c < D; ++c) o[c] = 0.f;
-  float m = -INFINITY, l = 0.f;
-
-  for (int k0 = 0; k0 < N; k0 += DENSE_KEYS) {
-    const int kn = min(DENSE_KEYS, N - k0);
-    __syncthreads();  // the previous step's reads of Ks / Vs are done
-    for (int e = threadIdx.x; e < kn * (D / 4); e += DENSE_ROWS) {
-      const int j = e / (D / 4), c = e % (D / 4);
-      const long long off = base + (k0 + j) * sn + 4 * c;
-      mp::store4(Ks + j * D + 4 * c, mp::load4(k + off));
-      mp::store4(Vs + j * D + 4 * c, mp::load4(v + off));
-    }
-    __syncthreads();
-    if (active) attend_keys<D>(qr, Ks, Vs, kn, scale, o, m, l);
-  }
-
-  if (active) {
-    const float inv = 1.f / l;
-    T* dst = out + ((static_cast<long long>(b) * N + row) * H + h) * D;
-#pragma unroll
-    for (int c = 0; c < D / 4; ++c) {
-      mp::store4(dst + 4 * c,
-                 make_float4(o[4 * c] * inv, o[4 * c + 1] * inv,
-                             o[4 * c + 2] * inv, o[4 * c + 3] * inv));
-    }
-    if (lse != nullptr) lse[static_cast<long long>(bh) * N + row] = m + logf(l);
-  }
-}
-
-// ---- dense backward -------------------------------------------------------
-// A row of D columns is held by TPR = D / R neighbouring threads, R columns
-// each: thread t of a row owns the float4 chunks t, t + TPR, t + 2*TPR, ...
-template <int D>
-__host__ __device__ constexpr int row_slice() { return D < 16 ? D : 16; }
-template <int D>
-__host__ __device__ constexpr int row_threads() { return D / row_slice<D>(); }
-
-// Sum over the TPR neighbouring lanes that hold one row. Every lane of the
-// warp takes part (inactive rows run on zeros), so the full mask is right.
-template <int TPR>
-__device__ __forceinline__ float row_sum(float v) {
-#pragma unroll
-  for (int off = 1; off < TPR; off <<= 1) {
-    v += __shfl_xor_sync(0xffffffffu, v, off);
-  }
-  return v;
-}
-
-// This thread's chunks of the row at ``src`` (zeros when inactive).
-template <int D, typename T>
-__device__ __forceinline__ void load_slice(const T* src, int t, bool active,
-                                           float4 (&dst)[row_slice<D>() / 4]) {
-  constexpr int TPR = row_threads<D>();
-#pragma unroll
-  for (int c = 0; c < row_slice<D>() / 4; ++c) {
-    dst[c] = active ? mp::load4(src + 4 * (c * TPR + t)) : zero4();
-  }
-}
-
-template <int D, typename T>
-__device__ __forceinline__ void store_slice(
-    T* dst, int t, const float4 (&src)[row_slice<D>() / 4], float s) {
-  constexpr int TPR = row_threads<D>();
-#pragma unroll
-  for (int c = 0; c < row_slice<D>() / 4; ++c) {
-    mp::store4(dst + 4 * (c * TPR + t), scale4(src[c], s));
-  }
-}
-
-// Stage rows [r0, r0 + rn) of a strided tensor (row stride rs, from
-// ``base``) into shared memory with row stride D.
-template <int D, typename T>
-__device__ __forceinline__ void stage_rows(float* dst, const T* src,
-                                           long long base, long long rs,
-                                           int r0, int rn) {
-  for (int e = threadIdx.x; e < rn * (D / 4); e += blockDim.x) {
-    const int j = e / (D / 4), c = e % (D / 4);
-    mp::store4(dst + j * D + 4 * c,
-               mp::load4(src + base + (r0 + j) * rs + 4 * c));
-  }
-}
-
-// Partial dot product of this thread's chunks with staged row ``r``.
-template <int D>
-__device__ __forceinline__ float slice_dot(const float4 (&a)[row_slice<D>() / 4],
-                                           const float* r, int t) {
-  constexpr int TPR = row_threads<D>();
-  float s = 0.f;
-#pragma unroll
-  for (int c = 0; c < row_slice<D>() / 4; ++c) {
-    s += dot4(a[c], lds4(r + 4 * (c * TPR + t)));
-  }
-  return s;
-}
-
-template <int D>
-__device__ __forceinline__ void slice_fma(float w, const float* r, int t,
-                                          float4 (&acc)[row_slice<D>() / 4]) {
-  constexpr int TPR = row_threads<D>();
-#pragma unroll
-  for (int c = 0; c < row_slice<D>() / 4; ++c) {
-    fma4(w, lds4(r + 4 * (c * TPR + t)), acc[c]);
-  }
-}
-
-// dQ pass: one block per (window, 64 query rows); every key streams
-// through shared memory. Also writes delta = rowsum(dO * O) for the dK/dV
-// pass. dQ = scale * sum_j P_ij (dP_ij - delta_i) k_j.
-template <typename T, int D>
-__global__ void __launch_bounds__(BWD_ROWS * row_threads<D>())
-attention_dense_bwd_dq_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    const T* __restrict__ o, const T* __restrict__ dout,
-    const float* __restrict__ lse, float* __restrict__ delta,
-    T* __restrict__ dq, int H, int N, long long sb, long long sh, long long sn,
-    long long ob, long long oh, long long on, long long gb, long long gh,
-    long long gn, float scale) {
-  constexpr int TPR = row_threads<D>(), C4 = row_slice<D>() / 4;
-  __shared__ __align__(16) float Ks[BWD_TILE * D];
-  __shared__ __align__(16) float Vs[BWD_TILE * D];
-  const int tiles = (N + BWD_ROWS - 1) / BWD_ROWS;
-  const int bh = blockIdx.x / tiles;
-  const int row = (blockIdx.x % tiles) * BWD_ROWS + threadIdx.x / TPR;
-  const int t = threadIdx.x % TPR;
-  const int b = bh / H, h = bh % H;
-  const long long base = b * sb + h * sh;
-  const long long obase = b * ob + h * oh;
-  const bool active = row < N;  // inactive rows run on zeros, store nothing
-
-  float4 qr[C4], gr[C4], orow[C4], acc[C4];
-  load_slice<D>(q + base + row * sn, t, active, qr);
-  load_slice<D>(dout + obase + row * on, t, active, gr);
-  load_slice<D>(o + obase + row * on, t, active, orow);
-  float di = 0.f;
-#pragma unroll
-  for (int c = 0; c < C4; ++c) {
-    di += dot4(gr[c], orow[c]);
-    acc[c] = zero4();
-  }
-  di = row_sum<TPR>(di);
-  const long long ri = static_cast<long long>(bh) * N + row;
-  const float li = active ? lse[ri] : 0.f;
-  if (active && t == 0) delta[ri] = di;
-
-  for (int k0 = 0; k0 < N; k0 += BWD_TILE) {
-    const int kn = min(BWD_TILE, N - k0);
-    __syncthreads();  // the previous step's reads of Ks / Vs are done
-    stage_rows<D>(Ks, k, base, sn, k0, kn);
-    stage_rows<D>(Vs, v, base, sn, k0, kn);
-    __syncthreads();
-    for (int j = 0; j < kn; ++j) {
-      const float s = row_sum<TPR>(slice_dot<D>(qr, Ks + j * D, t));
-      const float dp = row_sum<TPR>(slice_dot<D>(gr, Vs + j * D, t));
-      const float p = __expf(s * scale - li);
-      slice_fma<D>(p * (dp - di), Ks + j * D, t, acc);
-    }
-  }
-  if (active) store_slice<D>(dq + b * gb + h * gh + row * gn, t, acc, scale);
-}
-
-// dK/dV pass: one block per (window, 64 key rows); every query streams
-// through shared memory with its lse and delta.
-// dV = sum_i P_ij dO_i, dK = scale * sum_i P_ij (dP_ij - delta_i) q_i.
-template <typename T, int D>
-__global__ void __launch_bounds__(BWD_ROWS * row_threads<D>())
-attention_dense_bwd_dkv_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    const T* __restrict__ dout, const float* __restrict__ lse,
-    const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
-    int H, int N, long long sb, long long sh, long long sn, long long ob,
-    long long oh, long long on, long long gb, long long gh, long long gn,
-    float scale) {
-  constexpr int TPR = row_threads<D>(), C4 = row_slice<D>() / 4;
-  __shared__ __align__(16) float Qs[BWD_TILE * D];
-  __shared__ __align__(16) float Gs[BWD_TILE * D];
-  __shared__ float Ls[BWD_TILE];
-  __shared__ float Ds[BWD_TILE];
-  const int tiles = (N + BWD_ROWS - 1) / BWD_ROWS;
-  const int bh = blockIdx.x / tiles;
-  const int row = (blockIdx.x % tiles) * BWD_ROWS + threadIdx.x / TPR;
-  const int t = threadIdx.x % TPR;
-  const int b = bh / H, h = bh % H;
-  const long long base = b * sb + h * sh;
-  const long long obase = b * ob + h * oh;
-  const bool active = row < N;
-
-  float4 kr[C4], vr[C4], dka[C4], dva[C4];
-  load_slice<D>(k + base + row * sn, t, active, kr);
-  load_slice<D>(v + base + row * sn, t, active, vr);
-#pragma unroll
-  for (int c = 0; c < C4; ++c) dka[c] = dva[c] = zero4();
-
-  for (int q0 = 0; q0 < N; q0 += BWD_TILE) {
-    const int qn = min(BWD_TILE, N - q0);
-    __syncthreads();
-    stage_rows<D>(Qs, q, base, sn, q0, qn);
-    stage_rows<D>(Gs, dout, obase, on, q0, qn);
-    for (int i = threadIdx.x; i < qn; i += blockDim.x) {
-      const long long ri = static_cast<long long>(bh) * N + q0 + i;
-      Ls[i] = lse[ri];
-      Ds[i] = delta[ri];
-    }
-    __syncthreads();
-    for (int i = 0; i < qn; ++i) {
-      const float s = row_sum<TPR>(slice_dot<D>(kr, Qs + i * D, t));
-      const float dp = row_sum<TPR>(slice_dot<D>(vr, Gs + i * D, t));
-      const float p = __expf(s * scale - Ls[i]);
-      slice_fma<D>(p, Gs + i * D, t, dva);
-      slice_fma<D>(p * (dp - Ds[i]), Qs + i * D, t, dka);
-    }
-  }
-  if (active) {
-    const long long g = b * gb + h * gh + row * gn;
-    store_slice<D>(dk + g, t, dka, scale);
-    store_slice<D>(dv + g, t, dva, 1.f);
-  }
-}
-
-// ---- per-window kernels (N <= 32) -----------------------------------------
 // Shared floats per warp: K and V rows (stride D) and the Q / output rows
 // (stride D + 4, so 8 lanes reading 8 rows hit distinct banks).
 template <int D>
@@ -644,9 +977,13 @@ extern "C" int mp_attention_dense(const void* q, const void* k, const void* v,
   return with_types(dtype, D, device, [&](auto tag, auto dim) {
     using T = decltype(tag);
     constexpr int d = decltype(dim)::value;
+    const size_t smem = dense_fwd_smem<T, d>();
+    cudaError_t err = allow_smem(attention_dense_kernel<T, d>, smem);
+    if (err != cudaSuccess) return err;
+    using G = Dense<T, d>;
     const long long blocks =
-        static_cast<long long>(B) * H * ((N + DENSE_ROWS - 1) / DENSE_ROWS);
-    attention_dense_kernel<T, d><<<static_cast<unsigned>(blocks), DENSE_ROWS, 0, st>>>(
+        static_cast<long long>(B) * H * ((N + G::ROWS - 1) / G::ROWS);
+    attention_dense_kernel<T, d><<<static_cast<unsigned>(blocks), G::THREADS, smem, st>>>(
         static_cast<const T*>(q), static_cast<const T*>(k),
         static_cast<const T*>(v), static_cast<T*>(out), lse, H, N, sb, sh, sn,
         scale);
@@ -668,19 +1005,24 @@ extern "C" int mp_attention_dense_bwd(
   return with_types(dtype, D, device, [&](auto tag, auto dim) {
     using T = decltype(tag);
     constexpr int d = decltype(dim)::value;
+    const size_t dq_smem = dense_dq_smem<T, d>(), dkv_smem = dense_dkv_smem<T, d>();
+    cudaError_t err = allow_smem(attention_dense_bwd_dq_kernel<T, d>, dq_smem);
+    if (err != cudaSuccess) return err;
+    err = allow_smem(attention_dense_bwd_dkv_kernel<T, d>, dkv_smem);
+    if (err != cudaSuccess) return err;
+    using G = Dense<T, d>;
     const unsigned blocks = static_cast<unsigned>(
-        static_cast<long long>(B) * H * ((N + BWD_ROWS - 1) / BWD_ROWS));
-    const int threads = BWD_ROWS * row_threads<d>();
+        static_cast<long long>(B) * H * ((N + G::ROWS - 1) / G::ROWS));
     const T* qt = static_cast<const T*>(q);
     const T* kt = static_cast<const T*>(k);
     const T* vt = static_cast<const T*>(v);
     const T* gt = static_cast<const T*>(dout);
-    attention_dense_bwd_dq_kernel<T, d><<<blocks, threads, 0, st>>>(
+    attention_dense_bwd_dq_kernel<T, d><<<blocks, G::THREADS, dq_smem, st>>>(
         qt, kt, vt, static_cast<const T*>(o), gt, lse, delta,
         static_cast<T*>(dq), H, N, sb, sh, sn, ob, oh, on, gb, gh, gn, scale);
-    cudaError_t err = cudaGetLastError();
+    err = cudaGetLastError();
     if (err != cudaSuccess) return err;
-    attention_dense_bwd_dkv_kernel<T, d><<<blocks, threads, 0, st>>>(
+    attention_dense_bwd_dkv_kernel<T, d><<<blocks, G::THREADS, dkv_smem, st>>>(
         qt, kt, vt, gt, lse, delta, static_cast<T*>(dk), static_cast<T*>(dv),
         H, N, sb, sh, sn, ob, oh, on, gb, gh, gn, scale);
     return cudaGetLastError();

@@ -161,30 +161,6 @@ __device__ __forceinline__ void fc1_issue(uint32_t* slot, const T* x,
                                  w1 + static_cast<long long>(hc) * C + k, pitch, BH);
 }
 
-// A block's cp.async ring of NSTAGES slots of NSLOT words: ``issue(s)``
-// copies stage s of the block's flat schedule into slot s % NSTAGES (and
-// always commits a group); ``next()`` waits for the oldest stage, issues
-// the one NSTAGES - 1 ahead and returns the oldest stage's slot.
-template <int NSTAGES, int NSLOT, typename Issue>
-struct Ring {
-  uint32_t* smem;
-  Issue issue;
-  int s;
-  __device__ __forceinline__ const uint32_t* next() {
-    mp::cp_async_wait<NSTAGES - 2>();
-    __syncthreads();  // stage s landed; every warp is done with stage s - 1
-    issue(s + NSTAGES - 1);
-    return smem + (s++ % NSTAGES) * NSLOT;
-  }
-};
-template <int NSTAGES, int NSLOT, typename Issue>
-__device__ __forceinline__ Ring<NSTAGES, NSLOT, Issue> start_ring(uint32_t* smem,
-                                                                 Issue issue) {
-#pragma unroll 1
-  for (int s = 0; s < NSTAGES - 1; ++s) issue(s);
-  return Ring<NSTAGES, NSLOT, Issue>{smem, issue, 0};
-}
-
 // Store the (64, C) accumulator (+ bias when given) to rows < M of out, in
 // the (4 x NT) fragment layout of a warp owning C / 8 columns.
 template <typename T, int C>
@@ -259,7 +235,7 @@ fused_mlp_kernel(const T* __restrict__ x, const T* __restrict__ w1,
   const int w = warp_id();
   const int total = (H / BH) * PER;
 
-  auto ring = start_ring<STAGES, SLOT>(smem, [&](int s) {
+  auto ring = mp::start_ring<STAGES, SLOT>(smem, [&](int s) {
     if (s < total) {
       uint32_t* slot = smem + (s % STAGES) * SLOT;
       const int hc = (s / PER) * BH, j = s % PER;
@@ -351,7 +327,7 @@ fused_mlp_bwd_rows_kernel(const T* __restrict__ x, const T* __restrict__ g,
     cs[2 * H + c] = t;
   }
 
-  auto ring = start_ring<BWD_STAGES, BWD_SLOT>(smem, [&](int s) {
+  auto ring = mp::start_ring<BWD_STAGES, BWD_SLOT>(smem, [&](int s) {
     if (s < total) {
       uint32_t* slot = smem + (s % BWD_STAGES) * BWD_SLOT;
       const int hc = (s / PER) * BH, j = s % PER;
@@ -493,7 +469,7 @@ fused_mlp_bwd_gemm_kernel(const T* __restrict__ a, const T* __restrict__ b,
   const int total = (k_end - k_begin + WK - 1) / WK;
   const int w = warp_id(), wm = w >> 2, wn = w & 3;
 
-  auto ring = start_ring<WSTAGES, 2 * TILE>(smem, [&](int s) {
+  auto ring = mp::start_ring<WSTAGES, 2 * TILE>(smem, [&](int s) {
     if (s < total) {
       uint32_t* slot = smem + (s % WSTAGES) * 2 * TILE;
       const int k0 = k_begin + s * WK;

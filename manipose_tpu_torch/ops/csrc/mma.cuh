@@ -83,6 +83,30 @@ __device__ __forceinline__ void copy_tile(uint32_t* dst, int ld,
   }
 }
 
+// A block's cp.async ring of NSTAGES slots of NSLOT words: ``issue(s)``
+// copies stage s of the block's flat schedule into slot s % NSTAGES (and
+// always commits a group); ``next()`` waits for the oldest stage, issues
+// the one NSTAGES - 1 ahead and returns the oldest stage's slot.
+template <int NSTAGES, int NSLOT, typename Issue>
+struct Ring {
+  uint32_t* smem;
+  Issue issue;
+  int s;
+  __device__ __forceinline__ const uint32_t* next() {
+    cp_async_wait<NSTAGES - 2>();
+    __syncthreads();  // stage s landed; every warp is done with stage s - 1
+    issue(s + NSTAGES - 1);
+    return smem + (s++ % NSTAGES) * NSLOT;
+  }
+};
+template <int NSTAGES, int NSLOT, typename Issue>
+__device__ __forceinline__ Ring<NSTAGES, NSLOT, Issue> start_ring(uint32_t* smem,
+                                                                 Issue issue) {
+#pragma unroll 1
+  for (int s = 0; s < NSTAGES - 1; ++s) issue(s);
+  return Ring<NSTAGES, NSLOT, Issue>{smem, issue, 0};
+}
+
 // ---- fragment loads ---------------------------------------------------------
 
 __device__ __forceinline__ int lane_g() { return (threadIdx.x & 31) >> 2; }

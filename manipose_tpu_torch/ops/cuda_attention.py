@@ -78,14 +78,15 @@ def _check(q, k, v, max_n=None) -> None:
 
 def _check_rows(t, others, what: str) -> None:
     """``others`` share ``t``'s strides; rows are contiguous and every
-    stride and start is 4-element aligned (the kernels move 4 at a time)."""
+    stride and start is 16-byte aligned (the kernels copy 16 bytes at a
+    time)."""
     if any(o.stride() != t.stride() for o in others):
         raise ValueError(f"{what} must share strides (views of one tensor)")
-    if t.stride(3) != 1 or any(s % 4 for s in t.stride()[:3]):
-        raise ValueError(f"{what} rows must be contiguous and 4-element aligned")
+    if t.stride(3) != 1 or any(s * t.element_size() % 16 for s in t.stride()[:3]):
+        raise ValueError(f"{what} rows must be contiguous and 16-byte aligned")
     for o in (t, *others):
-        if o.data_ptr() % (4 * t.element_size()):
-            raise ValueError(f"{what} must start on a 4-element boundary")
+        if o.data_ptr() % 16:
+            raise ValueError(f"{what} must start on a 16-byte boundary")
 
 
 def _check_grad_inputs(q, tensors, what: str) -> None:

@@ -1,7 +1,8 @@
-"""Probes of the fused-MLP kernels on the card: what bounds them.
+"""Probes of the tensor-core kernels on the card: what bounds them.
 
 Run from the repository root on a machine with an H100 and the CUDA
-toolkit: ``python3 -m manipose_tpu_torch.ops.probes.run_probes``. It
+toolkit: ``python3 -m manipose_tpu_torch.ops.probes.run_probes [section
+...] [--against DIR]`` (sections as numbered below; all by default). It
 builds into ``build/probes/`` and prints:
 
 1. ``mma_rate``: the peak rate of mma.sync tf32 and bf16 on register
@@ -17,6 +18,19 @@ builds into ``build/probes/`` and prints:
    products of one of K5's two GEMMs skipped).
 4. ``k6``: the device time of each of K6's kernels at the same shape, from
    ``torch.profiler``.
+5. ``attention``: K1 and K2 at the flagship's shapes (rotations 272*8
+   windows of 243 x 64, segments 256*8 of 243 x 16), fp32 and bf16, in
+   turns, built from ``csrc/`` as it is (``base``, twice) and changed:
+   ``no_copy``, ``no_split`` and ``one_pass`` as for K5; ``no_scores``
+   (the products over d skipped: S, dP), ``no_rows`` (the products over
+   rows skipped: P V in K1; dS K, P^T dO and dS^T Q in K2), ``no_exp``
+   (the softmax's exp2 left out), ``stages3`` (a 3-slot ring),
+   ``blocks2`` and ``blocks3`` (registers capped for two or three blocks
+   an SM at every head dim), ``warps8`` (blocks of 8 warps owning 128
+   rows, one an SM). With
+   ``--against DIR`` it also times the kernels built from the source
+   directory DIR (an earlier commit's ``csrc/``, unpacked with ``git
+   archive``) as ``against``.
 
 The ablation patches the sources by text and stops if a patch point is
 gone; update the patches with the kernels.
@@ -24,6 +38,7 @@ gone; update the patches with the kernels.
 
 from __future__ import annotations
 
+import argparse
 import ctypes
 import shutil
 import subprocess
@@ -40,7 +55,7 @@ FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3")
 SHAPE = (66096, 512, 1024)
 
 # variant -> [(file, text, replacement, count)]
-ABLATIONS = {
+MLP_ABLATIONS = {
     "base": [],
     "one_pass": [("mma.cuh", "static constexpr int PASSES = 3;",
                   "static constexpr int PASSES = 1;", 1)],
@@ -63,29 +78,65 @@ def run_tool(name: str) -> None:
     subprocess.run([str(exe)], check=True)
 
 
-def build_variants() -> dict:
+_DENSE_SCORES = "for (int kk = 0; kk < G::KS; ++kk) {"
+_DENSE_ROWS = "for (int j = 0; j < TROWS / G::KK; ++j) {"
+_DENSE_BLOCKS = ("static constexpr int BLOCKS = (EW == 2 && D == 64) || (EW == 1 && D == 16)"
+                 " ? 3 : 2;")
+ATTENTION_VARIANTS = {
+    "base": [],
+    "no_copy": MLP_ABLATIONS["no_copy"],
+    "no_split": MLP_ABLATIONS["no_split"],
+    "one_pass": MLP_ABLATIONS["one_pass"],
+    "no_scores": [("attention.cu", _DENSE_SCORES,
+                   "for (int kk = 0; kk < 0; ++kk) {", 5)],
+    "no_rows": [("attention.cu", _DENSE_ROWS, "for (int j = 0; j < 0; ++j) {", 4)],
+    "no_exp": [("attention.cu", "sc[ni][e] = exp2f(sc[ni][e] - m[e >> 1]);",
+                "sc[ni][e] = sc[ni][e] - m[e >> 1];", 1),
+               ("attention.cu", "? exp2f(fmaf(sc[ni][e], c, -lr[e >> 1]))",
+                "? fmaf(sc[ni][e], c, -lr[e >> 1])", 1),
+               ("attention.cu", "exp2f(fmaf(st[ni][e], c, -ls[8 * ni + 2 * t + (e & 1)]))",
+                "fmaf(st[ni][e], c, -ls[8 * ni + 2 * t + (e & 1)])", 1)],
+    "stages3": [("attention.cu", "constexpr int DSTAGES = 2;", "constexpr int DSTAGES = 3;", 1)],
+    "blocks2": [("attention.cu", _DENSE_BLOCKS, "static constexpr int BLOCKS = 2;", 1)],
+    "blocks3": [("attention.cu", _DENSE_BLOCKS, "static constexpr int BLOCKS = 3;", 1)],
+    "warps8": [("attention.cu", "static constexpr int WARPS = 4;",
+                "static constexpr int WARPS = 8;", 1),
+               ("attention.cu", _DENSE_BLOCKS, "static constexpr int BLOCKS = 1;", 1)],
+}
+
+
+def build_variants(lib_name: str, variants: dict, against: Path | None = None) -> dict:
+    """Library ``lib_name`` built from a patched copy of ``csrc/`` per
+    variant (and from the directory ``against`` as variant "against"),
+    all nvcc processes at once."""
     procs = {}
-    for name, patches in ABLATIONS.items():
-        d = OUT / "ablate" / name
+    sources = {name: build.CSRC for name in variants}
+    if against is not None:
+        sources["against"] = against
+    for name, src_dir in sources.items():
+        d = OUT / lib_name / name
         shutil.rmtree(d, ignore_errors=True)
-        shutil.copytree(build.CSRC, d)
-        for file, text, new, count in patches:
+        shutil.copytree(src_dir, d)
+        for file, text, new, count in variants.get(name, []) if src_dir == build.CSRC else []:
             src = (d / file).read_text()
             if src.count(text) < count:
-                raise RuntimeError(f"ablation {name}: patch point gone from {file}")
+                raise RuntimeError(f"variant {name}: patch point gone from {file}")
             (d / file).write_text(src.replace(text, new, count))
-        cmd = [build.nvcc_path(), *build.NVCC_FLAGS, "-o", str(d / "mlp.so"), str(d / "mlp.cu")]
+        cmd = [build.nvcc_path(), *build.NVCC_FLAGS, "-o", str(d / f"{lib_name}.so"),
+               str(d / f"{lib_name}.cu")]
         procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                        text=True)
     libs = {}
     for name, proc in procs.items():
         log, _ = proc.communicate()
         if proc.returncode:
-            raise RuntimeError(f"ablation {name} failed to build:\n{log}")
-        lib = ctypes.CDLL(str(OUT / "ablate" / name / "mlp.so"))
-        for fn, argtypes in build.SIGNATURES["mlp"].items():
+            raise RuntimeError(f"variant {name} failed to build:\n{log}")
+        lib = ctypes.CDLL(str(OUT / lib_name / name / f"{lib_name}.so"))
+        for fn, argtypes in build.SIGNATURES[lib_name].items():
             getattr(lib, fn).argtypes = argtypes
             getattr(lib, fn).restype = ctypes.c_int
+        lib.mp_error_string.argtypes = [ctypes.c_int]
+        lib.mp_error_string.restype = ctypes.c_char_p
         libs[name] = lib
     return libs
 
@@ -155,16 +206,60 @@ def k6_kernels(gen) -> None:
                       f"{e.self_device_time_total / 1e3 / reps:.4f} ms a call")
 
 
+# (trunk, windows, heads, N, d) of the flagship's dense attention, B = 16
+ATTENTION_SHAPES = (("rotations", 16 * 17, 8, 243, 64), ("segments", 16 * 16, 8, 243, 16))
+
+
+def attention(libs: dict, gen) -> None:
+    """K1 and K2 of every variant, in turns (base first and last), through
+    the port's wrappers with the variant's library in place."""
+    from .. import cuda_attention as ca
+
+    order = ["base", *[n for n in libs if n != "base"], "base"]
+    for trunk, b, h, n, d in ATTENTION_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            qkv = torch.randn((b, n, 3, h, d), generator=gen, device="cuda")
+            q, k, v = (t.transpose(1, 2) for t in qkv.to(dtype).unbind(2))
+            dout = torch.randn((b, n, h, d), generator=gen, device="cuda")
+            dout = dout.to(dtype).transpose(1, 2)
+            lse = torch.empty((b, h, n), dtype=torch.float32, device="cuda")
+            scale = d**-0.5
+            for name in order:
+                build._libs["attention"] = libs[name]
+                out = ca.attention_dense(q, k, v, scale, lse=lse)
+                fwd = time_ms(lambda: ca.attention_dense(q, k, v, scale))
+                bwd = time_ms(lambda: ca.attention_dense_bwd(q, k, v, out, dout, lse, scale))
+                print(f"attention {trunk:9s} {str(dtype)[6:]:8s} {name:9s} "
+                      f"K1 {fwd:.4f} ms  K2 {bwd:.4f} ms", flush=True)
+    build._libs.pop("attention", None)
+
+
+SECTIONS = ("mma_rate", "accumulate", "ablate", "k6", "attention")
+
+
 def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("sections", nargs="*", help=f"any of {', '.join(SECTIONS)} (all)")
+    parser.add_argument("--against", type=Path, default=None,
+                        help="a csrc directory whose attention kernels to time too")
+    args = parser.parse_args()
+    if set(args.sections) - set(SECTIONS):
+        parser.error(f"sections are {', '.join(SECTIONS)}")
+    sections = args.sections or SECTIONS
     if not torch.cuda.is_available():
         print("run_probes: no CUDA device", file=sys.stderr)
         return 2
     OUT.mkdir(parents=True, exist_ok=True)
-    run_tool("mma_rate")
-    run_tool("accumulate")
+    for tool in ("mma_rate", "accumulate"):
+        if tool in sections:
+            run_tool(tool)
     gen = torch.Generator(device="cuda").manual_seed(0)
-    ablate(build_variants(), gen)
-    k6_kernels(gen)
+    if "ablate" in sections:
+        ablate(build_variants("mlp", MLP_ABLATIONS), gen)
+    if "k6" in sections:
+        k6_kernels(gen)
+    if "attention" in sections:
+        attention(build_variants("attention", ATTENTION_VARIANTS, args.against), gen)
     return 0
 
 

@@ -1,9 +1,11 @@
 """The port's CUDA kernels on the card: each forward (K1, K3, K5) and
 backward (K2, K4, K6) kernel against its plain version on the same inputs
 (ragged edges, every head dim and channel count the kernels take, strided
-and contiguous operands, fp32 and bf16), what the wrappers refuse, the
-autograd Functions against autograd through the plain versions, and a
-small model's Predictor and train step on the card against the CPU.
+and contiguous operands, fp32 and bf16), K1/K2 at every N around their
+tiles, against fp64 and, for K2, run twice for bit-for-bit equality, what
+the wrappers refuse, the autograd Functions against autograd through the
+plain versions, and a small model's Predictor and train step on the card
+against the CPU.
 Marked ``cuda``; without a CUDA device every test skips. Run them on the
 card with ``python -m pytest tests/test_torch_port_cuda.py -q
 --noconftest``: tests/conftest.py sets up JAX for the rest of the suite,
@@ -232,6 +234,60 @@ def test_dense_bwd_kernel_matches_plain(gen, b, h, n, d, strided, dtype):
     want = _plain_dqkv(q, k, v, dout, scale)
     assert got.shape == (b, n, 3, h, d) and got.dtype == dtype
     assert _max_err(got, want) <= _grad_tol(want, dtype, relative=False)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("d", [64, 8])
+@pytest.mark.parametrize("n", [1, 15, 16, 63, 64, 65, 127, 243, 256])
+def test_dense_kernels_at_tile_edges(gen, n, d, dtype):
+    """K1 (output and log-sum-exp) and K2 at every N around the 16-row warp
+    tiles and 64-row block tiles; d = 8 in bf16 pads each row to one
+    16-wide k-step."""
+    b, h = 2, 3
+    q, k, v = _qkv(gen, b, h, n, d, dtype, strided=True)
+    scale = d**-0.5
+    lse = torch.empty((b, h, n), dtype=torch.float32, device="cuda")
+    out = attention_dense(q, k, v, scale, lse=lse)
+    assert _max_err(out, attention_plain(q, k, v, scale)) <= TOL[dtype][0]
+    exact = torch.logsumexp(scale * q.double() @ k.double().transpose(-1, -2), -1)
+    assert _max_err(lse, exact) <= 1e-5 * max(1.0, exact.abs().max().item())
+    dout = _dout_like(gen, out)
+    got = attention_dense_bwd(q, k, v, out, dout, lse, scale)
+    want = _plain_dqkv(q, k, v, dout, scale)
+    assert _max_err(got, want) <= _grad_tol(want, dtype, relative=False)
+
+
+@pytest.mark.parametrize("n,d", [(243, 64), (243, 16), (100, 32)])
+def test_dense_kernels_match_float64(gen, n, d):
+    """K1 and K2 in fp32 (3xTF32 on the tensor cores) against attention and
+    its autograd gradient in fp64 on the CPU, within the JAX package's 2e-5
+    and 5e-4."""
+    b, h = 2, 4
+    q, k, v = _qkv(gen, b, h, n, d, torch.float32, strided=True)
+    scale = d**-0.5
+    lse = torch.empty((b, h, n), dtype=torch.float32, device="cuda")
+    out = attention_dense(q, k, v, scale, lse=lse)
+    dout = _dout_like(gen, out)
+    got = attention_dense_bwd(q, k, v, out, dout, lse, scale)
+    leaves = [t.double().cpu().requires_grad_() for t in (q, k, v)]
+    want = torch.softmax(scale * leaves[0] @ leaves[1].transpose(-1, -2), -1) @ leaves[2]
+    grads = torch.autograd.grad(want, leaves, dout.double().cpu())
+    assert (out.double().cpu() - want.detach()).abs().max().item() <= 2e-5
+    want_dqkv = torch.stack([g.transpose(1, 2) for g in grads], dim=2)
+    assert (got.double().cpu() - want_dqkv).abs().max().item() <= 5e-4
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_dense_bwd_kernel_is_deterministic(gen, dtype):
+    """K2 uses no atomics: every row of dQ, dK and dV is summed by one warp
+    in a fixed order, so two runs agree bit for bit."""
+    q, k, v = _qkv(gen, 4, 8, 243, 64, dtype, strided=True)
+    lse = torch.empty((4, 8, 243), dtype=torch.float32, device="cuda")
+    out = attention_dense(q, k, v, 0.125, lse=lse)
+    dout = _dout_like(gen, out)
+    first = attention_dense_bwd(q, k, v, out, dout, lse, 0.125)
+    second = attention_dense_bwd(q, k, v, out, dout, lse, 0.125)
+    assert torch.equal(first, second)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)

@@ -10,6 +10,8 @@ Tolerances are the JAX package's own gradient ones
 attention, 5e-4 * max(1, |ref|max) for the MLP in fp32 and 0.05 times
 that scale in bf16."""
 
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -31,7 +33,12 @@ from manipose_tpu_torch.ops.cuda_attention import (
     attention_plain,
     attention_plain_bwd,
 )
-from manipose_tpu_torch.ops.cuda_mlp import fused_mlp, mlp_plain, mlp_plain_bwd
+from manipose_tpu_torch.ops.cuda_mlp import (
+    fused_mlp,
+    mlp_plain,
+    mlp_plain_bwd,
+    round_to_tf32,
+)
 
 ATTN_GRAD_TOL = 5e-4
 MLP_GRAD_TOL = {torch.float32: 5e-4, torch.bfloat16: 0.05}
@@ -77,6 +84,102 @@ def test_attention_wrappers_on_cpu_give_the_qkv_gradient(kind, n):
     assert got.shape == (b, n, 3, h, d)
     for i, want in enumerate(attention_plain_bwd(q, k, v, do, 0.25)):
         assert torch.equal(got[:, :, i].transpose(1, 2), want)
+
+
+LOG2E = math.log2(math.e)
+
+
+def _tf32_product(a, b, passes):
+    """a @ b with both operands split as the fp32 kernels split them, three
+    tf32 passes (small*big + big*small + big*big) or one (big*big)."""
+    a_big, b_big = round_to_tf32(a), round_to_tf32(b)
+    if passes == 1:
+        return a_big @ b_big
+    a_small, b_small = round_to_tf32(a - a_big), round_to_tf32(b - b_big)
+    return a_small @ b_big + a_big @ b_small + a_big @ b_big
+
+
+# a 64-row tile's rows in the order the fp32 k-steps over rows take them
+# (k-index t reads row 2t, t + 4 row 2t + 1; attention.cu, acc_to_a and
+# load_b_rows)
+TILE_ROWS = (torch.arange(0, 64, 8)[:, None]
+             + torch.tensor([0, 2, 4, 6, 1, 3, 5, 7])).reshape(-1)
+
+
+def k2_arithmetic(q, k, v, out, do, lse, scale, passes=3):
+    """K2's fp32 arithmetic on the CPU, both passes over operands
+    zero-padded to whole 64-row tiles. The dQ pass walks 64-key tiles:
+    P = exp2(c S - lse) (keys past N at 0), dP = dO V^T, dS = P (dP -
+    delta), dQ += dS K. The dK/dV pass walks 64-query tiles on the
+    transposed scores: P^T, dP^T = V dO^T, dS^T, dV += P^T dO,
+    dK += dS^T Q (queries past N with lse = +inf, so P^T is 0 there).
+    Every product over rows runs from a fresh sum over one tile."""
+    n = q.shape[2]
+    n_pad = -(-n // 64) * 64
+
+    def pad(t, value=0.0):
+        return torch.nn.functional.pad(t, (0, 0, 0, n_pad - n), value=value)
+
+    qp, kp, vp, dop = map(pad, (q, k, v, do))
+    c = scale * LOG2E
+    lse2 = pad(lse[..., None] * LOG2E, math.inf)  # (b, h, n_pad, 1)
+    delta = pad((do * out).sum(-1, keepdim=True))
+    valid = torch.arange(n_pad) < n
+    dq, dk, dv = (torch.zeros_like(qp) for _ in range(3))
+    for r0 in range(0, n_pad, 64):
+        rows = slice(r0, r0 + 64)
+        kt, vt, qt, dot = kp[:, :, rows], vp[:, :, rows], qp[:, :, rows], dop[:, :, rows]
+        # dQ pass, this key tile
+        p = torch.exp2(_tf32_product(qp, kt.transpose(-1, -2), passes) * c - lse2)
+        p = p.masked_fill(~valid[rows], 0.0)
+        ds = p * (_tf32_product(dop, vt.transpose(-1, -2), passes) - delta)
+        dq += _tf32_product(ds[..., TILE_ROWS], kt[:, :, TILE_ROWS], passes)
+        # dK/dV pass, this query tile
+        pt = torch.exp2(_tf32_product(kp, qt.transpose(-1, -2), passes) * c
+                        - lse2[:, :, rows].transpose(-1, -2))
+        dv += _tf32_product(pt[..., TILE_ROWS], dot[:, :, TILE_ROWS], passes)
+        dst = pt * (_tf32_product(vp, dot.transpose(-1, -2), passes)
+                    - delta[:, :, rows].transpose(-1, -2))
+        dk += _tf32_product(dst[..., TILE_ROWS], qt[:, :, TILE_ROWS], passes)
+    return dq[:, :, :n] * scale, dk[:, :, :n] * scale, dv[:, :, :n]
+
+
+def _pallas_grads_and_k2(q, k, v, do, scale, passes):
+    """jax.grad through flash_attention, and K2's arithmetic from the
+    exact forward's output and log-sum-exp."""
+    want = jax.grad(lambda *a: jnp.sum(flash_attention(*a, scale) * do), argnums=(0, 1, 2))(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v)
+    )
+    tq, tk, tv, tdo = map(torch.from_numpy, (q, k, v, do))
+    scores = scale * tq @ tk.transpose(-1, -2)
+    out = torch.softmax(scores, -1) @ tv
+    got = k2_arithmetic(tq, tk, tv, out, tdo, torch.logsumexp(scores, -1), scale, passes)
+    return got, want
+
+
+@pytest.mark.parametrize("b,h,n,d", [(2, 4, 243, 64), (3, 2, 128, 32), (2, 3, 100, 16)])
+def test_k2_tensor_core_arithmetic_matches_pallas_grad(b, h, n, d):
+    """K2's 3xTF32 passes stay within the JAX package's 5e-4 of the
+    custom_vjp gradients of flash_attention."""
+    rng = np.random.default_rng(15)
+    q, k, v, do = (_normal(rng, (b, h, n, d)) for _ in range(4))
+    got, want = _pallas_grads_and_k2(q, k, v, do, d**-0.5, passes=3)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=ATTN_GRAD_TOL,
+                                   rtol=0, err_msg=name)
+
+
+def test_k2_one_tf32_pass_misses_the_gradient_tolerance():
+    """With its operands rounded to tf32 once, K2 at the flagship's N = 243,
+    d = 64 is off by more than 5e-4."""
+    rng = np.random.default_rng(15)
+    q, k, v, do = (_normal(rng, (2, 4, 243, 64)) for _ in range(4))
+    errs = {}
+    for passes in (3, 1):
+        got, want = _pallas_grads_and_k2(q, k, v, do, 0.125, passes)
+        errs[passes] = max(np.abs(g.numpy() - np.asarray(w)).max()
+                           for g, w in zip(got, want))
+    assert errs[3] <= ATTN_GRAD_TOL < errs[1]
 
 
 def _merged_plain_attention(qkv, h, scale):

@@ -3,6 +3,8 @@ kernels against the Pallas kernels (interpret mode on the CPU), device
 dispatch and launch counting. The kernels themselves are checked on the
 card by tests/test_torch_port_cuda.py and chip_smoke.py."""
 
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -169,6 +171,82 @@ def test_3xtf32_forward_holds_the_fp32_tolerance():
         errs[mm.__name__] = (out.double() - ref).abs().max().item()
     assert errs["three_pass"] <= MLP_TOL
     assert errs["one_pass"] > MLP_TOL
+
+
+LOG2E = math.log2(math.e)
+# the fp32 kernels' k-index permutation within an 8-key k-step of P V:
+# k-index t reads key 2t, t + 4 reads key 2t + 1 (attention.cu, acc_to_a and
+# load_b_rows)
+KEY_PERM = torch.tensor([0, 2, 4, 6, 1, 3, 5, 7])
+
+
+def _tf32_product(a, b, passes):
+    """a @ b with both operands split as the fp32 kernels split them, three
+    tf32 passes (small*big + big*small + big*big) or one (big*big)."""
+    a_big, b_big = round_to_tf32(a), round_to_tf32(b)
+    if passes == 1:
+        return a_big @ b_big
+    a_small, b_small = round_to_tf32(a - a_big), round_to_tf32(b - b_big)
+    return a_small @ b_big + a_big @ b_small + a_big @ b_big
+
+
+def _tile_keys(width):
+    """The keys of a tile in the order the fp32 k-steps take them."""
+    return (torch.arange(0, width, 8)[:, None] + KEY_PERM).reshape(-1)
+
+
+def k1_arithmetic(q, k, v, scale, passes=3):
+    """K1's fp32 arithmetic on the CPU: K and V zero-padded to whole 64-key
+    tiles; per tile S = Q K^T in log2 units (keys past N at -inf), the
+    online softmax, P V from a fresh sum over the tile's keys in the fp32
+    k-step order, and o = o * corr + pv. Returns (out, lse)."""
+    n = q.shape[2]
+    n_pad = -(-n // 64) * 64
+    kp, vp = (torch.nn.functional.pad(t, (0, 0, 0, n_pad - n)) for t in (k, v))
+    valid = torch.arange(n_pad) < n
+    keys = _tile_keys(64)
+    c = scale * LOG2E
+    m = torch.full(q.shape[:3] + (1,), -math.inf)
+    l = torch.zeros_like(m)
+    o = torch.zeros_like(q)
+    for k0 in range(0, n_pad, 64):
+        kt, vt = kp[:, :, k0:k0 + 64], vp[:, :, k0:k0 + 64]
+        s = _tf32_product(q, kt.transpose(-1, -2), passes) * c
+        s = s.masked_fill(~valid[k0:k0 + 64], -math.inf)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        corr = torch.exp2(m - m_new)
+        p = torch.exp2(s - m_new)
+        l = l * corr + p.sum(-1, keepdim=True)
+        o = o * corr + _tf32_product(p[..., keys], vt[:, :, keys], passes)
+        m = m_new
+    return o / l, ((m + torch.log2(l)) / LOG2E)[..., 0]
+
+
+@pytest.mark.parametrize("b,h,n,d", [(2, 4, 243, 64), (3, 2, 128, 32), (2, 3, 100, 16)])
+def test_k1_tensor_core_arithmetic_matches_pallas(b, h, n, d):
+    """K1's 3xTF32 tiles with the online rescale stay within the JAX
+    package's 2e-5 of its flash_attention, and its log-sum-exp within 1e-5
+    of the exact one."""
+    q, k, v = _qkv(b, h, n, d, seed=8)
+    scale = d**-0.5
+    want = flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), scale)
+    tq, tk, tv = map(torch.from_numpy, (q, k, v))
+    got, lse = k1_arithmetic(tq, tk, tv, scale)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATTN_TOL, rtol=0)
+    exact = torch.logsumexp(scale * tq.double() @ tk.double().transpose(-1, -2), -1)
+    np.testing.assert_allclose(lse.numpy(), exact.numpy(), atol=1e-5, rtol=0)
+
+
+def test_k1_one_tf32_pass_misses_the_fp32_tolerance():
+    """The reason for three passes: with its operands rounded to tf32 once,
+    K1 at the flagship's N = 243, d = 64 is off by more than 2e-5."""
+    q, k, v = _qkv(2, 4, 243, 64, seed=9)
+    want = flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), 0.125)
+    errs = {}
+    for passes in (3, 1):
+        got, _ = k1_arithmetic(*map(torch.from_numpy, (q, k, v)), 0.125, passes)
+        errs[passes] = np.abs(got.numpy() - np.asarray(want)).max()
+    assert errs[3] <= ATTN_TOL < errs[1]
 
 
 def test_cpu_tensors_take_the_plain_path():
