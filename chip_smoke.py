@@ -7,16 +7,21 @@ package. Phases, each fatal on failure:
 
 1. build    - compile every CUDA kernel of ``manipose_tpu_torch/ops/csrc``
               with nvcc (one process per source, in parallel); print each
-              kernel's registers and spills, and each library's count of
-              tensor-core instructions in its SASS (cuobjdump), which must
-              be more than 0.
+              kernel's registers and spills, and the count of tensor-core
+              instructions in the SASS (cuobjdump) of each library, which
+              must be more than 0, and of each device kernel, which must
+              be more than 0 in every instantiation of K3 and K4; print
+              K3's and K4's launch shapes (warps, ring slots, blocks an
+              SM) per dtype and head dim.
 2. kernels  - each kernel (K1 dense attention, K3 per-window attention,
               K5 fused MLP, and their backward kernels K2, K4, K6) against
               its plain PyTorch version at the shapes the flagship gives
               it, in fp32 and bf16, timed (with its achieved TFLOP/s)
               beside its plain version, its roofline bound and one PyTorch
               library call computing the same function (the median of 5
-              groups of 10 launches).
+              groups of 10 launches). Times are CUDA events around 10
+              launches queued behind a sleep kernel, so the host's time
+              to launch is not counted.
 3. flagship - ``Predictor.predict_video`` at ``configs/config.yaml`` (rMCL,
               fp32, 16 windows of 243 frames, TTA on) with seeded random
               weights: output checks, the manifold invariant, the kernel
@@ -101,6 +106,10 @@ TRAIN_BATCH = 16
 TRAIN_LR = 4e-5
 TRAIN_WEIGHT_DECAY = 1e-6
 TRAIN_STEPS = 10
+# cycles of the sleep kernel ahead of a timed run of launches (~5 ms at the
+# H100's 1.98 GHz boost clock): longer than the host takes to enqueue 10
+# launches of any kernel timed here
+SLEEP_CYCLES = 10_000_000
 # CPU vs card train step on one window: each loss term relative (the JAX
 # package's model tolerance); each gradient within GRAD_TOL[fp32] of its
 # tensor's max(1, |g|max)
@@ -174,23 +183,75 @@ def ptxas_summary(log: str):
 def tensor_core_instructions(name: str) -> dict:
     """SASS instructions of library ``name`` that run on the tensor cores
     (``HMMA`` from mma.sync, ``HGMMA`` from wgmma), from ``cuobjdump
-    --dump-sass`` of the built library."""
+    --dump-sass`` of the built library: {function (mangled): {op: count}}."""
     from manipose_tpu_torch.ops import build
 
     tool = Path(build.nvcc_path()).with_name("cuobjdump")
     sass = subprocess.run([str(tool), "--dump-sass", str(build._target(name))],
                           capture_output=True, text=True, timeout=300,
                           check=True).stdout
-    ops = re.findall(r"\b(HGMMA|HMMA)\.", sass)
-    return {op: ops.count(op) for op in ("HMMA", "HGMMA")}
+    counts = {}
+    for part in re.split(r"^\s*Function : ", sass, flags=re.M)[1:]:
+        function, body = part.split("\n", 1)
+        ops = re.findall(r"\b(HGMMA|HMMA)\.", body)
+        counts[function.strip()] = {op: ops.count(op) for op in ("HMMA", "HGMMA")}
+    return counts
+
+
+def phase_build(build) -> None:
+    """Every kernel built; each library's and each wrapper's device kernels'
+    tensor-core instructions (fatal where a library has none, or a
+    per-window attention kernel has none); K3's and K4's launch shapes."""
+    from manipose_tpu_torch.ops import cuda_attention as ca
+
+    t0 = time.perf_counter()
+    logs = build.build_all()
+    print(f"build: {sorted(logs)} in {time.perf_counter() - t0:.1f} s", flush=True)
+    for name, log in logs.items():
+        for line in ptxas_summary(log):
+            print(f"  nvcc {name}: {line}")
+    for name in build.SIGNATURES:
+        by_function = tensor_core_instructions(name)
+        total = {op: sum(c[op] for c in by_function.values()) for op in ("HMMA", "HGMMA")}
+        print(f"sass {name}: tensor-core instructions {sum(total.values())} "
+              f"({', '.join(f'{k} {v}' for k, v in total.items())})", flush=True)
+        require(sum(total.values()) > 0, f"the {name} kernels run on the tensor cores")
+        for ours, device_names in DEVICE_KERNELS.items():
+            for device_name in device_names:
+                found = [c for f, c in by_function.items() if re.search(
+                    rf"\d{device_name}[IE]", f)]
+                if not found:
+                    continue
+                hmma = sum(c["HMMA"] + c["HGMMA"] for c in found)
+                print(f"  sass {ours}: {device_name} x{len(found)} instantiations, "
+                      f"tensor-core instructions {hmma}")
+                if ours.startswith("attention_packed"):
+                    require(all(c["HMMA"] + c["HGMMA"] > 0 for c in found),
+                            f"every {device_name} runs on the tensor cores")
+    for dtype in (torch.float32, torch.bfloat16):
+        for d in ca.HEAD_DIMS:
+            for n in (17, 16):
+                line = []
+                for kind, backward in (("K3", False), ("K4", True)):
+                    shape = ca.packed_launch_shape(dtype, d, n, backward, 1 << 30)
+                    line.append(f"{kind} {shape['warps']} warps x {shape['slots']} slots, "
+                                f"{shape['blocks_per_sm']} blocks/SM, "
+                                f"{shape['smem_bytes']} B a block")
+                print(f"packed shape {str(dtype)[6:]:8s} d={d:2d} N={n}: "
+                      + "; ".join(line), flush=True)
 
 
 def time_ms(fn, reps: int = 10) -> float:
-    """Mean device time of ``fn`` over ``reps`` launches, after a warm-up."""
+    """Mean device time of ``fn`` over ``reps`` launches, after a warm-up.
+    A sleep kernel ahead of the start event keeps the card busy while the
+    host enqueues the launches, so the host's time to launch (tens of
+    microseconds a call, as long as the shortest kernels here) is not
+    counted as the kernel's."""
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SLEEP_CYCLES)
     start.record()
     for _ in range(reps):
         fn()
@@ -716,17 +777,7 @@ def main() -> int:
           f"{triton_version}; TF32 matmul {torch.backends.cuda.matmul.allow_tf32}, "
           f"cudnn {torch.backends.cudnn.allow_tf32}", flush=True)
 
-    t0 = time.perf_counter()
-    logs = build.build_all()
-    print(f"build: {sorted(logs)} in {time.perf_counter() - t0:.1f} s", flush=True)
-    for name, log in logs.items():
-        for line in ptxas_summary(log):
-            print(f"  nvcc {name}: {line}")
-    for name in build.SIGNATURES:
-        counts = tensor_core_instructions(name)
-        print(f"sass {name}: tensor-core instructions {sum(counts.values())} "
-              f"({', '.join(f'{k} {v}' for k, v in counts.items())})", flush=True)
-        require(sum(counts.values()) > 0, f"the {name} kernels run on the tensor cores")
+    phase_build(build)
 
     t0 = time.perf_counter()
     cases = phase_kernels()

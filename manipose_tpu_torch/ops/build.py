@@ -54,6 +54,8 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         # q, k, v, dout, dq, dk, dv, then as the dense backward
         "mp_attention_packed_bwd": [_P] * 7 + [_I] * 5 + [_L] * 9
                                    + [_F, _I, _P],
+        # dtype, D, N, backward, windows, device, int[5] out
+        "mp_attention_packed_shape": [_I] * 6 + [_P],
     },
     "mlp": {
         # x, w1, b1, w2, b2, out, dtype, M, C, H, device, stream

@@ -32,7 +32,8 @@
 // ~0.50 ms. mma.sync itself peaks lower on the card (probes/mma_rate.cu).
 // Packed (31104 windows of 17 x 64): 2.3 GFLOP against 0.54 GB, so memory
 // (3.35 TB/s) bounds it at ~0.16 ms, and its backward, which moves seven
-// such tensors, at ~0.28 ms.
+// such tensors, at ~0.28 ms; padded to its tiles (32 queries, 24 keys)
+// fp32 K4 still runs ~46 GFLOP of tf32 mma, ~0.14 ms at mma.sync's peak.
 //
 // Dense design: FlashAttention-2 on warp-level mma.sync (mma.cuh). The TPU
 // kernel holds the whole N x N fp32 score matrix in VMEM; at N = 243 that
@@ -80,22 +81,47 @@
 // dO) stay in shared memory rather than registers, where their split
 // fragments would not fit beside the dK and dV sums.
 //
-// Packed design. The TPU packs G tiny windows into one block-diagonal
-// (G*N)^2 tile to fill its 128 x 128 matrix unit. Here that trick has no
-// use: one warp takes one window, each lane one query row, K, V and Q are
-// staged with coalesced 16-byte loads, and the output is staged back
-// through shared memory so it leaves with coalesced stores. No masking is
-// needed. Four warps per block keep enough loads in flight across the 132
-// SMs for a memory-bound kernel. The packed backward stages Q, K, V and dO
-// of its window and works as the TPU kernel does: each lane recomputes its
-// row of P and dS in registers and leaves them in shared memory; then lane
-// j sums column j for dK and dV and lane i row i for dQ, each result
-// written over a staged input that is no longer read, and all three leave
-// with coalesced stores. Both run fp32 arithmetic on the CUDA cores.
+// Packed design (K3, K4). The TPU packs G tiny windows into one
+// block-diagonal (G*N)^2 tile to fill its 128 x 128 matrix unit; the mma
+// tiles here are small enough that one warp takes one window, and nothing
+// is masked but the keys past N. What each point of the design chose:
+// - Copies in flight. The grid is persistent: as many blocks as the SMs
+//   hold at once (cudaOccupancyMaxActiveBlocksPerMultiprocessor), each
+//   warp walking windows w, w + (grid warps), ... through a cp.async ring
+//   of its own (only __syncwarp, no block barrier). Inputs stay in their
+//   own type at the dense kernels' row stride. The ring holds SLOTS
+//   windows: two (the next window's rows load while this one computes),
+//   but one at fp32 d = 64, where K4 bounds the warps an SM by shared
+//   memory and a second slot halves them; measured, more warps hide the
+//   copies better than a second slot does (run_probes packed).
+// - Padding without storage. Query rows fill one or two 16-row tiles and
+//   keys 8-key tiles (24 at N = 17, 16 at N = 16), but a slot holds only
+//   the N rows copied: fragment loads of rows at or past N read the
+//   block's zero row instead, so padded queries score 0, padded keys are
+//   set to -inf before the softmax and padded rows of V, K, dO and Q
+//   weigh in as zeros.
+// - Every lane on the tensor cores, as K1/K2: bf16 in one m16n8k16 pass,
+//   fp32 as 3xTF32. Every reduction is at most 64 long (d or N), so each
+//   product runs from one fresh accumulator. The softmax takes row max and
+//   sum over the quad of lanes; P (and dS) feed P V (dS K) from registers
+//   with K1's k permutation.
+// - K4's transposed products. dV = P^T dO and dK = scale dS^T Q take P^T
+//   and dS^T from a scratch of the warp's shared memory, written
+//   transposed from the fragments (fp32 with each 8-query group permuted
+//   to the k order load_b_staged_rows reads) and read with ldmatrix.
+//   Recomputing the transposed scores, as K2 does, saves the scratch but
+//   measured 1.7x (bf16) to 2.6x (fp32) slower at the flagship's
+//   rotations shape (run_probes packed, recompute).
+// - Outputs leave from the fragments, each lane two adjacent elements of
+//   a row, rows below N only.
+// - One warp owns every output of a window and sums it in a fixed order:
+//   no atomics, and repeated runs agree bit for bit.
 //
 // Not yet: wgmma and TMA with warp specialisation.
 
+#include <atomic>
 #include <cmath>
+#include <mutex>
 #include <type_traits>
 
 #include "common.cuh"
@@ -103,33 +129,10 @@
 
 namespace {
 
-constexpr int SUB = 8;           // keys scored in registers per rescale
-constexpr int PACKED_WARPS = 4;  // windows per block
 constexpr int PACKED_MAX_N = 32;
 
 __device__ __forceinline__ float dot4(float4 a, float4 b) {
   return fmaf(a.x, b.x, fmaf(a.y, b.y, fmaf(a.z, b.z, a.w * b.w)));
-}
-
-__device__ __forceinline__ void fma4(float s, float4 a, float4& acc) {
-  acc.x = fmaf(s, a.x, acc.x);
-  acc.y = fmaf(s, a.y, acc.y);
-  acc.z = fmaf(s, a.z, acc.z);
-  acc.w = fmaf(s, a.w, acc.w);
-}
-
-__device__ __forceinline__ float4 scale4(float4 a, float s) {
-  return make_float4(a.x * s, a.y * s, a.z * s, a.w * s);
-}
-
-__device__ __forceinline__ float4 zero4() { return make_float4(0.f, 0.f, 0.f, 0.f); }
-
-__device__ __forceinline__ float4 lds4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-
-__device__ __forceinline__ void sts4(float* p, float4 v) {
-  *reinterpret_cast<float4*>(p) = v;
 }
 
 // ---- dense kernels (K1, K2) on the tensor cores ----------------------------
@@ -210,13 +213,13 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-// A fragment (all parts) of k-step j of a product whose k runs over the 64
-// columns of the accumulator c (16 rows: P, dS or their transposes): bf16
-// packs tiles 2j and 2j + 1 as they lie; fp32 takes tile j with its
+// A fragment (all parts) of k-step j of a product whose k runs over the
+// 8 * NT columns of the accumulator c (16 rows: P, dS or their transposes):
+// bf16 packs tiles 2j and 2j + 1 as they lie; fp32 takes tile j with its
 // k-index permuted (t <-> column 2t, t + 4 <-> column 2t + 1).
-template <typename T>
+template <typename T, int NT>
 __device__ __forceinline__ void acc_to_a(uint32_t (&a)[mp::Mma<T>::PARTS][4],
-                                         const float (&c)[8][4], int j) {
+                                         const float (&c)[NT][4], int j) {
   if constexpr (std::is_same<T, float>::value) {
     const uint32_t w[4] = {__float_as_uint(c[j][0]), __float_as_uint(c[j][2]),
                            __float_as_uint(c[j][1]), __float_as_uint(c[j][3])};
@@ -247,26 +250,41 @@ __device__ __forceinline__ void load_b_rows(uint32_t (&w)[2], const uint32_t* s,
   }
 }
 
-// acc[ni] += A B(ni) over one k-step for ni < NT, every pass, A split
-// already; ``load_b(ni, w)`` fetches B(ni)'s raw words, split here. The
-// passes run one after the other over the NT tiles, so consecutive mma are
-// independent.
-template <typename T, int NT, typename LB>
-__device__ __forceinline__ void mma_row(float (&acc)[NT][4],
-                                        const uint32_t (&a)[mp::Mma<T>::PARTS][4],
-                                        LB load_b) {
+// acc[mi][ni] += A(mi) B(ni) over one k-step for every mi and ni < nt,
+// every pass; A split already, ``load_b(ni, w)`` fetches B(ni)'s raw words.
+// The passes run one after the other over all tiles, so consecutive mma
+// are independent.
+template <typename T, int MT, int NT, typename LB>
+__device__ __forceinline__ void mma_tiles(float (&acc)[MT][NT][4],
+                                          const uint32_t (&a)[MT][mp::Mma<T>::PARTS][4],
+                                          int nt, LB load_b) {
   using M = mp::Mma<T>;
   uint32_t b[NT][M::PARTS][2];
 #pragma unroll
   for (int ni = 0; ni < NT; ++ni) {
-    uint32_t w[2];
-    load_b(ni, w);
-    M::split(w, b[ni]);
+    if (ni < nt) {
+      uint32_t w[2];
+      load_b(ni, w);
+      M::split(w, b[ni]);
+    }
   }
 #pragma unroll
   for (int pass = 0; pass < M::PASSES; ++pass)
 #pragma unroll
-    for (int ni = 0; ni < NT; ++ni) M::mma(acc[ni], a, b[ni], pass);
+    for (int ni = 0; ni < NT; ++ni)
+      if (ni < nt) {
+#pragma unroll
+        for (int mi = 0; mi < MT; ++mi) M::mma(acc[mi][ni], a[mi], b[ni], pass);
+      }
+}
+
+// The same for one row tile and all NT column tiles.
+template <typename T, int NT, typename LB>
+__device__ __forceinline__ void mma_row(float (&acc)[NT][4],
+                                        const uint32_t (&a)[mp::Mma<T>::PARTS][4],
+                                        LB load_b) {
+  mma_tiles<T>(reinterpret_cast<float (&)[1][NT][4]>(acc),
+               reinterpret_cast<const uint32_t (&)[1][mp::Mma<T>::PARTS][4]>(a), NT, load_b);
 }
 
 // The online softmax over one 64-key tile of scores sc (rows g and g + 8 in
@@ -684,254 +702,470 @@ constexpr size_t dense_dkv_smem() {
   return 4u * (2 * Dense<T, D>::OWN + 2 * DSTAGES * Dense<T, D>::TILE + 2 * DSTAGES * TROWS);
 }
 
-// ---- per-window kernels (N <= 32) -----------------------------------------
-// Fold keys [0, kn) of the staged K/V rows (row stride D floats) into one
-// query row's online-softmax state (o, m, l).
-template <int D>
-__device__ __forceinline__ void attend_keys(const float (&qr)[D],
-                                            const float* Ks, const float* Vs,
-                                            int kn, float scale, float (&o)[D],
-                                            float& m, float& l) {
-  for (int j0 = 0; j0 < kn; j0 += SUB) {
-    float s[SUB];
-    float mx = -INFINITY;
-#pragma unroll
-    for (int jj = 0; jj < SUB; ++jj) {
-      float acc = -INFINITY;
-      if (j0 + jj < kn) {
-        const float4* kr = reinterpret_cast<const float4*>(Ks + (j0 + jj) * D);
-        acc = 0.f;
-#pragma unroll
-        for (int c = 0; c < D / 4; ++c) {
-          const float4 kv = kr[c];
-          acc = fmaf(qr[4 * c + 0], kv.x, acc);
-          acc = fmaf(qr[4 * c + 1], kv.y, acc);
-          acc = fmaf(qr[4 * c + 2], kv.z, acc);
-          acc = fmaf(qr[4 * c + 3], kv.w, acc);
-        }
-        acc *= scale;
-      }
-      s[jj] = acc;
-      mx = fmaxf(mx, acc);
-    }
-    const float m_new = fmaxf(m, mx);  // finite: key j0 is always valid
-    const float corr = __expf(m - m_new);  // 0 on the first step (m = -inf)
-    l *= corr;
-#pragma unroll
-    for (int c = 0; c < D; ++c) o[c] *= corr;
-#pragma unroll
-    for (int jj = 0; jj < SUB; ++jj) {
-      if (j0 + jj < kn) {
-        const float p = __expf(s[jj] - m_new);
-        l += p;
-        const float4* vr = reinterpret_cast<const float4*>(Vs + (j0 + jj) * D);
-#pragma unroll
-        for (int c = 0; c < D / 4; ++c) {
-          const float4 vv = vr[c];
-          o[4 * c + 0] = fmaf(p, vv.x, o[4 * c + 0]);
-          o[4 * c + 1] = fmaf(p, vv.y, o[4 * c + 1]);
-          o[4 * c + 2] = fmaf(p, vv.z, o[4 * c + 2]);
-          o[4 * c + 3] = fmaf(p, vv.w, o[4 * c + 3]);
-        }
-      }
-    }
-    m = m_new;
+// ---- per-window kernels (K3, K4; N <= 32) on the tensor cores -------------
+
+// Geometry of the per-window kernels for element type T and head dim D:
+// rows staged at the dense kernels' stride, a block of WARPS warps, each
+// walking windows of its own through a ring of SLOTS windows.
+template <typename T, int D>
+struct Packed {
+  static constexpr int EW = Dense<T, D>::EW;
+  static constexpr int DW = Dense<T, D>::DW;
+  static constexpr int KS = Dense<T, D>::KS;
+  static constexpr int LD = Dense<T, D>::LD;
+  static constexpr int NO = Dense<T, D>::NO;
+  static constexpr int KK = Dense<T, D>::KK;
+  static constexpr int PAD = 8 * KS - DW;  // words past a row, zeroed once
+  static constexpr int PARTS = mp::Mma<T>::PARTS;
+  static constexpr int WARPS = 4;  // a block's warps (fewer where they do not fit)
+  // Windows a warp stages: the one computed and SLOTS - 1 in flight. At
+  // fp32 d = 64 a second slot costs K4 half its warps an SM (4 of 8) and
+  // measured slower (probes/run_probes.py packed, slots1 and slots2);
+  // elsewhere the two measured alike.
+  static constexpr int SLOTS = std::is_same<T, float>::value && D == 64 ? 1 : 2;
+};
+
+// Row stride, in words, of K4's P^T and dS^T (16 * MT query columns of T).
+template <typename T>
+__host__ __device__ constexpr int transposed_ld(int mt) {
+  return 16 * mt / (4 / int(sizeof(T))) + 4;
+}
+
+// Words of one warp's shared memory: its ring of SLOTS windows of ``tensors``
+// staged tensors (n rows each), then, for K4, P^T and dS^T.
+template <typename T, int D>
+__host__ __device__ constexpr int packed_warp_words(int n, int tensors, bool transposes) {
+  return Packed<T, D>::SLOTS * tensors * n * Packed<T, D>::LD +
+         (transposes ? 2 * 16 * ((n + 15) / 16) * transposed_ld<T>((n + 15) / 16) : 0);
+}
+
+// Row r of a staged tensor (n rows, ld words apart), or the zero row for a
+// row at or past n: rows past the window are read as zeros without being
+// stored or copied.
+__device__ __forceinline__ const uint32_t* staged_row(const uint32_t* s, int r, int n, int ld,
+                                                      const uint32_t* zero) {
+  return r < n ? s + r * ld : zero;
+}
+
+// A fragment (all parts) of rows row0.. row0 + 15, words kw.. kw + 7, of a
+// staged tensor.
+template <typename T>
+__device__ __forceinline__ void load_a_staged(uint32_t (&a)[mp::Mma<T>::PARTS][4],
+                                              const uint32_t* s, int n, int ld,
+                                              const uint32_t* zero, int row0, int kw) {
+  const int l = threadIdx.x & 31, j = l >> 3;
+  uint32_t w[4];
+  mp::ldsm_x4(w, staged_row(s, row0 + (j & 1) * 8 + (l & 7), n, ld, zero) + kw + (j >> 1) * 4);
+  mp::Mma<T>::split(w, a);
+}
+
+// B fragment (raw words) of a product over d: rows n0.. n0 + 7 of a staged
+// tensor as the columns, words kw.. kw + 7 (K in Q K^T, V in dO V^T).
+__device__ __forceinline__ void load_b_staged(uint32_t (&w)[2], const uint32_t* s, int n,
+                                              int ld, const uint32_t* zero, int n0, int kw) {
+  const int l = threadIdx.x & 15;  // lanes 16..31 repeat 0..15's addresses
+  mp::ldsm_x2(w, staged_row(s, n0 + (l & 7), n, ld, zero) + kw + (l >> 3) * 4);
+}
+
+// B fragment (raw words) of a product over rows: columns n0.. n0 + 7 of the
+// k-step at row k0 of a staged tensor (V in P V, K in dS K, dO in P^T dO, Q
+// in dS^T Q). fp32 reads rows in acc_to_a's k permutation (t from row 2t,
+// t + 4 from 2t + 1), bf16 takes ldmatrix.trans, as load_b_rows does.
+template <typename T>
+__device__ __forceinline__ void load_b_staged_rows(uint32_t (&w)[2], const uint32_t* s, int n,
+                                                   int ld, const uint32_t* zero, int n0,
+                                                   int k0) {
+  if constexpr (std::is_same<T, float>::value) {
+    const int r = k0 + 2 * mp::lane_t(), c = n0 + mp::lane_g();
+    w[0] = staged_row(s, r, n, ld, zero)[c];
+    w[1] = staged_row(s, r + 1, n, ld, zero)[c];
+  } else {
+    const int l = threadIdx.x & 15;
+    mp::ldsm_x2_trans(w, reinterpret_cast<const __nv_bfloat16*>(
+                             staged_row(s, k0 + l, n, ld, zero)) + n0);
   }
 }
 
-// Shared floats per warp: K and V rows (stride D) and the Q / output rows
-// (stride D + 4, so 8 lanes reading 8 rows hit distinct banks).
-template <int D>
-__host__ __device__ constexpr int packed_warp_floats(int n) {
-  return n * (2 * D + D + 4);
+// The scores of a window (rows g and g + 8 of each row tile in e = 0, 1
+// and e = 2, 3; keys at or past n masked) to P = exp2(c * S - max),
+// unnormalised; l gets each row's sum over the quad of lanes.
+template <int MT, int NT>
+__device__ __forceinline__ void window_softmax(float (&s)[MT][NT][4], float (&l)[MT][2],
+                                               float c, int n) {
+  const int t = mp::lane_t();
+#pragma unroll
+  for (int mi = 0; mi < MT; ++mi) {
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int ni = 0; ni < NT; ++ni)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[mi][ni][e] = 8 * ni + 2 * t + (e & 1) < n ? s[mi][ni][e] * c : -INFINITY;
+        mx[e >> 1] = fmaxf(mx[e >> 1], s[mi][ni][e]);
+      }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {  // key 0 is valid, so the max is finite
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      l[mi][r] = 0.f;
+    }
+#pragma unroll
+    for (int ni = 0; ni < NT; ++ni)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[mi][ni][e] = exp2f(s[mi][ni][e] - mx[e >> 1]);
+        l[mi][e >> 1] += s[mi][ni][e];
+      }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[mi][r] += __shfl_xor_sync(0xffffffffu, l[mi][r], 1);
+      l[mi][r] += __shfl_xor_sync(0xffffffffu, l[mi][r], 2);
+    }
+  }
 }
 
+// acc (rows of a window, D columns) times scale, as T, to rows [0, n) of
+// ``dst`` (``pitch`` elements apart), straight from the fragments.
+template <typename T, int MT, int NO>
+__device__ __forceinline__ void store_rows(T* dst, long long pitch, const float (&acc)[MT][NO][4],
+                                           const float (&scale)[MT][2], int n) {
+  const int g = mp::lane_g(), t = mp::lane_t();
+#pragma unroll
+  for (int mi = 0; mi < MT; ++mi)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = 16 * mi + g + 8 * r;
+      if (row < n) {
+        T* p = dst + row * pitch + 2 * t;
+#pragma unroll
+        for (int no = 0; no < NO; ++no) {
+          mp::store2(p + 8 * no, acc[mi][no][2 * r] * scale[mi][r],
+                     acc[mi][no][2 * r + 1] * scale[mi][r]);
+        }
+      }
+    }
+}
+
+// Copies window w's rows [0, n) of ``tensors`` tensors (src[i] + the
+// window's offset; rows ``pitch[i]`` bytes apart) to a warp's slot, one
+// tensor after the other at LD words a row, 16 bytes a lane at a time.
+template <typename T, int D, int TENSORS>
+__device__ __forceinline__ void stage_window(uint32_t* slot, const T* const (&src)[TENSORS],
+                                             const long long (&off)[TENSORS],
+                                             const long long (&pitch)[TENSORS], int n) {
+  using P = Packed<T, D>;
+  constexpr int CH = P::DW / 4;  // 16-byte chunks of a row
+  const int lane = threadIdx.x & 31;
+#pragma unroll 2
+  for (int e = lane; e < n * CH; e += 32) {
+    const int r = e / CH, c = e % CH;
+#pragma unroll
+    for (int i = 0; i < TENSORS; ++i) {
+      const char* s = reinterpret_cast<const char*>(src[i] + off[i]);
+      mp::cp_async16(slot + (i * n + r) * P::LD + 4 * c, s + r * pitch[i] + 16 * c, true);
+    }
+  }
+}
+
+// Zeroes the block's zero row and the pad words of the warp's ring (rows
+// of bf16 at D = 8, whose k-step is 16 elements); the copies never write
+// either.
 template <typename T, int D>
-__global__ void __launch_bounds__(PACKED_WARPS * 32)
+__device__ __forceinline__ void packed_prologue(uint32_t* zero, uint32_t* ring, int rows) {
+  using P = Packed<T, D>;
+  for (int i = threadIdx.x; i < P::LD; i += blockDim.x) zero[i] = 0u;
+  if constexpr (P::PAD > 0) {
+    for (int e = threadIdx.x & 31; e < rows * P::PAD; e += 32) {
+      ring[(e / P::PAD) * P::LD + P::DW + e % P::PAD] = 0u;
+    }
+  }
+  __syncthreads();
+}
+
+// A warp's walk over windows first, first + stride, ... below ``count``
+// (stride = the grid's warps; blocks of blockDim.x / 32 warps) through its
+// ring of SLOTS slots:
+// ``stage(w, slot)`` copies window w into a slot (nothing when w >= count)
+// and commits a group; ``compute(w, slot)`` runs once the window landed,
+// while the next SLOTS - 1 windows' copies are in flight.
+template <int SLOTS, typename Stage, typename Compute>
+__device__ __forceinline__ void packed_walk(int count, Stage stage, Compute compute) {
+  const int warps = blockDim.x >> 5;
+  const int stride = gridDim.x * warps;
+  const int first = blockIdx.x * warps + (threadIdx.x >> 5);
+#pragma unroll
+  for (int s = 0; s < SLOTS - 1; ++s) stage(first + s * stride, s);
+#pragma unroll 1
+  for (int i = 0, w = first; w < count; ++i, w += stride) {
+    stage(w + (SLOTS - 1) * stride, (i + SLOTS - 1) % SLOTS);
+    mp::cp_async_wait<SLOTS - 1>();
+    __syncwarp();  // every lane's copies of window w have landed
+    compute(w, i % SLOTS);
+    __syncwarp();  // every lane is done with the slot before it is refilled
+  }
+  mp::cp_async_wait<0>();
+}
+
+// K3 on one staged window: S = Q K^T over MT row tiles and the key tiles
+// below n, the softmax on the fragments, P V from registers, o / l.
+template <typename T, int D, int MT>
+__device__ __forceinline__ void packed_fwd_window(const uint32_t* qs, const uint32_t* ks,
+                                                  const uint32_t* vs, const uint32_t* zero,
+                                                  T* out, long long pitch, int n, float c) {
+  using P = Packed<T, D>;
+  constexpr int NT = 2 * MT;  // 8-key tiles
+  const int nt = (n + 7) >> 3;
+  float s[MT][NT][4];
+  mp::zero(s);
+#pragma unroll
+  for (int kk = 0; kk < P::KS; ++kk) {
+    uint32_t a[MT][P::PARTS][4];
+#pragma unroll
+    for (int mi = 0; mi < MT; ++mi) load_a_staged<T>(a[mi], qs, n, P::LD, zero, 16 * mi, 8 * kk);
+    mma_tiles<T>(s, a, nt, [&](int ni, uint32_t (&w)[2]) {
+      load_b_staged(w, ks, n, P::LD, zero, 8 * ni, 8 * kk);
+    });
+  }
+  float l[MT][2];
+  window_softmax(s, l, c, n);
+  float o[MT][P::NO][4];  // P V: keys past n have P = 0 and read V as zeros
+  mp::zero(o);
+  const int steps = (8 * nt + P::KK - 1) / P::KK;
+#pragma unroll
+  for (int j = 0; j < 8 * NT / P::KK; ++j) {
+    if (j < steps) {
+      uint32_t a[MT][P::PARTS][4];
+#pragma unroll
+      for (int mi = 0; mi < MT; ++mi) acc_to_a<T>(a[mi], s[mi], j);
+      mma_tiles<T>(o, a, P::NO, [&](int no, uint32_t (&w)[2]) {
+        load_b_staged_rows<T>(w, vs, n, P::LD, zero, 8 * no, P::KK * j);
+      });
+    }
+  }
+#pragma unroll
+  for (int mi = 0; mi < MT; ++mi)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l[mi][r] = 1.f / l[mi][r];
+  store_rows(out, pitch, o, l, n);
+}
+
+// K3: each warp walks windows through its ring. Shared memory: the zero
+// row, then per warp SLOTS slots of (Q, K, V).
+template <typename T, int D, int MT>
+__global__ void __launch_bounds__(32 * Packed<T, D>::WARPS)
 attention_packed_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v, T* __restrict__ out, int BH,
-                        int H, int N, long long sb, long long sh,
-                        long long sn, float scale) {
-  extern __shared__ __align__(16) float smem[];
-  constexpr int QS = D + 4;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int bh = blockIdx.x * PACKED_WARPS + warp;
-  if (bh >= BH) return;  // warp-uniform; only __syncwarp follows
-  float* Ks = smem + warp * packed_warp_floats<D>(N);
-  float* Vs = Ks + N * D;
-  float* Qs = Vs + N * D;
-  const int b = bh / H, h = bh % H;
-  const long long base = b * sb + h * sh;
+                        int H, int N, long long sb, long long sh, long long sn,
+                        float scale) {
+  using P = Packed<T, D>;
+  extern __shared__ __align__(16) uint32_t packed_smem_words[];
+  const uint32_t* zero = packed_smem_words;
+  uint32_t* ring = packed_smem_words + P::LD +
+                   (threadIdx.x >> 5) * packed_warp_words<T, D>(N, 3, false);
+  const int tw = N * P::LD;  // words of a staged tensor
+  packed_prologue<T, D>(packed_smem_words, ring, P::SLOTS * 3 * N);
+  const T* const src[3] = {q, k, v};
+  const long long pitch = sn * static_cast<long long>(sizeof(T));
+  const long long pitches[3] = {pitch, pitch, pitch};
+  packed_walk<P::SLOTS>(
+      BH,
+      [&](int w, int slot) {
+        if (w < BH) {
+          const long long off = (w / H) * sb + (w % H) * sh;
+          const long long offs[3] = {off, off, off};
+          stage_window<T, D, 3>(ring + slot * 3 * tw, src, offs, pitches, N);
+        }
+        mp::cp_async_commit();
+      },
+      [&](int w, int slot) {
+        const uint32_t* s = ring + slot * 3 * tw;
+        const int b = w / H, h = w % H;
+        packed_fwd_window<T, D, MT>(s, s + tw, s + 2 * tw, zero,
+                                    out + (static_cast<long long>(b) * N * H + h) * D,
+                                    static_cast<long long>(H) * D, N, scale * LOG2E);
+      });
+}
 
-  for (int e = lane; e < N * (D / 4); e += 32) {
-    const int j = e / (D / 4), c = e % (D / 4);
-    const long long off = base + j * sn + 4 * c;
-    mp::store4(Ks + j * D + 4 * c, mp::load4(k + off));
-    mp::store4(Vs + j * D + 4 * c, mp::load4(v + off));
-    mp::store4(Qs + j * QS + 4 * c, mp::load4(q + off));
-  }
-  __syncwarp();
-
-  if (lane < N) {
-    float qr[D], o[D];
+// x (rows = queries, columns = keys, 16 * MT of each) as x^T ([key][query],
+// ``ld`` words a row) in T: K4's A operands of dV = P^T dO and
+// dK = dS^T Q. fp32 permutes each 8-query group (query 2i to word i,
+// 2i + 1 to word i + 4), so that ldmatrix hands the A fragment the k order
+// in which load_b_staged_rows reads dO and Q.
+template <typename T, int MT, int NT>
+__device__ __forceinline__ void store_transposed(uint32_t* dst, int ld,
+                                                 const float (&x)[MT][NT][4]) {
+  const int g = mp::lane_g(), t = mp::lane_t();
 #pragma unroll
-    for (int c = 0; c < D / 4; ++c) {
-      const float4 t = lds4(Qs + lane * QS + 4 * c);
-      qr[4 * c + 0] = t.x;
-      qr[4 * c + 1] = t.y;
-      qr[4 * c + 2] = t.z;
-      qr[4 * c + 3] = t.w;
-      o[4 * c + 0] = o[4 * c + 1] = o[4 * c + 2] = o[4 * c + 3] = 0.f;
-    }
-    float m = -INFINITY, l = 0.f;
-    attend_keys<D>(qr, Ks, Vs, N, scale, o, m, l);
-    const float inv = 1.f / l;
-    // each lane rewrites only its own Q row, which only it has read
+  for (int mi = 0; mi < MT; ++mi)
 #pragma unroll
-    for (int c = 0; c < D / 4; ++c) {
-      sts4(Qs + lane * QS + 4 * c,
-           make_float4(o[4 * c] * inv, o[4 * c + 1] * inv, o[4 * c + 2] * inv,
-                       o[4 * c + 3] * inv));
-    }
-  }
-  __syncwarp();
+    for (int ni = 0; ni < NT; ++ni)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = 8 * ni + 2 * t + (e & 1);
+        const int q0 = 16 * mi + 8 * (e >> 1);  // the query's 8-group
+        if constexpr (std::is_same<T, float>::value) {
+          reinterpret_cast<float*>(dst)[key * ld + q0 + (g & 1) * 4 + (g >> 1)] = x[mi][ni][e];
+        } else {
+          reinterpret_cast<__nv_bfloat16*>(dst)[key * 2 * ld + q0 + g] =
+              __float2bfloat16_rn(x[mi][ni][e]);
+        }
+      }
+}
 
-  for (int e = lane; e < N * (D / 4); e += 32) {
-    const int j = e / (D / 4), c = e % (D / 4);
-    T* dst = out + ((static_cast<long long>(b) * N + j) * H + h) * D + 4 * c;
-    mp::store4(dst, lds4(Qs + j * QS + 4 * c));
+// acc = A B^T-style product of K4's second half: rows = keys (MT tiles of
+// x^T from the warp's scratch), k = the queries below n, B = rows of a
+// staged tensor (dO or Q).
+template <typename T, int D, int MT>
+__device__ __forceinline__ void transposed_product(float (&acc)[MT][Packed<T, D>::NO][4],
+                                                   const uint32_t* xt, int xld,
+                                                   const uint32_t* bs, const uint32_t* zero,
+                                                   int n) {
+  using P = Packed<T, D>;
+  mp::zero(acc);
+  const int steps = (n + P::KK - 1) / P::KK;
+#pragma unroll
+  for (int j = 0; j < 16 * MT / P::KK; ++j) {
+    if (j < steps) {
+      uint32_t a[MT][P::PARTS][4];
+#pragma unroll
+      for (int mi = 0; mi < MT; ++mi) {
+        uint32_t w[4];
+        mp::load_a_nat(w, xt, xld, 16 * mi, 8 * j);
+        mp::Mma<T>::split(w, a[mi]);
+      }
+      mma_tiles<T>(acc, a, P::NO, [&](int no, uint32_t (&w)[2]) {
+        load_b_staged_rows<T>(w, bs, n, P::LD, zero, 8 * no, P::KK * j);
+      });
+    }
   }
 }
 
-// Shared floats per warp of the backward: Q, K, V and dO rows (stride
-// D + 4: every one is read or written a row per lane at some point), then
-// P and dS (N rows of stride 33, so a column read by 32 lanes is
-// conflict-free), rounded up to whole float4s so the next warp's rows stay
-// 16-byte aligned.
-constexpr int PS = PACKED_MAX_N + 1;
-template <int D>
-__host__ __device__ constexpr int packed_bwd_warp_floats(int n) {
-  return (4 * n * (D + 4) + 2 * n * PS + 3) / 4 * 4;
+// K4 on one staged window (Q, K, V, dO): S = Q K^T and dP = dO V^T, the
+// softmax P, delta = rowsum(dP * P) and dS = P (dP - delta) on the
+// fragments; dQ = scale dS K from registers; P^T and dS^T through the
+// warp's scratch for dV = P^T dO and dK = scale dS^T Q.
+template <typename T, int D, int MT>
+__device__ __forceinline__ void packed_bwd_window(const uint32_t* qs, const uint32_t* ks,
+                                                  const uint32_t* vs, const uint32_t* gs,
+                                                  uint32_t* xt, const uint32_t* zero,
+                                                  T* dq, T* dk, T* dv, long long pitch,
+                                                  int n, float scale) {
+  using P = Packed<T, D>;
+  constexpr int NT = 2 * MT;
+  const int nt = (n + 7) >> 3;
+  float s[MT][NT][4], dp[MT][NT][4];
+  mp::zero(s);
+  mp::zero(dp);
+#pragma unroll
+  for (int kk = 0; kk < P::KS; ++kk) {
+    uint32_t a[MT][P::PARTS][4];
+#pragma unroll
+    for (int mi = 0; mi < MT; ++mi) load_a_staged<T>(a[mi], qs, n, P::LD, zero, 16 * mi, 8 * kk);
+    mma_tiles<T>(s, a, nt, [&](int ni, uint32_t (&w)[2]) {
+      load_b_staged(w, ks, n, P::LD, zero, 8 * ni, 8 * kk);
+    });
+#pragma unroll
+    for (int mi = 0; mi < MT; ++mi) load_a_staged<T>(a[mi], gs, n, P::LD, zero, 16 * mi, 8 * kk);
+    mma_tiles<T>(dp, a, nt, [&](int ni, uint32_t (&w)[2]) {
+      load_b_staged(w, vs, n, P::LD, zero, 8 * ni, 8 * kk);
+    });
+  }
+  float l[MT][2];
+  window_softmax(s, l, scale * LOG2E, n);
+#pragma unroll
+  for (int mi = 0; mi < MT; ++mi) {
+    float inv[2] = {1.f / l[mi][0], 1.f / l[mi][1]}, delta[2] = {0.f, 0.f};
+#pragma unroll
+    for (int ni = 0; ni < NT; ++ni)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[mi][ni][e] *= inv[e >> 1];
+        delta[e >> 1] = fmaf(s[mi][ni][e], dp[mi][ni][e], delta[e >> 1]);
+      }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      delta[r] += __shfl_xor_sync(0xffffffffu, delta[r], 1);
+      delta[r] += __shfl_xor_sync(0xffffffffu, delta[r], 2);
+    }
+#pragma unroll
+    for (int ni = 0; ni < NT; ++ni)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        dp[mi][ni][e] = s[mi][ni][e] * (dp[mi][ni][e] - delta[e >> 1]);
+      }
+  }
+  const int xld = transposed_ld<T>(MT);
+  uint32_t* dst = xt + 16 * MT * xld;  // dS^T after P^T
+  store_transposed<T>(xt, xld, s);
+  store_transposed<T>(dst, xld, dp);
+  float scaled[MT][2], one[MT][2];
+#pragma unroll
+  for (int mi = 0; mi < MT; ++mi)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) scaled[mi][r] = scale, one[mi][r] = 1.f;
+  float acc[MT][P::NO][4];
+  {  // dQ = scale dS K: keys past n have dS = 0 and read K as zeros
+    mp::zero(acc);
+    const int steps = (8 * nt + P::KK - 1) / P::KK;
+#pragma unroll
+    for (int j = 0; j < 8 * NT / P::KK; ++j) {
+      if (j < steps) {
+        uint32_t a[MT][P::PARTS][4];
+#pragma unroll
+        for (int mi = 0; mi < MT; ++mi) acc_to_a<T>(a[mi], dp[mi], j);
+        mma_tiles<T>(acc, a, P::NO, [&](int no, uint32_t (&w)[2]) {
+          load_b_staged_rows<T>(w, ks, n, P::LD, zero, 8 * no, P::KK * j);
+        });
+      }
+    }
+    store_rows(dq, pitch, acc, scaled, n);
+  }
+  __syncwarp();  // P^T and dS^T are in the scratch
+  transposed_product<T, D, MT>(acc, xt, xld, gs, zero, n);
+  store_rows(dv, pitch, acc, one, n);
+  transposed_product<T, D, MT>(acc, dst, xld, qs, zero, n);
+  store_rows(dk, pitch, acc, scaled, n);
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(PACKED_WARPS * 32)
+// K4: each warp walks windows through its ring. Shared memory: the zero
+// row, then per warp SLOTS slots of (Q, K, V, dO) and the P^T, dS^T
+// scratch.
+template <typename T, int D, int MT>
+__global__ void __launch_bounds__(32 * Packed<T, D>::WARPS)
 attention_packed_bwd_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const T* __restrict__ dout, T* __restrict__ dq, T* __restrict__ dk,
     T* __restrict__ dv, int BH, int H, int N, long long sb, long long sh,
     long long sn, long long ob, long long oh, long long on, long long gb,
     long long gh, long long gn, float scale) {
-  extern __shared__ __align__(16) float smem[];
-  constexpr int RS = D + 4;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int bh = blockIdx.x * PACKED_WARPS + warp;
-  if (bh >= BH) return;  // warp-uniform; only __syncwarp follows
-  float* Qs = smem + warp * packed_bwd_warp_floats<D>(N);
-  float* Ks = Qs + N * RS;
-  float* Vs = Ks + N * RS;
-  float* Gs = Vs + N * RS;  // dO
-  float* Ps = Gs + N * RS;
-  float* Ss = Ps + N * PS;  // dS
-  const int b = bh / H, h = bh % H;
-  const long long base = b * sb + h * sh;
-  const long long obase = b * ob + h * oh;
-  const long long gbase = b * gb + h * gh;
-
-  for (int e = lane; e < N * (D / 4); e += 32) {
-    const int j = e / (D / 4), c = 4 * (e % (D / 4));
-    const long long off = base + j * sn + c;
-    mp::store4(Qs + j * RS + c, mp::load4(q + off));
-    mp::store4(Ks + j * RS + c, mp::load4(k + off));
-    mp::store4(Vs + j * RS + c, mp::load4(v + off));
-    mp::store4(Gs + j * RS + c, mp::load4(dout + obase + j * on + c));
-  }
-  __syncwarp();
-
-  // lane i: row i of P = softmax(scale q_i K^T), dP = dO_i V^T and
-  // dS = P * (dP - rowsum(dP * P)), into shared memory
-  if (lane < N) {
-    float s[PACKED_MAX_N], dp[PACKED_MAX_N];
-#pragma unroll
-    for (int j = 0; j < PACKED_MAX_N; ++j) s[j] = dp[j] = 0.f;
-    for (int c = 0; c < D; c += 4) {
-      const float4 qv = lds4(Qs + lane * RS + c);
-      const float4 gv = lds4(Gs + lane * RS + c);
-#pragma unroll
-      for (int j = 0; j < PACKED_MAX_N; ++j) {
-        if (j < N) {
-          s[j] += dot4(qv, lds4(Ks + j * RS + c));
-          dp[j] += dot4(gv, lds4(Vs + j * RS + c));
+  using P = Packed<T, D>;
+  extern __shared__ __align__(16) uint32_t packed_smem_words[];
+  const uint32_t* zero = packed_smem_words;
+  uint32_t* ring = packed_smem_words + P::LD +
+                   (threadIdx.x >> 5) * packed_warp_words<T, D>(N, 4, true);
+  uint32_t* xt = ring + P::SLOTS * 4 * N * P::LD;
+  const int tw = N * P::LD;
+  packed_prologue<T, D>(packed_smem_words, ring, P::SLOTS * 4 * N);
+  const T* const src[4] = {q, k, v, dout};
+  const long long pitch = sn * static_cast<long long>(sizeof(T));
+  const long long pitches[4] = {pitch, pitch, pitch, on * static_cast<long long>(sizeof(T))};
+  packed_walk<P::SLOTS>(
+      BH,
+      [&](int w, int slot) {
+        if (w < BH) {
+          const int b = w / H, h = w % H;
+          const long long off = b * sb + h * sh;
+          const long long offs[4] = {off, off, off, b * ob + h * oh};
+          stage_window<T, D, 4>(ring + slot * 4 * tw, src, offs, pitches, N);
         }
-      }
-    }
-    float m = -INFINITY;
-#pragma unroll
-    for (int j = 0; j < PACKED_MAX_N; ++j) {
-      if (j < N) m = fmaxf(m, s[j] * scale);
-    }
-    float l = 0.f;
-#pragma unroll
-    for (int j = 0; j < PACKED_MAX_N; ++j) {
-      if (j < N) {
-        s[j] = __expf(s[j] * scale - m);
-        l += s[j];
-      }
-    }
-    const float inv = 1.f / l;
-    float di = 0.f;
-#pragma unroll
-    for (int j = 0; j < PACKED_MAX_N; ++j) {
-      if (j < N) {
-        s[j] *= inv;
-        di += s[j] * dp[j];
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < PACKED_MAX_N; ++j) {
-      if (j < N) {
-        Ps[lane * PS + j] = s[j];
-        Ss[lane * PS + j] = s[j] * (dp[j] - di);
-      }
-    }
-  }
-  __syncwarp();
-
-  // lane j: dV_j = sum_i P_ij dO_i, over V's row j (V is no longer read)
-  if (lane < N) {
-    for (int c = 0; c < D; c += 4) {
-      float4 acc = zero4();
-      for (int i = 0; i < N; ++i) fma4(Ps[i * PS + lane], lds4(Gs + i * RS + c), acc);
-      sts4(Vs + lane * RS + c, acc);
-    }
-  }
-  __syncwarp();
-  // lane i: dQ_i = scale * sum_j dS_ij k_j, over dO's row i
-  if (lane < N) {
-    for (int c = 0; c < D; c += 4) {
-      float4 acc = zero4();
-      for (int j = 0; j < N; ++j) fma4(Ss[lane * PS + j], lds4(Ks + j * RS + c), acc);
-      sts4(Gs + lane * RS + c, scale4(acc, scale));
-    }
-  }
-  __syncwarp();
-  // lane j: dK_j = scale * sum_i dS_ij q_i, over K's row j
-  if (lane < N) {
-    for (int c = 0; c < D; c += 4) {
-      float4 acc = zero4();
-      for (int i = 0; i < N; ++i) fma4(Ss[i * PS + lane], lds4(Qs + i * RS + c), acc);
-      sts4(Ks + lane * RS + c, scale4(acc, scale));
-    }
-  }
-  __syncwarp();
-
-  for (int e = lane; e < N * (D / 4); e += 32) {
-    const int j = e / (D / 4), c = 4 * (e % (D / 4));
-    const long long off = gbase + j * gn + c;
-    mp::store4(dq + off, lds4(Gs + j * RS + c));
-    mp::store4(dk + off, lds4(Ks + j * RS + c));
-    mp::store4(dv + off, lds4(Vs + j * RS + c));
-  }
+        mp::cp_async_commit();
+      },
+      [&](int w, int slot) {
+        const uint32_t* s = ring + slot * 4 * tw;
+        const long long g = (w / H) * gb + (w % H) * gh;
+        packed_bwd_window<T, D, MT>(s, s + tw, s + 2 * tw, s + 3 * tw, xt, zero, dq + g,
+                                    dk + g, dv + g, gn, N, scale);
+      });
 }
 
 // ---- dispatch ---------------------------------------------------------------
@@ -961,6 +1195,75 @@ template <typename K>
 cudaError_t allow_smem(K kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(bytes));
+}
+
+// Calls f(std::integral_constant<int, MT>{}) for the row tiles of a window
+// of n rows (MT = 1 up to 16 rows, 2 up to 32).
+template <typename F>
+cudaError_t with_row_tiles(int n, F f) {
+  if (n <= 16) return f(std::integral_constant<int, 1>{});
+  return f(std::integral_constant<int, 2>{});
+}
+
+// A per-window kernel's launch shape at one N on one device, worked out
+// at its first launch: warps a block, blocks an SM, SMs, shared bytes.
+struct PackedLaunch {
+  std::atomic<bool> ready{false};
+  int warps = 0, per_sm = 0, sms = 0;
+  size_t smem = 0;
+};
+
+// K3's or K4's launch shape for ``windows`` windows of n rows: WARPS warps
+// a block, or as many as a block's shared memory holds; as many blocks as
+// the SMs hold at once, fewer when the windows run out. The occupancy and
+// attribute queries run once per kernel, device and n: they cost each
+// launch host time that these short kernels would otherwise wait for.
+template <typename T, int D, int MT>
+cudaError_t packed_shape(bool bwd, int n, int windows, int device, int* warps, size_t* smem,
+                         int* blocks, int* per_sm) {
+  using P = Packed<T, D>;
+  constexpr int DEVICES = 16;
+  static PackedLaunch known[2][DEVICES][PACKED_MAX_N + 1];
+  static std::mutex lock;
+  PackedLaunch uncached;
+  PackedLaunch& shape = device >= 0 && device < DEVICES ? known[bwd][device][n] : uncached;
+  if (!shape.ready.load(std::memory_order_acquire)) {
+    std::lock_guard<std::mutex> guard(lock);
+    if (!shape.ready.load(std::memory_order_relaxed)) {
+      int optin = 0, sms = 0, fit_sm = 0;
+      cudaError_t err =
+          cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+      if (err == cudaSuccess) {
+        err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+      }
+      if (err != cudaSuccess) return err;
+      const int per_warp = 4 * packed_warp_words<T, D>(n, bwd ? 4 : 3, bwd);
+      const int fit = (optin - 4 * P::LD) / per_warp;
+      const int w = fit < P::WARPS ? fit : P::WARPS;
+      if (w < 1) return cudaErrorInvalidValue;
+      const size_t bytes = 4u * P::LD + static_cast<size_t>(w) * per_warp;
+      auto query = [&](auto kernel) {
+        cudaError_t e = allow_smem(kernel, static_cast<size_t>(optin));
+        if (e != cudaSuccess) return e;
+        return cudaOccupancyMaxActiveBlocksPerMultiprocessor(&fit_sm, kernel, 32 * w, bytes);
+      };
+      err = bwd ? query(attention_packed_bwd_kernel<T, D, MT>)
+                : query(attention_packed_kernel<T, D, MT>);
+      if (err != cudaSuccess) return err;
+      if (fit_sm < 1) return cudaErrorInvalidConfiguration;
+      shape.warps = w;
+      shape.per_sm = fit_sm;
+      shape.sms = sms;
+      shape.smem = bytes;
+      shape.ready.store(true, std::memory_order_release);
+    }
+  }
+  *warps = shape.warps;
+  *smem = shape.smem;
+  *per_sm = shape.per_sm;
+  const int want = (windows + shape.warps - 1) / shape.warps;
+  *blocks = want < shape.sms * shape.per_sm ? want : shape.sms * shape.per_sm;
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -1039,16 +1342,20 @@ extern "C" int mp_attention_packed(const void* q, const void* k,
   return with_types(dtype, D, device, [&](auto tag, auto dim) {
     using T = decltype(tag);
     constexpr int d = decltype(dim)::value;
-    const size_t smem = sizeof(float) * PACKED_WARPS * packed_warp_floats<d>(N);
-    cudaError_t err = allow_smem(attention_packed_kernel<T, d>, smem);
-    if (err != cudaSuccess) return err;
-    const int bh = B * H;
-    const int blocks = (bh + PACKED_WARPS - 1) / PACKED_WARPS;
-    attention_packed_kernel<T, d><<<blocks, PACKED_WARPS * 32, smem, st>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), static_cast<T*>(out), bh, H, N, sb, sh, sn,
-        scale);
-    return cudaGetLastError();
+    return with_row_tiles(N, [&](auto tiles) {
+      constexpr int mt = decltype(tiles)::value;
+      const int bh = B * H;
+      size_t smem = 0;
+      int warps = 0, blocks = 0, per_sm = 0;
+      cudaError_t err =
+          packed_shape<T, d, mt>(false, N, bh, device, &warps, &smem, &blocks, &per_sm);
+      if (err != cudaSuccess) return err;
+      attention_packed_kernel<T, d, mt><<<blocks, 32 * warps, smem, st>>>(
+          static_cast<const T*>(q), static_cast<const T*>(k),
+          static_cast<const T*>(v), static_cast<T*>(out), bh, H, N, sb, sh, sn,
+          scale);
+      return cudaGetLastError();
+    });
   });
 }
 
@@ -1063,17 +1370,40 @@ extern "C" int mp_attention_packed_bwd(
   return with_types(dtype, D, device, [&](auto tag, auto dim) {
     using T = decltype(tag);
     constexpr int d = decltype(dim)::value;
-    const size_t smem =
-        sizeof(float) * PACKED_WARPS * packed_bwd_warp_floats<d>(N);
-    cudaError_t err = allow_smem(attention_packed_bwd_kernel<T, d>, smem);
-    if (err != cudaSuccess) return err;
-    const int bh = B * H;
-    const int blocks = (bh + PACKED_WARPS - 1) / PACKED_WARPS;
-    attention_packed_bwd_kernel<T, d><<<blocks, PACKED_WARPS * 32, smem, st>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), static_cast<const T*>(dout),
-        static_cast<T*>(dq), static_cast<T*>(dk), static_cast<T*>(dv), bh, H,
-        N, sb, sh, sn, ob, oh, on, gb, gh, gn, scale);
-    return cudaGetLastError();
+    return with_row_tiles(N, [&](auto tiles) {
+      constexpr int mt = decltype(tiles)::value;
+      const int bh = B * H;
+      size_t smem = 0;
+      int warps = 0, blocks = 0, per_sm = 0;
+      cudaError_t err =
+          packed_shape<T, d, mt>(true, N, bh, device, &warps, &smem, &blocks, &per_sm);
+      if (err != cudaSuccess) return err;
+      attention_packed_bwd_kernel<T, d, mt><<<blocks, 32 * warps, smem, st>>>(
+          static_cast<const T*>(q), static_cast<const T*>(k),
+          static_cast<const T*>(v), static_cast<const T*>(dout),
+          static_cast<T*>(dq), static_cast<T*>(dk), static_cast<T*>(dv), bh, H,
+          N, sb, sh, sn, ob, oh, on, gb, gh, gn, scale);
+      return cudaGetLastError();
+    });
+  });
+}
+
+// The launch shape of K3 (bwd = 0) or K4 (bwd = 1) at a window of N rows:
+// shape = {warps a block, slots a warp, blocks an SM, shared bytes a
+// block, blocks of a launch over ``windows`` windows}.
+extern "C" int mp_attention_packed_shape(int dtype, int D, int N, int bwd, int windows,
+                                         int device, int* shape) {
+  if (N < 1 || N > PACKED_MAX_N || windows < 1) return cudaErrorInvalidValue;
+  return with_types(dtype, D, device, [&](auto tag, auto dim) {
+    using T = decltype(tag);
+    constexpr int d = decltype(dim)::value;
+    return with_row_tiles(N, [&](auto tiles) {
+      size_t smem = 0;
+      cudaError_t err = packed_shape<T, d, decltype(tiles)::value>(
+          bwd != 0, N, windows, device, &shape[0], &smem, &shape[4], &shape[2]);
+      shape[1] = Packed<T, d>::SLOTS;
+      shape[3] = static_cast<int>(smem);
+      return err;
+    });
   });
 }

@@ -112,28 +112,40 @@ __device__ __forceinline__ Ring<NSTAGES, NSLOT, Issue> start_ring(uint32_t* smem
 __device__ __forceinline__ int lane_g() { return (threadIdx.x & 31) >> 2; }
 __device__ __forceinline__ int lane_t() { return threadIdx.x & 3; }
 
+// ldmatrix on the shared addresses each lane gives: four 8 x 8 b16
+// matrices (lanes 8i.. 8i + 7 address matrix i's rows), two (lanes 0..15;
+// the others' addresses are ignored), or two transposed.
+__device__ __forceinline__ void ldsm_x4(uint32_t (&w)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(w[0]), "=r"(w[1]), "=r"(w[2]), "=r"(w[3])
+      : "r"(smem_addr(p)));
+}
+__device__ __forceinline__ void ldsm_x2(uint32_t (&w)[2], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(w[0]), "=r"(w[1])
+               : "r"(smem_addr(p)));
+}
+__device__ __forceinline__ void ldsm_x2_trans(uint32_t (&w)[2], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(w[0]), "=r"(w[1])
+               : "r"(smem_addr(p)));
+}
+
 // A from a natural tile [row][word], rows row0.. row0 + 15, words kw..kw + 7:
 // ldmatrix on a b16 view, whose 8 x 8 matrices of 16-byte rows hand lane
 // (g, t) word t of row g, the fragment's word for fp32 and bf16 alike.
 __device__ __forceinline__ void load_a_nat(uint32_t (&w)[4], const uint32_t* s,
                                            int ld, int row0, int kw) {
   const int l = threadIdx.x & 31, j = l >> 3;
-  const uint32_t* p = s + (row0 + (j & 1) * 8 + (l & 7)) * ld + kw + (j >> 1) * 4;
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(w[0]), "=r"(w[1]), "=r"(w[2]), "=r"(w[3])
-      : "r"(smem_addr(p)));
+  ldsm_x4(w, s + (row0 + (j & 1) * 8 + (l & 7)) * ld + kw + (j >> 1) * 4);
 }
 
 // B from a natural tile [n][word], columns n0.. n0 + 7, words kw..kw + 7.
 __device__ __forceinline__ void load_b_nat(uint32_t (&w)[2], const uint32_t* s,
                                            int ld, int n0, int kw) {
   const int l = threadIdx.x & 15;  // lanes 16..31 repeat 0..15's addresses
-  const uint32_t* p = s + (n0 + (l & 7)) * ld + kw + (l >> 3) * 4;
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
-      : "=r"(w[0]), "=r"(w[1])
-      : "r"(smem_addr(p)));
+  ldsm_x2(w, s + (n0 + (l & 7)) * ld + kw + (l >> 3) * 4);
 }
 
 // A from a transposed tile [k][row] of T (row stride ld elements): rows
@@ -168,11 +180,7 @@ __device__ __forceinline__ void load_b_tr(uint32_t (&w)[2],
                                           const __nv_bfloat16* s, int ld,
                                           int n0, int k0) {
   const int l = threadIdx.x & 15;  // lanes 16..31 repeat 0..15's addresses
-  const __nv_bfloat16* p = s + (k0 + l) * ld + n0;
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
-      : "=r"(w[0]), "=r"(w[1])
-      : "r"(smem_addr(p)));
+  ldsm_x2_trans(w, s + (k0 + l) * ld + n0);
 }
 
 // ---- the products -----------------------------------------------------------

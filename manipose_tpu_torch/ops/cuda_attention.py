@@ -24,6 +24,8 @@ versions double as the reference that the kernels are held against.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from . import build
@@ -242,6 +244,22 @@ def attention_packed_bwd(q, k, v, dout, scale: float) -> torch.Tensor:
     build.check(lib, err, "mp_attention_packed_bwd")
     LAUNCHES["attention_packed_bwd"] += 1
     return dqkv
+
+
+def packed_launch_shape(dtype, d: int, n: int, backward: bool, windows: int,
+                        device=None) -> dict:
+    """How K3 (or K4, ``backward``) launches on a CUDA device for
+    ``windows`` windows of ``n`` rows at head dim ``d``: warps a block,
+    windows a warp stages (its ring's slots), blocks an SM (from the
+    kernel's occupancy), shared bytes a block and blocks of the launch."""
+    index = torch.device("cuda" if device is None else device).index
+    index = torch.cuda.current_device() if index is None else index
+    shape = (ctypes.c_int * 5)()
+    lib = build.load("attention")
+    err = lib.mp_attention_packed_shape(KERNEL_DTYPES[dtype], d, n, int(backward),
+                                        windows, index, ctypes.addressof(shape))
+    build.check(lib, err, "mp_attention_packed_shape")
+    return dict(zip(("warps", "slots", "blocks_per_sm", "smem_bytes", "blocks"), shape))
 
 
 def split_heads(qkv, num_heads: int):

@@ -31,6 +31,22 @@ builds into ``build/probes/`` and prints:
    ``--against DIR`` it also times the kernels built from the source
    directory DIR (an earlier commit's ``csrc/``, unpacked with ``git
    archive``) as ``against``.
+6. ``packed``: K3 and K4 at the flagship's shapes (rotations 3888*8
+   windows of 17 x 64, segments 3888*8 of 16 x 16), fp32 and bf16, in
+   turns, built from ``csrc/`` as it is (``base``, first and last) and
+   changed: ``no_copy`` (no window copied), ``no_math`` (each window's
+   products, softmax and stores skipped: the copies alone), ``one_pass``
+   (one tf32 pass instead of three), ``slots1``, ``slots2`` and ``slots3``
+   (a ring of one, two or three windows a warp at every dtype and head
+   dim), ``warps2`` and ``warps8`` (blocks of two
+   or eight warps), ``recompute`` (K4's dV and dK from recomputed
+   transposed scores, ``packed_recompute.cuh``, instead of P^T and dS^T
+   through shared memory). With ``--against DIR`` also the kernels of DIR
+   (``against``, second and second to last), e.g. the parent commit's.
+   Each is timed twice over 20 calls: CUDA events around calls queued
+   behind a sleep kernel, and the kernels' device time from
+   torch.profiler; neither counts the host's time to launch. Each
+   variant's launch shapes are printed beside its times.
 
 The ablation patches the sources by text and stops if a patch point is
 gone; update the patches with the kernels.
@@ -118,6 +134,9 @@ def build_variants(lib_name: str, variants: dict, against: Path | None = None) -
         shutil.rmtree(d, ignore_errors=True)
         shutil.copytree(src_dir, d)
         for file, text, new, count in variants.get(name, []) if src_dir == build.CSRC else []:
+            if text is None:  # a probe source the variant includes
+                shutil.copy(HERE / file, d / file)
+                continue
             src = (d / file).read_text()
             if src.count(text) < count:
                 raise RuntimeError(f"variant {name}: patch point gone from {file}")
@@ -133,6 +152,8 @@ def build_variants(lib_name: str, variants: dict, against: Path | None = None) -
             raise RuntimeError(f"variant {name} failed to build:\n{log}")
         lib = ctypes.CDLL(str(OUT / lib_name / name / f"{lib_name}.so"))
         for fn, argtypes in build.SIGNATURES[lib_name].items():
+            if not hasattr(lib, fn):  # an older tree's library
+                continue
             getattr(lib, fn).argtypes = argtypes
             getattr(lib, fn).restype = ctypes.c_int
         lib.mp_error_string.argtypes = [ctypes.c_int]
@@ -153,15 +174,36 @@ def operands(dtype, gen):
 
 
 def time_ms(fn, reps: int = 10) -> float:
+    """Mean time of ``reps`` calls of ``fn`` from CUDA events, queued behind
+    a sleep kernel so that the host's time to launch is not counted (as
+    chip_smoke.py times its kernels)."""
     fn()
     torch.cuda.synchronize()
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda._sleep(10_000_000)
     start.record()
     for _ in range(reps):
         fn()
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps: int = 20) -> float:
+    """Mean device time of the kernels one call of ``fn`` launches, over
+    ``reps`` calls under torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.self_device_time_total for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA)
+    return total / 1e3 / reps
 
 
 def ablate(libs: dict, gen) -> None:
@@ -234,14 +276,92 @@ def attention(libs: dict, gen) -> None:
     build._libs.pop("attention", None)
 
 
-SECTIONS = ("mma_rate", "accumulate", "ablate", "k6", "attention")
+# (trunk, windows, heads, N, d) of the flagship's per-window attention, B = 16
+PACKED_SHAPES = (("rotations", 16 * 243, 8, 17, 64), ("segments", 16 * 243, 8, 16, 16))
+_PACKED_COPY = ("      mp::cp_async16(slot + (i * n + r) * P::LD + 4 * c, s + r * pitch[i]"
+                " + 16 * c, true);")
+_PACKED_WARPS = "static constexpr int WARPS = 4;  // a block's warps"
+_PACKED_SLOTS = ("static constexpr int SLOTS = std::is_same<T, float>::value && D == 64"
+                 " ? 1 : 2;")
+PACKED_VARIANTS = {
+    "base": [],
+    "no_copy": [("attention.cu", _PACKED_COPY, "      (void)s;", 1)],
+    "no_math": [("attention.cu", "        packed_fwd_window<T, D, MT>(",
+                 "        if (false) packed_fwd_window<T, D, MT>(", 1),
+                ("attention.cu", "        packed_bwd_window<T, D, MT>(",
+                 "        if (false) packed_bwd_window<T, D, MT>(", 1)],
+    "one_pass": MLP_ABLATIONS["one_pass"],
+    "slots1": [("attention.cu", _PACKED_SLOTS, "static constexpr int SLOTS = 1;", 1)],
+    "slots2": [("attention.cu", _PACKED_SLOTS, "static constexpr int SLOTS = 2;", 1)],
+    "slots3": [("attention.cu", _PACKED_SLOTS, "static constexpr int SLOTS = 3;", 1)],
+    "warps2": [("attention.cu", _PACKED_WARPS, _PACKED_WARPS.replace("4;", "2;"), 1)],
+    "warps8": [("attention.cu", _PACKED_WARPS, _PACKED_WARPS.replace("4;", "8;"), 1)],
+    "recompute": [("packed_recompute.cuh", None, None, 0),
+                  ("attention.cu", "// K4: each warp walks windows through its ring.",
+                   '#include "packed_recompute.cuh"\n\n'
+                   "// K4: each warp walks windows through its ring.", 1),
+                  ("attention.cu", "        packed_bwd_window<T, D, MT>(",
+                   "        packed_bwd_window_recompute<T, D, MT>(", 1),
+                  ("attention.cu", "packed_warp_words<T, D>(N, 4, true)",
+                   "packed_warp_words<T, D>(N, 4, false)", 1),
+                  ("attention.cu", "packed_warp_words<T, D>(n, bwd ? 4 : 3, bwd)",
+                   "packed_warp_words<T, D>(n, bwd ? 4 : 3, false)", 1)],
+}
+
+
+def packed_shape(lib, dtype, d: int, n: int, backward: bool) -> str:
+    """A variant's K3 or K4 launch shape, or "-" for a library without the
+    query (an older tree's)."""
+    from ..cuda_attention import KERNEL_DTYPES
+
+    if not hasattr(lib, "mp_attention_packed_shape"):
+        return "-"
+    shape = (ctypes.c_int * 5)()
+    err = lib.mp_attention_packed_shape(KERNEL_DTYPES[dtype], d, n, int(backward), 1 << 30,
+                                        torch.cuda.current_device(), ctypes.addressof(shape))
+    if err:
+        raise RuntimeError(f"mp_attention_packed_shape: CUDA error {err}")
+    return f"{shape[0]}w x {shape[1]}s x {shape[2]}b/SM"
+
+
+def packed(libs: dict, gen) -> None:
+    """K3 and K4 of every variant, in turns, through the port's wrappers
+    with the variant's library in place."""
+    from .. import cuda_attention as ca
+
+    against = ["against"] if "against" in libs else []
+    others = [n for n in libs if n not in ("base", "against")]
+    order = ["base", *against, *others, *against, "base"]
+    for trunk, b, h, n, d in PACKED_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            qkv = torch.randn((b, n, 3, h, d), generator=gen, device="cuda")
+            q, k, v = (t.transpose(1, 2) for t in qkv.to(dtype).unbind(2))
+            dout = torch.randn((b, n, h, d), generator=gen, device="cuda")
+            dout = dout.to(dtype).transpose(1, 2)
+            scale = d**-0.5
+            for name in order:
+                build._libs["attention"] = libs[name]
+                line = []
+                for kind, fn, backward in (
+                        ("K3", lambda: ca.attention_packed(q, k, v, scale), False),
+                        ("K4", lambda: ca.attention_packed_bwd(q, k, v, dout, scale), True)):
+                    line.append(f"{kind} {time_ms(fn, reps=20):.4f} ms, device "
+                                f"{device_ms(fn):.4f} "
+                                f"({packed_shape(libs[name], dtype, d, n, backward)})")
+                print(f"packed {trunk:9s} {str(dtype)[6:]:8s} {name:9s} " + "  ".join(line),
+                      flush=True)
+    build._libs.pop("attention", None)
+
+
+SECTIONS = ("mma_rate", "accumulate", "ablate", "k6", "attention", "packed")
 
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("sections", nargs="*", help=f"any of {', '.join(SECTIONS)} (all)")
     parser.add_argument("--against", type=Path, default=None,
-                        help="a csrc directory whose attention kernels to time too")
+                        help="a csrc directory whose attention kernels (attention, "
+                             "packed) to time too")
     args = parser.parse_args()
     if set(args.sections) - set(SECTIONS):
         parser.error(f"sections are {', '.join(SECTIONS)}")
@@ -260,6 +380,8 @@ def main() -> int:
         k6_kernels(gen)
     if "attention" in sections:
         attention(build_variants("attention", ATTENTION_VARIANTS, args.against), gen)
+    if "packed" in sections:
+        packed(build_variants("attention", PACKED_VARIANTS, args.against), gen)
     return 0
 
 

@@ -2,10 +2,11 @@
 backward (K2, K4, K6) kernel against its plain version on the same inputs
 (ragged edges, every head dim and channel count the kernels take, strided
 and contiguous operands, fp32 and bf16), K1/K2 at every N around their
-tiles, against fp64 and, for K2, run twice for bit-for-bit equality, what
-the wrappers refuse, the autograd Functions against autograd through the
-plain versions, and a small model's Predictor and train step on the card
-against the CPU.
+tiles and K3/K4 at every N they take and at window counts around their
+persistent walk, both pairs against fp64 and, for K2 and K4, run twice for
+bit-for-bit equality, what the wrappers refuse, the autograd Functions
+against autograd through the plain versions, and a small model's
+Predictor and train step on the card against the CPU.
 Marked ``cuda``; without a CUDA device every test skips. Run them on the
 card with ``python -m pytest tests/test_torch_port_cuda.py -q
 --noconftest``: tests/conftest.py sets up JAX for the rest of the suite,
@@ -34,6 +35,7 @@ from manipose_tpu_torch.ops.cuda_attention import (
     attention_packed_bwd,
     attention_plain,
     attention_plain_bwd,
+    packed_launch_shape,
 )
 from manipose_tpu_torch.ops.cuda_mlp import (
     fused_mlp,
@@ -303,6 +305,98 @@ def test_packed_bwd_kernel_matches_plain(gen, b, h, n, d, strided, dtype):
     want = _plain_dqkv(q, k, v, dout, scale)
     assert got.shape == (b, n, 3, h, d) and got.dtype == dtype
     assert _max_err(got, want) <= _grad_tol(want, dtype, relative=False)
+
+
+def _packed_check(q, k, v, dout, scale, dtype):
+    """K3 and K4 against their plain versions on the same inputs."""
+    assert _max_err(attention_packed(q, k, v, scale),
+                    attention_plain(q, k, v, scale)) <= TOL[dtype][0]
+    want = _plain_dqkv(q, k, v, dout, scale)
+    got = attention_packed_bwd(q, k, v, dout, scale)
+    assert _max_err(got, want) <= _grad_tol(want, dtype, relative=False)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("d", [8, 16, 32, 64])
+@pytest.mark.parametrize("n", range(1, 33))
+def test_packed_kernels_at_every_window_size(gen, n, d, dtype):
+    """K3 and K4 at every N the per-window kernels take: one or two 16-row
+    query tiles, 1 to 4 key tiles of 8, bf16 k-steps of 16 keys half
+    empty, and rows past N read from the zero row."""
+    b, h = 3, 5
+    q, k, v = _qkv(gen, b, h, n, d, dtype, strided=True)
+    dout = torch.randn((b, n, h, d), generator=gen, device="cuda").to(dtype).transpose(1, 2)
+    _packed_check(q, k, v, dout, d**-0.5, dtype)
+
+
+def _grid_warps(dtype, d, n, backward):
+    shape = packed_launch_shape(dtype, d, n, backward, 1 << 30)
+    return shape["blocks"] * shape["warps"]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("backward", [False, True])
+def test_packed_kernels_around_the_persistent_walk(gen, backward, dtype):
+    """Window counts around the grid's warps: one window, one warp short
+    of a window each, one window more than the warps (a second lap for one
+    warp), and several windows a warp, so the ring's prologue, refills and
+    empty commits all run."""
+    n, d = 17, 64
+    warps = _grid_warps(dtype, d, n, backward)
+    for windows in (1, warps - 1, warps + 1, 3 * warps + 5):
+        q, k, v = _qkv(gen, windows, 1, n, d, dtype, strided=True)
+        dout = torch.randn((windows, n, 1, d), generator=gen,
+                           device="cuda").to(dtype).transpose(1, 2)
+        if backward:
+            want = _plain_dqkv(q, k, v, dout, d**-0.5)
+            got = attention_packed_bwd(q, k, v, dout, d**-0.5)
+            assert _max_err(got, want) <= _grad_tol(want, dtype, relative=False)
+        else:
+            assert _max_err(attention_packed(q, k, v, d**-0.5),
+                            attention_plain(q, k, v, d**-0.5)) <= TOL[dtype][0]
+
+
+def test_packed_launch_shape_fills_the_card(gen):
+    """Every dtype and head dim at the flagship's windows launches at
+    least one block an SM and no more blocks than the card holds at once."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for dtype in DTYPES:
+        for d in (8, 16, 32, 64):
+            for n, backward in ((17, False), (17, True), (16, False), (16, True)):
+                shape = packed_launch_shape(dtype, d, n, backward, 1 << 30)
+                assert shape["blocks_per_sm"] >= 1
+                assert shape["blocks"] == sms * shape["blocks_per_sm"]
+                assert shape["smem_bytes"] * shape["blocks_per_sm"] <= 228 * 1024
+
+
+@pytest.mark.parametrize("n,d", [(17, 64), (16, 16), (32, 32), (5, 8)])
+def test_packed_kernels_match_float64(gen, n, d):
+    """K3 and K4 in fp32 (3xTF32 on the tensor cores) against attention and
+    its autograd gradient in fp64 on the CPU, within the JAX package's 2e-5
+    and 5e-4."""
+    b, h = 40, 8
+    q, k, v = _qkv(gen, b, h, n, d, torch.float32, strided=True)
+    scale = d**-0.5
+    out = attention_packed(q, k, v, scale)
+    dout = _dout_like(gen, out)
+    got = attention_packed_bwd(q, k, v, dout, scale)
+    leaves = [t.double().cpu().requires_grad_() for t in (q, k, v)]
+    want = torch.softmax(scale * leaves[0] @ leaves[1].transpose(-1, -2), -1) @ leaves[2]
+    grads = torch.autograd.grad(want, leaves, dout.double().cpu())
+    assert (out.double().cpu() - want.detach()).abs().max().item() <= 2e-5
+    want_dqkv = torch.stack([g.transpose(1, 2) for g in grads], dim=2)
+    assert (got.double().cpu() - want_dqkv).abs().max().item() <= 5e-4
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_packed_bwd_kernel_is_deterministic(gen, dtype):
+    """K4 uses no atomics: one warp owns every output of a window and sums
+    it in a fixed order, so two runs agree bit for bit."""
+    q, k, v = _qkv(gen, 300, 8, 17, 64, dtype, strided=True)
+    dout = _dout_like(gen, attention_packed(q, k, v, 0.125))
+    first = attention_packed_bwd(q, k, v, dout, 0.125)
+    second = attention_packed_bwd(q, k, v, dout, 0.125)
+    assert torch.equal(first, second)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)

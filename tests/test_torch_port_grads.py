@@ -182,6 +182,76 @@ def test_k2_one_tf32_pass_misses_the_gradient_tolerance():
     assert errs[3] <= ATTN_GRAD_TOL < errs[1]
 
 
+def _step_order(width):
+    """Rows (or columns) of a width in the order the fp32 k-steps take them."""
+    return (torch.arange(0, width, 8)[:, None]
+            + torch.tensor([0, 2, 4, 6, 1, 3, 5, 7])).reshape(-1)
+
+
+def k4_arithmetic(q, k, v, do, scale, passes=3):
+    """K4's fp32 arithmetic on the CPU: queries (and dO) zero-padded to
+    whole 16-row tiles, keys (and V) to whole 8-key tiles. S = Q K^T and
+    dP = dO V^T from one sum over d, keys past N at -inf, P = exp2(S - max)
+    / l, delta = rowsum(dP * P), dS = P (dP - delta); dQ = scale dS K over
+    the keys, dV = P^T dO and dK = scale dS^T Q over the queries, each one
+    sum in the fp32 k-step order."""
+    n = q.shape[2]
+    rows, keys = -(-n // 16) * 16, -(-n // 8) * 8
+
+    def pad(t, width):
+        return torch.nn.functional.pad(t, (0, 0, 0, width - n))
+
+    qp, dop = pad(q, rows), pad(do, rows)
+    kp, vp = pad(k, keys), pad(v, keys)
+    s = _tf32_product(qp, kp.transpose(-1, -2), passes) * (scale * LOG2E)
+    s = s.masked_fill(torch.arange(keys) >= n, -math.inf)
+    p = torch.exp2(s - s.amax(-1, keepdim=True))
+    p = p / p.sum(-1, keepdim=True)
+    dp = _tf32_product(dop, vp.transpose(-1, -2), passes)
+    ds = p * (dp - (dp * p).sum(-1, keepdim=True))
+    kord, qord = _step_order(keys), _step_order(rows)
+    dq = _tf32_product(ds[..., kord], kp[:, :, kord], passes) * scale
+    pt, dst = p.transpose(-1, -2), ds.transpose(-1, -2)
+    dv = _tf32_product(pt[..., qord], dop[:, :, qord], passes)
+    dk = _tf32_product(dst[..., qord], qp[:, :, qord], passes) * scale
+    return dq[:, :, :n], dk[:, :, :n], dv[:, :, :n]
+
+
+def _packed_grads_and_k4(q, k, v, do, scale, passes):
+    want = jax.grad(lambda *a: jnp.sum(flash_attention_packed(*a, scale) * do),
+                    argnums=(0, 1, 2))(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    got = k4_arithmetic(*map(torch.from_numpy, (q, k, v, do)), scale, passes)
+    return got, want
+
+
+@pytest.mark.parametrize("d", [8, 16, 64])
+@pytest.mark.parametrize("n", [1, 7, 16, 17, 32])
+def test_k4_tensor_core_arithmetic_matches_pallas_grad(n, d):
+    """K4's 3xTF32 window, padded to its tiles, stays within the JAX
+    package's 5e-4 of the custom_vjp gradients of flash_attention_packed
+    at every tile edge."""
+    rng = np.random.default_rng(30 + n)
+    q, k, v, do = (_normal(rng, (3, 2, n, d)) for _ in range(4))
+    got, want = _packed_grads_and_k4(q, k, v, do, d**-0.5, passes=3)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=ATTN_GRAD_TOL,
+                                   rtol=0, err_msg=name)
+
+
+@pytest.mark.parametrize("d", [64, 16])
+def test_k4_one_tf32_pass_misses_the_gradient_tolerance(d):
+    """With its operands rounded to tf32 once, K4 on windows of the
+    flagship's N = 17 is off by more than 5e-4 at both head dims."""
+    rng = np.random.default_rng(31)
+    q, k, v, do = (_normal(rng, (64, 8, 17, d)) for _ in range(4))
+    errs = {}
+    for passes in (3, 1):
+        got, want = _packed_grads_and_k4(q, k, v, do, d**-0.5, passes)
+        errs[passes] = max(np.abs(g.numpy() - np.asarray(w)).max()
+                           for g, w in zip(got, want))
+    assert errs[3] <= ATTN_GRAD_TOL < errs[1]
+
+
 def _merged_plain_attention(qkv, h, scale):
     b, n, c3 = qkv.shape
     q, k, v = (t.transpose(1, 2) for t in qkv.view(b, n, 3, h, c3 // (3 * h)).unbind(2))

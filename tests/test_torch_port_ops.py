@@ -249,6 +249,54 @@ def test_k1_one_tf32_pass_misses_the_fp32_tolerance():
     assert errs[3] <= ATTN_TOL < errs[1]
 
 
+PACKED_NS = [1, 7, 16, 17, 32]
+PACKED_DIMS = [8, 16, 64]
+
+
+def k3_arithmetic(q, k, v, scale, passes=3):
+    """K3's fp32 arithmetic on the CPU: the queries zero-padded to whole
+    16-row tiles and the keys to whole 8-key tiles; S = Q K^T in log2
+    units from one sum over d, keys past N at -inf, P = exp2(S - max), then
+    P V from one sum over the keys in the fp32 k-step order, and o / l."""
+    n = q.shape[2]
+    rows, keys = -(-n // 16) * 16, -(-n // 8) * 8
+    qp = torch.nn.functional.pad(q, (0, 0, 0, rows - n))
+    kp, vp = (torch.nn.functional.pad(t, (0, 0, 0, keys - n)) for t in (k, v))
+    s = _tf32_product(qp, kp.transpose(-1, -2), passes) * (scale * LOG2E)
+    s = s.masked_fill(torch.arange(keys) >= n, -math.inf)
+    p = torch.exp2(s - s.amax(-1, keepdim=True))
+    order = _tile_keys(keys)
+    o = _tf32_product(p[..., order], vp[:, :, order], passes) / p.sum(-1, keepdim=True)
+    return o[:, :, :n]
+
+
+@pytest.mark.parametrize("d", PACKED_DIMS)
+@pytest.mark.parametrize("n", PACKED_NS)
+def test_k3_tensor_core_arithmetic_matches_pallas(n, d):
+    """K3's 3xTF32 window, padded to its tiles, stays within the JAX
+    package's 2e-5 of flash_attention_packed at every tile edge."""
+    q, k, v = _qkv(3, 2, n, d, seed=20 + n)
+    scale = d**-0.5
+    want = flash_attention_packed(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), scale)
+    got = k3_arithmetic(*map(torch.from_numpy, (q, k, v)), scale)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATTN_TOL, rtol=0)
+
+
+@pytest.mark.parametrize("d", [64, 16])
+def test_k3_one_tf32_pass_misses_the_fp32_tolerance(d):
+    """The reason for three passes in K3 too: with its operands rounded to
+    tf32 once, a window of the flagship's N = 17 is off by more than 2e-5
+    at both of the flagship's head dims."""
+    q, k, v = _qkv(64, 8, 17, d, seed=21)
+    scale = d**-0.5
+    want = flash_attention_packed(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), scale)
+    errs = {}
+    for passes in (3, 1):
+        got = k3_arithmetic(*map(torch.from_numpy, (q, k, v)), scale, passes)
+        errs[passes] = np.abs(got.numpy() - np.asarray(want)).max()
+    assert errs[3] <= ATTN_TOL < errs[1]
+
+
 def test_cpu_tensors_take_the_plain_path():
     """CPU tensors run the plain versions, bit for bit, and launch nothing."""
     from manipose_tpu_torch.models import Attention, Mlp
