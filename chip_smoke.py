@@ -36,9 +36,20 @@ package. Phases, each fatal on failure:
 6. cpu-card train - one flagship train step on one window, drop-path off,
               on the CPU and on the card from the same weights: the loss
               and every gradient.
-7. profile  - only with ``--profile``: one flagship ``predict_video`` and
-              one flagship train step under ``torch.profiler``, device time
-              by kernel class and the device's busy share of each.
+7-10. bf16  - phases 3-6 again under ``model.dtype=bfloat16`` (fp32
+              parameters, bf16 activations): serving frames/s with K1, K3
+              and K5 launched on bf16 operands only; the card against the
+              CPU on one window (both branches' outputs, then the decoded
+              poses and hypotheses); the train step's sequences/s (printed
+              beside bench.py's metric name) and peak memory with all six
+              kernels launched on bf16 operands only; one train step on
+              one window, the card against the CPU (loss terms, finite
+              gradients, and the branches' gradients under a fixed
+              cotangent). bf16 tolerances below.
+11. profile - only with ``--profile``: one flagship ``predict_video`` and
+              one flagship train step under ``torch.profiler``, in fp32
+              and in bf16, device time by kernel class and the device's
+              busy share of each.
 
 The last lines are the card's name and power limit (as nvidia-smi prints
 them), one JSON object ``{"kernels": [...]}``, and
@@ -89,6 +100,25 @@ GRAD_TOL = {torch.float32: 5e-4, torch.bfloat16: 0.05}
 # (5e-5), relative to the output's magnitude (16 fp32 trunk blocks whose
 # sums run in another order on each side).
 MODEL_TOL = 5e-5
+# CPU vs card under bf16 compute: the JAX package's bf16 model tolerance
+# (tests/test_pallas_mlp.py), relative to max(1, |ref|max), for both
+# branches' outputs (the rotations branch's hypotheses and scores, the
+# segments branch's bone lengths) and the loss terms (relative), and 0.05
+# relative in norm for each parameter's gradient of the branches' outputs
+# under a fixed random cotangent. Where bf16 itself moves a quantity
+# further on the CPU, the bound is 2 * that spread + 1e-3: the spread is
+# how far the CPU's bf16 result moves when the input moves by one part in
+# 256 (about one bf16 ulp; BF16_NUDGE) or, for gradients, the larger of
+# that and its distance from the CPU's fp32 result. That covers poses and
+# hypotheses, which pass through the FK decoder's Gram-Schmidt (at random
+# weights it amplifies bf16's rounding), and the few gradients that bf16
+# moves that far on the CPU (one score head's at the flagship). For the
+# same reason the train step's gradients through FK and the WTA loss
+# (which a 1e-3 change of the input moves by half on the CPU) are
+# required finite, not close.
+BF16_TOL = 0.05
+GAP_SLACK = 1e-3
+BF16_NUDGE = 1.0 + 2.0**-8
 
 # launches per forward pass of the flagship rMCL model: 8 + 2 temporal
 # (K1) and 8 + 2 spatial (K3) attention layers, 16 + 4 MLPs (K5); TTA runs
@@ -100,11 +130,10 @@ LAUNCHES_PER_FORWARD = {"attention_dense": 10, "attention_packed": 10,
 LAUNCHES_PER_TRAIN_STEP = {**LAUNCHES_PER_FORWARD, "attention_dense_bwd": 10,
                            "attention_packed_bwd": 10, "fused_mlp_bwd": 20}
 
-# the flagship train step: bench.py's batch and weight decay, the config's
-# learning rate
+# the flagship train step: bench.py's batch, the config's learning rate
+# (weight decay 1e-6 comes with train.optimizer_from_config, as in bench.py)
 TRAIN_BATCH = 16
 TRAIN_LR = 4e-5
-TRAIN_WEIGHT_DECAY = 1e-6
 TRAIN_STEPS = 10
 # cycles of the sleep kernel ahead of a timed run of launches (~5 ms at the
 # H100's 1.98 GHz boost clock): longer than the host takes to enqueue 10
@@ -491,12 +520,31 @@ def bone_lengths(poses: np.ndarray, parents) -> np.ndarray:
     return np.linalg.norm(poses[..., js, :] - poses[..., ps, :], axis=-1)
 
 
-def phase_flagship():
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def require_counts(dtype: str, want: dict, what: str) -> dict:
+    """The launches since the last reset: ``want`` for each kernel, all of
+    them on ``dtype`` operands. Returns the counts."""
+    from manipose_tpu_torch import ops
+
+    counts = ops.launch_counts()
+    on_dtype = ops.launch_counts(DTYPES[dtype])
+    print(f"{what} launches {counts} ({dtype} operands: {on_dtype})")
+    for name in LAUNCHES_PER_TRAIN_STEP:
+        n = want.get(name, 0)
+        require(counts[name] == n, f"{what}: {name} launched {counts[name]}, want {n}")
+        require(on_dtype[name] == n, f"{what}: {name} launched {on_dtype[name]} "
+                                     f"times on {dtype} operands, want {n}")
+    return counts
+
+
+def phase_flagship(dtype: str = "float32"):
     from manipose_tpu_torch import ops
     from manipose_tpu_torch.config import load_config
     from manipose_tpu_torch.serving import Predictor
 
-    cfg = load_config("config")
+    cfg = load_config("config", [f"model.dtype={dtype}"])
     predictor = Predictor(cfg=cfg, batch_size=16, tta=True)
     n_windows = 16
     l = cfg.data.seq_len
@@ -506,12 +554,10 @@ def phase_flagship():
 
     ops.reset_launch_counts()
     poses, hyps, scores = predictor.predict_video(video, return_hypotheses=True)
-    counts = ops.launch_counts()
     n_batches = -(-n_windows // predictor.batch_size)
-    print(f"flagship launches {counts} for {n_batches} window batch(es)")
-    for name in LAUNCHES_PER_TRAIN_STEP:
-        want = 2 * LAUNCHES_PER_FORWARD.get(name, 0) * n_batches
-        require(counts[name] == want, f"{name} launched {counts[name]}, want {want}")
+    counts = require_counts(
+        dtype, {k: 2 * n * n_batches for k, n in LAUNCHES_PER_FORWARD.items()},
+        f"flagship {dtype} serving ({n_batches} window batch(es))")
 
     n_hyp = cfg.multi_hyp.n_hyp
     require(poses.shape == (n_windows * l, 17, 3), f"poses shape {poses.shape}")
@@ -533,31 +579,66 @@ def phase_flagship():
     dt = (time.perf_counter() - t0) / reps
     fps = video.shape[0] / dt
     print(f"flagship predict_video: {video.shape[0]} frames in {dt * 1e3:.2f} ms "
-          f"-> {fps:.1f} frames/s (mean of {reps}, TTA on, batch 16, fp32); "
+          f"-> {fps:.1f} frames/s (mean of {reps}, TTA on, batch 16, {dtype}); "
           f"score err {score_err:.3g}, bone-length spread {spread:.3g}", flush=True)
     return predictor, counts, fps
 
 
-def phase_cpu_vs_card(card_predictor):
+def rel_err(got: np.ndarray, ref: np.ndarray) -> float:
+    """max |got - ref| over max(1, |ref|max)."""
+    return float(np.abs(got - ref).max()) / max(1.0, float(np.abs(ref).max()))
+
+
+def phase_cpu_vs_card(card_predictor) -> None:
+    """One flagship window (TTA off) on the CPU (plain versions) and on the
+    card (kernels), same weights and dtype. fp32: within MODEL_TOL. bf16:
+    the scores and both branches' outputs within BF16_TOL; poses and
+    hypotheses within the larger of BF16_TOL and 2 * the CPU's bf16 spread
+    under a one-ulp input nudge + GAP_SLACK."""
     from manipose_tpu_torch.serving import Predictor
 
     cfg = card_predictor.cfg
+    dtype = cfg.model.get("dtype", "float32")
+    bf16 = dtype == "bfloat16"
     state = {k: v.cpu() for k, v in card_predictor.model.state_dict().items()}
     window = np.random.default_rng(1).normal(size=(cfg.data.seq_len, 17, 2))
     window = window.astype(np.float32)
-    outs = {}
+    outs, branches = {}, {}
     for device in ("cpu", "cuda"):
         pred = Predictor(cfg=cfg, state_dict=state, batch_size=1, tta=False,
                          device=device)
         outs[device] = pred.predict_video(window, return_hypotheses=True)
+        if bf16:  # both branches alone, before FK
+            x = torch.from_numpy(window[None]).to(pred.device)
+            with torch.inference_mode():
+                hyps6d, scores = pred.model.rotations_module(x)
+                lengths = pred.model.segments_module(x)
+            branches[device] = [t.float().cpu().numpy() for t in (hyps6d, scores, lengths)]
+            if device == "cpu":
+                nudged = pred.predict_video(window * BF16_NUDGE, return_hypotheses=True)
     errs = {}
     for i, name in enumerate(("poses", "hyps", "scores")):
         ref, got = outs["cpu"][i], outs["cuda"][i]
-        err = float(np.abs(ref - got).max())
-        tol = MODEL_TOL * max(1.0, float(np.abs(ref).max()))
-        require(err <= tol, f"cpu vs card {name}: {err} > {tol}")
+        if not bf16:
+            err = float(np.abs(ref - got).max())
+            tol = MODEL_TOL * max(1.0, float(np.abs(ref).max()))
+        else:
+            err, tol = rel_err(got, ref), BF16_TOL
+            if name != "scores":
+                spread = rel_err(nudged[i], ref)
+                tol = max(BF16_TOL, 2 * spread + GAP_SLACK)
+                name = f"{name} (cpu bf16 spread {spread:.3g})"
+        require(err <= tol, f"cpu vs card {dtype} {name}: {err} > {tol}")
         errs[name] = (err, tol)
-    print(f"cpu vs card (one flagship window, TTA off): "
+    if bf16:
+        for name, got, ref in zip(("rotations-branch hypotheses (6D, before FK)",
+                                   "rotations-branch scores", "segments-branch lengths"),
+                                  branches["cuda"], branches["cpu"]):
+            err = rel_err(got, ref)
+            require(err <= BF16_TOL, f"cpu vs card bf16 {name}: {err} > {BF16_TOL}")
+            errs[name] = (err, BF16_TOL)
+    scale = " relative to max(1, |ref|max)" if bf16 else ""
+    print(f"cpu vs card {dtype} (one flagship window, TTA off){scale}: "
           + ", ".join(f"{k} err {e:.3g} (tol {t:.3g})" for k, (e, t) in errs.items()),
           flush=True)
 
@@ -579,15 +660,17 @@ def make_trainer(cfg, device, state_dict=None):
     from manipose_tpu_torch.train import (
         LossConfig,
         TrainState,
-        make_optimizer,
         make_train_step,
+        optimizer_from_config,
     )
 
     skeleton = h36m_skeleton_17()
     model, _ = instantiate_model(cfg, skeleton)
     if state_dict is not None:
         model.load_state_dict(state_dict, strict=True)
-    opt = make_optimizer(model.parameters(), weight_decay=TRAIN_WEIGHT_DECAY)
+    # Adam with weight decay 1e-6 (bench.py's) and the config's grad_clip and
+    # skip_nonfinite, as the JAX train loop builds it
+    opt = optimizer_from_config(model.parameters(), cfg)
     state = TrainState.create(model, opt, seed=cfg.run.seed, device=device)
     t = cfg.train
     loss_cfg = LossConfig(sq_loss=t.sq_loss, w_loss=t.w_loss, vel_loss=t.vel_loss,
@@ -601,14 +684,18 @@ def require_finite(metrics, what: str) -> None:
         require(bool(torch.isfinite(v)), f"{what}: loss term {k} = {float(v)}")
 
 
-def phase_train():
-    """The flagship train step on the card: B = 16 synthetic windows, fp32,
-    drop-path at the config's 0.1 from the state's seeded generator."""
+def phase_train(dtype: str = "float32"):
+    """The flagship train step on the card: B = 16 synthetic windows in
+    ``dtype``, drop-path at the config's 0.1 from the state's seeded
+    generator."""
     from manipose_tpu_torch import ops
     from manipose_tpu_torch.config import load_config
 
-    cfg = load_config("config")
+    cfg = load_config("config", [f"model.dtype={dtype}"])
     require(cfg.model.drop_path_rate > 0, "the flagship trains with drop-path on")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()  # what earlier phases still hold
     state, step = make_trainer(cfg, "cuda")
     x, y = (t.cuda() for t in flagship_batch(cfg.data.seq_len, TRAIN_BATCH))
     torch.cuda.synchronize()
@@ -617,10 +704,7 @@ def phase_train():
     ops.reset_launch_counts()
     history = [step(state, x, y, TRAIN_LR)]
     torch.cuda.synchronize()
-    counts = ops.launch_counts()
-    print(f"train launches {counts} for one step")
-    require(counts == LAUNCHES_PER_TRAIN_STEP,
-            f"one train step launched {counts}, want {LAUNCHES_PER_TRAIN_STEP}")
+    counts = require_counts(dtype, LAUNCHES_PER_TRAIN_STEP, f"{dtype} train step")
     n_params = 0
     for name, p in state.model.named_parameters():
         require(p.grad is not None, f"{name} got no gradient")
@@ -636,23 +720,35 @@ def phase_train():
     dt = (time.perf_counter() - t0) / TRAIN_STEPS
     for i, metrics in enumerate(history):
         require_finite(metrics, f"train step {i}")
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    # the phase's own peak: its model, optimizer, batch and step
+    peak_gb = (torch.cuda.max_memory_allocated() - before) / 1e9
     seq_s = TRAIN_BATCH / dt
     losses = " ".join(f"{float(m['loss']):.5f}" for m in history)
     print(f"train: {n_params} parameters, every gradient finite after the first "
           f"backward; losses per step {losses}")
     print(f"flagship train step: {dt * 1e3:.2f} ms -> {seq_s:.2f} sequences/s "
-          f"(mean of {TRAIN_STEPS} after 2 warm-ups, B={TRAIN_BATCH}, fp32, "
+          f"(mean of {TRAIN_STEPS} after 2 warm-ups, B={TRAIN_BATCH}, {dtype}, "
           f"drop-path {cfg.model.drop_path_rate}); peak device memory "
           f"{peak_gb:.2f} GB", flush=True)
+    if dtype == "bfloat16":  # bench.py's metric (the JAX flagship trains in bf16)
+        print(f"rmcl_manipose_243f_train_throughput {seq_s:.3f} seq/s (bf16, "
+              f"B={TRAIN_BATCH}, L={cfg.data.seq_len}, one card)", flush=True)
     return state, step, (x, y), counts, seq_s, peak_gb
 
 
-def phase_cpu_vs_card_train(trained_state) -> None:
+def train_step_on(cfg, device, weights, x, y):
+    """One train step of ``cfg``'s model from ``weights`` on ``device``:
+    (metrics as floats, gradients on the CPU)."""
+    state, step = make_trainer(cfg, device, state_dict=weights)
+    metrics = {k: float(v) for k, v in step(state, x, y, TRAIN_LR).items()}
+    return metrics, {n: p.grad.cpu() for n, p in state.model.named_parameters()}
+
+
+def phase_cpu_vs_card_train(trained_state):
     """One flagship train step on one window, drop-path off, on the CPU
     (plain versions) and on the card (kernels) from the same weights: the
     loss terms within 5e-5 relative, every gradient within 5e-4 of its
-    magnitude."""
+    magnitude. Returns the weights."""
     from manipose_tpu_torch.config import load_config
 
     cfg = load_config("config", ["model.drop_path_rate=0.0"])
@@ -660,9 +756,7 @@ def phase_cpu_vs_card_train(trained_state) -> None:
     x, y = (t[:1] for t in flagship_batch(cfg.data.seq_len, 1))
     metrics, grads = {}, {}
     for device in ("cpu", "cuda"):
-        state, step = make_trainer(cfg, device, state_dict=weights)
-        metrics[device] = {k: float(v) for k, v in step(state, x, y, TRAIN_LR).items()}
-        grads[device] = {n: p.grad.cpu() for n, p in state.model.named_parameters()}
+        metrics[device], grads[device] = train_step_on(cfg, device, weights, x, y)
     worst = 0.0
     for k, want in metrics["cpu"].items():
         err = abs(metrics["cuda"][k] - want)
@@ -685,6 +779,87 @@ def phase_cpu_vs_card_train(trained_state) -> None:
           f"err / max(1, |g|max) {worst_grad[1]:.3g} at {worst_grad[0]} "
           f"(tol {GRAD_TOL[torch.float32]}) over {len(grads['cpu'])} tensors",
           flush=True)
+    return weights
+
+
+def branch_grads(cfg, device, weights, x):
+    """Each parameter's gradient (on the CPU) of both branches' outputs of
+    ``cfg``'s model from ``weights`` on ``x`` (drop-path off) under a fixed
+    random cotangent, drawn on the CPU from seed 0."""
+    from manipose_tpu_torch.drivers import instantiate_model
+    from manipose_tpu_torch.geometry import h36m_skeleton_17
+
+    model, _ = instantiate_model(cfg, h36m_skeleton_17())
+    model.load_state_dict(weights, strict=True)
+    model.to(device).train()
+    x = x.to(device)
+    hyps6d, scores = model.rotations_module(x)
+    outs = (hyps6d, scores, model.segments_module(x))
+    gen = torch.Generator().manual_seed(0)
+    total = sum((t.float() * torch.randn(t.shape, generator=gen).to(device)).sum()
+                for t in outs)
+    total.backward()
+    return {n: p.grad.cpu() for n, p in model.named_parameters()}
+
+
+def phase_cpu_vs_card_train_bf16(weights) -> None:
+    """One flagship train step on one window under bf16 compute, drop-path
+    off, on the CPU and on the card from the fp32 phase's weights: each loss
+    term within BF16_TOL relative, every gradient fp32 and finite; and each
+    parameter's gradient of both branches' outputs under a fixed cotangent
+    (every kernel forward and backward, the trunks and heads, without FK
+    and the WTA loss) within BF16_TOL relative in norm, or 2 * the CPU's
+    bf16 spread + GAP_SLACK where that is larger."""
+    from manipose_tpu_torch.config import load_config
+
+    cfg = load_config("config", ["model.drop_path_rate=0.0", "model.dtype=bfloat16"])
+    x, y = (t[:1] for t in flagship_batch(cfg.data.seq_len, 1))
+    t0 = time.perf_counter()
+    cpu_metrics, cpu_grads = train_step_on(cfg, "cpu", weights, x, y)
+    cpu_s = time.perf_counter() - t0
+    metrics, grads = train_step_on(cfg, "cuda", weights, x, y)
+    worst_term = ("", 0.0)
+    for k, want in cpu_metrics.items():
+        err = abs(metrics[k] - want) / abs(want)
+        require(err <= BF16_TOL, f"cpu vs card bf16 train {k}: {metrics[k]} vs {want}")
+        if err >= worst_term[1]:
+            worst_term = (k, err)
+    step_worst = ("", 0.0)
+    for name, want in cpu_grads.items():
+        got = grads[name]
+        require(got.dtype == torch.float32 and bool(torch.isfinite(got).all()),
+                f"card bf16 gradient {name} fp32 and finite")
+        err = (got - want).norm().item() / max(want.norm().item(), 1e-30)
+        if err > step_worst[1]:
+            step_worst = (name, err)
+    want = branch_grads(cfg, "cpu", weights, x)
+    nudged = branch_grads(cfg, "cpu", weights, x * BF16_NUDGE)
+    want32 = branch_grads(load_config("config", ["model.drop_path_rate=0.0"]), "cpu",
+                          weights, x)
+    got = branch_grads(cfg, "cuda", weights, x)
+
+    def rel(a, b):
+        return (a - b).norm().item() / b.norm().item()
+
+    worst, widened = ("", 0.0, 0.0, 0.0), 0
+    for name, w in want.items():
+        spread = max(rel(nudged[name], w), rel(w, want32[name]))
+        tol = max(BF16_TOL, 2 * spread + GAP_SLACK)
+        err = rel(got[name], w)
+        require(err <= tol, f"cpu vs card bf16 branch gradient {name}: {err} > {tol} "
+                            f"(cpu bf16 spread {spread})")
+        widened += tol > BF16_TOL
+        if err / tol > worst[1]:
+            worst = (name, err / tol, err, tol)
+    print(f"cpu vs card bf16 train step (one flagship window, drop-path off; the "
+          f"CPU step took {cpu_s:.1f} s): loss {cpu_metrics['loss']:.6f} cpu, "
+          f"{metrics['loss']:.6f} card, worst term rel err {worst_term[1]:.3g} at "
+          f"{worst_term[0]} (tol {BF16_TOL}); every gradient fp32 and finite (through "
+          f"FK and WTA, not held: worst rel err in norm {step_worst[1]:.3g} at "
+          f"{step_worst[0]}); branch gradients under a fixed cotangent: worst err/tol "
+          f"{worst[1]:.3g} at {worst[0]} (rel err in norm {worst[2]:.3g}, tol "
+          f"{worst[3]:.3g}) over {len(want)} tensors, {widened} of them with a cpu "
+          f"bf16 spread past the {BF16_TOL} floor", flush=True)
 
 
 def kernel_group(name: str) -> str:
@@ -736,16 +911,16 @@ def profile_call(label: str, fn) -> None:
         print(f"  kernel {key[:90]:90s} launches {count:5d} {ms:9.3f} ms")
 
 
-def phase_profile(predictor, train) -> None:
-    """One flagship ``predict_video`` and one flagship train step under the
-    profiler."""
+def phase_profile(dtype, predictor, train) -> None:
+    """One flagship ``predict_video`` and one flagship train step in
+    ``dtype`` under the profiler."""
     video = np.random.default_rng(0).normal(size=(16 * predictor.seq_len, 17, 2))
     video = video.astype(np.float32)
     predictor.predict_video(video)  # warm-up
-    profile_call(f"predict_video of {video.shape[0]} frames",
+    profile_call(f"{dtype} predict_video of {video.shape[0]} frames",
                  lambda: predictor.predict_video(video))
     state, step, (x, y) = train
-    profile_call(f"one train step of {x.shape[0]} windows",
+    profile_call(f"{dtype} train step of {x.shape[0]} windows",
                  lambda: step(state, x, y, TRAIN_LR))
 
 
@@ -762,6 +937,7 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    bf16_reduction = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
     t_start = time.perf_counter()
     smi = cmd_output(["nvidia-smi", "--query-gpu=name,power.limit",
                       "--format=csv,noheader"])
@@ -775,7 +951,9 @@ def main() -> int:
     print(f"host: python {sys.version.split()[0]}, torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}, nvcc '{nvcc_version}', triton "
           f"{triton_version}; TF32 matmul {torch.backends.cuda.matmul.allow_tf32}, "
-          f"cudnn {torch.backends.cudnn.allow_tf32}", flush=True)
+          f"cudnn {torch.backends.cudnn.allow_tf32}; bf16 GEMMs with reduced-precision "
+          f"reductions allowed: {bf16_reduction} (torch's default, left as it is)",
+          flush=True)
 
     phase_build(build)
 
@@ -796,21 +974,41 @@ def main() -> int:
     print(f"train phase: {time.perf_counter() - t0:.1f} s", flush=True)
 
     t0 = time.perf_counter()
-    phase_cpu_vs_card_train(state)
+    weights = phase_cpu_vs_card_train(state)
     print(f"cpu-card train phase: {time.perf_counter() - t0:.1f} s; "
+          f"total {time.perf_counter() - t_start:.1f} s", flush=True)
+
+    t0 = time.perf_counter()
+    predictor16, counts16, fps16 = phase_flagship("bfloat16")
+    print(f"bf16 flagship phase: {time.perf_counter() - t0:.1f} s", flush=True)
+
+    t0 = time.perf_counter()
+    phase_cpu_vs_card(predictor16)
+    print(f"bf16 cpu-card phase: {time.perf_counter() - t0:.1f} s", flush=True)
+
+    t0 = time.perf_counter()
+    state16, step16, batch16, train_counts16, seq_s16, peak_gb16 = phase_train("bfloat16")
+    print(f"bf16 train phase: {time.perf_counter() - t0:.1f} s", flush=True)
+
+    t0 = time.perf_counter()
+    phase_cpu_vs_card_train_bf16(weights)
+    print(f"bf16 cpu-card train phase: {time.perf_counter() - t0:.1f} s; "
           f"total {time.perf_counter() - t_start:.1f} s", flush=True)
 
     kernels = []
     for name, meta in KERNELS.items():
-        head = cases[name][0]  # rotations trunk, fp32: the main path's shape
-        # each kernel's main path: serving for the forward kernels, the
-        # train step for the backward ones
-        path_counts = train_counts if name.endswith("_bwd") else counts
+        # this slice's main path is bf16: each kernel's headline case is the
+        # rotations trunk in bf16, its launches those of bf16 serving (the
+        # forward kernels) or of the bf16 train step (the backward ones)
+        head = next(c for c in cases[name] if c["dtype"] == "bfloat16")
+        by_path = {"serve": counts, "train_step": train_counts,
+                   "serve_bf16": counts16, "train_step_bf16": train_counts16}
         kernels.append(dict(
-            name=name, route="cuda", **meta, launches=path_counts[name],
-            launches_by_path={"serve": counts[name], "train_step": train_counts[name]},
+            name=name, route="cuda", **meta,
+            launches=(train_counts16 if name.endswith("_bwd") else counts16)[name],
+            launches_by_path={path: c[name] for path, c in by_path.items()},
             max_abs_err=max(c["max_abs_err"] for c in cases[name]
-                            if c["dtype"] == "float32"),
+                            if c["dtype"] == head["dtype"]),
             ms=head["ms"], plain_ms=head["plain_ms"],
             bound_ms=head["bound_ms"], bound_by=head["bound_by"],
             library_ms=head["library_ms"],
@@ -818,9 +1016,11 @@ def main() -> int:
             cases=cases[name],
         ))
     if "--profile" in sys.argv[1:]:
-        phase_profile(predictor, (state, step, batch))
-    print(f"flagship frames/s {fps:.1f}, train {seq_s:.2f} sequences/s "
-          f"(peak {peak_gb:.2f} GB) on {smi}")
+        phase_profile("fp32", predictor, (state, step, batch))
+        phase_profile("bf16", predictor16, (state16, step16, batch16))
+    print(f"flagship frames/s fp32 {fps:.1f}, bf16 {fps16:.1f}; train sequences/s "
+          f"fp32 {seq_s:.2f} (peak {peak_gb:.2f} GB), bf16 {seq_s16:.2f} (peak "
+          f"{peak_gb16:.2f} GB) on {smi}")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

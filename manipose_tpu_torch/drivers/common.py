@@ -4,6 +4,9 @@ Port of ``manipose_tpu/drivers/common.py::instantiate_model`` for the
 three architectures. Without weights the model gets torch's default
 initialization drawn from a ``torch.Generator`` seeded by
 ``cfg.run.seed``, so one seed gives the same weights on every machine.
+``model.dtype`` (``float32`` or ``bfloat16``) is the compute dtype; the
+parameters are fp32 under both, so the init and the weight maps do not
+depend on it.
 """
 
 from __future__ import annotations
@@ -23,13 +26,22 @@ from ..models import (
     RMCLManifoldMixSTE,
 )
 
-# (config key, value the slice implements) for settings the port does not
+# (config key, value the port implements) for settings the port does not
 # carry yet; the JAX kernel knobs attn_impl / mlp_impl need no entry: on the
 # card every attention and MLP runs the port's kernels
 _UNPORTED = (
-    ("dtype", "float32"),
     ("layout", "fold"),
 )
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def compute_dtype(m: Config) -> torch.dtype:
+    """``model.dtype`` as a torch dtype (the activations' type)."""
+    name = m.get("dtype", "float32")
+    if name not in _DTYPES:
+        raise ValueError(f"model.dtype={name} is not one of {sorted(_DTYPES)}")
+    return _DTYPES[name]
 
 
 def _check_supported(m: Config) -> None:
@@ -66,6 +78,7 @@ def instantiate_model(cfg: Config, skeleton: Skeleton):
     """Model factory. Returns (module on the CPU, is_rmcl)."""
     m = cfg.model
     _check_supported(m)
+    dtype = compute_dtype(m)
     if m.arch == "mixste":
         model = MixSTE(
             MixSTEConfig(
@@ -78,6 +91,7 @@ def instantiate_model(cfg: Config, skeleton: Skeleton):
                 embed_dim=m.channels,
                 drop_path_rate=m.drop_path_rate,
                 mup=m.mup,
+                dtype=dtype,
             )
         )
         rmcl = False
@@ -97,6 +111,7 @@ def instantiate_model(cfg: Config, skeleton: Skeleton):
             drop_path_rate=m.drop_path_rate,
             n_hyp=cfg.multi_hyp.n_hyp,
             mup=m.mup,
+            dtype=dtype,
         )
         if m.arch == "manifold":
             model, rmcl = ManifoldMixSTE(manifold_cfg, skeleton), False

@@ -9,6 +9,12 @@ level, so all joints at equal depth share one batched 3x3 product.
 
 Each level's results are collected per joint and stacked once at the end,
 so no tensor is written in place (the result stays differentiable).
+
+Dtypes follow the JAX package: the T-pose operators are fp32, so bf16 bone
+lengths give fp32 offsets, and each bf16 joint position is computed in
+fp32 from them and rounded to bf16 where it is stored (the JAX rollout
+writes fp32 values into a bf16 buffer); world rotations stay in the
+rotations' dtype.
 """
 
 from __future__ import annotations
@@ -34,11 +40,9 @@ def _check_topological(skeleton: Skeleton) -> None:
 
 
 def _offsets(bone_lengths: torch.Tensor, skeleton: Skeleton) -> torch.Tensor:
-    """(..., num_bones) -> (..., J, 3): ops[j] * len[j-1], row 0 zero."""
-    ops = torch.as_tensor(
-        skeleton.t_pose_array(), dtype=bone_lengths.dtype,
-        device=bone_lengths.device,
-    )
+    """(..., num_bones) -> (..., J, 3): ops[j] * len[j-1], row 0 zero, in
+    the lengths' dtype promoted with the fp32 operators."""
+    ops = torch.as_tensor(skeleton.t_pose_array(), device=bone_lengths.device)
     lengths = torch.cat(
         [torch.zeros_like(bone_lengths[..., :1]), bone_lengths], dim=-1
     )
@@ -57,10 +61,9 @@ def build_t_pose(bone_lengths: torch.Tensor, skeleton: Skeleton) -> torch.Tensor
         while a != 0:
             ancestry[j, a] = 1.0
             a = skeleton.parents[a]
-    ancestry = torch.as_tensor(
-        ancestry, dtype=bone_lengths.dtype, device=bone_lengths.device
-    )
-    return torch.einsum("ja,...ac->...jc", ancestry, _offsets(bone_lengths, skeleton))
+    offsets = _offsets(bone_lengths, skeleton)
+    ancestry = torch.as_tensor(ancestry, dtype=offsets.dtype, device=offsets.device)
+    return torch.einsum("ja,...ac->...jc", ancestry, offsets)
 
 
 def forward_kinematics(
@@ -103,8 +106,9 @@ def forward_kinematics(
         r_parent = torch.stack([world_rot[parents[j]] for j in js], dim=-3)
         p_parent = torch.stack([positions[parents[j]] for j in js], dim=-2)
         r_world = compose_rotations(r_parent, rotations[..., js, :, :])
-        pos = rotate_vectors(r_world, offsets[..., js, :]) + p_parent
+        off = offsets[..., js, :]
+        pos = rotate_vectors(r_world.to(off.dtype), off) + p_parent
         for i, j in enumerate(js):
             world_rot[j] = r_world[..., i, :, :]
-            positions[j] = pos[..., i, :]
+            positions[j] = pos[..., i, :].to(dtype)
     return torch.stack(positions, dim=-2)

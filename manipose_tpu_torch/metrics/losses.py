@@ -19,14 +19,16 @@ STANDARD_H36M_WEIGHTS = (1, 1, 2.5, 2.5, 1, 2.5, 2.5, 1, 1, 1, 1.5, 1.5, 4, 4,
 
 
 @functools.lru_cache(maxsize=None)
-def _weights_on(device: torch.device, dtype: torch.dtype) -> torch.Tensor:
-    return torch.tensor(STANDARD_H36M_WEIGHTS, dtype=dtype, device=device)
+def _weights_on(device: torch.device) -> torch.Tensor:
+    return torch.tensor(STANDARD_H36M_WEIGHTS, dtype=torch.float32, device=device)
 
 
 def h36m_weights(like: torch.Tensor) -> torch.Tensor:
-    """:data:`STANDARD_H36M_WEIGHTS` on ``like``'s device and dtype, copied
-    to the device once and cached, so a train step does not wait on it."""
-    return _weights_on(like.device, like.dtype)
+    """:data:`STANDARD_H36M_WEIGHTS` in fp32 on ``like``'s device, copied
+    to the device once and cached, so a train step does not wait on it.
+    fp32 like the JAX package's numpy table, so a bf16 error term that
+    they weight is promoted to fp32 there as here."""
+    return _weights_on(like.device)
 
 
 def _sequential_mean(x: torch.Tensor, dims: Sequence[int]) -> torch.Tensor:

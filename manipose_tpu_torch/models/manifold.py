@@ -4,7 +4,8 @@ Port of ``manipose_tpu/models/manifold.py``. The rotations branch is a
 MixSTE emitting one 6D/4D rotation per joint per frame; the segments
 branch (BonesMixSTE) emits one length per bone per sequence (temporal
 mean); forward kinematics puts every output pose on the
-constant-bone-length manifold.
+constant-bone-length manifold. ``ManifoldConfig.dtype`` (fp32 or bf16)
+is both trunks' compute dtype, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -16,7 +17,7 @@ import torch
 
 from ..geometry.skeleton import Skeleton
 from .decoder import decode_poses
-from .mix_ste import MixSTE, MixSTEConfig
+from .mix_ste import Dense, MixSTE, MixSTEConfig
 
 
 @dataclasses.dataclass(frozen=True)
@@ -39,13 +40,15 @@ class ManifoldConfig:
     n_hyp: int = 5  # used by the rMCL model only
     mup: bool = False
     mup_base_width: int = 64
+    dtype: torch.dtype = torch.float32  # compute dtype; parameters stay fp32
 
     def _trunk(self, **kw) -> MixSTEConfig:
         return MixSTEConfig(
             num_frame=self.num_frame, in_chans=self.in_chans,
             mlp_ratio=self.mlp_ratio, qkv_bias=self.qkv_bias,
             qk_scale=self.qk_scale, drop_path_rate=self.drop_path_rate,
-            mup=self.mup, mup_base_width=self.mup_base_width, **kw,
+            mup=self.mup, mup_base_width=self.mup_base_width,
+            dtype=self.dtype, **kw,
         )
 
     def rot_trunk_config(self) -> MixSTEConfig:
@@ -74,8 +77,9 @@ class BonesMixSTE(MixSTE):
         super().__init__(cfg.seg_trunk_config(), use_patch_embed=False)
         self.num_bones = cfg.num_bones
         self.embed_dim_seg = cfg.embed_dim_seg
-        self.joints_to_segments_proj = torch.nn.Linear(
-            cfg.num_joints * cfg.in_chans, cfg.num_bones * cfg.embed_dim_seg
+        self.joints_to_segments_proj = Dense(
+            cfg.num_joints * cfg.in_chans, cfg.num_bones * cfg.embed_dim_seg,
+            compute_dtype=cfg.dtype,
         )
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

@@ -17,6 +17,16 @@ Numerics as in the JAX package:
   is divided by ``readout_div`` under muP;
 - stochastic depth rates follow linspace(0, drop_path_rate, depth).
 
+Precision follows the JAX package's ``dtype`` policy: parameters stay
+fp32, activations run in ``MixSTEConfig.dtype`` (fp32 or bf16). Under bf16
+the trunk casts its input and the positional tables to bf16; every Linear
+computes as ``flax.linen.Dense(dtype=bf16)`` does (input, weight and bias
+cast to bf16, bf16 out); every LayerNorm as ``flax.linen.LayerNorm(
+dtype=bf16)`` does (statistics and affine in fp32, the result rounded
+once to bf16); the fused MLP gets bf16 operands cast from the fp32
+parameters. The casts happen at call time, so autograd carries each
+gradient back to its fp32 parameter; at fp32 every cast is a no-op.
+
 On the card the attention cores run kernels K1/K3 (backward K2/K4) and
 every MLP runs the fused kernel K5 (backward K6); on the CPU their plain
 versions run.
@@ -29,6 +39,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..ops.attention import multi_head_attention
@@ -52,6 +63,7 @@ class MixSTEConfig:
     drop_path_rate: float = 0.2
     mup: bool = False
     mup_base_width: int = 64
+    dtype: torch.dtype = torch.float32  # compute dtype; parameters stay fp32
 
     def drop_path_rates(self):
         return np.linspace(0.0, self.drop_path_rate, self.depth).tolist()
@@ -62,18 +74,57 @@ class MixSTEConfig:
         return (self.embed_dim / self.mup_base_width) if self.mup else 1.0
 
 
-class Mlp(nn.Module):
-    """fc1 -> exact GELU -> fc2, run as one fused kernel (K5)."""
+class Dense(nn.Linear):
+    """``nn.Linear`` (same parameters and state-dict names) that computes
+    as ``flax.linen.Dense(dtype=compute_dtype)``: input, weight and bias
+    cast to ``compute_dtype``, the output in it."""
 
-    def __init__(self, in_features: int, hidden_features: int):
+    def __init__(self, in_features: int, out_features: int, bias: bool = True,
+                 compute_dtype: torch.dtype = torch.float32):
+        super().__init__(in_features, out_features, bias=bias)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        bias = None if self.bias is None else self.bias.to(dt)
+        return F.linear(x.to(dt), self.weight.to(dt), bias)
+
+
+class LayerNorm(nn.LayerNorm):
+    """``nn.LayerNorm`` (fp32 affine, same state-dict names) that computes
+    as ``flax.linen.LayerNorm(dtype=compute_dtype)``: statistics and affine
+    in fp32, the result rounded once to ``compute_dtype``."""
+
+    def __init__(self, dim: int, eps: float,
+                 compute_dtype: torch.dtype = torch.float32):
+        super().__init__(dim, eps=eps)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        # on an fp32 copy: CUDA's layer_norm refuses a bf16 input with fp32
+        # weights (torch 2.11)
+        y = F.layer_norm(x.float(), self.normalized_shape, self.weight,
+                         self.bias, self.eps)
+        return y.to(self.compute_dtype)
+
+
+class Mlp(nn.Module):
+    """fc1 -> exact GELU -> fc2, run as one fused kernel (K5) on operands
+    cast to the compute dtype, as the JAX package's fused path takes them."""
+
+    def __init__(self, in_features: int, hidden_features: int,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.fc1 = nn.Linear(in_features, hidden_features)
         self.fc2 = nn.Linear(hidden_features, in_features)
+        self.dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.dtype
         y = fused_mlp(
-            x.reshape(-1, x.shape[-1]),
-            self.fc1.weight, self.fc1.bias, self.fc2.weight, self.fc2.bias,
+            x.reshape(-1, x.shape[-1]).to(dt),
+            self.fc1.weight.to(dt), self.fc1.bias.to(dt),
+            self.fc2.weight.to(dt), self.fc2.bias.to(dt),
         )
         return y.reshape(x.shape)
 
@@ -83,14 +134,14 @@ class Attention(nn.Module):
 
     def __init__(self, dim: int, num_heads: int, qkv_bias: bool = True,
                  qk_scale: Optional[float] = None, comb: bool = False,
-                 mup: bool = False):
+                 mup: bool = False, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.num_heads = num_heads
         head_dim = dim // num_heads
         self.scale = qk_scale or ((1.0 / head_dim) if mup else head_dim**-0.5)
         self.comb = comb
-        self.qkv = nn.Linear(dim, dim * 3, bias=qkv_bias)
-        self.proj = nn.Linear(dim, dim)
+        self.qkv = Dense(dim, dim * 3, bias=qkv_bias, compute_dtype=dtype)
+        self.proj = Dense(dim, dim, compute_dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         # the kernels read q, k and v in place from the qkv projection and
@@ -104,7 +155,8 @@ class DropPath(nn.Module):
     """Per-sample stochastic depth (timm semantics): the identity unless
     training with a nonzero rate, then one mask per folded-batch row, drawn
     from ``generator`` (a ``torch.Generator`` on the input's device, set by
-    :func:`set_drop_path_generator`; the global RNG is never drawn from)."""
+    :func:`set_drop_path_generator`; the global RNG is never drawn from).
+    The output keeps the input's dtype."""
 
     def __init__(self, rate: float = 0.0):
         super().__init__()
@@ -139,14 +191,15 @@ class Block(nn.Module):
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 2.0,
                  qkv_bias: bool = True, qk_scale: Optional[float] = None,
                  drop_path: float = 0.0, residual_scale: float = 1.0,
-                 mup: bool = False):
+                 mup: bool = False, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.residual_scale = residual_scale
-        self.norm1 = nn.LayerNorm(dim, eps=1e-6)
-        self.attn = Attention(dim, num_heads, qkv_bias, qk_scale, mup=mup)
+        self.norm1 = LayerNorm(dim, 1e-6, dtype)
+        self.attn = Attention(dim, num_heads, qkv_bias, qk_scale, mup=mup,
+                              dtype=dtype)
         self.drop_path = DropPath(drop_path)
-        self.norm2 = nn.LayerNorm(dim, eps=1e-6)
-        self.mlp = Mlp(dim, int(dim * mlp_ratio))
+        self.norm2 = LayerNorm(dim, 1e-6, dtype)
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x * self.residual_scale + self.drop_path(self.attn(self.norm1(x)))
@@ -168,9 +221,10 @@ class MixSTE(nn.Module):
         self.cfg = cfg
         self.use_patch_embed = use_patch_embed
         self.apply_head = apply_head
-        c = cfg.embed_dim
+        c, dt = cfg.embed_dim, cfg.dtype
         if use_patch_embed:
-            self.Spatial_patch_to_embedding = nn.Linear(cfg.in_chans, c)
+            self.Spatial_patch_to_embedding = Dense(cfg.in_chans, c,
+                                                    compute_dtype=dt)
         self.Spatial_pos_embed = nn.Parameter(torch.zeros(1, cfg.num_joints, c))
         self.Temporal_pos_embed = nn.Parameter(torch.zeros(1, cfg.num_frame, c))
         residual_scale = (1.0 / np.sqrt(cfg.depth)) if cfg.mup else 1.0
@@ -179,17 +233,17 @@ class MixSTE(nn.Module):
         def blocks():
             return nn.ModuleList(
                 Block(c, cfg.num_heads, cfg.mlp_ratio, cfg.qkv_bias,
-                      cfg.qk_scale, dpr[i], residual_scale, cfg.mup)
+                      cfg.qk_scale, dpr[i], residual_scale, cfg.mup, dt)
                 for i in range(cfg.depth)
             )
 
         self.STEblocks = blocks()
         self.TTEblocks = blocks()
-        self.Spatial_norm = nn.LayerNorm(c, eps=1e-6)
-        self.Temporal_norm = nn.LayerNorm(c, eps=1e-6)
+        self.Spatial_norm = LayerNorm(c, 1e-6, dt)
+        self.Temporal_norm = LayerNorm(c, 1e-6, dt)
         if apply_head:
             self.head = nn.Sequential(
-                nn.LayerNorm(c, eps=1e-5), nn.Linear(c, cfg.out_dim)
+                LayerNorm(c, 1e-5, dt), Dense(c, cfg.out_dim, compute_dtype=dt)
             )
 
     def _spatial(self, x: torch.Tensor, i: int) -> torch.Tensor:
@@ -203,7 +257,7 @@ class MixSTE(nn.Module):
         b, l, j, c = x.shape
         x = x.transpose(1, 2)  # (B, J, L, C)
         if pos is not None:
-            x = x + pos
+            x = x + pos.to(x.dtype)
         x = self.TTEblocks[i](x.reshape(b * j, l, c))
         x = self.Temporal_norm(x)
         return x.reshape(b, j, l, c).transpose(1, 2)
@@ -217,9 +271,12 @@ class MixSTE(nn.Module):
                 f"expected {cfg.num_frame} frames of {cfg.num_joints} joints, "
                 f"got {l} of {j}"
             )
+        # the fp32 positional tables are cast to the compute dtype, else
+        # the add would promote the residual stream back to fp32
+        x = x.to(cfg.dtype)
         if self.use_patch_embed:
             x = self.Spatial_patch_to_embedding(x)
-        x = x + self.Spatial_pos_embed
+        x = x + self.Spatial_pos_embed.to(cfg.dtype)
         x = self._spatial(x, 0)
         x = self._temporal(x, 0, pos=self.Temporal_pos_embed)
         for i in range(1, cfg.depth):

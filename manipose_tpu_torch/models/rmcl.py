@@ -5,6 +5,11 @@ under the reference names (``head.{h}.norm``, ``head.{h}.prediction_head``,
 ``head.{h}.score_head``); the forward pass stacks them and applies all K
 heads with one product each, folding each head's LayerNorm affine into its
 projection as the JAX package does.
+
+Under bf16 compute the heads normalize the bf16 trunk features in bf16,
+then multiply by the fp32 folded kernel, which promotes: hypotheses,
+logits and scores come out fp32, as in the JAX package (where ``x_hat``
+is bf16 and the kernel fp32).
 """
 
 from __future__ import annotations
@@ -40,11 +45,13 @@ class MCLHeads(nn.ModuleList):
     """
 
     def __init__(self, n_hyp: int, embed_dim: int, out_dim: int,
-                 num_joints: int, readout_div: float = 1.0):
+                 num_joints: int, readout_div: float = 1.0,
+                 dtype: torch.dtype = torch.float32):
         super().__init__(
             MCLHead(embed_dim, out_dim, num_joints) for _ in range(n_hyp)
         )
         self.readout_div = readout_div
+        self.dtype = dtype
 
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         ln_scale = torch.stack([h.norm.weight for h in self])  # (H, C)
@@ -54,9 +61,11 @@ class MCLHeads(nn.ModuleList):
         score_w = torch.stack([h.score_head.weight[0] for h in self])  # (H, J)
         score_b = torch.stack([h.score_head.bias for h in self])  # (H, 1)
         # LN statistics are head-independent: (x_hat*s + b) W^T
-        # = x_hat (s*W)^T + b W^T; MuReadout divides its whole input
-        x_hat = nn.functional.layer_norm(x, x.shape[-1:], eps=1e-5)
-        x_hat = x_hat / self.readout_div
+        # = x_hat (s*W)^T + b W^T; MuReadout divides its whole input.
+        # x_hat is in the compute dtype, the folded kernel fp32: the
+        # products promote to fp32
+        x_hat = nn.functional.layer_norm(x.to(self.dtype), x.shape[-1:], eps=1e-5)
+        x_hat = (x_hat / self.readout_div).to(pred_w.dtype)
         kernel = ln_scale[:, :, None] * pred_w.transpose(1, 2)  # (H, C, D)
         bias = torch.einsum("hc,hdc->hd", ln_bias / self.readout_div, pred_w)
         bias = bias + pred_b
@@ -80,6 +89,7 @@ class RMCLRotMixSTE(MixSTE):
         self.head = MCLHeads(
             cfg.n_hyp, cfg.embed_dim_rot, cfg.rot_rep_dim, cfg.num_joints,
             (cfg.embed_dim_rot / cfg.mup_base_width) if cfg.mup else 1.0,
+            cfg.dtype,
         )
 
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

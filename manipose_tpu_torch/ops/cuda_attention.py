@@ -27,16 +27,20 @@ from __future__ import annotations
 import ctypes
 
 import torch
+import torch.nn.functional as F
 
 from . import build
 
 KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (8, 16, 32, 64)  # 8 is model=small's (64 channels, 8 heads)
+# head dims the kernels are built for (8 is model=small's: 64 channels, 8
+# heads); :func:`attention` pads smaller ones up
+HEAD_DIMS = (8, 16, 32, 64)
 PACKED_MAX_N = 32
 
-# launches per kernel; reset by ``ops.reset_launch_counts``
-LAUNCHES = {"attention_dense": 0, "attention_packed": 0,
-            "attention_dense_bwd": 0, "attention_packed_bwd": 0}
+# launches per kernel and operand dtype; reset by ``ops.reset_launch_counts``
+LAUNCHES = {name: dict.fromkeys(KERNEL_DTYPES, 0)
+            for name in ("attention_dense", "attention_packed",
+                         "attention_dense_bwd", "attention_packed_bwd")}
 
 
 def attention_plain(q, k, v, scale: float) -> torch.Tensor:
@@ -165,7 +169,7 @@ def attention_dense(q, k, v, scale: float, lse=None) -> torch.Tensor:
         b, h, n, d, *_strides(q), float(scale), q.device.index, _stream(q),
     )
     build.check(lib, err, "mp_attention_dense")
-    LAUNCHES["attention_dense"] += 1
+    LAUNCHES["attention_dense"][q.dtype] += 1
     return out
 
 
@@ -186,7 +190,7 @@ def attention_packed(q, k, v, scale: float) -> torch.Tensor:
         q.device.index, _stream(q),
     )
     build.check(lib, err, "mp_attention_packed")
-    LAUNCHES["attention_packed"] += 1
+    LAUNCHES["attention_packed"][q.dtype] += 1
     return out
 
 
@@ -217,7 +221,7 @@ def attention_dense_bwd(q, k, v, out, dout, lse, scale: float) -> torch.Tensor:
         q.device.index, _stream(q),
     )
     build.check(lib, err, "mp_attention_dense_bwd")
-    LAUNCHES["attention_dense_bwd"] += 1
+    LAUNCHES["attention_dense_bwd"][q.dtype] += 1
     return dqkv
 
 
@@ -242,7 +246,7 @@ def attention_packed_bwd(q, k, v, dout, scale: float) -> torch.Tensor:
         float(scale), q.device.index, _stream(q),
     )
     build.check(lib, err, "mp_attention_packed_bwd")
-    LAUNCHES["attention_packed_bwd"] += 1
+    LAUNCHES["attention_packed_bwd"][q.dtype] += 1
     return dqkv
 
 
@@ -321,10 +325,27 @@ class PackedAttention(torch.autograd.Function):
         return dqkv.view(qkv.shape), None, None
 
 
+def padded_head_dim(d: int):
+    """The head dim of the kernel that runs heads of dim ``d``: the next in
+    ``HEAD_DIMS``, or None past the largest."""
+    return next((w for w in HEAD_DIMS if w >= d), None)
+
+
 def attention(qkv, num_heads: int, scale: float) -> torch.Tensor:
     """Multi-head attention on the qkv projection: (B, N, 3*h*d) ->
     (B, N, h*d). N <= 32 (the spatial layout) goes to K3/K4, longer
-    sequences (the temporal layout) to K1/K2."""
+    sequences (the temporal layout) to K1/K2. A head dim the kernels are
+    not built for is zero-padded up to the next built one: zero columns of
+    q and k leave q k^T unchanged and zero columns of v give output
+    columns that are sliced away (autograd pads dO and slices dq, dk, dv
+    back); the scale stays the caller's."""
+    b, n, c3 = qkv.shape
+    d = c3 // (3 * num_heads)
+    dp = padded_head_dim(d)
+    if dp is not None and dp != d:
+        qkv = F.pad(qkv.reshape(b, n, 3, num_heads, d), (0, dp - d))
+        out = attention(qkv.reshape(b, n, 3 * num_heads * dp), num_heads, scale)
+        return out.reshape(b, n, num_heads, dp)[..., :d].reshape(b, n, num_heads * d)
     packed = qkv.shape[1] <= PACKED_MAX_N
     if torch.is_grad_enabled() and qkv.requires_grad:
         fn = PackedAttention if packed else DenseAttention

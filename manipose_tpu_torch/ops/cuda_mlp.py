@@ -11,7 +11,12 @@ w1 (H, C), w2 (C, H).
 
 ``fused_mlp`` is differentiable: when a gradient is wanted it runs
 :class:`FusedMLP`, which saves x, w1, b1 and w2 (as the JAX VJP does) and
-whose backward is K6; otherwise it launches K5 alone.
+whose backward is K6; otherwise it launches K5 alone. Widths the kernels
+are not built for (C under 512 and not in ``CHANNELS``, H not a multiple
+of 64) are zero-padded up to the next built shape: zero columns of x and
+W1 leave x W1^T unchanged, a zero hidden unit is gelu(0) = 0 through zero
+weights, and the padded output columns are sliced away, as autograd
+slices the gradients.
 
 A CPU tensor takes the plain version, a CUDA tensor launches the kernel
 (or the call raises).
@@ -37,8 +42,9 @@ WGRAD_TILE = 128
 WGRAD_BLOCKS = 512
 WGRAD_MIN_ROWS = 256
 
-# launches per kernel; reset by ``ops.reset_launch_counts``
-LAUNCHES = {"fused_mlp": 0, "fused_mlp_bwd": 0}
+# launches per kernel and operand dtype; reset by ``ops.reset_launch_counts``
+LAUNCHES = {name: dict.fromkeys(KERNEL_DTYPES, 0)
+            for name in ("fused_mlp", "fused_mlp_bwd")}
 
 
 def mlp_plain(x, w1, b1, w2, b2) -> torch.Tensor:
@@ -88,8 +94,11 @@ def mlp_plain_bwd(x, w1, b1, w2, g):
     dx = torch.matmul(da_c, w1.float()).to(dt)
     dw1 = torch.matmul(da_c.t(), x32).to(w1.dtype)
     dw2 = torch.matmul(g32.t(), hh).to(w2.dtype)
-    db1 = da.sum(0).to(b1.dtype)
-    db2 = g.float().sum(0).to(w2.dtype)
+    # the bias sums are products with a ones vector, like the weight sums,
+    # so zero-padded columns leave every other column's sum bit for bit
+    ones = torch.ones(x.shape[0], dtype=torch.float32, device=x.device)
+    db1 = torch.matmul(da.t(), ones).to(b1.dtype)
+    db2 = torch.matmul(g.float().t(), ones).to(w2.dtype)
     return dx, dw1, db1, dw2, db2
 
 
@@ -146,7 +155,7 @@ def mlp_forward(x, w1, b1, w2, b2) -> torch.Tensor:
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     build.check(lib, err, "mp_fused_mlp")
-    LAUNCHES["fused_mlp"] += 1
+    LAUNCHES["fused_mlp"][x.dtype] += 1
     return out
 
 
@@ -184,7 +193,7 @@ def fused_mlp_bwd(x, w1, b1, w2, g):
         x.device.index, torch.cuda.current_stream(x.device).cuda_stream,
     )
     build.check(lib, err, "mp_fused_mlp_bwd")
-    LAUNCHES["fused_mlp_bwd"] += 1
+    LAUNCHES["fused_mlp_bwd"][x.dtype] += 1
     dw1, db1, dw2, db2 = torch.split(grads, [h * c, h, c * h, c])
     return dx, dw1.view(h, c), db1, dw2.view(c, h), db2
 
@@ -202,8 +211,24 @@ class FusedMLP(torch.autograd.Function):
         return fused_mlp_bwd(*ctx.saved_tensors, g.contiguous())
 
 
+def padded_widths(c: int, h: int):
+    """(C, H) of the kernel that runs an MLP of C channels and H hidden
+    units: C up to the next width in ``CHANNELS``, H up to a multiple of
+    ``HIDDEN_TILE``; None past the widest channel count."""
+    cp = next((w for w in CHANNELS if w >= c), None)
+    return None if cp is None else (cp, -(-h // HIDDEN_TILE) * HIDDEN_TILE)
+
+
 def fused_mlp(x, w1, b1, w2, b2) -> torch.Tensor:
     """x (M, C) -> gelu(x w1^T + b1) w2^T + b2, (M, C), differentiable."""
+    c, h = x.shape[-1], w1.shape[0]
+    padded = padded_widths(c, h)
+    if padded is not None and padded != (c, h):
+        pc, ph = padded[0] - c, padded[1] - h
+        y = fused_mlp(F.pad(x, (0, pc)), F.pad(w1, (0, pc, 0, ph)),
+                      F.pad(b1, (0, ph)), F.pad(w2, (0, ph, 0, pc)),
+                      F.pad(b2, (0, pc)))
+        return y[:, :c]
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (x, w1, b1, w2, b2)):
         return FusedMLP.apply(x, w1, b1, w2, b2)

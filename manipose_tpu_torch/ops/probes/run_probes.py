@@ -48,6 +48,11 @@ builds into ``build/probes/`` and prints:
    torch.profiler; neither counts the host's time to launch. Each
    variant's launch shapes are printed beside its times.
 
+7. ``bf16``: each kernel's bf16 error against fp64 on the same bf16
+   inputs, beside its plain version's, at the flagship's rotations and
+   segments shapes: the relative error in norm of K1's/K3's output, of
+   K2's/K4's dq, dk and dv, and of K5's output and K6's five gradients.
+
 The ablation patches the sources by text and stops if a patch point is
 gone; update the patches with the kernels.
 """
@@ -162,8 +167,8 @@ def build_variants(lib_name: str, variants: dict, against: Path | None = None) -
     return libs
 
 
-def operands(dtype, gen):
-    m, c, h = SHAPE
+def operands(dtype, gen, shape=SHAPE):
+    m, c, h = shape
 
     def uniform(shape, fan_in):
         u = torch.rand(shape, generator=gen, device="cuda") * 2 - 1
@@ -353,7 +358,73 @@ def packed(libs: dict, gen) -> None:
     build._libs.pop("attention", None)
 
 
-SECTIONS = ("mma_rate", "accumulate", "ablate", "k6", "attention", "packed")
+def rel64(got, ref) -> float:
+    return ((got.double() - ref).norm() / ref.norm()).item()
+
+
+def bf16_attention(kind: str, b: int, h: int, n: int, d: int, gen) -> None:
+    """K1 + K2 (``dense``) or K3 + K4 (``packed``) on bf16 views of one
+    qkv tensor, against fp64 from the same bf16 values."""
+    from manipose_tpu_torch.ops import cuda_attention as ca
+
+    qkv = torch.randn((b, n, 3, h, d), generator=gen, device="cuda").bfloat16()
+    q, k, v = (t.transpose(1, 2) for t in qkv.unbind(2))
+    dout = torch.randn((b, n, h, d), generator=gen, device="cuda").bfloat16().transpose(1, 2)
+    scale = d**-0.5
+    q64, k64, v64, do64 = (t.double() for t in (q, k, v, dout))
+    p = torch.softmax(q64 @ k64.transpose(-1, -2) * scale, -1)
+    dp = do64 @ v64.transpose(-1, -2)
+    ds = p * (dp - (dp * p).sum(-1, keepdim=True))
+    want = [p @ v64, ds @ k64 * scale, ds.transpose(-1, -2) @ q64 * scale,
+            p.transpose(-1, -2) @ do64]
+    if kind == "dense":
+        lse = torch.empty((b, h, n), dtype=torch.float32, device="cuda")
+        out = ca.attention_dense(q, k, v, scale, lse=lse)
+        grads = ca.attention_dense_bwd(q, k, v, out, dout, lse, scale)
+    else:
+        out = ca.attention_packed(q, k, v, scale)
+        grads = ca.attention_packed_bwd(q, k, v, dout, scale)
+    got = [out] + [t.transpose(1, 2) for t in grads.unbind(2)]
+    plain = [ca.attention_plain(q, k, v, scale), *ca.attention_plain_bwd(q, k, v, dout, scale)]
+    print(f"bf16 {kind} attention {b}*{h} x {n} x {d}: " + ", ".join(
+        f"{name} kernel {rel64(g, w):.3e} plain {rel64(pl, w):.3e}"
+        for name, g, pl, w in zip(("out", "dq", "dk", "dv"), got, plain, want)), flush=True)
+
+
+def bf16_mlp(m: int, c: int, h: int, gen) -> None:
+    """K5 + K6 on bf16 operands against fp64 from the same bf16 values."""
+    import math
+
+    from manipose_tpu_torch.ops import cuda_mlp as cm
+
+    x, w1, b1, w2, b2 = operands(torch.bfloat16, gen, (m, c, h))
+    g = torch.randn((m, c), generator=gen, device="cuda").bfloat16()
+    x64, w164, b164, w264, g64 = (t.double() for t in (x, w1, b1, w2, g))
+    a = x64 @ w164.t() + b164
+    cdf = 0.5 * (1 + torch.erf(a / math.sqrt(2)))
+    hh = a * cdf
+    da = (g64 @ w264) * (cdf + a * torch.exp(-0.5 * a * a) / math.sqrt(2 * math.pi))
+    want = [hh @ w264.t() + b2.double(), da @ w164, da.t() @ x64, da.sum(0),
+            g64.t() @ hh, g64.sum(0)]
+    got = [cm.fused_mlp(x, w1, b1, w2, b2), *cm.fused_mlp_bwd(x, w1, b1, w2, g)]
+    plain = [cm.mlp_plain(x, w1, b1, w2, b2), *cm.mlp_plain_bwd(x, w1, b1, w2, g)]
+    print(f"bf16 mlp M {m} C {c} H {h}: " + ", ".join(
+        f"{name} kernel {rel64(gt, w):.3e} plain {rel64(pl, w):.3e}"
+        for name, gt, pl, w in zip(("out", "dx", "dw1", "db1", "dw2", "db2"), got, plain, want)),
+        flush=True)
+
+
+def bf16_accuracy(gen) -> None:
+    b, l, j, s = 16, 243, 17, 16
+    bf16_attention("dense", b * j, 8, l, 64, gen)
+    bf16_attention("dense", b * s, 8, l, 16, gen)
+    bf16_attention("packed", b * l, 8, j, 64, gen)
+    bf16_attention("packed", b * l, 8, s, 16, gen)
+    bf16_mlp(b * l * j, 512, 1024, gen)
+    bf16_mlp(b * l * s, 128, 256, gen)
+
+
+SECTIONS = ("mma_rate", "accumulate", "ablate", "k6", "attention", "packed", "bf16")
 
 
 def main() -> int:
@@ -382,6 +453,8 @@ def main() -> int:
         attention(build_variants("attention", ATTENTION_VARIANTS, args.against), gen)
     if "packed" in sections:
         packed(build_variants("attention", PACKED_VARIANTS, args.against), gen)
+    if "bf16" in sections:
+        bf16_accuracy(gen)
     return 0
 
 

@@ -4,7 +4,8 @@ Port of ``manipose_tpu/serving.py::Predictor``: sequence windowing with
 replicate padding, a fixed window batch, the TTA flip and weighted-average
 hypothesis aggregation, and weights from a reference ``.pth`` file or a
 seeded random init. On the card the trunk's attention and MLP run the
-port's CUDA kernels.
+port's CUDA kernels. The model computes in ``cfg.model.dtype`` (fp32 or
+bf16, with fp32 parameters).
 """
 
 from __future__ import annotations
@@ -61,8 +62,13 @@ class Predictor:
       state_dict: weights under the reference names; None draws a seeded
         random init (for testing).
       batch_size: windows per forward call (the last batch is padded).
-      tta: average with the flipped input.
+      tta: average with the flipped input, in the output's dtype.
       device: "cuda" (the default) or "cpu".
+
+    Under ``model.dtype=bfloat16`` the rMCL model's poses, hypotheses and
+    scores are fp32, as in the JAX package; the other models' poses are
+    bf16, and numpy has no bf16, so ``predict_video`` returns them as
+    float32 arrays holding the exact bf16 values.
 
     ``quantize`` and ``data_parallel`` are not ported yet and raise.
     """
@@ -169,7 +175,8 @@ class Predictor:
         outs, done = pending
         if done is not None:
             done.synchronize()
-        return [t.numpy() for t in outs]
+        # numpy has no bf16: bf16 results widen to fp32 exactly
+        return [t.float().numpy() for t in outs]
 
     def predict_video(
         self,

@@ -6,6 +6,7 @@ from .optim import (
     lr_decay,
     make_optimizer,
     make_scheduler,
+    optimizer_from_config,
 )
 from .step import TrainState, make_eval_loss_step, make_train_step
 
@@ -18,6 +19,7 @@ __all__ = [
     "lr_decay",
     "make_optimizer",
     "make_scheduler",
+    "optimizer_from_config",
     "TrainState",
     "make_eval_loss_step",
     "make_train_step",

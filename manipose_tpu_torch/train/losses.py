@@ -56,6 +56,10 @@ def compute_loss(
     - vloss: velocity error (time axis 2 for rMCL, 1 otherwise);
     - sreg: smoothness regularization of the prediction;
     - rigid_seg_reg: the segment-length consistency penalty.
+
+    Each term is computed in the dtype that the prediction, the fp32
+    target and the fp32 joint weights promote to, as in the JAX package;
+    the total is accumulated in fp32.
     """
     terms: Dict[str, torch.Tensor] = {}
     if cfg.rmcl:
@@ -95,5 +99,5 @@ def compute_loss(
             poses, skeleton=skeleton, mode="sum"
         )
 
-    total = sum(terms.values())
+    total = sum(t.float() for t in terms.values())
     return total, terms

@@ -81,6 +81,24 @@ def make_optimizer(params: Iterable[torch.nn.Parameter],
     return Optimizer(params, weight_decay, grad_clip, skip_nonfinite)
 
 
+def optimizer_from_config(params: Iterable[torch.nn.Parameter], cfg) -> Optimizer:
+    """The optimizer the JAX train loop builds from a Config
+    (``manipose_tpu/train/loop.py:70-84``): weight decay 1e-6,
+    ``train.grad_clip`` and ``train.skip_nonfinite`` (the guard for bf16
+    runs; off in ``configs/config.yaml``)."""
+    if cfg.model.get("mup", False):
+        raise NotImplementedError(
+            "muP's per-parameter learning rates (train/mup.py) are not "
+            "ported yet"
+        )
+    t = cfg.train
+    return make_optimizer(
+        params, weight_decay=1e-6,
+        grad_clip=float(t.get("grad_clip", 0.0)),
+        skip_nonfinite=bool(t.get("skip_nonfinite", False)),
+    )
+
+
 def lr_decay(step: int, lr: float, decay_step: int, gamma: float) -> float:
     """Exponential step decay."""
     return lr * gamma ** (step / decay_step)

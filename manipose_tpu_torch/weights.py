@@ -107,10 +107,28 @@ def state_dict_from_jax(variables: Dict, arch: str) -> Dict[str, torch.Tensor]:
     return sd
 
 
+def _numpy_globals():
+    """The numpy globals a checkpoint's numpy scalars and arrays unpickle
+    through, under the module names of numpy 1 and numpy 2: scalars and
+    arrays of the numeric dtypes, nothing else (no object arrays)."""
+    core = np._core if hasattr(np, "_core") else np.core
+    allowed = [np.dtype, np.ndarray]
+    for fn in (core.multiarray.scalar, core.multiarray._reconstruct):
+        allowed += [(fn, f"{mod}.multiarray.{fn.__name__}")
+                    for mod in ("numpy.core", "numpy._core")]
+    numeric = {type(np.dtype(c)) for c in np.typecodes["All"] if c not in "OSUVMm"}
+    return allowed + sorted(numeric, key=str)
+
+
 def load_torch_checkpoint(path) -> Dict[str, torch.Tensor]:
     """A reference ``.pth`` file -> state dict, unwrapping ``model_pos``
-    and DataParallel's ``module.`` prefixes."""
-    state_dict = torch.load(path, map_location="cpu", weights_only=True)
+    and DataParallel's ``module.`` prefixes. The file is unpickled with
+    ``weights_only=True``, allowing besides tensors only numpy's numeric
+    scalars and arrays (an epoch counter or a metric saved beside
+    ``model_pos``, which the reference's loader accepts); a pickle naming
+    any other global is refused."""
+    with torch.serialization.safe_globals(_numpy_globals()):
+        state_dict = torch.load(path, map_location="cpu", weights_only=True)
     if isinstance(state_dict.get("model_pos"), dict):
         state_dict = state_dict["model_pos"]
     return OrderedDict(

@@ -5,8 +5,11 @@ and contiguous operands, fp32 and bf16), K1/K2 at every N around their
 tiles and K3/K4 at every N they take and at window counts around their
 persistent walk, both pairs against fp64 and, for K2 and K4, run twice for
 bit-for-bit equality, what the wrappers refuse, the autograd Functions
-against autograd through the plain versions, and a small model's
-Predictor and train step on the card against the CPU.
+against autograd through the plain versions, head dims and MLP widths the
+kernels take zero-padded, and a small model's Predictor and train step on
+the card against the CPU, in fp32 and under bf16 compute (with each
+kernel's launches counted on bf16 operands), and the flagship model's
+bf16 forward on one window.
 Marked ``cuda``; without a CUDA device every test skips. Run them on the
 card with ``python -m pytest tests/test_torch_port_cuda.py -q
 --noconftest``: tests/conftest.py sets up JAX for the rest of the suite,
@@ -37,9 +40,11 @@ from manipose_tpu_torch.ops.cuda_attention import (
     attention_plain_bwd,
     packed_launch_shape,
 )
+from manipose_tpu_torch.ops.cuda_attention import merge_heads, split_heads
 from manipose_tpu_torch.ops.cuda_mlp import (
     fused_mlp,
     fused_mlp_bwd,
+    mlp_forward,
     mlp_plain,
     mlp_plain_bwd,
 )
@@ -158,9 +163,12 @@ def test_kernels_refuse_what_they_do_not_take(gen):
                         v.float().transpose(2, 3).contiguous().transpose(2, 3),
                         1.0)
     x, w1, b1, w2, b2 = _mlp_operands(gen, 10, 64, 128, torch.float32)
+    # K5 itself takes only its built widths; fused_mlp pads up to them
     with pytest.raises(ValueError, match="channels"):
-        fused_mlp(x[:, :48].contiguous(), w1[:, :48].contiguous(), b1,
-                  w2[:48].contiguous(), b2[:48].contiguous())
+        mlp_forward(x[:, :48].contiguous(), w1[:, :48].contiguous(), b1,
+                    w2[:48].contiguous(), b2[:48].contiguous())
+    with pytest.raises(ValueError, match="channels"):  # past the widest
+        fused_mlp(*_mlp_operands(gen, 10, 576, 128, torch.float32))
     with pytest.raises(ValueError, match="contiguous"):
         fused_mlp(x, w1, b1, w2.t().contiguous().t(), b2)
     with pytest.raises(ValueError, match="one CUDA device"):
@@ -510,6 +518,56 @@ def test_mlp_function_matches_autograd_of_plain(gen):
         assert _max_err(a.grad.cpu(), r.grad) <= tol
 
 
+# ---- shapes the kernels are not built for, zero-padded up ------------------
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n", [16, 17, 243])
+def test_head_dim_4_runs_the_kernels_padded(gen, n, dtype):
+    """Head dim 4 (the segments trunk of tools/h36m_head_to_head.py) runs
+    K3/K4 (N <= 32) or K1/K2 padded to 8, forward and backward, against
+    autograd through the plain version on the same inputs."""
+    b, h, d, scale = 3, 4, 4, 0.5
+    qkv = torch.randn((b, n, 3 * h * d), generator=gen, device="cuda").to(dtype)
+    w = torch.randn((b, n, h * d), generator=gen, device="cuda")
+    ops.reset_launch_counts()
+    card = qkv.clone().requires_grad_()
+    out = attention(card, h, scale)
+    (out.float() * w).sum().backward()
+    kind = "attention_packed" if n <= 32 else "attention_dense"
+    counts = ops.launch_counts(dtype)
+    assert counts[kind] == 1 and counts[f"{kind}_bwd"] == 1
+    ref = qkv.clone().requires_grad_()
+    want = merge_heads(attention_plain(*split_heads(ref, h), scale))
+    (want.float() * w).sum().backward()
+    assert out.shape == want.shape and out.dtype == dtype
+    assert _max_err(out, want) <= TOL[dtype][0]
+    assert _max_err(card.grad, ref.grad) <= _grad_tol(ref.grad, dtype, relative=False)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("c,hidden", [(16, 32), (32, 64)])
+def test_narrow_mlp_runs_the_kernels_padded(gen, c, hidden, dtype):
+    """MLP widths C 16 / H 32 (tools/h36m_head_to_head.py) and C 32 / H 64
+    (tools/mup_coord_check.py) run K5/K6 padded to C 64, H 64, forward and
+    backward, against autograd through the plain version."""
+    args = _mlp_operands(gen, 700, c, hidden, dtype)
+    w = torch.randn((700, c), generator=gen, device="cuda")
+    ops.reset_launch_counts()
+    card = [a.clone().requires_grad_() for a in args]
+    out = fused_mlp(*card)
+    (out.float() * w).sum().backward()
+    counts = ops.launch_counts(dtype)
+    assert counts["fused_mlp"] == 1 and counts["fused_mlp_bwd"] == 1
+    ref = [a.clone().requires_grad_() for a in args]
+    want = mlp_plain(*ref)
+    (want.float() * w).sum().backward()
+    assert out.shape == (700, c) and out.dtype == dtype
+    assert _max_err(out, want) <= TOL[dtype][1]
+    for a, r in zip(card, ref):
+        assert a.grad.dtype == dtype
+        assert _max_err(a.grad, r.grad) <= _grad_tol(r.grad, dtype, relative=True)
+
+
 # backward launches per train step of the OVERRIDES model: one per forward
 # kernel launch
 PER_BACKWARD = {"attention_dense_bwd": 3, "attention_packed_bwd": 3,
@@ -542,3 +600,111 @@ def test_train_step_on_card_matches_cpu(gen):
         assert torch.isfinite(got).all(), name
         tol = 5e-4 * max(1.0, want.abs().max().item())
         assert (got - want).abs().max().item() <= tol, name
+
+
+# ---- bf16 compute (model.dtype=bfloat16) ------------------------------------
+
+# the JAX package's bf16 model tolerance, relative to max(1, |ref|max), and
+# relative in norm for gradients; the FK-decoded poses take the larger of it
+# and 2 * the CPU's own spread under a one-ulp input nudge + 1e-3, since the
+# decoder's Gram-Schmidt amplifies bf16 rounding at random weights (see
+# chip_smoke.py)
+BF16_TOL = 0.05
+GAP_SLACK = 1e-3
+BF16_NUDGE = 1.0 + 2.0**-8
+
+
+def _rel(got, ref):
+    """max |got - ref| over max(1, |ref|max)."""
+    got, ref = np.asarray(got, np.float64), np.asarray(ref, np.float64)
+    return float(np.abs(got - ref).max()) / max(1.0, float(np.abs(ref).max()))
+
+
+def _bf16_model(cfg, weights, device):
+    model, _ = instantiate_model(cfg, h36m_skeleton_17())
+    model.load_state_dict(weights)
+    return model.to(device).train()
+
+
+def _branch_grads(cfg, weights, x, device):
+    """Gradients of both branches' outputs under a fixed random cotangent
+    (CPU seed 0): every kernel forward and backward, without FK and the WTA
+    loss."""
+    model = _bf16_model(cfg, weights, device)
+    xt = torch.from_numpy(x).to(device)
+    hyps, scores = model.rotations_module(xt)
+    gen = torch.Generator().manual_seed(0)
+    total = sum((t.float() * torch.randn(t.shape, generator=gen).to(device)).sum()
+                for t in (hyps, scores, model.segments_module(xt)))
+    total.backward()
+    return {n: p.grad.cpu() for n, p in model.named_parameters()}
+
+
+def test_bf16_train_step_on_card_matches_cpu(gen):
+    """One train step of the small model under model.dtype=bfloat16: every
+    kernel launched on bf16 operands and none on fp32, the loss terms within
+    0.05 relative, every gradient fp32 and finite; each parameter's gradient
+    of the branches' outputs within 0.05 relative in norm (the step's own
+    gradients pass through FK and the WTA loss, which a 1e-3 change of the
+    input moves by half at random weights: they are required finite)."""
+    cfg = load_config("config", OVERRIDES + ["model.drop_path_rate=0.0",
+                                             "model.dtype=bfloat16"])
+    weights = instantiate_model(cfg, h36m_skeleton_17())[0].state_dict()
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=(2, 243, 17, 2)).astype(np.float32)
+    y = 0.1 * rng.normal(size=(2, 243, 17, 3)).astype(np.float32)
+    metrics = {}
+    for device in ("cpu", "cuda"):
+        model = _bf16_model(cfg, weights, device)
+        opt = make_optimizer(model.parameters(), weight_decay=1e-6)
+        state = TrainState.create(model, opt, seed=0, device=device)
+        ops.reset_launch_counts()
+        metrics[device] = {k: v.item() for k, v in
+                           make_train_step(model, LossConfig(), h36m_skeleton_17(),
+                                           opt)(state, x, y, 4e-5).items()}
+        if device == "cuda":
+            assert ops.launch_counts(torch.bfloat16) == {**PER_FORWARD, **PER_BACKWARD}
+            assert not any(ops.launch_counts(torch.float32).values())
+            for name, p in model.named_parameters():
+                assert p.grad.dtype == torch.float32 and torch.isfinite(p.grad).all(), name
+    for k, want in metrics["cpu"].items():
+        assert abs(metrics["cuda"][k] - want) <= BF16_TOL * abs(want), k
+    want = _branch_grads(cfg, weights, x, "cpu")
+    got = _branch_grads(cfg, weights, x, "cuda")
+    for name, w in want.items():
+        assert (got[name] - w).norm().item() <= BF16_TOL * w.norm().item(), name
+
+
+def test_bf16_flagship_forward_on_card_matches_cpu(gen):
+    """The flagship model (configs/config.yaml) under model.dtype=bfloat16
+    on one window, TTA off, card against CPU from the same weights: both
+    branches' outputs (hypotheses before FK, scores, bone lengths) within
+    0.05; the decoded poses and hypotheses within 0.05 or 2 * the CPU's
+    spread under a one-ulp input nudge + 1e-3; K1, K3 and K5 launched on
+    bf16 operands only."""
+    cfg = load_config("config", ["model.dtype=bfloat16"])
+    card = Predictor(cfg=cfg, batch_size=1, tta=False)
+    state = {k: v.cpu() for k, v in card.model.state_dict().items()}
+    window = np.random.default_rng(1).normal(size=(243, 17, 2)).astype(np.float32)
+    ops.reset_launch_counts()
+    got = card.predict_video(window, return_hypotheses=True)
+    assert ops.launch_counts(torch.bfloat16) == {
+        **{name: 0 for name in PER_BACKWARD},
+        "attention_dense": 10, "attention_packed": 10, "fused_mlp": 20,
+    }
+    assert not any(ops.launch_counts(torch.float32).values())
+    cpu = Predictor(cfg=cfg, batch_size=1, tta=False, state_dict=state, device="cpu")
+    want = cpu.predict_video(window, return_hypotheses=True)
+    nudged = cpu.predict_video(window * BF16_NUDGE, return_hypotheses=True)
+    for i, (g, w, n) in enumerate(zip(got, want, nudged)):
+        assert g.dtype == np.float32 and np.isfinite(g).all()
+        tol = BF16_TOL if i == 2 else max(BF16_TOL, 2 * _rel(n, w) + GAP_SLACK)
+        assert _rel(g, w) <= tol, (i, _rel(g, w), _rel(n, w))
+    x = torch.from_numpy(window[None])
+    with torch.inference_mode():
+        branches = [(card.model.rotations_module(x.cuda()), card.model.segments_module(x.cuda())),
+                    (cpu.model.rotations_module(x), cpu.model.segments_module(x))]
+    (c_hyps, c_scores), c_len = branches[0]
+    (w_hyps, w_scores), w_len = branches[1]
+    for g, w in ((c_hyps, w_hyps), (c_scores, w_scores), (c_len, w_len)):
+        assert _rel(g.float().cpu(), w.float()) <= BF16_TOL

@@ -3,6 +3,7 @@ model with the same weights (the JAX side running its Pallas attention in
 interpret mode), weight conversion, the model factory and aggregation."""
 
 import functools
+import pickle
 
 import numpy as np
 import pytest
@@ -18,6 +19,7 @@ from manipose_tpu_torch import models as tm
 from manipose_tpu_torch.config import load_config
 from manipose_tpu_torch.drivers import instantiate_model
 from manipose_tpu_torch.geometry import h36m_skeleton_17 as t_skeleton
+from manipose_tpu_torch.serving import Predictor
 from manipose_tpu_torch.weights import load_torch_checkpoint, state_dict_from_jax
 
 # the JAX package's model-forward tolerance, at unit output scale: fp32
@@ -134,12 +136,30 @@ def test_factory_init_is_seeded():
 
 
 @pytest.mark.parametrize("override", ["model.attn_impl=ring",
-                                      "model.layout=joint_major",
-                                      "model.dtype=bfloat16"])
+                                      "model.layout=joint_major"])
 def test_factory_refuses_unported_settings(override):
     cfg = load_config("config", OVERRIDES + [override])
     with pytest.raises(NotImplementedError):
         instantiate_model(cfg, t_skeleton())
+
+
+@pytest.mark.parametrize("arch", ["mixste", "manifold", "rmcl_manifold"])
+def test_factory_builds_bf16_models_with_fp32_params(arch):
+    """model.dtype=bfloat16 is the compute dtype only: the parameters, their
+    names and the seeded init are those of the fp32 model."""
+    base = OVERRIDES + [f"model.arch={arch}"]
+    model, _ = instantiate_model(load_config("config", base + ["model.dtype=bfloat16"]),
+                                 t_skeleton())
+    ref = instantiate_model(load_config("config", base), t_skeleton())[0].state_dict()
+    sd = model.state_dict()
+    assert list(sd) == list(ref)
+    assert all(v.dtype == torch.float32 and torch.equal(v, ref[k]) for k, v in sd.items())
+    trunk = model if arch == "mixste" else model.rotations_module
+    assert trunk.cfg.dtype == torch.bfloat16
+    assert trunk.STEblocks[0].attn.qkv.compute_dtype == torch.bfloat16
+    with pytest.raises(ValueError, match="model.dtype"):
+        instantiate_model(load_config("config", base + ["model.dtype=float16"]),
+                          t_skeleton())
 
 
 def test_factory_ignores_jax_kernel_knobs():
@@ -151,20 +171,43 @@ def test_factory_ignores_jax_kernel_knobs():
                for k, v in model.state_dict().items())
 
 
-def test_reference_pth_loads_strict(tmp_path):
+class _NotAWeight:
+    """A class of this module: a pickle naming it must be refused."""
+
+
+@pytest.mark.parametrize("extra", [
+    {"epoch": 3},
+    # numpy scalars and arrays beside the weights, as the reference's
+    # training script may save them
+    {"epoch": np.int64(3), "best_err": np.float32(41.5),
+     "history": np.arange(4, dtype=np.float64), "flags": np.zeros((2, 2), bool)},
+])
+def test_reference_pth_loads_strict(tmp_path, extra):
     """A reference checkpoint ({'model_pos': ...} with DataParallel's
     'module.' prefixes) loads as is."""
     cfg = load_config("config", OVERRIDES)
     model, _ = instantiate_model(cfg, t_skeleton())
     sd = {"module." + k: v for k, v in model.state_dict().items()}
     path = tmp_path / "manipose.pth"
-    torch.save({"model_pos": sd, "epoch": 3}, path)
+    torch.save({"model_pos": sd, **extra}, path)
     other = instantiate_model(
         load_config("config", OVERRIDES + ["run.seed=9"]), t_skeleton()
     )[0]
     other.load_state_dict(load_torch_checkpoint(path), strict=True)
     assert all(torch.equal(v, model.state_dict()[k])
                for k, v in other.state_dict().items())
+    served = Predictor.from_any(str(path), cfg=cfg, device="cpu").model.state_dict()
+    assert all(torch.equal(v, served[k]) for k, v in model.state_dict().items())
+
+
+@pytest.mark.parametrize("extra", [_NotAWeight(), np.array(["a"], dtype=object)])
+def test_reference_pth_with_other_globals_is_refused(tmp_path, extra):
+    """Only numpy's numeric scalars and arrays are allowed besides tensors:
+    an arbitrary class, or an object array, is not unpickled."""
+    path = tmp_path / "manipose.pth"
+    torch.save({"model_pos": {"w": torch.ones(2)}, "extra": extra}, path)
+    with pytest.raises(pickle.UnpicklingError):
+        load_torch_checkpoint(path)
 
 
 @pytest.mark.parametrize("mode", ["weighted_ave", "best_score"])

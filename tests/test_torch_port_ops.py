@@ -22,11 +22,22 @@ from manipose_tpu_torch import ops
 from manipose_tpu_torch.ops import build
 from manipose_tpu_torch.ops.attention import multi_head_attention
 from manipose_tpu_torch.ops.cuda_attention import (
+    attention,
     attention_dense,
     attention_packed,
     attention_plain,
+    attention_plain_bwd,
+    merge_heads,
+    padded_head_dim,
+    split_heads,
 )
-from manipose_tpu_torch.ops.cuda_mlp import fused_mlp, mlp_plain, round_to_tf32
+from manipose_tpu_torch.ops.cuda_mlp import (
+    fused_mlp,
+    mlp_plain,
+    mlp_plain_bwd,
+    padded_widths,
+    round_to_tf32,
+)
 
 # the shapes of tests/test_pallas_attention.py: (batch, heads, N, d)
 DENSE_LAYOUTS = [(6, 4, 17, 64), (2, 4, 243, 64), (3, 2, 128, 32)]
@@ -314,6 +325,61 @@ def test_cpu_tensors_take_the_plain_path():
         "attention_dense": 0, "attention_packed": 0, "attention_dense_bwd": 0,
         "attention_packed_bwd": 0, "fused_mlp": 0, "fused_mlp_bwd": 0,
     }
+    assert ops.launch_counts(torch.bfloat16) == ops.launch_counts(torch.float32) \
+        == ops.launch_counts()
+
+
+# ---- shapes the kernels are not built for: zero-padded up ----------------
+
+def test_padded_shapes():
+    assert [padded_head_dim(d) for d in (4, 8, 12, 64, 65)] == [8, 8, 16, 64, None]
+    assert padded_widths(16, 32) == (64, 64)  # tools/h36m_head_to_head.py
+    assert padded_widths(32, 64) == (64, 64)  # tools/mup_coord_check.py
+    assert padded_widths(512, 1024) == (512, 1024)  # the flagship: no padding
+    assert padded_widths(96, 100) == (128, 128)
+    assert padded_widths(1024, 2048) is None  # refused on the card
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [16, 17, 40])
+def test_head_dim_4_pads_exactly(n, dtype):
+    """Head dim 4 (the segments trunk of tools/h36m_head_to_head.py) runs
+    zero-padded to 8: through the padding, the plain version's output and
+    the gradient of the qkv tensor equal the unpadded plain version's bit
+    for bit, for the per-window (N <= 32) and the dense (N = 40) route."""
+    b, h, d, scale = 3, 4, 4, 0.5
+    rng = np.random.default_rng(n)
+    qkv = torch.from_numpy(rng.normal(size=(b, n, 3 * h * d)).astype(np.float32))
+    qkv = qkv.to(dtype).requires_grad_()
+    out = attention(qkv, h, scale)
+    q, k, v = split_heads(qkv.detach(), h)
+    assert out.dtype == dtype
+    assert torch.equal(out, merge_heads(attention_plain(q, k, v, scale)))
+    g = torch.from_numpy(rng.normal(size=out.shape).astype(np.float32)).to(dtype)
+    out.backward(g)
+    grads = attention_plain_bwd(q, k, v, g.view(b, n, h, d).transpose(1, 2), scale)
+    want = torch.stack([t.transpose(1, 2) for t in grads], dim=2)
+    assert torch.equal(qkv.grad, want.reshape(qkv.shape))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c,h", [(16, 32), (32, 64)])
+def test_narrow_mlp_pads_exactly(c, h, dtype):
+    """MLP widths under 64 (C 16 / H 32 of tools/h36m_head_to_head.py's
+    segments trunk, C 32 / H 64 of tools/mup_coord_check.py) run
+    zero-padded to C 64, H 64: through the padding, the plain version's
+    output and all five gradients equal the unpadded plain version's bit
+    for bit."""
+    args = [a.requires_grad_() for a in _torch_mlp_args(*_mlp_data(544, c, h), dtype)]
+    out = fused_mlp(*args)
+    plain = [a.detach() for a in args]
+    assert out.shape == (544, c) and out.dtype == dtype
+    assert torch.equal(out, mlp_plain(*plain))
+    g = torch.from_numpy(np.random.default_rng(1).normal(size=(544, c)).astype(np.float32))
+    out.backward(g.to(dtype))
+    want = mlp_plain_bwd(*plain[:4], g.to(dtype))
+    for name, a, w in zip(("dx", "dw1", "db1", "dw2", "db2"), args, want):
+        assert a.grad.dtype == dtype and torch.equal(a.grad, w), name
 
 
 def test_other_devices_raise():
