@@ -46,7 +46,32 @@ package. Phases, each fatal on failure:
               one window, the card against the CPU (loss terms, finite
               gradients, and the branches' gradients under a fixed
               cotangent). bf16 tolerances below.
-11. profile - only with ``--profile``: one flagship ``predict_video`` and
+11. bf16 accuracy - bf16 K1-K4 at the flagship's rotations and segments
+              shapes against fp64 from the same bf16 inputs: each output
+              (out, dq, dk, dv) within 1.05 x the plain version's error
+              (+1e-6), printed beside the errors and times the kernels
+              had with P and dS in one bf16 part.
+12-15. eval - the eval-only H36M driver (``drivers.h36m.main``,
+              run.train=false) at the flagship in fp32, then in bf16, on
+              H36M-format npz files written from ``run.seed`` (S11, two
+              actions, 4 cameras, 3888 frames each: 128 windows of 243
+              frames in batches of 10): the native windowing core loaded,
+              the phase's peak memory, the protocol's average row (every
+              value finite), and K1, K3 and K5 launched (on the dtype's
+              operands) and no backward kernel; then eval frames/s (valid
+              frames over ``evaluate``'s wall time) over at least
+              EVAL_WINDOW_S of warm calls of one action's ``evaluate``,
+              and the device's busy share of as many calls under the
+              profiler. After each, one action, one camera and 2 windows
+              in one batch of 3 (one padded row), scored against targets
+              made from the model's own hypotheses, through ``evaluate``
+              on the card and on the CPU from the same weights: fp32
+              predictions
+              within MODEL_TOL of their magnitude and the MPJPE, oracle,
+              pseudo-oracle and P-MPJPE within 1e-4 relative; bf16 the
+              predictions and the same metrics within max(BF16_TOL, 2 *
+              the CPU's bf16 spread + GAP_SLACK).
+16. profile - only with ``--profile``: one flagship ``predict_video`` and
               one flagship train step under ``torch.profiler``, in fp32
               and in bf16, device time by kernel class and the device's
               busy share of each.
@@ -61,6 +86,7 @@ from __future__ import annotations
 
 import json
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -143,6 +169,43 @@ SLEEP_CYCLES = 10_000_000
 # package's model tolerance); each gradient within GRAD_TOL[fp32] of its
 # tensor's max(1, |g|max)
 TRAIN_LOSS_TOL = 5e-5
+
+# bf16 K1-K4 against fp64 from the same bf16 inputs: each output within
+# 1.05 x the plain version's error (+1e-6). The plain version keeps P and
+# dS in fp32, as the Pallas kernels do; the kernels split them into two
+# bf16 parts (csrc/attention.cu, AccMma).
+BF16_ACCURACY_RATIO, BF16_ACCURACY_SLACK = 1.05, 1e-6
+# The errors of the kernels when they fed P and dS to the tensor cores in
+# one bf16 part (run_probes bf16 on an NVIDIA H100 80GB HBM3 at 700 W), and
+# their bf16 times (ms, phase 2 of the same run), printed beside this run's
+ONE_PART_BF16_ERRORS = {("dense", "rotations", "out"): 2.153e-3,
+                        ("dense", "rotations", "dq"): 2.400e-3,
+                        ("packed", "rotations", "out"): 2.000e-3,
+                        ("packed", "rotations", "dq"): 2.360e-3}
+ONE_PART_BF16_MS = {("attention_dense", "rotations"): 0.2223,
+                    ("attention_dense", "segments"): 0.1073,
+                    ("attention_dense_bwd", "rotations"): 0.6728,
+                    ("attention_dense_bwd", "segments"): 0.2847,
+                    ("attention_packed", "rotations"): 0.1018,
+                    ("attention_packed", "segments"): 0.0322,
+                    ("attention_packed_bwd", "rotations"): 0.1800,
+                    ("attention_packed_bwd", "segments"): 0.0566}
+
+# The eval phases' data: H36M-format npz files written from run.seed, the
+# test subject S11 with two actions of EVAL_FRAMES frames on 4 cameras:
+# 2 x 4 x 16 windows of 243 frames, in batches of train.batch_size_test.
+EVAL_ACTIONS = {"Walking": "walking", "Eating": "eating"}
+EVAL_FRAMES = 3888
+# eval card vs CPU, fp32: the MPJPE, oracle, pseudo-oracle and P-MPJPE
+EVAL_METRIC_TOL = 1e-4
+# The card-vs-CPU windows' 3D targets: per frame one of the model's own
+# hypotheses (drawn from run.seed) plus N(0, EVAL_TARGET_NOISE_M) per
+# coordinate, so that every metric moves with what the model predicts and
+# a wrong oracle pick or normalization moves it past its limit.
+EVAL_TARGET_NOISE_M = 0.005
+# eval frames/s: warm evaluate calls of one action repeated until the
+# window holds at least this many seconds (one action is 0.5-1.2 s)
+EVAL_WINDOW_S = 6.0
 
 ATTENTION_CU = "manipose_tpu_torch/ops/csrc/attention.cu"
 MLP_CU = "manipose_tpu_torch/ops/csrc/mlp.cu"
@@ -862,13 +925,246 @@ def phase_cpu_vs_card_train_bf16(weights) -> None:
           f"bf16 spread past the {BF16_TOL} floor", flush=True)
 
 
+def phase_bf16_accuracy(cases) -> None:
+    """bf16 K1-K4 at the flagship's shapes against fp64 from the same bf16
+    inputs, beside their plain versions and the errors with P and dS in
+    one bf16 part; the kernels' bf16 times from phase 2 beside those."""
+    from manipose_tpu_torch.ops.probes.run_probes import bf16_attention_errors
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    b, l, j, s = TRAIN_BATCH, 243, 17, 16
+    for kind, trunk, windows, n, d in (("dense", "rotations", b * j, l, 64),
+                                       ("dense", "segments", b * s, l, 16),
+                                       ("packed", "rotations", b * l, j, 64),
+                                       ("packed", "segments", b * l, s, 16)):
+        qkv = torch.randn((windows, n, 3, 8, d), generator=gen, device="cuda").bfloat16()
+        dout = torch.randn((windows, n, 8, d), generator=gen, device="cuda").bfloat16()
+        errs = bf16_attention_errors(kind, qkv, dout.transpose(1, 2), d**-0.5)
+        del qkv, dout
+        torch.cuda.empty_cache()
+        line = []
+        for name, (kernel, plain) in errs.items():
+            bound = BF16_ACCURACY_RATIO * plain + BF16_ACCURACY_SLACK
+            before = ONE_PART_BF16_ERRORS.get((kind, trunk, name))
+            line.append(f"{name} {kernel:.4e} (plain {plain:.4e}, ratio {kernel / plain:.4f}"
+                        + (f", one part {before:.3e}" if before else "") + ")")
+            require(kernel <= bound, f"bf16 {kind} {trunk} {name}: error against fp64 "
+                                     f"{kernel} > {BF16_ACCURACY_RATIO} x plain {plain} "
+                                     f"+ {BF16_ACCURACY_SLACK}")
+        print(f"bf16 accuracy {kind:6s} {trunk:9s} {windows}*8 x {n} x {d} against fp64: "
+              + "; ".join(line), flush=True)
+    for name in ("attention_dense", "attention_dense_bwd", "attention_packed",
+                 "attention_packed_bwd"):
+        for c in cases[name]:
+            if c["dtype"] == "bfloat16":
+                print(f"bf16 time {name:20s} {c['trunk']:9s} {c['ms']:.4f} ms "
+                      f"(one part {ONE_PART_BF16_MS[(name, c['trunk'])]:.4f} ms), "
+                      f"{c['tflops']:.1f} TFLOP/s", flush=True)
+
+
+def write_h36m(data_dir: Path, seed: int) -> None:
+    """H36M-format npz files (``data_3d_h36m.npz`` with 32-joint world
+    positions in meters, ``data_2d_h36m_cpn_ft_h36m_dbb.npz`` with pixel
+    detections per camera) for S11 and EVAL_ACTIONS, from ``seed``."""
+    rng = np.random.default_rng(seed)
+    positions_3d = {"S11": {a: rng.normal(scale=0.3, size=(EVAL_FRAMES, 32, 3))
+                            .astype(np.float32) for a in EVAL_ACTIONS}}
+    positions_2d = {"S11": {a: [rng.uniform(0, 1000, size=(EVAL_FRAMES, 17, 2))
+                                .astype(np.float32) for _ in range(4)]
+                            for a in EVAL_ACTIONS}}
+    np.savez(data_dir / "data_3d_h36m.npz", positions_3d=positions_3d)
+    np.savez(data_dir / "data_2d_h36m_cpn_ft_h36m_dbb.npz", positions_2d=positions_2d)
+
+
+def eval_config(dtype: str, data_dir: Path, extra=()):
+    from manipose_tpu_torch.config import load_config
+
+    return load_config("config", [
+        f"model.dtype={dtype}", f"data.data_dir={data_dir}",
+        f"run.output_dir={data_dir / 'outputs'}", f"run.experiment=eval_{dtype}",
+        "run.train=false", f"data.actions={','.join(EVAL_ACTIONS.values())}", *extra])
+
+
+def eval_model(cfg, device):
+    """The flagship model of ``cfg`` with the seeded init that the driver
+    gives it, on ``device``."""
+    from manipose_tpu_torch.drivers import instantiate_model
+    from manipose_tpu_torch.geometry import h36m_skeleton_17
+
+    return instantiate_model(cfg, h36m_skeleton_17())[0].to(device).eval()
+
+
+def phase_eval(dtype: str, data_dir: Path):
+    """The eval-only driver at the flagship on the card. Returns (launch
+    counts, eval frames/s)."""
+    import csv
+
+    from manipose_tpu_torch import ops
+    from manipose_tpu_torch.data import native
+    from manipose_tpu_torch.drivers import create_loader, h36m
+    from manipose_tpu_torch.eval.engine import EvalConfig, evaluate
+    from manipose_tpu_torch.utils.logging import MetricLogger
+
+    cfg = eval_config(dtype, data_dir)
+    native.load_library()  # raises when the core does not build
+    print(f"windowing: the native core, {native.library_path().relative_to(ROOT)} "
+          f"(built with g++ from native/windowing.cpp)", flush=True)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    logger = MetricLogger()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    require(h36m.main(cfg, logger=logger) is None, "eval-only main returns None")
+    torch.cuda.synchronize()
+    main_s = time.perf_counter() - t0
+    peak_gb = (torch.cuda.max_memory_allocated() - before) / 1e9
+    per_action = -(-4 * (EVAL_FRAMES // cfg.data.seq_len) // cfg.train.batch_size_test)
+    n_batches = len(EVAL_ACTIONS) * per_action
+    counts = require_counts(
+        dtype, {k: 2 * n * n_batches for k, n in LAUNCHES_PER_FORWARD.items()},
+        f"eval {dtype} ({n_batches} batches of {cfg.train.batch_size_test}, TTA)")
+
+    timed = [r for r in logger.history if "eval_seconds" in r]
+    require(len(timed) == len(EVAL_ACTIONS), f"one evaluate per action: {timed}")
+    with open(Path(cfg.run.output_dir) / cfg.run.experiment / "protocol_1_err.csv",
+              newline="") as f:
+        head, *rows = list(csv.reader(f))
+    values = np.asarray([r[1:] for r in rows], float)
+    require(values.shape == (len(EVAL_ACTIONS) + 1, 10), f"protocol table {values.shape}")
+    require(bool(np.isfinite(values).all()), f"protocol table finite: {rows}")
+
+    # eval frames/s: one action's evaluate, warm, repeated over a window of
+    # EVAL_WINDOW_S or more (host clock, each call ended by its last
+    # harvest); then the device's busy share of a window of as many calls
+    # under the profiler
+    keypoints, dataset = h36m.fetch_and_prepare_data(cfg)
+    loader = create_loader(keypoints, dataset, ["walking"], ["S11"], cfg, train=False)
+    model = eval_model(cfg, "cuda")
+    eval_cfg = EvalConfig(tta=cfg.train.tta)
+    evaluate(model, loader, dataset.skeleton, eval_cfg)  # warm-up
+    frames = len(loader.dataset) * cfg.data.seq_len
+    calls = []
+    while sum(calls) < EVAL_WINDOW_S:
+        t0 = time.perf_counter()
+        evaluate(model, loader, dataset.skeleton, eval_cfg)
+        calls.append(time.perf_counter() - t0)
+    fps = frames * len(calls) / sum(calls)
+    per_call = [frames / c for c in calls]
+    wall_ms, busy_ms = profile_call(
+        f"{dtype} evaluate of one action, {len(calls)} calls",
+        lambda: [evaluate(model, loader, dataset.skeleton, eval_cfg) for _ in calls])
+    busy = f"{100 * busy_ms / wall_ms:.1f} %" if busy_ms else "not measured"
+    driver = ", ".join("{} {} frames in {:.3f} s".format(
+        r["action"], r["eval_frames"], r["eval_seconds"]) for r in timed)
+    print(f"eval {dtype}: {fps:.1f} frames/s over {len(calls)} warm calls of one action's "
+          f"evaluate ({frames} frames each) in {sum(calls):.3f} s (host clock to the last "
+          f"harvest; per call min {min(per_call):.1f}, median "
+          f"{float(np.median(per_call)):.1f}, max {max(per_call):.1f} frames/s); device "
+          f"busy {busy} of a profiled window of as many calls; the driver: {driver}; "
+          f"main {main_s:.1f} s; peak device memory {peak_gb:.2f} GB", flush=True)
+    print(f"eval {dtype} protocol average: "
+          + ", ".join(f"{h} {v:.4f}" for h, v in zip(head[1:], values[-1])), flush=True)
+    return counts, fps
+
+
+def eval_windows(cfg):
+    """One action (walking), one camera and 2 windows of S11 from the
+    phase's npz files: (2D keypoints (2L, J, 2), skeleton)."""
+    from manipose_tpu_torch.data import fetch
+    from manipose_tpu_torch.drivers import h36m
+
+    keypoints, dataset = h36m.fetch_and_prepare_data(cfg)
+    _, poses_2d, _, _ = fetch(["S11"], dataset, keypoints, ["walking"])
+    return poses_2d[0][:2 * cfg.data.seq_len], dataset.skeleton
+
+
+def eval_targets(cfg, pose_2d: np.ndarray) -> np.ndarray:
+    """3D targets (2L, J, 3) in meters at the model's own scale: for each
+    frame, one of the CPU model's hypotheses on ``pose_2d`` (the index
+    drawn from ``run.seed``) plus N(0, EVAL_TARGET_NOISE_M) noise."""
+    seq_len = cfg.data.seq_len
+    x = torch.from_numpy(pose_2d.reshape(2, seq_len, *pose_2d.shape[1:]))
+    with torch.inference_mode():
+        hyps, _ = eval_model(cfg, "cpu")(x)  # (2, H, L, J, 3)
+    hyps = hyps.float().numpy()
+    rng = np.random.default_rng(cfg.run.seed)
+    pick = rng.integers(0, hyps.shape[1], size=(2, seq_len))
+    chosen = np.take_along_axis(hyps, pick[:, None, :, None, None], axis=1)[:, 0]
+    noise = rng.normal(scale=EVAL_TARGET_NOISE_M, size=chosen.shape)
+    return (chosen + noise).astype(np.float32).reshape(2 * seq_len, *chosen.shape[2:])
+
+
+def eval_on(cfg, device, pose_2d: np.ndarray, targets: np.ndarray, skeleton):
+    """``evaluate`` of 2 windows in one batch of ``train.batch_size_test`` =
+    3 (one padded row) on ``device``: the predictions (mm), the MPJPE,
+    oracle and pseudo-oracle MPJPE, and the P-MPJPE of the oracle poses, as
+    the protocol takes it."""
+    from manipose_tpu_torch.data import PoseSequenceDataset, SequenceLoader
+    from manipose_tpu_torch.eval.engine import EvalConfig, evaluate
+    from manipose_tpu_torch.metrics import p_mpjpe
+
+    ds = PoseSequenceDataset([targets], [pose_2d], seq_len=cfg.data.seq_len)
+    loader = SequenceLoader(ds, batch_size=cfg.train.batch_size_test)
+    require(len(ds) == 2 and len(loader) == 1, "2 windows in one padded batch")
+    preds, ys, mpjpe, oracle, psoracle, oracle_preds = evaluate(
+        eval_model(cfg, device), loader, skeleton, EvalConfig(tta=cfg.train.tta))
+    pm = float(p_mpjpe(torch.from_numpy(oracle_preds[0]).to(device),
+                       torch.from_numpy(ys[0] * 1000.0).to(device)))
+    return preds[0], {"mpjpe": mpjpe, "oracle mpjpe": oracle,
+                      "pseudo oracle mpjpe": psoracle, "p-mpjpe": pm}
+
+
+def phase_eval_cpu_vs_card(dtype: str, data_dir: Path) -> None:
+    """``evaluate`` of 2 windows (one padded row) on the CPU and the card
+    from the same weights, against targets at the model's own scale
+    (``eval_targets``). fp32: predictions within MODEL_TOL of their
+    magnitude, the four metrics within EVAL_METRIC_TOL relative. bf16: each
+    within max(BF16_TOL, 2 * the CPU's bf16 spread under a one-ulp input
+    nudge + GAP_SLACK), relative to max(1, |ref|)."""
+    cfg = eval_config(dtype, data_dir, ["train.batch_size_test=3"])
+    pose_2d, skeleton = eval_windows(cfg)
+    t0 = time.perf_counter()
+    targets = eval_targets(eval_config("float32", data_dir), pose_2d)
+    ref_preds, ref = eval_on(cfg, "cpu", pose_2d, targets, skeleton)
+    cpu_s = time.perf_counter() - t0
+    got_preds, got = eval_on(cfg, "cuda", pose_2d, targets, skeleton)
+    require(got_preds.shape == (2, cfg.data.seq_len, 17, 3), f"preds {got_preds.shape}")
+    errs = {}
+    if dtype == "float32":
+        err = float(np.abs(got_preds - ref_preds).max())
+        errs["predictions"] = (err, MODEL_TOL * max(1.0, float(np.abs(ref_preds).max())))
+        for k, want in ref.items():
+            errs[k] = (abs(got[k] - want), EVAL_METRIC_TOL * abs(want))
+    else:
+        nudged_preds, nudged = eval_on(cfg, "cpu", pose_2d * BF16_NUDGE, targets, skeleton)
+        spread = rel_err(nudged_preds, ref_preds)
+        errs["predictions"] = (rel_err(got_preds, ref_preds),
+                               max(BF16_TOL, 2 * spread + GAP_SLACK))
+        for k, want in ref.items():
+            spread = rel_err(np.asarray(nudged[k]), np.asarray(want))
+            errs[k] = (rel_err(np.asarray(got[k]), np.asarray(want)),
+                       max(BF16_TOL, 2 * spread + GAP_SLACK))
+    for k, (err, tol) in errs.items():
+        require(err <= tol, f"eval cpu vs card {dtype} {k}: {err} > {tol}")
+    print(f"eval cpu vs card {dtype} (2 windows, one padded row, targets a seeded "
+          f"hypothesis + {1000 * EVAL_TARGET_NOISE_M:g} mm noise a coordinate; the CPU "
+          f"took {cpu_s:.1f} s): " + ", ".join(f"{k} err {e:.3g} (tol {t:.3g})"
+                                               for k, (e, t) in errs.items())
+          + "; cpu " + ", ".join(f"{k} {v:.4f}" for k, v in ref.items())
+          + "; card " + ", ".join(f"{k} {v:.4f}" for k, v in got.items()), flush=True)
+
+
 def kernel_group(name: str) -> str:
     """Coarse class of a device kernel, by its (mangled) name."""
     for ours, device_names in DEVICE_KERNELS.items():
         if any(n in name for n in device_names):
             return ours
     low = name.lower()
-    if any(s in low for s in ("gemm", "cutlass", "xmma", "sm90_", "cublas")):
+    # nvjet_*: cuBLAS's own GEMM kernels, which it picks for bf16 on Hopper
+    if any(s in low for s in ("gemm", "cutlass", "xmma", "sm90_", "cublas", "nvjet",
+                              "gemv")):
         return "library GEMM (qkv, proj, embeddings, heads)"
     if "layer_norm" in low:
         return "LayerNorm"
@@ -879,14 +1175,17 @@ def kernel_group(name: str) -> str:
     return "other elementwise / reductions"
 
 
-def profile_call(label: str, fn) -> None:
+def profile_call(label: str, fn):
     """``fn`` (warmed up already) under ``torch.profiler``: device time by
-    kernel and by class, and the device's busy share of the call."""
+    kernel and by class, and the device's busy share of the call. Returns
+    (wall ms, device busy ms; 0 when the profiler saw no device time).
+    Only device activity is recorded: host events would slow the host-bound
+    paths under the profiler and take a second a thousand to summarize."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -896,7 +1195,7 @@ def profile_call(label: str, fn) -> None:
     busy_ms = sum(ms for _, _, ms in rows)
     if busy_ms == 0.0:
         print(f"profile {label}: the profiler recorded no device time (not measured)")
-        return
+        return wall_ms, 0.0
     groups = {}
     for key, count, ms in rows:
         g = groups.setdefault(kernel_group(key), [0, 0.0])
@@ -909,6 +1208,7 @@ def profile_call(label: str, fn) -> None:
               f"{100 * ms / busy_ms:5.1f} %")
     for key, count, ms in sorted(rows, key=lambda r: -r[2])[:15]:
         print(f"  kernel {key[:90]:90s} launches {count:5d} {ms:9.3f} ms")
+    return wall_ms, busy_ms
 
 
 def phase_profile(dtype, predictor, train) -> None:
@@ -962,6 +1262,10 @@ def main() -> int:
     print(f"kernels phase: {time.perf_counter() - t0:.1f} s", flush=True)
 
     t0 = time.perf_counter()
+    phase_bf16_accuracy(cases)
+    print(f"bf16 accuracy phase: {time.perf_counter() - t0:.1f} s", flush=True)
+
+    t0 = time.perf_counter()
     predictor, counts, fps = phase_flagship()
     print(f"flagship phase: {time.perf_counter() - t0:.1f} s", flush=True)
 
@@ -995,17 +1299,37 @@ def main() -> int:
     print(f"bf16 cpu-card train phase: {time.perf_counter() - t0:.1f} s; "
           f"total {time.perf_counter() - t_start:.1f} s", flush=True)
 
+    scratch = ROOT / "build" / "chip_smoke_h36m"
+    shutil.rmtree(scratch, ignore_errors=True)
+    scratch.mkdir(parents=True)
+    try:
+        write_h36m(scratch, eval_config("float32", scratch).run.seed)
+        eval_counts, eval_fps = {}, {}
+        for dtype in ("float32", "bfloat16"):
+            t0 = time.perf_counter()
+            eval_counts[dtype], eval_fps[dtype] = phase_eval(dtype, scratch)
+            print(f"eval {dtype} phase: {time.perf_counter() - t0:.1f} s", flush=True)
+            t0 = time.perf_counter()
+            phase_eval_cpu_vs_card(dtype, scratch)
+            print(f"eval {dtype} cpu-card phase: {time.perf_counter() - t0:.1f} s; "
+                  f"total {time.perf_counter() - t_start:.1f} s", flush=True)
+    finally:
+        shutil.rmtree(scratch, ignore_errors=True)
+
     kernels = []
     for name, meta in KERNELS.items():
-        # this slice's main path is bf16: each kernel's headline case is the
-        # rotations trunk in bf16, its launches those of bf16 serving (the
-        # forward kernels) or of the bf16 train step (the backward ones)
+        # this slice's main path is bf16 eval: each kernel's headline case is
+        # the rotations trunk in bf16, its launches those of the bf16 eval
+        # driver (the forward kernels) or of the bf16 train step (the
+        # backward ones, which eval does not run)
         head = next(c for c in cases[name] if c["dtype"] == "bfloat16")
         by_path = {"serve": counts, "train_step": train_counts,
-                   "serve_bf16": counts16, "train_step_bf16": train_counts16}
+                   "serve_bf16": counts16, "train_step_bf16": train_counts16,
+                   "eval": eval_counts["float32"], "eval_bf16": eval_counts["bfloat16"]}
         kernels.append(dict(
             name=name, route="cuda", **meta,
-            launches=(train_counts16 if name.endswith("_bwd") else counts16)[name],
+            launches=(train_counts16 if name.endswith("_bwd")
+                      else eval_counts["bfloat16"])[name],
             launches_by_path={path: c[name] for path, c in by_path.items()},
             max_abs_err=max(c["max_abs_err"] for c in cases[name]
                             if c["dtype"] == head["dtype"]),
@@ -1020,7 +1344,9 @@ def main() -> int:
         phase_profile("bf16", predictor16, (state16, step16, batch16))
     print(f"flagship frames/s fp32 {fps:.1f}, bf16 {fps16:.1f}; train sequences/s "
           f"fp32 {seq_s:.2f} (peak {peak_gb:.2f} GB), bf16 {seq_s16:.2f} (peak "
-          f"{peak_gb16:.2f} GB) on {smi}")
+          f"{peak_gb16:.2f} GB); eval frames/s fp32 {eval_fps['float32']:.1f}, bf16 "
+          f"{eval_fps['bfloat16']:.1f}; total {time.perf_counter() - t_start:.1f} s "
+          f"on {smi}")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

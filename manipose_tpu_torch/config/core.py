@@ -35,6 +35,15 @@ class Config(dict):
     def __setattr__(self, name: str, value: Any) -> None:
         self[name] = value
 
+    def to_yaml(self) -> str:
+        return yaml.safe_dump(_plain(self), sort_keys=False)
+
+
+def _plain(x):
+    if isinstance(x, dict):
+        return {k: _plain(v) for k, v in x.items()}
+    return x
+
 
 def _wrap(x):
     if isinstance(x, dict):

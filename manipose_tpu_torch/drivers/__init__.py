@@ -1,3 +1,15 @@
-from .common import instantiate_model, torch_default_init
+from .common import (
+    create_loader,
+    get_subjects_and_actions,
+    init_model_params,
+    instantiate_model,
+    torch_default_init,
+)
 
-__all__ = ["instantiate_model", "torch_default_init"]
+__all__ = [
+    "create_loader",
+    "get_subjects_and_actions",
+    "init_model_params",
+    "instantiate_model",
+    "torch_default_init",
+]

@@ -1,7 +1,9 @@
-"""Model factory of the port.
+"""Shared driver plumbing of the port: model factory, loaders, subject
+splits.
 
-Port of ``manipose_tpu/drivers/common.py::instantiate_model`` for the
-three architectures. Without weights the model gets torch's default
+Port of ``manipose_tpu/drivers/common.py``: ``instantiate_model`` for the
+three architectures, ``init_model_params``, ``get_subjects_and_actions``
+and ``create_loader``. Without weights the model gets torch's default
 initialization drawn from a ``torch.Generator`` seeded by
 ``cfg.run.seed``, so one seed gives the same weights on every machine.
 ``model.dtype`` (``float32`` or ``bfloat16``) is the compute dtype; the
@@ -12,11 +14,14 @@ depend on it.
 from __future__ import annotations
 
 import math
+from typing import Sequence
 
 import torch
 from torch import nn
 
 from ..config import Config
+from ..data import PoseSequenceDataset, SequenceLoader, fetch
+from ..geometry.h36m import TEST_SUBJECTS, TRAIN_SUBJECTS
 from ..geometry.skeleton import Skeleton
 from ..models import (
     ManifoldConfig,
@@ -123,3 +128,76 @@ def instantiate_model(cfg: Config, skeleton: Skeleton):
                 f"implemented for now. Got option {m.arch}."
             )
     return torch_default_init(model, cfg.run.seed), rmcl
+
+
+def init_model_params(model: nn.Module, cfg: Config) -> nn.Module:
+    """The model's initialized parameters, which is the model itself:
+    ``instantiate_model`` has drawn them already (torch's default init from
+    ``cfg.run.seed``, whatever ``model.init`` says; the JAX package's
+    ``model.init=torch`` asks for that same init), and drawing them again
+    would give the same weights. Kept so that the drivers call it where the
+    JAX package's do."""
+    del cfg
+    return model
+
+
+def maybe_restore_eval_params(model: nn.Module, cfg: Config) -> nn.Module:
+    """Eval-only restore of the port's own checkpoints
+    (``run.checkpoint_params``), which wait for the training slice."""
+    if not cfg.run.train and cfg.run.get("checkpoint_params", ""):
+        raise NotImplementedError(
+            "run.checkpoint_params (restoring the port's own checkpoints) "
+            "comes with the training slice; pass run.checkpoint_model=<.pth>"
+        )
+    return model
+
+
+def get_subjects_and_actions(dataset, cfg: Config):
+    """([train, valid, test] subjects, the action filter or None)."""
+    if cfg.data.use_valid:
+        subjects_train = list(TRAIN_SUBJECTS[:-1])
+        subjects_val = list(TRAIN_SUBJECTS[-1:])
+    else:
+        subjects_train = list(TRAIN_SUBJECTS)
+        subjects_val = []
+    subjects_test = list(TEST_SUBJECTS)
+    if cfg.data.data == "one":
+        subjects_train = [subjects_train[0]]
+    action_filter = (
+        None if cfg.data.actions == "*" else cfg.data.actions.split(",")
+    )
+    if action_filter is not None:
+        action_filter = [dataset.define_actions(a)[0] for a in action_filter]
+    return [subjects_train, subjects_val, subjects_test], action_filter
+
+
+def create_loader(
+    keypoints,
+    dataset,
+    action_filter,
+    subjects: Sequence[str],
+    cfg: Config,
+    train: bool = True,
+) -> SequenceLoader:
+    """Windows of ``cfg.data.seq_len`` frames of every camera of
+    ``subjects`` and the actions kept by ``action_filter``: random starts,
+    flips and shuffling at train time, sequential otherwise."""
+    poses, poses_2d, _, cameras = fetch(subjects, dataset, keypoints, action_filter)
+    ds = PoseSequenceDataset(
+        poses,
+        poses_2d,
+        cameras,
+        seq_len=cfg.data.seq_len,
+        random_start=train,
+        miss_type=cfg.data.miss_type,
+        miss_rate=cfg.data.miss_rate,
+        noise_sigma=cfg.data.noise_sigma,
+        skeleton=dataset.skeleton,
+        flip_probability=0.5 if (train and cfg.train.flip_aug) else 0.0,
+    )
+    return SequenceLoader(
+        ds,
+        batch_size=cfg.train.batch_size if train else cfg.train.batch_size_test,
+        shuffle=train,
+        seed=cfg.run.seed,
+    )

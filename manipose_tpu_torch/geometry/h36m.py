@@ -20,6 +20,9 @@ for _i, _n in {
     H36M_NAMES_32[_i] = _n
 H36M_NAMES_32 = tuple(H36M_NAMES_32)
 
+TRAIN_SUBJECTS = ("S1", "S5", "S6", "S7", "S8")
+TEST_SUBJECTS = ("S9", "S11")
+
 # Unit translation from parent to joint in the canonical T-pose, keyed by
 # *reduced* joint index 1..16 (``h36m_lifting.py:40-57``). Joint 0 (root)
 # gets the zero vector.

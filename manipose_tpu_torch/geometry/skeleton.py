@@ -43,6 +43,9 @@ class Skeleton:
 
     # ---- derived (filled in __post_init__) ----
     bones: Tuple[Tuple[int, int], ...] = dataclasses.field(init=False)
+    bones_names: Tuple[str, ...] = dataclasses.field(init=False)
+    bones_left: Tuple[int, ...] = dataclasses.field(init=False)
+    bones_right: Tuple[int, ...] = dataclasses.field(init=False)
     levels: Tuple[Tuple[int, ...], ...] = dataclasses.field(init=False)
 
     def __post_init__(self):
@@ -61,6 +64,18 @@ class Skeleton:
         # (reference ``data/skeleton.py:100-103``).
         bones = tuple((j, int(p)) for j, p in enumerate(parents) if p >= 0)
         object.__setattr__(self, "bones", bones)
+        object.__setattr__(
+            self, "bones_names", tuple(f"{names[p]}->{names[j]}" for j, p in bones)
+        )
+
+        # Left/right bone index lists, in joints_left/right order
+        # (reference ``data/skeleton.py:110-120``).
+        bone_index = {b: i for i, b in enumerate(bones)}
+        bone_parent = dict(bones)
+        for side in ("left", "right"):
+            joints = getattr(self, f"joints_{side}")
+            object.__setattr__(self, f"bones_{side}", tuple(
+                bone_index[(j, bone_parent[j])] for j in joints if j >= 0))
 
         # Tree levels: level 0 = roots; level k = joints at depth k.
         depth = np.full(n, -1, dtype=int)

@@ -16,6 +16,8 @@ import torch
 # ``STANDARD_H36M_WEIGHTS``), one per H36M joint.
 STANDARD_H36M_WEIGHTS = (1, 1, 2.5, 2.5, 1, 2.5, 2.5, 1, 1, 1, 1.5, 1.5, 4, 4,
                          1.5, 4, 4)
+# The same for the 15-joint HumanEva skeleton (``STANDARD_HEVA_WEIGHTS``).
+STANDARD_HEVA_WEIGHTS = (1, 1, 2.5, 2.5, 1, 2.5, 2.5, 1, 1.5, 1.5, 4, 4, 1.5, 4, 4)
 
 
 @functools.lru_cache(maxsize=None)
@@ -112,3 +114,18 @@ def one_hot_winners(active_idx, n_hyp: int, dtype) -> torch.Tensor:
     heads = torch.arange(n_hyp, device=active_idx.device)
     return (active_idx[:, None, :] == heads[None, :, None]).to(dtype)
 
+
+def wta_with_scoring_loss(hypothesis, scores, y, beta: float, weights=None,
+                          squared: bool = False):
+    """WTA loss plus the BCE of the plausibility scores against one-hot
+    winners. hypothesis (B, H, L, J, 3), scores (B, H, L, 1), y (B, L, J, 3).
+
+    With ``beta == 0`` returns only the scalar WTA loss (the reference's
+    behaviour); otherwise ``(total, beta * scoring_loss)``."""
+    unagg_wta, active_idx = wta_l2_loss_and_activate_head(
+        hypothesis, y, weights=weights, squared=squared)
+    if beta == 0:
+        return unagg_wta.mean()
+    gt_scores = one_hot_winners(active_idx, hypothesis.shape[1], scores.dtype)
+    scoring_loss = binary_cross_entropy(scores[..., 0], gt_scores)
+    return unagg_wta.mean() + beta * scoring_loss, beta * scoring_loss

@@ -7,6 +7,7 @@ from .rmcl import (
     RMCLManifoldMixSTE,
     RMCLRotMixSTE,
     aggregate_hypotheses,
+    concat_hyp_and_scores,
     poses_from_hyp_idx,
 )
 
@@ -26,5 +27,6 @@ __all__ = [
     "RMCLManifoldMixSTE",
     "RMCLRotMixSTE",
     "aggregate_hypotheses",
+    "concat_hyp_and_scores",
     "poses_from_hyp_idx",
 ]

@@ -121,6 +121,14 @@ class RMCLManifoldMixSTE(nn.Module):
         return poses, scores
 
 
+def concat_hyp_and_scores(hypothesis: torch.Tensor,
+                          scores: torch.Tensor) -> torch.Tensor:
+    """(B, H, L, J, 3) + (B, H, L, 1) -> (B, H, L, J, 4): each joint gets
+    its hypothesis' score as a fourth channel."""
+    expanded = scores[:, :, :, None, :].expand(hypothesis.shape[:-1] + (1,))
+    return torch.cat([hypothesis, expanded], dim=-1)
+
+
 def poses_from_hyp_idx(hypothesis: torch.Tensor,
                        hyp_indices: torch.Tensor) -> torch.Tensor:
     """(B, H, L, J, 3) gathered at (B, L) hypothesis indices -> (B, L, J, 3)."""

@@ -52,7 +52,9 @@
 // The scores' accumulator fragments feed the next product straight from
 // registers. Lane (g, t) holds columns 2t and 2t + 1 of rows g and g + 8
 // of each 8-column tile. Under bf16 two tiles pack into the A fragment of
-// m16n8k16 as they lie (FlashAttention-2's register reuse). tf32's
+// m16n8k16 as they lie (FlashAttention-2's register reuse), each value in
+// two bf16 parts (AccMma below), so that P and dS keep fp32 accuracy as
+// the TPU kernel's do. tf32's
 // m16n8k8 A fragment wants columns t and t + 4 instead, so its k-index is
 // permuted (t <-> column 2t, t + 4 <-> column 2t + 1) and the B operand's
 // rows are read with the same permutation (load_b_rows); a sum over k
@@ -108,7 +110,8 @@
 // - K4's transposed products. dV = P^T dO and dK = scale dS^T Q take P^T
 //   and dS^T from a scratch of the warp's shared memory, written
 //   transposed from the fragments (fp32 with each 8-query group permuted
-//   to the k order load_b_staged_rows reads) and read with ldmatrix.
+//   to the k order load_b_staged_rows reads; bf16 in AccMma's two parts,
+//   P^T's and then dS^T's in the same words) and read with ldmatrix.
 //   Recomputing the transposed scores, as K2 does, saves the scratch but
 //   measured 1.7x (bf16) to 2.6x (fp32) slower at the flagship's
 //   rotations shape (run_probes packed, recompute).
@@ -208,27 +211,63 @@ __device__ __forceinline__ void load_a_split(uint32_t (&a)[mp::Mma<T>::PARTS][4]
   mp::Mma<T>::split(w, a);
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
+// The tensor-core operands of a product whose A operand is an fp32
+// accumulator: P or dS, or their transposes (P V, dS K, P^T dO, dS^T Q).
+// fp32 takes 3xTF32, as every product. bf16 keeps P and dS at fp32
+// accuracy, as pallas_attention.py:52-53, 67-79 and 162-163, 181-194 keep
+// probs and ds in fp32: each value x goes in as two bf16 parts, hi =
+// bf16(x) and lo = bf16(x - hi) (x - hi is exact in fp32), which together
+// carry 16 significant bits, and the two run as two passes against the
+// one B fragment (V, K, dO or Q, exact in bf16 already) into the same
+// fp32 accumulator. One bf16 part adds 30-45 % to the kernels' error
+// against fp64 over the plain version's (run_probes bf16, on an H100).
+template <typename T>
+struct AccMma : mp::Mma<T> {};
+
+template <>
+struct AccMma<__nv_bfloat16> {
+  static constexpr int PARTS = 2;
+  // B as loaded; both passes read the same words
+  template <int N>
+  __device__ __forceinline__ static void split(const uint32_t (&w)[N],
+                                               uint32_t (&p)[PARTS][N]) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) p[0][i] = p[1][i] = w[i];
+  }
+  static constexpr int PASSES = 2;
+  __device__ __forceinline__ static void mma(float (&c)[4], const uint32_t (&a)[PARTS][4],
+                                             const uint32_t (&b)[PARTS][2], int pass) {
+    mp::mma_bf16(c, a[pass], b[0]);
+  }
+};
+
+// x and y as a bf16 pair (x low), and what rounding left of each, as
+// another pair.
+__device__ __forceinline__ void split_bf16(float x, float y, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+  const float2 hf = __bfloat1622float2(h);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(x - hf.x, y - hf.y);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
 }
 
 // A fragment (all parts) of k-step j of a product whose k runs over the
 // 8 * NT columns of the accumulator c (16 rows: P, dS or their transposes):
-// bf16 packs tiles 2j and 2j + 1 as they lie; fp32 takes tile j with its
-// k-index permuted (t <-> column 2t, t + 4 <-> column 2t + 1).
+// bf16 packs tiles 2j and 2j + 1 as they lie, in two parts; fp32 takes
+// tile j with its k-index permuted (t <-> column 2t, t + 4 <-> column
+// 2t + 1).
 template <typename T, int NT>
-__device__ __forceinline__ void acc_to_a(uint32_t (&a)[mp::Mma<T>::PARTS][4],
+__device__ __forceinline__ void acc_to_a(uint32_t (&a)[AccMma<T>::PARTS][4],
                                          const float (&c)[NT][4], int j) {
   if constexpr (std::is_same<T, float>::value) {
     const uint32_t w[4] = {__float_as_uint(c[j][0]), __float_as_uint(c[j][2]),
                            __float_as_uint(c[j][1]), __float_as_uint(c[j][3])};
     mp::Mma<float>::split(w, a);
   } else {
-    a[0][0] = pack_bf16(c[2 * j][0], c[2 * j][1]);
-    a[0][1] = pack_bf16(c[2 * j][2], c[2 * j][3]);
-    a[0][2] = pack_bf16(c[2 * j + 1][0], c[2 * j + 1][1]);
-    a[0][3] = pack_bf16(c[2 * j + 1][2], c[2 * j + 1][3]);
+    split_bf16(c[2 * j][0], c[2 * j][1], a[0][0], a[1][0]);
+    split_bf16(c[2 * j][2], c[2 * j][3], a[0][1], a[1][1]);
+    split_bf16(c[2 * j + 1][0], c[2 * j + 1][1], a[0][2], a[1][2]);
+    split_bf16(c[2 * j + 1][2], c[2 * j + 1][3], a[0][3], a[1][3]);
   }
 }
 
@@ -251,14 +290,13 @@ __device__ __forceinline__ void load_b_rows(uint32_t (&w)[2], const uint32_t* s,
 }
 
 // acc[mi][ni] += A(mi) B(ni) over one k-step for every mi and ni < nt,
-// every pass; A split already, ``load_b(ni, w)`` fetches B(ni)'s raw words.
-// The passes run one after the other over all tiles, so consecutive mma
-// are independent.
-template <typename T, int MT, int NT, typename LB>
+// every pass of the operand scheme M (mp::Mma<T> or AccMma<T>); A split
+// already, ``load_b(ni, w)`` fetches B(ni)'s raw words. The passes run one
+// after the other over all tiles, so consecutive mma are independent.
+template <typename M, int MT, int NT, typename LB>
 __device__ __forceinline__ void mma_tiles(float (&acc)[MT][NT][4],
-                                          const uint32_t (&a)[MT][mp::Mma<T>::PARTS][4],
+                                          const uint32_t (&a)[MT][M::PARTS][4],
                                           int nt, LB load_b) {
-  using M = mp::Mma<T>;
   uint32_t b[NT][M::PARTS][2];
 #pragma unroll
   for (int ni = 0; ni < NT; ++ni) {
@@ -279,12 +317,11 @@ __device__ __forceinline__ void mma_tiles(float (&acc)[MT][NT][4],
 }
 
 // The same for one row tile and all NT column tiles.
-template <typename T, int NT, typename LB>
-__device__ __forceinline__ void mma_row(float (&acc)[NT][4],
-                                        const uint32_t (&a)[mp::Mma<T>::PARTS][4],
+template <typename M, int NT, typename LB>
+__device__ __forceinline__ void mma_row(float (&acc)[NT][4], const uint32_t (&a)[M::PARTS][4],
                                         LB load_b) {
-  mma_tiles<T>(reinterpret_cast<float (&)[1][NT][4]>(acc),
-               reinterpret_cast<const uint32_t (&)[1][mp::Mma<T>::PARTS][4]>(a), NT, load_b);
+  mma_tiles<M>(reinterpret_cast<float (&)[1][NT][4]>(acc),
+               reinterpret_cast<const uint32_t (&)[1][M::PARTS][4]>(a), NT, load_b);
 }
 
 // The online softmax over one 64-key tile of scores sc (rows g and g + 8 in
@@ -371,7 +408,7 @@ attention_dense_kernel(const T* __restrict__ q, const T* __restrict__ k,
     zero_acc(sc);
 #pragma unroll
     for (int kk = 0; kk < G::KS; ++kk) {
-      mma_row<T>(sc, qa[kk], [&](int ni, uint32_t (&w)[2]) {
+      mma_row<mp::Mma<T>>(sc, qa[kk], [&](int ni, uint32_t (&w)[2]) {
         mp::load_b_nat(w, ks, G::LD, 8 * ni, 8 * kk);
       });
     }
@@ -381,9 +418,9 @@ attention_dense_kernel(const T* __restrict__ q, const T* __restrict__ k,
     zero_acc(pv);
 #pragma unroll
     for (int j = 0; j < TROWS / G::KK; ++j) {
-      uint32_t a[G::PARTS][4];
+      uint32_t a[AccMma<T>::PARTS][4];
       acc_to_a<T>(a, sc, j);
-      mma_row<T>(pv, a, [&](int ni, uint32_t (&w)[2]) {
+      mma_row<AccMma<T>>(pv, a, [&](int ni, uint32_t (&w)[2]) {
         load_b_rows<T>(w, vs, G::LD, 8 * ni, G::KK * j);
       });
     }
@@ -498,7 +535,7 @@ attention_dense_bwd_dq_kernel(
     for (int kk = 0; kk < G::KS; ++kk) {
       uint32_t a[G::PARTS][4];
       load_a_split<T>(a, qs, G::LD, row0, 8 * kk);
-      mma_row<T>(sc, a, [&](int ni, uint32_t (&w)[2]) {
+      mma_row<mp::Mma<T>>(sc, a, [&](int ni, uint32_t (&w)[2]) {
         mp::load_b_nat(w, ks, G::LD, 8 * ni, 8 * kk);
       });
     }
@@ -517,7 +554,7 @@ attention_dense_bwd_dq_kernel(
     for (int kk = 0; kk < G::KS; ++kk) {
       uint32_t a[G::PARTS][4];
       load_a_split<T>(a, gs, G::LD, row0, 8 * kk);
-      mma_row<T>(dp, a, [&](int ni, uint32_t (&w)[2]) {
+      mma_row<mp::Mma<T>>(dp, a, [&](int ni, uint32_t (&w)[2]) {
         mp::load_b_nat(w, vs, G::LD, 8 * ni, 8 * kk);
       });
     }
@@ -529,9 +566,9 @@ attention_dense_bwd_dq_kernel(
     zero_acc(part);
 #pragma unroll
     for (int j = 0; j < TROWS / G::KK; ++j) {
-      uint32_t a[G::PARTS][4];
+      uint32_t a[AccMma<T>::PARTS][4];
       acc_to_a<T>(a, dp, j);
-      mma_row<T>(part, a, [&](int ni, uint32_t (&w)[2]) {
+      mma_row<AccMma<T>>(part, a, [&](int ni, uint32_t (&w)[2]) {
         load_b_rows<T>(w, ks, G::LD, 8 * ni, G::KK * j);
       });
     }
@@ -623,7 +660,7 @@ attention_dense_bwd_dkv_kernel(
     for (int kk = 0; kk < G::KS; ++kk) {
       uint32_t a[G::PARTS][4];
       load_a_split<T>(a, ks, G::LD, row0, 8 * kk);
-      mma_row<T>(st, a, [&](int ni, uint32_t (&w)[2]) {
+      mma_row<mp::Mma<T>>(st, a, [&](int ni, uint32_t (&w)[2]) {
         mp::load_b_nat(w, qs, G::LD, 8 * ni, 8 * kk);
       });
     }
@@ -637,9 +674,9 @@ attention_dense_bwd_dkv_kernel(
     zero_acc(part);
 #pragma unroll
     for (int j = 0; j < TROWS / G::KK; ++j) {
-      uint32_t a[G::PARTS][4];
+      uint32_t a[AccMma<T>::PARTS][4];
       acc_to_a<T>(a, st, j);
-      mma_row<T>(part, a, [&](int ni, uint32_t (&w)[2]) {
+      mma_row<AccMma<T>>(part, a, [&](int ni, uint32_t (&w)[2]) {
         load_b_rows<T>(w, gs, G::LD, 8 * ni, G::KK * j);
       });
     }
@@ -650,7 +687,7 @@ attention_dense_bwd_dkv_kernel(
     for (int kk = 0; kk < G::KS; ++kk) {
       uint32_t a[G::PARTS][4];
       load_a_split<T>(a, vs, G::LD, row0, 8 * kk);
-      mma_row<T>(dpt, a, [&](int ni, uint32_t (&w)[2]) {
+      mma_row<mp::Mma<T>>(dpt, a, [&](int ni, uint32_t (&w)[2]) {
         mp::load_b_nat(w, gs, G::LD, 8 * ni, 8 * kk);
       });
     }
@@ -663,9 +700,9 @@ attention_dense_bwd_dkv_kernel(
     zero_acc(part);  // dS^T Q over this tile's 64 queries
 #pragma unroll
     for (int j = 0; j < TROWS / G::KK; ++j) {
-      uint32_t a[G::PARTS][4];
+      uint32_t a[AccMma<T>::PARTS][4];
       acc_to_a<T>(a, dpt, j);
-      mma_row<T>(part, a, [&](int ni, uint32_t (&w)[2]) {
+      mma_row<AccMma<T>>(part, a, [&](int ni, uint32_t (&w)[2]) {
         load_b_rows<T>(w, qs, G::LD, 8 * ni, G::KK * j);
       });
     }
@@ -732,7 +769,8 @@ __host__ __device__ constexpr int transposed_ld(int mt) {
 }
 
 // Words of one warp's shared memory: its ring of SLOTS windows of ``tensors``
-// staged tensors (n rows each), then, for K4, P^T and dS^T.
+// staged tensors (n rows each), then, for K4, P^T and dS^T (fp32) or the
+// two bf16 parts of one of them.
 template <typename T, int D>
 __host__ __device__ constexpr int packed_warp_words(int n, int tensors, bool transposes) {
   return Packed<T, D>::SLOTS * tensors * n * Packed<T, D>::LD +
@@ -922,7 +960,7 @@ __device__ __forceinline__ void packed_fwd_window(const uint32_t* qs, const uint
     uint32_t a[MT][P::PARTS][4];
 #pragma unroll
     for (int mi = 0; mi < MT; ++mi) load_a_staged<T>(a[mi], qs, n, P::LD, zero, 16 * mi, 8 * kk);
-    mma_tiles<T>(s, a, nt, [&](int ni, uint32_t (&w)[2]) {
+    mma_tiles<mp::Mma<T>>(s, a, nt, [&](int ni, uint32_t (&w)[2]) {
       load_b_staged(w, ks, n, P::LD, zero, 8 * ni, 8 * kk);
     });
   }
@@ -934,10 +972,10 @@ __device__ __forceinline__ void packed_fwd_window(const uint32_t* qs, const uint
 #pragma unroll
   for (int j = 0; j < 8 * NT / P::KK; ++j) {
     if (j < steps) {
-      uint32_t a[MT][P::PARTS][4];
+      uint32_t a[MT][AccMma<T>::PARTS][4];
 #pragma unroll
       for (int mi = 0; mi < MT; ++mi) acc_to_a<T>(a[mi], s[mi], j);
-      mma_tiles<T>(o, a, P::NO, [&](int no, uint32_t (&w)[2]) {
+      mma_tiles<AccMma<T>>(o, a, P::NO, [&](int no, uint32_t (&w)[2]) {
         load_b_staged_rows<T>(w, vs, n, P::LD, zero, 8 * no, P::KK * j);
       });
     }
@@ -990,7 +1028,8 @@ attention_packed_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // ``ld`` words a row) in T: K4's A operands of dV = P^T dO and
 // dK = dS^T Q. fp32 permutes each 8-query group (query 2i to word i,
 // 2i + 1 to word i + 4), so that ldmatrix hands the A fragment the k order
-// in which load_b_staged_rows reads dO and Q.
+// in which load_b_staged_rows reads dO and Q. bf16 stores AccMma's two
+// parts: hi at ``dst``, lo in the 16 * MT rows after it.
 template <typename T, int MT, int NT>
 __device__ __forceinline__ void store_transposed(uint32_t* dst, int ld,
                                                  const float (&x)[MT][NT][4]) {
@@ -1006,15 +1045,17 @@ __device__ __forceinline__ void store_transposed(uint32_t* dst, int ld,
         if constexpr (std::is_same<T, float>::value) {
           reinterpret_cast<float*>(dst)[key * ld + q0 + (g & 1) * 4 + (g >> 1)] = x[mi][ni][e];
         } else {
-          reinterpret_cast<__nv_bfloat16*>(dst)[key * 2 * ld + q0 + g] =
-              __float2bfloat16_rn(x[mi][ni][e]);
+          const __nv_bfloat16 hi = __float2bfloat16_rn(x[mi][ni][e]);
+          __nv_bfloat16* p = reinterpret_cast<__nv_bfloat16*>(dst) + key * 2 * ld + q0 + g;
+          p[0] = hi;
+          p[16 * MT * 2 * ld] = __float2bfloat16_rn(x[mi][ni][e] - __bfloat162float(hi));
         }
       }
 }
 
 // acc = A B^T-style product of K4's second half: rows = keys (MT tiles of
-// x^T from the warp's scratch), k = the queries below n, B = rows of a
-// staged tensor (dO or Q).
+// x^T from the warp's scratch, as store_transposed wrote it), k = the
+// queries below n, B = rows of a staged tensor (dO or Q).
 template <typename T, int D, int MT>
 __device__ __forceinline__ void transposed_product(float (&acc)[MT][Packed<T, D>::NO][4],
                                                    const uint32_t* xt, int xld,
@@ -1026,14 +1067,19 @@ __device__ __forceinline__ void transposed_product(float (&acc)[MT][Packed<T, D>
 #pragma unroll
   for (int j = 0; j < 16 * MT / P::KK; ++j) {
     if (j < steps) {
-      uint32_t a[MT][P::PARTS][4];
+      uint32_t a[MT][AccMma<T>::PARTS][4];
 #pragma unroll
       for (int mi = 0; mi < MT; ++mi) {
-        uint32_t w[4];
-        mp::load_a_nat(w, xt, xld, 16 * mi, 8 * j);
-        mp::Mma<T>::split(w, a[mi]);
+        if constexpr (std::is_same<T, float>::value) {
+          uint32_t w[4];
+          mp::load_a_nat(w, xt, xld, 16 * mi, 8 * j);
+          mp::Mma<T>::split(w, a[mi]);
+        } else {
+          mp::load_a_nat(a[mi][0], xt, xld, 16 * mi, 8 * j);
+          mp::load_a_nat(a[mi][1], xt + 16 * MT * xld, xld, 16 * mi, 8 * j);
+        }
       }
-      mma_tiles<T>(acc, a, P::NO, [&](int no, uint32_t (&w)[2]) {
+      mma_tiles<AccMma<T>>(acc, a, P::NO, [&](int no, uint32_t (&w)[2]) {
         load_b_staged_rows<T>(w, bs, n, P::LD, zero, 8 * no, P::KK * j);
       });
     }
@@ -1043,7 +1089,8 @@ __device__ __forceinline__ void transposed_product(float (&acc)[MT][Packed<T, D>
 // K4 on one staged window (Q, K, V, dO): S = Q K^T and dP = dO V^T, the
 // softmax P, delta = rowsum(dP * P) and dS = P (dP - delta) on the
 // fragments; dQ = scale dS K from registers; P^T and dS^T through the
-// warp's scratch for dV = P^T dO and dK = scale dS^T Q.
+// warp's scratch for dV = P^T dO and dK = scale dS^T Q. fp32 stages both
+// at once; bf16 stages P^T's two parts, then dS^T's in the same words.
 template <typename T, int D, int MT>
 __device__ __forceinline__ void packed_bwd_window(const uint32_t* qs, const uint32_t* ks,
                                                   const uint32_t* vs, const uint32_t* gs,
@@ -1061,12 +1108,12 @@ __device__ __forceinline__ void packed_bwd_window(const uint32_t* qs, const uint
     uint32_t a[MT][P::PARTS][4];
 #pragma unroll
     for (int mi = 0; mi < MT; ++mi) load_a_staged<T>(a[mi], qs, n, P::LD, zero, 16 * mi, 8 * kk);
-    mma_tiles<T>(s, a, nt, [&](int ni, uint32_t (&w)[2]) {
+    mma_tiles<mp::Mma<T>>(s, a, nt, [&](int ni, uint32_t (&w)[2]) {
       load_b_staged(w, ks, n, P::LD, zero, 8 * ni, 8 * kk);
     });
 #pragma unroll
     for (int mi = 0; mi < MT; ++mi) load_a_staged<T>(a[mi], gs, n, P::LD, zero, 16 * mi, 8 * kk);
-    mma_tiles<T>(dp, a, nt, [&](int ni, uint32_t (&w)[2]) {
+    mma_tiles<mp::Mma<T>>(dp, a, nt, [&](int ni, uint32_t (&w)[2]) {
       load_b_staged(w, vs, n, P::LD, zero, 8 * ni, 8 * kk);
     });
   }
@@ -1094,10 +1141,11 @@ __device__ __forceinline__ void packed_bwd_window(const uint32_t* qs, const uint
         dp[mi][ni][e] = s[mi][ni][e] * (dp[mi][ni][e] - delta[e >> 1]);
       }
   }
+  constexpr bool fp32 = std::is_same<T, float>::value;
   const int xld = transposed_ld<T>(MT);
-  uint32_t* dst = xt + 16 * MT * xld;  // dS^T after P^T
+  uint32_t* dst = fp32 ? xt + 16 * MT * xld : xt;  // where dS^T goes
   store_transposed<T>(xt, xld, s);
-  store_transposed<T>(dst, xld, dp);
+  if constexpr (fp32) store_transposed<T>(dst, xld, dp);
   float scaled[MT][2], one[MT][2];
 #pragma unroll
   for (int mi = 0; mi < MT; ++mi)
@@ -1110,19 +1158,24 @@ __device__ __forceinline__ void packed_bwd_window(const uint32_t* qs, const uint
 #pragma unroll
     for (int j = 0; j < 8 * NT / P::KK; ++j) {
       if (j < steps) {
-        uint32_t a[MT][P::PARTS][4];
+        uint32_t a[MT][AccMma<T>::PARTS][4];
 #pragma unroll
         for (int mi = 0; mi < MT; ++mi) acc_to_a<T>(a[mi], dp[mi], j);
-        mma_tiles<T>(acc, a, P::NO, [&](int no, uint32_t (&w)[2]) {
+        mma_tiles<AccMma<T>>(acc, a, P::NO, [&](int no, uint32_t (&w)[2]) {
           load_b_staged_rows<T>(w, ks, n, P::LD, zero, 8 * no, P::KK * j);
         });
       }
     }
     store_rows(dq, pitch, acc, scaled, n);
   }
-  __syncwarp();  // P^T and dS^T are in the scratch
+  __syncwarp();  // P^T (and in fp32 dS^T) are in the scratch
   transposed_product<T, D, MT>(acc, xt, xld, gs, zero, n);
   store_rows(dv, pitch, acc, one, n);
+  if constexpr (!fp32) {
+    __syncwarp();  // every lane is done with P^T
+    store_transposed<T>(dst, xld, dp);
+    __syncwarp();
+  }
   transposed_product<T, D, MT>(acc, dst, xld, qs, zero, n);
   store_rows(dk, pitch, acc, scaled, n);
 }

@@ -24,12 +24,12 @@ __device__ __forceinline__ void packed_bwd_window_recompute(
     uint32_t a[MT][P::PARTS][4];
 #pragma unroll
     for (int mi = 0; mi < MT; ++mi) load_a_staged<T>(a[mi], qs, n, P::LD, zero, 16 * mi, 8 * kk);
-    mma_tiles<T>(s, a, nt, [&](int ni, uint32_t (&w)[2]) {
+    mma_tiles<mp::Mma<T>>(s, a, nt, [&](int ni, uint32_t (&w)[2]) {
       load_b_staged(w, ks, n, P::LD, zero, 8 * ni, 8 * kk);
     });
 #pragma unroll
     for (int mi = 0; mi < MT; ++mi) load_a_staged<T>(a[mi], gs, n, P::LD, zero, 16 * mi, 8 * kk);
-    mma_tiles<T>(dp, a, nt, [&](int ni, uint32_t (&w)[2]) {
+    mma_tiles<mp::Mma<T>>(dp, a, nt, [&](int ni, uint32_t (&w)[2]) {
       load_b_staged(w, vs, n, P::LD, zero, 8 * ni, 8 * kk);
     });
   }
@@ -95,10 +95,10 @@ __device__ __forceinline__ void packed_bwd_window_recompute(
 #pragma unroll
     for (int j = 0; j < 8 * NT / P::KK; ++j) {
       if (j < steps) {
-        uint32_t a[MT][P::PARTS][4];
+        uint32_t a[MT][AccMma<T>::PARTS][4];
 #pragma unroll
         for (int mi = 0; mi < MT; ++mi) acc_to_a<T>(a[mi], dp[mi], j);
-        mma_tiles<T>(acc, a, P::NO, [&](int no, uint32_t (&w)[2]) {
+        mma_tiles<AccMma<T>>(acc, a, P::NO, [&](int no, uint32_t (&w)[2]) {
           load_b_staged_rows<T>(w, ks, n, P::LD, zero, 8 * no, P::KK * j);
         });
       }
@@ -113,12 +113,12 @@ __device__ __forceinline__ void packed_bwd_window_recompute(
     uint32_t a[MT][P::PARTS][4];
 #pragma unroll
     for (int mi = 0; mi < MT; ++mi) load_a_staged<T>(a[mi], ks, n, P::LD, zero, 16 * mi, 8 * kk);
-    mma_tiles<T>(s, a, nt, [&](int ni, uint32_t (&w)[2]) {
+    mma_tiles<mp::Mma<T>>(s, a, nt, [&](int ni, uint32_t (&w)[2]) {
       load_b_staged(w, qs, n, P::LD, zero, 8 * ni, 8 * kk);
     });
 #pragma unroll
     for (int mi = 0; mi < MT; ++mi) load_a_staged<T>(a[mi], vs, n, P::LD, zero, 16 * mi, 8 * kk);
-    mma_tiles<T>(dp, a, nt, [&](int ni, uint32_t (&w)[2]) {
+    mma_tiles<mp::Mma<T>>(dp, a, nt, [&](int ni, uint32_t (&w)[2]) {
       load_b_staged(w, gs, n, P::LD, zero, 8 * ni, 8 * kk);
     });
   }
@@ -149,10 +149,10 @@ __device__ __forceinline__ void packed_bwd_window_recompute(
 #pragma unroll
     for (int j = 0; j < 8 * NT / P::KK; ++j) {
       if (j < steps) {
-        uint32_t a[MT][P::PARTS][4];
+        uint32_t a[MT][AccMma<T>::PARTS][4];
 #pragma unroll
         for (int mi = 0; mi < MT; ++mi) acc_to_a<T>(a[mi], pass == 0 ? s[mi] : dp[mi], j);
-        mma_tiles<T>(acc, a, P::NO, [&](int no, uint32_t (&w)[2]) {
+        mma_tiles<AccMma<T>>(acc, a, P::NO, [&](int no, uint32_t (&w)[2]) {
           load_b_staged_rows<T>(w, pass == 0 ? gs : qs, n, P::LD, zero, 8 * no, P::KK * j);
         });
       }

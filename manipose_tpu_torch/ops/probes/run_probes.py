@@ -52,6 +52,13 @@ builds into ``build/probes/`` and prints:
    inputs, beside its plain version's, at the flagship's rotations and
    segments shapes: the relative error in norm of K1's/K3's output, of
    K2's/K4's dq, dk and dv, and of K5's output and K6's five gradients.
+8. ``pinning``: ``evaluate`` at the flagship (fp32 and bf16; TTA, rMCL
+   oracle; 7 seeded batches of 10 windows, the last with 4 valid rows)
+   with each batch pinned on the prefetch thread (``producer``, as
+   ``evaluate`` does on the card) or on the launching thread inside
+   ``Batch.to_device`` (``consumer``), in turns: frames/s of each call
+   (host clock) and the device's busy share of one call of each under
+   torch.profiler.
 
 The ablation patches the sources by text and stops if a patch point is
 gone; update the patches with the kernels.
@@ -362,23 +369,26 @@ def rel64(got, ref) -> float:
     return ((got.double() - ref).norm() / ref.norm()).item()
 
 
-def bf16_attention(kind: str, b: int, h: int, n: int, d: int, gen) -> None:
-    """K1 + K2 (``dense``) or K3 + K4 (``packed``) on bf16 views of one
-    qkv tensor, against fp64 from the same bf16 values."""
+def bf16_attention_errors(kind: str, qkv, dout, scale: float) -> dict:
+    """{output: (kernel error, plain error)}: the relative error in norm
+    against fp64 from the same bf16 values of K1 + K2 (``dense``) or K3 +
+    K4 (``packed``) and of their plain versions, on bf16 views of one qkv
+    tensor (b, n, 3, h, d) and an output gradient ``dout`` (b, h, n, d)
+    laid out as the kernels' outputs (strides of (b, n, h, d)). The check
+    that the kernels keep P and dS at fp32 accuracy (chip_smoke.py,
+    tests/test_torch_port_cuda.py) holds the first against the second."""
     from manipose_tpu_torch.ops import cuda_attention as ca
 
-    qkv = torch.randn((b, n, 3, h, d), generator=gen, device="cuda").bfloat16()
     q, k, v = (t.transpose(1, 2) for t in qkv.unbind(2))
-    dout = torch.randn((b, n, h, d), generator=gen, device="cuda").bfloat16().transpose(1, 2)
-    scale = d**-0.5
     q64, k64, v64, do64 = (t.double() for t in (q, k, v, dout))
     p = torch.softmax(q64 @ k64.transpose(-1, -2) * scale, -1)
     dp = do64 @ v64.transpose(-1, -2)
     ds = p * (dp - (dp * p).sum(-1, keepdim=True))
     want = [p @ v64, ds @ k64 * scale, ds.transpose(-1, -2) @ q64 * scale,
             p.transpose(-1, -2) @ do64]
+    del p, dp, ds
     if kind == "dense":
-        lse = torch.empty((b, h, n), dtype=torch.float32, device="cuda")
+        lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
         out = ca.attention_dense(q, k, v, scale, lse=lse)
         grads = ca.attention_dense_bwd(q, k, v, out, dout, lse, scale)
     else:
@@ -386,9 +396,18 @@ def bf16_attention(kind: str, b: int, h: int, n: int, d: int, gen) -> None:
         grads = ca.attention_packed_bwd(q, k, v, dout, scale)
     got = [out] + [t.transpose(1, 2) for t in grads.unbind(2)]
     plain = [ca.attention_plain(q, k, v, scale), *ca.attention_plain_bwd(q, k, v, dout, scale)]
+    return {name: (rel64(g, w), rel64(pl, w))
+            for name, g, pl, w in zip(("out", "dq", "dk", "dv"), got, plain, want)}
+
+
+def bf16_attention(kind: str, b: int, h: int, n: int, d: int, gen) -> None:
+    """:func:`bf16_attention_errors` at one shape, printed."""
+    qkv = torch.randn((b, n, 3, h, d), generator=gen, device="cuda").bfloat16()
+    dout = torch.randn((b, n, h, d), generator=gen, device="cuda").bfloat16().transpose(1, 2)
+    errs = bf16_attention_errors(kind, qkv, dout, d**-0.5)
     print(f"bf16 {kind} attention {b}*{h} x {n} x {d}: " + ", ".join(
-        f"{name} kernel {rel64(g, w):.3e} plain {rel64(pl, w):.3e}"
-        for name, g, pl, w in zip(("out", "dq", "dk", "dv"), got, plain, want)), flush=True)
+        f"{name} kernel {kernel:.3e} plain {plain:.3e}"
+        for name, (kernel, plain) in errs.items()), flush=True)
 
 
 def bf16_mlp(m: int, c: int, h: int, gen) -> None:
@@ -424,7 +443,77 @@ def bf16_accuracy(gen) -> None:
     bf16_mlp(b * l * s, 128, 256, gen)
 
 
-SECTIONS = ("mma_rate", "accumulate", "ablate", "k6", "attention", "packed", "bf16")
+def busy_share(fn) -> tuple:
+    """(wall ms, device busy ms) of one call of ``fn`` under torch.profiler,
+    device activity only."""
+    import time
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / 1e3
+    return wall, busy
+
+
+def eval_pinning() -> None:
+    import threading
+    import time
+
+    import numpy as np
+
+    from ...config import load_config
+    from ...data import Batch
+    from ...drivers import instantiate_model
+    from ...eval.engine import EvalConfig, evaluate
+    from ...geometry import h36m_skeleton_17
+
+    rng = np.random.default_rng(0)
+    last = np.asarray([1.0] * 4 + [0.0] * 6, np.float32)
+    batches = [Batch(rng.normal(size=(10, 243, 17, 2)).astype(np.float32),
+                     (0.3 * rng.normal(size=(10, 243, 17, 3))).astype(np.float32),
+                     last if i == 6 else np.ones(10, np.float32)) for i in range(7)]
+    frames = 64 * 243
+    skeleton = h36m_skeleton_17()
+    pin = Batch.pin_memory
+
+    def on_consumer(self):  # the prefetch thread's batches stay unpinned
+        return pin(self) if threading.current_thread() is threading.main_thread() else self
+
+    variants = {"producer": pin, "consumer": on_consumer}
+    for dtype in ("float32", "bfloat16"):
+        model = instantiate_model(load_config("config", [f"model.dtype={dtype}"]),
+                                  skeleton)[0].cuda()
+
+        def run():
+            evaluate(model, batches, skeleton, EvalConfig())
+
+        run()
+        try:
+            for name in ("producer", "consumer", "consumer", "producer") * 2:
+                Batch.pin_memory = variants[name]
+                t0 = time.perf_counter()
+                run()
+                sec = time.perf_counter() - t0
+                print(f"pinning {dtype:8s} {name:8s} {frames / sec:.1f} frames/s "
+                      f"({sec:.3f} s)", flush=True)
+            for name in variants:
+                Batch.pin_memory = variants[name]
+                wall, busy = busy_share(run)
+                print(f"pinning {dtype:8s} {name:8s} profiled: wall {wall:.2f} ms, device "
+                      f"busy {busy:.2f} ms ({100 * busy / wall:.1f} %)", flush=True)
+        finally:
+            Batch.pin_memory = pin
+
+
+SECTIONS = ("mma_rate", "accumulate", "ablate", "k6", "attention", "packed", "bf16",
+            "pinning")
 
 
 def main() -> int:
@@ -455,6 +544,8 @@ def main() -> int:
         packed(build_variants("attention", PACKED_VARIANTS, args.against), gen)
     if "bf16" in sections:
         bf16_accuracy(gen)
+    if "pinning" in sections:
+        eval_pinning()
     return 0
 
 

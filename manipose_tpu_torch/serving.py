@@ -1,7 +1,8 @@
 """Batch inference / serving API of the port.
 
 Port of ``manipose_tpu/serving.py::Predictor``: sequence windowing with
-replicate padding, a fixed window batch, the TTA flip and weighted-average
+replicate padding (the native windowing core, ``data.native``), a fixed
+window batch, the TTA flip and weighted-average
 hypothesis aggregation, and weights from a reference ``.pth`` file or a
 seeded random init. On the card the trunk's attention and MLP run the
 port's CUDA kernels. The model computes in ``cfg.model.dtype`` (fp32 or
@@ -17,6 +18,7 @@ import numpy as np
 import torch
 
 from .config import Config, load_config
+from .data.native import gather_windows
 from .device import resolve_device
 from .drivers.common import instantiate_model
 from .eval.engine import flip_poses
@@ -24,21 +26,6 @@ from .geometry import h36m_skeleton_17
 from .geometry.skeleton import Skeleton
 from .models.rmcl import aggregate_hypotheses
 from .weights import load_torch_checkpoint
-
-
-def gather_windows(video: np.ndarray, starts: np.ndarray,
-                   seq_len: int) -> np.ndarray:
-    """(n_frames, J, C) -> (n_windows, seq_len, J, C) windows starting at
-    ``starts``, replicate-padded past the video's end (the numpy branch of
-    ``manipose_tpu/data/native.py::gather_windows``)."""
-    out = np.empty((len(starts), seq_len) + video.shape[1:], np.float32)
-    for w, s in enumerate(starts):
-        clip = video[s : s + seq_len]
-        if clip.shape[0] < seq_len:
-            pad = np.repeat(video[-1:], seq_len - clip.shape[0], axis=0)
-            clip = np.concatenate([clip, pad], axis=0)
-        out[w] = clip
-    return out
 
 
 class _LazyWindows:
@@ -228,7 +215,8 @@ class Predictor:
         else:
             n_windows = max(1, (n_frames + seq_len - 1) // seq_len)
             starts = np.arange(n_windows, dtype=np.int64) * seq_len
-            clips = gather_windows(keypoints_2d, starts, seq_len)
+            clips = gather_windows([keypoints_2d], np.zeros(n_windows, np.int64),
+                                   starts, seq_len)  # (W, L, J, 2)
             emit_lo, emit_hi = 0, seq_len
 
         want_hyps = return_hypotheses and self.rmcl

@@ -48,6 +48,7 @@ from manipose_tpu_torch.ops.cuda_mlp import (
     mlp_plain,
     mlp_plain_bwd,
 )
+from manipose_tpu_torch.ops.probes.run_probes import bf16_attention_errors
 from manipose_tpu_torch.serving import Predictor
 from manipose_tpu_torch.train import (
     LossConfig,
@@ -708,3 +709,88 @@ def test_bf16_flagship_forward_on_card_matches_cpu(gen):
     (w_hyps, w_scores), w_len = branches[1]
     for g, w in ((c_hyps, w_hyps), (c_scores, w_scores), (c_len, w_len)):
         assert _rel(g.float().cpu(), w.float()) <= BF16_TOL
+
+
+# ---- bf16 P and dS at fp32 accuracy (K1-K4) ---------------------------------
+
+# The bf16 kernels hold P and dS as two bf16 parts (AccMma in
+# csrc/attention.cu), so against fp64 from the same bf16 inputs they are
+# as accurate as the plain version, which keeps them in fp32: within 5 %
+# of its error (+1e-6). Rounded to one bf16 part they were 30-45 % off.
+BF16_ACCURACY_RATIO, BF16_ACCURACY_SLACK = 1.05, 1e-6
+
+
+@pytest.mark.parametrize("kind,b,n,d", [
+    ("dense", 34 * 8, 243, 64), ("dense", 32 * 8, 243, 16),
+    ("packed", 243 * 8, 17, 64), ("packed", 243 * 8, 16, 16),
+])
+def test_bf16_attention_kernels_are_as_accurate_as_plain(gen, kind, b, n, d):
+    """bf16 K1/K2 (temporal: N 243 at the rotations' d 64 and the segments'
+    d 16) and K3/K4 (per window: 17 joints at d 64, 16 bones at d 16),
+    one flagship window's worth of rows and more: every output within
+    1.05 x the plain version's error against fp64 (+1e-6)."""
+    qkv = torch.randn((b // 8, n, 3, 8, d), generator=gen, device="cuda").bfloat16()
+    dout = torch.randn((b // 8, n, 8, d), generator=gen, device="cuda").bfloat16()
+    errs = bf16_attention_errors(kind, qkv, dout.transpose(1, 2), d**-0.5)
+    for name, (kernel, plain) in errs.items():
+        assert kernel <= BF16_ACCURACY_RATIO * plain + BF16_ACCURACY_SLACK, (name, errs)
+
+
+# ---- evaluation on the card -------------------------------------------------
+
+def test_evaluate_on_card_matches_cpu(gen):
+    """``evaluate`` (rMCL, TTA, oracle) of a small model on the card and on
+    the CPU from the same weights, over batches whose last one has a padded
+    row: predictions, oracle poses and the three MPJPEs within 5e-5 of
+    their magnitude; the card runs K1, K3 and K5 and no backward kernel.
+    The targets are, frame by frame, one of the model's own hypotheses
+    (drawn from the seed) plus 5 mm noise, so that the metrics move with
+    the predictions and the oracle pick."""
+    from manipose_tpu_torch.data import Batch
+    from manipose_tpu_torch.eval.engine import EvalConfig, evaluate
+
+    cfg = load_config("config", OVERRIDES)
+    skeleton = h36m_skeleton_17()
+    model, _ = instantiate_model(cfg, skeleton)
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=(2, 2, 243, 17, 2)).astype(np.float32)
+    with torch.inference_mode():
+        hyps = model.eval()(torch.from_numpy(x.reshape(4, 243, 17, 2)))[0].numpy()
+    pick = rng.integers(0, hyps.shape[1], size=(4, 243))
+    y = np.take_along_axis(hyps, pick[:, None, :, None, None], axis=1)[:, 0]
+    y = (y + rng.normal(scale=0.005, size=y.shape)).astype(np.float32).reshape(2, 2, 243, 17, 3)
+    batches = [Batch(x[i], y[i], np.asarray([1.0, float(i == 0)], np.float32))
+               for i in range(2)]
+    results = {}
+    for device in ("cpu", "cuda"):
+        ops.reset_launch_counts()
+        results[device] = evaluate(model.to(device), batches, skeleton, EvalConfig())
+    assert ops.launch_counts() == {
+        **{name: 0 for name in PER_BACKWARD},
+        **{name: 2 * n * len(batches) for name, n in PER_FORWARD.items()},
+    }
+    got, want = results["cuda"], results["cpu"]
+    for g_list, w_list in ((got[0], want[0]), (got[5], want[5])):
+        assert [a.shape for a in g_list] == [a.shape for a in w_list] == [
+            (2, 243, 17, 3), (1, 243, 17, 3)]
+        for g, w in zip(g_list, w_list):
+            np.testing.assert_allclose(g, w, rtol=0, atol=5e-5 * np.abs(w).max())
+    for g, w in zip(got[2:5], want[2:5]):
+        assert abs(g - w) <= 5e-5 * abs(w), (g, w)
+
+
+def test_batches_are_pinned_off_the_launching_thread(gen):
+    """``Batch.pin_memory`` in the prefetch thread gives page-locked
+    copies, and ``to_device`` takes them to the card as they are."""
+    from manipose_tpu_torch.data import Batch, prefetch
+
+    rng = np.random.default_rng(0)
+    batches = [Batch(rng.normal(size=(3, 9, 17, 2)).astype(np.float32),
+                     rng.normal(size=(3, 9, 17, 3)).astype(np.float32),
+                     np.asarray([1.0, 1.0, 0.0], np.float32)) for _ in range(3)]
+    for b, pinned in zip(batches, prefetch(b.pin_memory() for b in batches)):
+        assert b.pinned is None and all(t.is_pinned() for t in pinned.pinned)
+        for got, want in zip(pinned.to_device(torch.device("cuda")),
+                             (b.pose_2d, b.pose_3d, b.valid)):
+            assert got.is_cuda
+            np.testing.assert_array_equal(got.cpu().numpy(), want)

@@ -403,3 +403,26 @@ def test_kernel_build_is_keyed_and_lazy():
         assert target.parent == build.BUILD_DIR and name in target.name
         assert target == build._target(name)
     assert not build._libs
+
+
+def test_bf16_p_in_two_parts_is_as_accurate_as_fp32():
+    """The arithmetic of K1-K4's bf16 products over P and dS (AccMma in
+    csrc/attention.cu) on the CPU: P in two bf16 parts, hi = bf16(P) and
+    lo = bf16(P - hi), each times the bf16 V summed in fp32, then rounded
+    to bf16 as the kernels' outputs are, is within 1.05x of the plain
+    version's error against fp64 (P in fp32, as the Pallas kernel keeps
+    it); P rounded to one bf16 part, the kernels' arithmetic before the
+    repair, is not."""
+    gen = torch.Generator().manual_seed(0)
+    q, k, v = (torch.randn(64, 243, 64, generator=gen).bfloat16() for _ in range(3))
+    p = torch.softmax(q.float() @ k.float().transpose(-1, -2) / 8, -1)
+    exact = torch.softmax(q.double() @ k.double().transpose(-1, -2) / 8, -1) @ v.double()
+    hi = p.bfloat16()
+    lo = (p - hi.float()).bfloat16()
+
+    def err(out):
+        return ((out.bfloat16().double() - exact).norm() / exact.norm()).item()
+
+    plain = err(p @ v.float())
+    assert err(hi.float() @ v.float() + lo.float() @ v.float()) <= 1.05 * plain + 1e-6
+    assert err(hi.float() @ v.float()) > 1.2 * plain

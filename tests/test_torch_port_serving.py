@@ -141,20 +141,25 @@ def test_cuda_without_a_card_raises():
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
-    """Every module of the port, and chip_smoke.py, import without loading
-    jax, flax, optax or manipose_tpu (matched exactly: the port shares the
-    prefix)."""
+    """Every module of the port, the eval slice's data, metrics, eval,
+    logging and driver modules among them, and chip_smoke.py, import
+    without loading jax, flax, optax or manipose_tpu (matched exactly: the
+    port shares the prefix)."""
     code = """
 import importlib, pkgutil, sys
 import manipose_tpu_torch
 for m in pkgutil.walk_packages(manipose_tpu_torch.__path__, "manipose_tpu_torch."):
     importlib.import_module(m.name)
 import chip_smoke
+walked = {"data.cameras", "data.h36m", "data.h36m_cameras", "data.native",
+          "data.pipeline", "data.quaternion", "data.windowing", "drivers.h36m",
+          "eval.engine", "metrics.joint_errors", "metrics.pck", "utils.logging"}
+missing = sorted(m for m in walked if "manipose_tpu_torch." + m not in sys.modules)
 bad = sorted(m for m in sys.modules
              if m in ("jax", "flax", "optax", "manipose_tpu")
              or m.startswith(("jax.", "flax.", "optax.", "manipose_tpu.")))
-print(bad)
-sys.exit(1 if bad else 0)
+print(missing, bad)
+sys.exit(1 if bad or missing else 0)
 """
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                           capture_output=True, text=True, timeout=120)
