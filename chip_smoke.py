@@ -49,8 +49,9 @@ package. Phases, each fatal on failure:
 11. bf16 accuracy - bf16 K1-K4 at the flagship's rotations and segments
               shapes against fp64 from the same bf16 inputs: each output
               (out, dq, dk, dv) within 1.05 x the plain version's error
-              (+1e-6), printed beside the errors and times the kernels
-              had with P and dS in one bf16 part.
+              (+1e-6), K2's within 1.02 x, printed beside the errors and
+              times the kernels had with P and dS in one bf16 part and
+              K2's with delta from the bf16-rounded output.
 12-15. eval - the eval-only H36M driver (``drivers.h36m.main``,
               run.train=false) at the flagship in fp32, then in bf16, on
               H36M-format npz files written from ``run.seed`` (S11, two
@@ -71,10 +72,34 @@ package. Phases, each fatal on failure:
               pseudo-oracle and P-MPJPE within 1e-4 relative; bf16 the
               predictions and the same metrics within max(BF16_TOL, 2 *
               the CPU's bf16 spread + GAP_SLACK).
-16. profile - only with ``--profile``: one flagship ``predict_video`` and
+16-17. train driver - the training driver (``drivers.h36m.main``,
+              run.train=true) at the flagship in bf16, then in fp32, on the
+              same npz files with S1 (the same actions, cameras and
+              frames) training and S9 (one window a camera) and S11
+              validating: 2 epochs of 8 steps of 16 windows, validation
+              loss and MPJPE every epoch, then the test protocol. All six
+              kernels launched, every launch on the dtype's operands, the
+              backward kernels once a layer a step; finite losses; every
+              best tag, end and the last resume state written; the
+              protocol table finite. Per epoch: the meter's train
+              sequences/s, the wall seconds of training, validation loss,
+              MPJPE eval and checkpoint writes, peak memory.
+18. resume  - the bf16 run relaunched with one more epoch and
+              run.auto_resume=true: it starts at epoch 2 and trains one.
+19. run dir - ``Predictor.from_any`` on the fp32 run's directory, tag
+              best_mpjpe: one 243-frame window within MODEL_TOL of the
+              magnitude of the tag's eval forward (``evaluate``, TTA).
+20. cpu-card loop - one epoch of the driver at flagship widths, depth 2,
+              L = 27, fp32, drop-path 0, on the CPU and on the card from
+              the same seeded weights: the train loss within 1e-4
+              relative, the validation loss within 2 x the CPU's own
+              change under input changes of +-MODEL_TOL + 1e-4, every
+              parameter within twice the most Adam can move it over the
+              run.
+21. profile - only with ``--profile``: one flagship ``predict_video`` and
               one flagship train step under ``torch.profiler``, in fp32
-              and in bf16, device time by kernel class and the device's
-              busy share of each.
+              and in bf16, and one epoch of the train loop in each, device
+              time by kernel class and the device's busy share of each.
 
 The last lines are the card's name and power limit (as nvidia-smi prints
 them), one JSON object ``{"kernels": [...]}``, and
@@ -138,10 +163,14 @@ MODEL_TOL = 5e-5
 # that and its distance from the CPU's fp32 result. That covers poses and
 # hypotheses, which pass through the FK decoder's Gram-Schmidt (at random
 # weights it amplifies bf16's rounding), and the few gradients that bf16
-# moves that far on the CPU (one score head's at the flagship). For the
-# same reason the train step's gradients through FK and the WTA loss
-# (which a 1e-3 change of the input moves by half on the CPU) are
-# required finite, not close.
+# moves that far on the CPU (one score head's at the flagship). A loss
+# term under GAP_SLACK of the total loss is held to BF16_TOL of that
+# share rather than of itself: bf16's rounding can make all of it (the
+# smoothness term of nearly constant poses, squared differences of bf16
+# values, sat at 4e-7 of a 0.95 loss and 10 % apart on an NVIDIA H100
+# 80GB HBM3 at 700 W). As FK amplifies bf16's rounding, the train step's
+# gradients through FK and the WTA loss (which a 1e-3 change of the input
+# moves by half on the CPU) are required finite, not close.
 BF16_TOL = 0.05
 GAP_SLACK = 1e-3
 BF16_NUDGE = 1.0 + 2.0**-8
@@ -171,10 +200,19 @@ SLEEP_CYCLES = 10_000_000
 TRAIN_LOSS_TOL = 5e-5
 
 # bf16 K1-K4 against fp64 from the same bf16 inputs: each output within
-# 1.05 x the plain version's error (+1e-6). The plain version keeps P and
-# dS in fp32, as the Pallas kernels do; the kernels split them into two
-# bf16 parts (csrc/attention.cu, AccMma).
+# 1.05 x the plain version's error (+1e-6), K2's dq, dk and dv within
+# 1.02 x. The plain version keeps P and dS in fp32, as the Pallas kernels
+# do; the kernels split them into two bf16 parts (csrc/attention.cu,
+# AccMma), and K2 takes delta = rowsum(dP * P) in fp32 as they do.
 BF16_ACCURACY_RATIO, BF16_ACCURACY_SLACK = 1.05, 1e-6
+K2_BF16_ACCURACY_RATIO = 1.02
+# K2's bf16 errors against fp64 (dq, dk) with delta = rowsum(dO * O) from
+# the bf16-rounded output (chip_smoke.py phase 11 on an NVIDIA H100 80GB
+# HBM3 at 700 W), and its bf16 times then (ms, phase 2 of the same run),
+# printed beside this run's
+DELTA_FROM_O_BF16_RATIOS = {("rotations", "dq"): 1.0152, ("rotations", "dk"): 1.0068,
+                            ("segments", "dq"): 1.0461, ("segments", "dk"): 1.0098}
+DELTA_FROM_O_BF16_MS = {"rotations": 0.7845, "segments": 0.3353}
 # The errors of the kernels when they fed P and dS to the tensor cores in
 # one bf16 part (run_probes bf16 on an NVIDIA H100 80GB HBM3 at 700 W), and
 # their bf16 times (ms, phase 2 of the same run), printed beside this run's
@@ -206,6 +244,23 @@ EVAL_TARGET_NOISE_M = 0.005
 # eval frames/s: warm evaluate calls of one action repeated until the
 # window holds at least this many seconds (one action is 0.5-1.2 s)
 EVAL_WINDOW_S = 6.0
+
+# The training driver's phases: S1 (EVAL_ACTIONS, 4 cameras, EVAL_FRAMES
+# frames: 128 windows of 243, 8 steps of TRAIN_BATCH an epoch) trains; S9
+# (S9_FRAMES, one window a camera) and S11 validate, S11 tests.
+S9_FRAMES = 243
+DRIVER_EPOCHS = 2
+# every tag a training run writes (rMCL), and the resume state of its end
+RUN_TAGS = ("best_val", "best_mpjpe", "best_oracle_mpjpe", "best_ps_oracle_mpjpe", "end",
+            f"train_state_{DRIVER_EPOCHS:06d}")
+# the loop on the card against the CPU: flagship widths at depth 2 and
+# L = 27 on short videos (LOOP_FRAMES frames: 4 windows a camera, 2 steps),
+# one epoch, fp32, drop-path 0; losses within LOOP_LOSS_TOL relative
+LOOP_OVERRIDES = ("model.layers=2", "data.seq_len=27", "model.drop_path_rate=0.0",
+                  "train.epochs=1", "train.mpjpe_epoch_interval=5", "run.test=false")
+LOOP_FRAMES = 108
+LOOP_LOSS_TOL = 1e-4
+ADAM_BETAS = (0.9, 0.999)
 
 ATTENTION_CU = "manipose_tpu_torch/ops/csrc/attention.cu"
 MLP_CU = "manipose_tpu_torch/ops/csrc/mlp.cu"
@@ -733,7 +788,7 @@ def make_trainer(cfg, device, state_dict=None):
         model.load_state_dict(state_dict, strict=True)
     # Adam with weight decay 1e-6 (bench.py's) and the config's grad_clip and
     # skip_nonfinite, as the JAX train loop builds it
-    opt = optimizer_from_config(model.parameters(), cfg)
+    opt = optimizer_from_config(model, cfg)
     state = TrainState.create(model, opt, seed=cfg.run.seed, device=device)
     t = cfg.train
     loss_cfg = LossConfig(sq_loss=t.sq_loss, w_loss=t.w_loss, vel_loss=t.vel_loss,
@@ -868,7 +923,11 @@ def branch_grads(cfg, device, weights, x):
 def phase_cpu_vs_card_train_bf16(weights) -> None:
     """One flagship train step on one window under bf16 compute, drop-path
     off, on the CPU and on the card from the fp32 phase's weights: each loss
-    term within BF16_TOL relative, every gradient fp32 and finite; and each
+    term within BF16_TOL of the larger of its size and GAP_SLACK times the
+    total loss (a term under a thousandth of the loss can sit at bf16's
+    rounding: the smoothness term of nearly constant poses, a sum of
+    squared differences of bf16 values), every gradient fp32 and finite;
+    and each
     parameter's gradient of both branches' outputs under a fixed cotangent
     (every kernel forward and backward, the trunks and heads, without FK
     and the WTA loss) within BF16_TOL relative in norm, or 2 * the CPU's
@@ -883,8 +942,10 @@ def phase_cpu_vs_card_train_bf16(weights) -> None:
     metrics, grads = train_step_on(cfg, "cuda", weights, x, y)
     worst_term = ("", 0.0)
     for k, want in cpu_metrics.items():
-        err = abs(metrics[k] - want) / abs(want)
-        require(err <= BF16_TOL, f"cpu vs card bf16 train {k}: {metrics[k]} vs {want}")
+        scale = max(abs(want), GAP_SLACK * abs(cpu_metrics["loss"]))
+        err = abs(metrics[k] - want) / scale
+        require(err <= BF16_TOL, f"cpu vs card bf16 train {k}: {metrics[k]} vs {want} "
+                                 f"({err} of {scale} > {BF16_TOL})")
         if err >= worst_term[1]:
             worst_term = (k, err)
     step_worst = ("", 0.0)
@@ -916,8 +977,9 @@ def phase_cpu_vs_card_train_bf16(weights) -> None:
             worst = (name, err / tol, err, tol)
     print(f"cpu vs card bf16 train step (one flagship window, drop-path off; the "
           f"CPU step took {cpu_s:.1f} s): loss {cpu_metrics['loss']:.6f} cpu, "
-          f"{metrics['loss']:.6f} card, worst term rel err {worst_term[1]:.3g} at "
-          f"{worst_term[0]} (tol {BF16_TOL}); every gradient fp32 and finite (through "
+          f"{metrics['loss']:.6f} card, worst term err {worst_term[1]:.3g} at "
+          f"{worst_term[0]} (of max(|term|, {GAP_SLACK} |loss|); tol {BF16_TOL}); every "
+          f"gradient fp32 and finite (through "
           f"FK and WTA, not held: worst rel err in norm {step_worst[1]:.3g} at "
           f"{step_worst[0]}); branch gradients under a fixed cotangent: worst err/tol "
           f"{worst[1]:.3g} at {worst[0]} (rel err in norm {worst[2]:.3g}, tol "
@@ -944,12 +1006,17 @@ def phase_bf16_accuracy(cases) -> None:
         torch.cuda.empty_cache()
         line = []
         for name, (kernel, plain) in errs.items():
-            bound = BF16_ACCURACY_RATIO * plain + BF16_ACCURACY_SLACK
+            ratio = (K2_BF16_ACCURACY_RATIO if kind == "dense" and name != "out"
+                     else BF16_ACCURACY_RATIO)
+            bound = ratio * plain + BF16_ACCURACY_SLACK
             before = ONE_PART_BF16_ERRORS.get((kind, trunk, name))
+            from_o = DELTA_FROM_O_BF16_RATIOS.get((trunk, name)) if kind == "dense" else None
             line.append(f"{name} {kernel:.4e} (plain {plain:.4e}, ratio {kernel / plain:.4f}"
-                        + (f", one part {before:.3e}" if before else "") + ")")
+                        f" <= {ratio}"
+                        + (f", one part {before:.3e}" if before else "")
+                        + (f", delta from O {from_o:.4f}" if from_o else "") + ")")
             require(kernel <= bound, f"bf16 {kind} {trunk} {name}: error against fp64 "
-                                     f"{kernel} > {BF16_ACCURACY_RATIO} x plain {plain} "
+                                     f"{kernel} > {ratio} x plain {plain} "
                                      f"+ {BF16_ACCURACY_SLACK}")
         print(f"bf16 accuracy {kind:6s} {trunk:9s} {windows}*8 x {n} x {d} against fp64: "
               + "; ".join(line), flush=True)
@@ -957,21 +1024,33 @@ def phase_bf16_accuracy(cases) -> None:
                  "attention_packed_bwd"):
         for c in cases[name]:
             if c["dtype"] == "bfloat16":
+                from_o = (f", delta from O {DELTA_FROM_O_BF16_MS[c['trunk']]:.4f} ms"
+                          if name == "attention_dense_bwd" else "")
                 print(f"bf16 time {name:20s} {c['trunk']:9s} {c['ms']:.4f} ms "
-                      f"(one part {ONE_PART_BF16_MS[(name, c['trunk'])]:.4f} ms), "
+                      f"(one part {ONE_PART_BF16_MS[(name, c['trunk'])]:.4f} ms{from_o}), "
                       f"{c['tflops']:.1f} TFLOP/s", flush=True)
 
 
-def write_h36m(data_dir: Path, seed: int) -> None:
+def write_h36m(data_dir: Path, seed: int, frames: int = EVAL_FRAMES,
+               train_frames: int = EVAL_FRAMES, s9_frames: int = S9_FRAMES,
+               scale_2d: float = 1.0) -> None:
     """H36M-format npz files (``data_3d_h36m.npz`` with 32-joint world
     positions in meters, ``data_2d_h36m_cpn_ft_h36m_dbb.npz`` with pixel
-    detections per camera) for S11 and EVAL_ACTIONS, from ``seed``."""
-    rng = np.random.default_rng(seed)
-    positions_3d = {"S11": {a: rng.normal(scale=0.3, size=(EVAL_FRAMES, 32, 3))
-                            .astype(np.float32) for a in EVAL_ACTIONS}}
-    positions_2d = {"S11": {a: [rng.uniform(0, 1000, size=(EVAL_FRAMES, 17, 2))
-                                .astype(np.float32) for _ in range(4)]
-                            for a in EVAL_ACTIONS}}
+    detections per camera, times ``scale_2d``) for EVAL_ACTIONS of S11
+    (``frames`` frames), of the train subject S1 (``train_frames``) and of
+    S9 (``s9_frames``; the validation split is the test subjects, S9 and
+    S11), from ``seed``. S11 draws first from the seed's stream, as it did
+    alone; S1 and S9 from (seed, 1)."""
+    subjects = {"S11": (np.random.default_rng(seed), frames)}
+    extra = np.random.default_rng([seed, 1])
+    subjects.update({"S1": (extra, train_frames), "S9": (extra, s9_frames)})
+    positions_3d, positions_2d = {}, {}
+    for subject, (rng, n) in subjects.items():
+        positions_3d[subject] = {a: rng.normal(scale=0.3, size=(n, 32, 3)).astype(np.float32)
+                                 for a in EVAL_ACTIONS}
+        positions_2d[subject] = {a: [(rng.uniform(0, 1000, size=(n, 17, 2)) * scale_2d)
+                                     .astype(np.float32) for _ in range(4)]
+                                 for a in EVAL_ACTIONS}
     np.savez(data_dir / "data_3d_h36m.npz", positions_3d=positions_3d)
     np.savez(data_dir / "data_2d_h36m_cpn_ft_h36m_dbb.npz", positions_2d=positions_2d)
 
@@ -1156,6 +1235,266 @@ def phase_eval_cpu_vs_card(dtype: str, data_dir: Path) -> None:
           + "; card " + ", ".join(f"{k} {v:.4f}" for k, v in got.items()), flush=True)
 
 
+def train_config(dtype: str, data_dir: Path, extra=()):
+    """The training driver at the flagship on the phases' npz files: S1
+    trains (data.data=one), DRIVER_EPOCHS epochs of TRAIN_BATCH windows with
+    validation and MPJPE every epoch, then the test protocol on S11."""
+    from manipose_tpu_torch.config import load_config
+
+    return load_config("config", [
+        f"model.dtype={dtype}", f"data.data_dir={data_dir}",
+        f"run.output_dir={data_dir / 'outputs'}", f"run.experiment=train_{dtype}",
+        "run.train=true", "run.test=true", "data.data=one",
+        f"data.actions={','.join(EVAL_ACTIONS.values())}", f"train.epochs={DRIVER_EPOCHS}",
+        f"train.batch_size={TRAIN_BATCH}", "train.valid_epoch_interval=1",
+        "train.mpjpe_epoch_interval=1", *extra])
+
+
+def run_dir(cfg) -> Path:
+    return Path(cfg.run.output_dir) / cfg.run.experiment
+
+
+def epoch_rows(logger) -> list:
+    """The train loop's per-epoch rows of the driver's log."""
+    return [r for r in logger.history if "tr_loss" in r]
+
+
+def print_epochs(what: str, rows) -> None:
+    for r in rows:
+        print(f"{what} epoch {r['step']}: {r['seq_per_sec']:.2f} train sequences/s (the "
+              f"meter, steps 2..); wall s: train {r['train_seconds']:.3f}, validation loss "
+              f"{r['valid_seconds']:.3f}, MPJPE eval {r['mpjpe_seconds']:.3f}, checkpoint "
+              f"writes {r['checkpoint_seconds']:.3f} (launching thread), epoch "
+              f"{r['epoch_seconds']:.3f}; train loss {r['tr_loss']:.6f}, val loss "
+              f"{r.get('val_loss', float('nan')):.6f}, val MPJPE "
+              f"{r.get('val_mpjpe', float('nan')):.4f} mm; peak device memory "
+              f"{r.get('peak_memory_gb', float('nan')):.2f} GB", flush=True)
+
+
+def phase_train_driver(dtype: str, data_dir: Path):
+    """The training driver (``drivers.h36m.main``, run.train=true) at the
+    flagship on the card: all six kernels launched, every launch on the
+    dtype's operands and the backward kernels once a layer a step; finite
+    losses; every tag and the last resume state written; the protocol
+    table finite. Returns (launch counts, per-epoch log rows)."""
+    import csv
+
+    from manipose_tpu_torch import ops
+    from manipose_tpu_torch.drivers import h36m
+    from manipose_tpu_torch.utils.logging import MetricLogger
+
+    cfg = train_config(dtype, data_dir)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    logger = MetricLogger()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    best = h36m.main(cfg, logger=logger)
+    torch.cuda.synchronize()
+    main_s = time.perf_counter() - t0
+    counts, on_dtype = ops.launch_counts(), ops.launch_counts(DTYPES[dtype])
+    steps = DRIVER_EPOCHS * -(-len(EVAL_ACTIONS) * 4 * (EVAL_FRAMES // cfg.data.seq_len)
+                              // TRAIN_BATCH)
+    print(f"train driver {dtype} launches {counts} ({dtype} operands: {on_dtype}); "
+          f"{steps} train steps")
+    for name in KERNELS:
+        require(counts[name] > 0, f"train driver {dtype}: {name} launched")
+        require(on_dtype[name] == counts[name],
+                f"train driver {dtype}: {name} launched {counts[name] - on_dtype[name]} "
+                f"times on other than {dtype} operands")
+        if name.endswith("_bwd"):
+            want = LAUNCHES_PER_TRAIN_STEP[name] * steps
+            require(counts[name] == want, f"train driver {dtype}: {name} launched "
+                                          f"{counts[name]}, want {want}")
+    out = run_dir(cfg)
+    losses = {n: np.load(out / f"{n}.npy") for n in ("train_loss", "valid_loss")}
+    for n, v in losses.items():
+        require(v.shape == (DRIVER_EPOCHS,) and bool(np.isfinite(v).all()), f"{n} {v}")
+    require(best is not None and bool(np.isfinite(best)), f"best validation MPJPE {best}")
+    for tag in RUN_TAGS:
+        require((out / tag / "model.pth").is_file(), f"train driver {dtype}: tag {tag}")
+    require((out / RUN_TAGS[-1] / "host_state.json").is_file(), "resume state committed")
+    with open(out / "protocol_1_err.csv", newline="") as f:
+        head, *rows = list(csv.reader(f))
+    values = np.asarray([r[1:] for r in rows], float)
+    require(values.shape == (len(EVAL_ACTIONS) + 1, 10) and bool(np.isfinite(values).all()),
+            f"protocol table after training: {rows}")
+    epochs = epoch_rows(logger)
+    require([r["step"] for r in epochs] == list(range(DRIVER_EPOCHS)), f"epochs {epochs}")
+    print_epochs(f"train driver {dtype}", epochs)
+    print(f"train driver {dtype}: main {main_s:.1f} s; train losses {losses['train_loss']}, "
+          f"validation losses {losses['valid_loss']}, best validation MPJPE {best:.4f} mm; "
+          f"protocol average: " + ", ".join(f"{h} {v:.4f}" for h, v in
+                                            zip(head[1:], values[-1])), flush=True)
+    return counts, epochs
+
+
+def phase_resume(data_dir: Path) -> None:
+    """The bf16 run relaunched with train.epochs=DRIVER_EPOCHS + 1 and
+    run.auto_resume=true: it resumes at epoch DRIVER_EPOCHS and trains that
+    one epoch."""
+    from manipose_tpu_torch.drivers import h36m
+    from manipose_tpu_torch.utils.logging import MetricLogger
+
+    cfg = train_config("bfloat16", data_dir, [f"train.epochs={DRIVER_EPOCHS + 1}",
+                                              "run.auto_resume=true", "run.test=false"])
+    logger = MetricLogger()
+    t0 = time.perf_counter()
+    h36m.main(cfg, logger=logger)
+    main_s = time.perf_counter() - t0
+    epochs = epoch_rows(logger)
+    require([r["step"] for r in epochs] == [DRIVER_EPOCHS],
+            f"resumed run trained epochs {[r['step'] for r in epochs]}, want "
+            f"[{DRIVER_EPOCHS}]")
+    losses = np.load(run_dir(cfg) / "train_loss.npy")
+    require(losses.shape == (1,) and bool(np.isfinite(losses).all()), f"resumed losses {losses}")
+    require((run_dir(cfg) / f"train_state_{DRIVER_EPOCHS + 1:06d}" / "host_state.json")
+            .is_file(), "the resumed run's resume state")
+    print_epochs("resume bf16", epochs)
+    print(f"resume bf16 (run.auto_resume=true): started at epoch {epochs[0]['step']} and "
+          f"trained 1 epoch, train loss {losses[0]:.6f}; main {main_s:.1f} s", flush=True)
+
+
+def phase_serve_run_dir(data_dir: Path) -> None:
+    """``Predictor.from_any`` on the fp32 training run's directory, tag
+    best_mpjpe, on the card: one 243-frame window of S11 within MODEL_TOL
+    of the magnitude of the trained model's own eval forward (``evaluate``
+    with TTA of the tag's weights, restored into the flagship model, batch
+    1 as the Predictor's)."""
+    from manipose_tpu_torch.data import PoseSequenceDataset, SequenceLoader
+    from manipose_tpu_torch.eval.engine import EvalConfig, evaluate
+    from manipose_tpu_torch.serving import Predictor
+    from manipose_tpu_torch.train.checkpoint import restore_checkpoint
+
+    cfg = train_config("float32", data_dir)
+    pose_2d, skeleton = eval_windows(cfg)
+    window = pose_2d[:cfg.data.seq_len]
+    pred = Predictor.from_any(str(run_dir(cfg)), tag="best_mpjpe", cfg=cfg, batch_size=1,
+                              tta=True)
+    got = pred.predict_video(window) * 1000.0  # mm
+    model = restore_checkpoint(run_dir(cfg), "best_mpjpe", eval_model(cfg, "cuda"))
+    ds = PoseSequenceDataset([np.zeros((len(window), 17, 3), np.float32)], [window],
+                             seq_len=cfg.data.seq_len)
+    want = evaluate(model, SequenceLoader(ds, batch_size=1), skeleton,
+                    EvalConfig(tta=True))[0][0][0]
+    require(got.shape == want.shape == (cfg.data.seq_len, 17, 3), f"{got.shape} {want.shape}")
+    err = float(np.abs(got - want).max())
+    tol = MODEL_TOL * float(np.abs(want).max())
+    require(err <= tol, f"from_any on the run directory: {err} > {tol}")
+    print(f"from_any(<run directory {run_dir(cfg).name}>, tag=best_mpjpe) on the card: one "
+          f"window of 243 frames within {err:.3g} mm of the trained model's eval forward "
+          f"(tol {tol:.3g} mm)", flush=True)
+
+
+def phase_loop_cpu_vs_card(data_dir: Path) -> None:
+    """One epoch of the training driver on the CPU and on the card from the
+    same seeded weights (LOOP_OVERRIDES: flagship widths, depth 2, L = 27,
+    fp32, drop-path 0; S1's LOOP_FRAMES-frame videos train): the epoch's
+    train loss within LOOP_LOSS_TOL relative; the validation loss within
+    2 * the CPU's own change when its 2D inputs move by +-MODEL_TOL (the
+    card's forward tolerance; the larger of the two) + LOOP_LOSS_TOL;
+    every parameter of the end tag within 2 * steps * lr * (1 - b1) /
+    sqrt(1 - b2), twice the most Adam can move a parameter over the run.
+
+    The validation loss takes the spread rule because two Adam steps from
+    the init amplify tiny differences: the K = 5 heads start nearly alike,
+    so the WTA loss's winners flip on rounding, and Adam's first steps move
+    a parameter by about lr * sign(g) whatever |g| is. To show that the
+    runs part there and not in the forward, it also prints the validation
+    loss of the CPU run's weights on the card, and how many weights the two
+    runs leave more than lr apart."""
+    from manipose_tpu_torch.config import load_config
+    from manipose_tpu_torch.drivers import h36m
+    from manipose_tpu_torch.weights import load_torch_checkpoint
+
+    results, seconds = {}, {}
+    for run, device, scale in (("cpu", "cpu", 1.0), ("cpu up", "cpu", 1.0 + MODEL_TOL),
+                               ("cpu down", "cpu", 1.0 - MODEL_TOL), ("card", "cuda", 1.0)):
+        run_data = data_dir / run.replace(" ", "_")
+        run_data.mkdir(parents=True)
+        write_h36m(run_data, 0, frames=LOOP_FRAMES, train_frames=LOOP_FRAMES,
+                   s9_frames=LOOP_FRAMES, scale_2d=scale)
+        cfg = load_config("config", [
+            f"data.data_dir={run_data}", f"run.output_dir={run_data}",
+            "data.data=one", f"data.actions={','.join(EVAL_ACTIONS.values())}",
+            f"train.batch_size={TRAIN_BATCH}", "train.valid_epoch_interval=1",
+            f"device={device}", *LOOP_OVERRIDES])
+        t0 = time.perf_counter()
+        h36m.main(cfg)
+        seconds[run] = time.perf_counter() - t0
+        out = run_dir(cfg)
+        results[run] = (np.load(out / "train_loss.npy"), np.load(out / "valid_loss.npy"),
+                        load_torch_checkpoint(out / "end" / "model.pth"))
+    (tr_cpu, va_cpu, w_cpu), (tr_card, va_card, w_card) = results["cpu"], results["card"]
+    require(tr_card.shape == tr_cpu.shape == va_card.shape == va_cpu.shape == (1,),
+            f"one epoch: {tr_card} {tr_cpu} {va_card} {va_cpu}")
+    train_err = abs(tr_card[0] - tr_cpu[0]) / abs(tr_cpu[0])
+    require(train_err <= LOOP_LOSS_TOL, f"loop cpu vs card train loss: {tr_card} vs {tr_cpu}")
+    spread = max(abs(results[run][1][0] - va_cpu[0]) / abs(va_cpu[0])
+                 for run in ("cpu up", "cpu down"))
+    valid_tol = 2 * spread + LOOP_LOSS_TOL
+    valid_err = abs(va_card[0] - va_cpu[0]) / abs(va_cpu[0])
+    require(valid_err <= valid_tol, f"loop cpu vs card validation loss: {va_card} vs "
+                                    f"{va_cpu} ({valid_err} > {valid_tol})")
+    steps = -(-len(EVAL_ACTIONS) * 4 * (LOOP_FRAMES // cfg.data.seq_len) // TRAIN_BATCH)
+    b1, b2 = ADAM_BETAS
+    envelope = 2 * steps * cfg.train.lr * (1 - b1) / (1 - b2) ** 0.5
+    worst = max(((w_card[k] - w_cpu[k]).abs().max().item(), k) for k in w_cpu)
+    require(worst[0] <= envelope, f"loop cpu vs card weights: {worst} > {envelope}")
+    apart = sum(int(((w_card[k] - w_cpu[k]).abs() > cfg.train.lr).sum()) for k in w_cpu)
+    va_cpu_weights_on_card = validation_loss(cfg, w_cpu)
+    print(f"loop cpu vs card (one epoch, {steps} steps of {TRAIN_BATCH}, depth 2, L 27, "
+          f"fp32, drop-path 0; the CPU took {seconds['cpu']:.1f} s, the card "
+          f"{seconds['card']:.1f} s): train loss {tr_cpu[0]:.6f} cpu, {tr_card[0]:.6f} card, "
+          f"rel err {train_err:.3g} (tol {LOOP_LOSS_TOL}); validation loss {va_cpu[0]:.6f} "
+          f"cpu, {va_card[0]:.6f} card, rel err {valid_err:.3g} (tol {valid_tol:.3g}; the "
+          f"CPU's own change with its inputs moved by +-{MODEL_TOL}: {spread:.3g}; the CPU "
+          f"run's weights on the card: {va_cpu_weights_on_card:.6f}, rel err "
+          f"{abs(va_cpu_weights_on_card - va_cpu[0]) / abs(va_cpu[0]):.3g}); worst weight gap "
+          f"{worst[0]:.3g} at {worst[1]} (envelope {envelope:.3g}), {apart} weights more than "
+          f"lr apart", flush=True)
+
+
+def validation_loss(cfg, weights) -> float:
+    """The driver's validation loss (the mean over batches of the test
+    subjects' windows) of ``weights`` on the card, on ``cfg``'s data."""
+    from manipose_tpu_torch.drivers import create_loader, h36m, instantiate_model
+    from manipose_tpu_torch.train import LossConfig, make_eval_loss_step
+
+    keypoints, dataset = h36m.fetch_and_prepare_data(cfg)
+    loader = create_loader(keypoints, dataset, list(EVAL_ACTIONS.values()), ["S9", "S11"],
+                           cfg, train=False)
+    model, rmcl = instantiate_model(cfg, dataset.skeleton)
+    model.load_state_dict(weights)
+    t = cfg.train
+    step = make_eval_loss_step(model.cuda(), LossConfig(
+        sq_loss=t.sq_loss, w_loss=t.w_loss, vel_loss=t.vel_loss, smooth_reg=t.smooth_reg,
+        rmcl_score_reg=t.rmcl_score_reg, rigid_seg_reg=t.rigid_seg_reg, rmcl=rmcl),
+        dataset.skeleton)
+    device = torch.device("cuda")
+    losses = [step(*batch.to_device(device)[:2], int(batch.valid.sum()))["loss"]
+              for batch in loader]
+    return float(torch.stack(losses).double().mean())
+
+
+def phase_profile_epoch(dtype: str, data_dir: Path) -> None:
+    """One epoch of ``train.loop.train`` (training, validation loss, MPJPE
+    eval, checkpoints) at the flagship under the profiler: device time by
+    kernel class and the device's busy share."""
+    from manipose_tpu_torch.drivers import create_loader, h36m, instantiate_model
+    from manipose_tpu_torch.train.loop import train
+
+    cfg = train_config(dtype, data_dir, ["train.epochs=1", f"run.experiment=profile_{dtype}"])
+    keypoints, dataset = h36m.fetch_and_prepare_data(cfg)
+    loaders = [create_loader(keypoints, dataset, list(EVAL_ACTIONS.values()), subjects, cfg,
+                             train=is_train)
+               for subjects, is_train in ((["S1"], True), (["S9", "S11"], False))]
+    model, rmcl = instantiate_model(cfg, dataset.skeleton)
+    profile_call(f"{dtype} one train-loop epoch ({len(loaders[0])} steps, validation, "
+                 f"MPJPE eval, checkpoints)",
+                 lambda: train(model, cfg, dataset.skeleton, *loaders, run_dir(cfg), rmcl))
+
+
 def kernel_group(name: str) -> str:
     """Coarse class of a device kernel, by its (mangled) name."""
     for ours, device_names in DEVICE_KERNELS.items():
@@ -1313,23 +1652,41 @@ def main() -> int:
             phase_eval_cpu_vs_card(dtype, scratch)
             print(f"eval {dtype} cpu-card phase: {time.perf_counter() - t0:.1f} s; "
                   f"total {time.perf_counter() - t_start:.1f} s", flush=True)
+        driver_counts, driver_epochs = {}, {}
+        for dtype in ("bfloat16", "float32"):
+            t0 = time.perf_counter()
+            driver_counts[dtype], driver_epochs[dtype] = phase_train_driver(dtype, scratch)
+            print(f"train driver {dtype} phase: {time.perf_counter() - t0:.1f} s", flush=True)
+        t0 = time.perf_counter()
+        phase_resume(scratch)
+        print(f"resume phase: {time.perf_counter() - t0:.1f} s", flush=True)
+        t0 = time.perf_counter()
+        phase_serve_run_dir(scratch)
+        print(f"run-directory serving phase: {time.perf_counter() - t0:.1f} s", flush=True)
+        t0 = time.perf_counter()
+        phase_loop_cpu_vs_card(scratch / "loop")
+        print(f"loop cpu-card phase: {time.perf_counter() - t0:.1f} s; "
+              f"total {time.perf_counter() - t_start:.1f} s", flush=True)
+        if "--profile" in sys.argv[1:]:
+            for dtype in ("bfloat16", "float32"):
+                phase_profile_epoch(dtype, scratch)
     finally:
         shutil.rmtree(scratch, ignore_errors=True)
 
     kernels = []
     for name, meta in KERNELS.items():
-        # this slice's main path is bf16 eval: each kernel's headline case is
-        # the rotations trunk in bf16, its launches those of the bf16 eval
-        # driver (the forward kernels) or of the bf16 train step (the
-        # backward ones, which eval does not run)
+        # this slice's main path is the bf16 training driver, which runs all
+        # six kernels: each kernel's headline case is the rotations trunk in
+        # bf16, its launches those of that run
         head = next(c for c in cases[name] if c["dtype"] == "bfloat16")
         by_path = {"serve": counts, "train_step": train_counts,
                    "serve_bf16": counts16, "train_step_bf16": train_counts16,
-                   "eval": eval_counts["float32"], "eval_bf16": eval_counts["bfloat16"]}
+                   "eval": eval_counts["float32"], "eval_bf16": eval_counts["bfloat16"],
+                   "train_driver": driver_counts["float32"],
+                   "train_driver_bf16": driver_counts["bfloat16"]}
         kernels.append(dict(
             name=name, route="cuda", **meta,
-            launches=(train_counts16 if name.endswith("_bwd")
-                      else eval_counts["bfloat16"])[name],
+            launches=driver_counts["bfloat16"][name],
             launches_by_path={path: c[name] for path, c in by_path.items()},
             max_abs_err=max(c["max_abs_err"] for c in cases[name]
                             if c["dtype"] == head["dtype"]),
@@ -1342,11 +1699,14 @@ def main() -> int:
     if "--profile" in sys.argv[1:]:
         phase_profile("fp32", predictor, (state, step, batch))
         phase_profile("bf16", predictor16, (state16, step16, batch16))
+    loop_seq = {d: ", ".join(f"{r['seq_per_sec']:.2f}" for r in rows)
+                for d, rows in driver_epochs.items()}
     print(f"flagship frames/s fp32 {fps:.1f}, bf16 {fps16:.1f}; train sequences/s "
           f"fp32 {seq_s:.2f} (peak {peak_gb:.2f} GB), bf16 {seq_s16:.2f} (peak "
           f"{peak_gb16:.2f} GB); eval frames/s fp32 {eval_fps['float32']:.1f}, bf16 "
-          f"{eval_fps['bfloat16']:.1f}; total {time.perf_counter() - t_start:.1f} s "
-          f"on {smi}")
+          f"{eval_fps['bfloat16']:.1f}; train-loop sequences/s by epoch fp32 "
+          f"{loop_seq['float32']}, bf16 {loop_seq['bfloat16']}; total "
+          f"{time.perf_counter() - t_start:.1f} s on {smi}")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,15 +1,18 @@
+from . import common, h36m
 from .common import (
     create_loader,
     get_subjects_and_actions,
     init_model_params,
     instantiate_model,
-    torch_default_init,
+    maybe_restore_eval_params,
 )
 
 __all__ = [
+    "common",
+    "h36m",
     "create_loader",
     "get_subjects_and_actions",
     "init_model_params",
     "instantiate_model",
-    "torch_default_init",
+    "maybe_restore_eval_params",
 ]

@@ -3,9 +3,11 @@ splits.
 
 Port of ``manipose_tpu/drivers/common.py``: ``instantiate_model`` for the
 three architectures, ``init_model_params``, ``get_subjects_and_actions``
-and ``create_loader``. Without weights the model gets torch's default
-initialization drawn from a ``torch.Generator`` seeded by
-``cfg.run.seed``, so one seed gives the same weights on every machine.
+and ``create_loader``, and ``maybe_restore_eval_params``. Without weights
+the model gets the init ``model.init`` names (flax's by default, torch's
+with ``model.init=torch``; ``train/init.py``) drawn from a
+``torch.Generator`` seeded by ``cfg.run.seed``, so one seed gives the same
+weights on every machine.
 ``model.dtype`` (``float32`` or ``bfloat16``) is the compute dtype; the
 parameters are fp32 under both, so the init and the weight maps do not
 depend on it.
@@ -13,7 +15,7 @@ depend on it.
 
 from __future__ import annotations
 
-import math
+from pathlib import Path
 from typing import Sequence
 
 import torch
@@ -30,6 +32,7 @@ from ..models import (
     MixSTEConfig,
     RMCLManifoldMixSTE,
 )
+from ..train.init import init_from_config
 
 # (config key, value the port implements) for settings the port does not
 # carry yet; the JAX kernel knobs attn_impl / mlp_impl need no entry: on the
@@ -61,22 +64,6 @@ def _check_supported(m: Config) -> None:
                 f"model.{key}={m.get(key)} is not ported yet (only "
                 f"{supported})"
             )
-
-
-def torch_default_init(model: nn.Module, seed: int) -> nn.Module:
-    """Redraw every Linear layer as torch's default init does
-    (weight and bias U(-1/sqrt(fan_in), 1/sqrt(fan_in))) from a generator
-    seeded with ``seed``; LayerNorms keep ones/zeros and the positional
-    tables zeros, as in the reference."""
-    gen = torch.Generator().manual_seed(int(seed))
-    with torch.no_grad():
-        for mod in model.modules():
-            if isinstance(mod, nn.Linear):
-                bound = 1.0 / math.sqrt(mod.in_features)
-                mod.weight.uniform_(-bound, bound, generator=gen)
-                if mod.bias is not None:
-                    mod.bias.uniform_(-bound, bound, generator=gen)
-    return model
 
 
 def instantiate_model(cfg: Config, skeleton: Skeleton):
@@ -127,29 +114,32 @@ def instantiate_model(cfg: Config, skeleton: Skeleton):
                 "Only MixSTE, Manifold-MixSTE and RMCL-Manifold-MixSTE "
                 f"implemented for now. Got option {m.arch}."
             )
-    return torch_default_init(model, cfg.run.seed), rmcl
+    return init_from_config(model, cfg), rmcl
 
 
 def init_model_params(model: nn.Module, cfg: Config) -> nn.Module:
     """The model's initialized parameters, which is the model itself:
-    ``instantiate_model`` has drawn them already (torch's default init from
-    ``cfg.run.seed``, whatever ``model.init`` says; the JAX package's
-    ``model.init=torch`` asks for that same init), and drawing them again
-    would give the same weights. Kept so that the drivers call it where the
-    JAX package's do."""
+    ``instantiate_model`` has drawn them already (by ``model.init``, from
+    ``cfg.run.seed``), and drawing them again would give the same weights.
+    Kept so that the drivers call it where the JAX package's do."""
     del cfg
     return model
 
 
 def maybe_restore_eval_params(model: nn.Module, cfg: Config) -> nn.Module:
-    """Eval-only restore of the port's own checkpoints
-    (``run.checkpoint_params``), which wait for the training slice."""
-    if not cfg.run.train and cfg.run.get("checkpoint_params", ""):
-        raise NotImplementedError(
-            "run.checkpoint_params (restoring the port's own checkpoints) "
-            "comes with the training slice; pass run.checkpoint_model=<.pth>"
-        )
-    return model
+    """Eval-only restore of the port's own checkpoints: with
+    ``run.train=false``, ``run.checkpoint_params=<run dir>/<tag>`` loads
+    that tag's ``model.pth`` into ``model`` (``run.checkpoint_model`` takes
+    reference ``.pth`` files; with training on, ``run.checkpoint_params``
+    resumes instead)."""
+    path = cfg.run.get("checkpoint_params", "")
+    if cfg.run.train or not path:
+        return model
+    from ..train.checkpoint import restore_checkpoint
+
+    tag_dir = Path(path)
+    print(f"==> eval-only: restoring params from {tag_dir}")
+    return restore_checkpoint(tag_dir.parent, tag_dir.name, model)
 
 
 def get_subjects_and_actions(dataset, cfg: Config):

@@ -1,17 +1,21 @@
-"""Human3.6M driver of the port: the eval-only test protocol.
+"""Human3.6M driver of the port: training and the test protocol.
 
-Port of ``manipose_tpu/drivers/h36m.py``. The test protocol computes, per
-action and averaged: MPJPE, MPSSE (sagittal symmetry), MPSCE (segment
-std), P-MPJPE, MVJPE, MSE, error variance, segment-length error and, for
-rMCL, oracle and pseudo-oracle MPJPE, plus per-bone, per-joint and
-per-coordinate tables, all in mm. The metrics run as tensor code on the
-model's device.
+Port of ``manipose_tpu/drivers/h36m.py``. With ``run.train=true`` (the
+default) it trains on the train subjects (``train/loop.py``), validating
+on ``subjects_val`` (``data.use_valid``) or the test subjects, and tests
+the best weights. The test protocol computes, per action and averaged:
+MPJPE, MPSSE (sagittal symmetry), MPSCE (segment std), P-MPJPE, MVJPE,
+MSE, error variance, segment-length error and, for rMCL, oracle and
+pseudo-oracle MPJPE, plus per-bone, per-joint and per-coordinate tables,
+all in mm. The metrics run as tensor code on the model's device.
 
-Eval only: ``run.train=true``, ``run.viz=true``, ``parallel.pipe > 1`` and
-``run.auto_resume`` raise until the training slice ports them. Run it as
-``python -m manipose_tpu_torch.drivers.h36m run.train=false
-run.checkpoint_model=<.pth> data.data_dir=<dir>`` (add ``device=cpu`` to
-run on the CPU); the overrides are those of ``scripts/main_h36m.py``.
+Run it as ``python -m manipose_tpu_torch.drivers.h36m data.data_dir=<dir>``
+(add ``device=cpu`` to run on the CPU, ``run.auto_resume=true`` to pick up
+a preempted run, ``run.train=false run.checkpoint_model=<.pth>`` or
+``run.checkpoint_params=<run dir>/<tag>`` to test weights); the overrides
+are those of ``scripts/main_h36m.py``. ``run.viz=true`` and
+``parallel.pipe > 1`` raise, and so do the training settings
+``train/loop.py`` does not carry.
 
 As in the JAX package, the test subjects default to S11 alone
 (``run.test_subjects``), as the reference tests.
@@ -47,6 +51,8 @@ from ..metrics import (
     segments_time_consistency,
     segments_time_consistency_per_bone,
 )
+from ..train.loop import refuse_unported as refuse_unported_training
+from ..train.loop import train as train_loop
 from ..utils.logging import MetricLogger, save_csv_log
 from ..weights import load_torch_checkpoint
 from .common import (
@@ -263,26 +269,23 @@ def run_test_protocol(
 
 def _refuse_unported(cfg: Config) -> None:
     unported = {
-        "run.train=true (training)": cfg.run.train,
         "run.viz=true (rendering)": cfg.run.viz,
-        "run.auto_resume=true (resuming)": cfg.run.get("auto_resume", False),
         "parallel.pipe > 1 (pipeline parallelism)":
             int((cfg.get("parallel") or {}).get("pipe", 1)) > 1,
     }
     for what, asked in unported.items():
         if asked:
-            raise NotImplementedError(
-                f"{what} is not ported yet: the port's H36M driver runs the "
-                "eval-only test protocol (run.train=false); training comes "
-                "with the next slice"
-            )
+            raise NotImplementedError(f"{what} is not ported yet")
+    refuse_unported_training(cfg)
 
 
 def main(cfg: Config, logger: Optional[MetricLogger] = None) -> Optional[float]:
-    """The eval-only driver: data, the model (``run.checkpoint_model`` or
-    the seeded init) on ``cfg.device`` (``cuda`` unless set to ``cpu``),
-    and the test protocol. Returns the best validation MPJPE of a training
-    run, which is None here: nothing is trained."""
+    """The driver: data, the model (``run.checkpoint_model``, the seeded
+    init, or with ``run.train=false`` a tag of a port run through
+    ``run.checkpoint_params``) on ``cfg.device`` (``cuda`` unless set to
+    ``cpu``), training with ``run.train=true``, then the test protocol on
+    the best weights. Returns the best validation MPJPE of the training
+    run, or None when nothing was trained."""
     _refuse_unported(cfg)
     device = resolve_device(cfg.get("device", "cuda"))
     print("==> Using settings:")
@@ -292,7 +295,8 @@ def main(cfg: Config, logger: Optional[MetricLogger] = None) -> Optional[float]:
     output_dir.mkdir(parents=True, exist_ok=True)
 
     keypoints, dataset = fetch_and_prepare_data(cfg)
-    _, actions = get_subjects_and_actions(dataset, cfg)
+    subjects_split, actions = get_subjects_and_actions(dataset, cfg)
+    subjects_train, subjects_val, subjects_test = subjects_split
 
     model, rmcl = instantiate_model(cfg, dataset.skeleton)
     if cfg.run.checkpoint_model:
@@ -302,10 +306,25 @@ def main(cfg: Config, logger: Optional[MetricLogger] = None) -> Optional[float]:
     model.to(device)
 
     logger = logger or MetricLogger(mlflow_on=cfg.run.mlflow_on)
+    best_valid_mpjpe = None
+    if cfg.run.train:
+        train_loader = create_loader(
+            keypoints, dataset, actions, subjects_train, cfg, train=True
+        )
+        valid_loader = create_loader(
+            keypoints, dataset, actions,
+            subjects_val if cfg.data.use_valid else subjects_test,
+            cfg, train=False,
+        )
+        result = train_loop(model, cfg, dataset.skeleton, train_loader, valid_loader,
+                            output_dir, rmcl=rmcl, logger=logger, device=device)
+        best_valid_mpjpe = result.best_mpjpe  # the model holds the best weights
+        logger.save_csv(output_dir)
+
     if cfg.run.test:
         run_test_protocol(model, cfg, dataset, keypoints, rmcl, output_dir,
                           actions=actions, logger=logger)
-    return None
+    return best_valid_mpjpe
 
 
 if __name__ == "__main__":

@@ -71,10 +71,15 @@
 // K2 (backward) is FlashAttention-2's two passes from K1's log-sum-exp,
 // without atomics: every output row is owned by one warp and summed in a
 // fixed order, so repeated runs agree bit for bit. Both rebuild
-// P = exp(scale * S - lse) and use delta = rowsum(dO * O), which equals
-// the TPU kernel's rowsum(dP * P). The dQ pass takes a block of 64
+// P = exp(scale * S - lse) and use delta = rowsum(dP * P), the TPU
+// kernel's (pallas_attention.py:75). The dQ pass takes a block of 64
 // queries (Q and dO in shared memory), writes their delta, and streams K
-// and V: S = Q K^T, dP = dO V^T, dS = P * (dP - delta), dQ += dS K. The
+// and V: S = Q K^T, dP = dO V^T, dS = P * (dP - delta), dQ += dS K. In
+// fp32 delta is rowsum(dO * O), equal to rowsum(dP * P) at fp32 accuracy
+// since K1 stored O in fp32. In bf16 O was rounded to bf16, which cost
+// dQ 1.5-4.6 % of its error against fp64 over the plain version's, so
+// the dQ pass first sweeps the key tiles once for P and dP alone and sums
+// P * dP in fp32, two more products a key tile. The
 // dK/dV pass takes a block of 64 keys (K and V in shared memory) and
 // streams Q, dO and each query's lse and delta; it computes the transposed
 // scores S^T = K Q^T and dP^T = V dO^T, so P^T and dS^T come out in the
@@ -453,7 +458,8 @@ attention_dense_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 // dQ pass: one block per (window, ROWS query rows), K and V streamed.
 // Shared memory: Q and dO of the block's queries, the ring's slots of
-// (K, V) tiles, then the queries' delta. dQ = scale * sum_j dS_ij k_j.
+// (K, V) tiles, then the queries' delta (fp32; bf16 keeps it in
+// registers). dQ = scale * sum_j dS_ij k_j.
 template <typename T, int D>
 __global__ void __launch_bounds__(Dense<T, D>::THREADS, Dense<T, D>::BLOCKS)
 attention_dense_bwd_dq_kernel(
@@ -483,18 +489,22 @@ attention_dense_bwd_dq_kernel(
   mp::copy_tile<G::ROWS, G::DW, G::THREADS>(tiles_smem + G::OWN, G::LD,
                                             dout + obase + q0 * on,
                                             on * static_cast<long long>(sizeof(T)), N - q0);
+  // bf16 sweeps the key tiles twice (delta, then dQ): stage s of the
+  // ring's schedule holds key tile s % tiles
+  constexpr bool DELTA_SWEEP = !std::is_same<T, float>::value;
+  constexpr int SWEEPS = DELTA_SWEEP ? 2 : 1;
   auto ring = mp::start_ring<DSTAGES, 2 * G::TILE>(tiles_smem + 2 * G::OWN, [&](int s) {
-    if (s < tiles) {
+    if (s < SWEEPS * tiles) {
       uint32_t* slot = tiles_smem + 2 * G::OWN + (s % DSTAGES) * 2 * G::TILE;
-      const long long off = base + static_cast<long long>(s) * TROWS * sn;
-      mp::copy_tile<TROWS, G::DW, G::THREADS>(slot, G::LD, k + off, pitch, N - s * TROWS);
-      mp::copy_tile<TROWS, G::DW, G::THREADS>(slot + G::TILE, G::LD, v + off, pitch,
-                                            N - s * TROWS);
+      const int r0 = (s % tiles) * TROWS;
+      const long long off = base + static_cast<long long>(r0) * sn;
+      mp::copy_tile<TROWS, G::DW, G::THREADS>(slot, G::LD, k + off, pitch, N - r0);
+      mp::copy_tile<TROWS, G::DW, G::THREADS>(slot + G::TILE, G::LD, v + off, pitch, N - r0);
     }
     mp::cp_async_commit();
   });
 
-  {  // delta = rowsum(dO * O), two threads a row, for the dK/dV pass too
+  if constexpr (!DELTA_SWEEP) {  // delta = rowsum(dO * O), two threads a row
     const int r = threadIdx.x >> 1, half = threadIdx.x & 1, row = q0 + r;
     float d = 0.f;
     if (row < N) {
@@ -518,18 +528,11 @@ attention_dense_bwd_dq_kernel(
     const int row = q0 + row0 + g + 8 * r;
     lr[r] = row < N ? lse[static_cast<long long>(bh) * N + row] * LOG2E : 0.f;
   }
-  float acc[G::NO][4];
-  zero_acc(acc);
   const float c = scale * LOG2E;
-#pragma unroll 1
-  for (int s = 0; s < tiles; ++s) {
-    const uint32_t* ks = ring.next();
-    const uint32_t* vs = ks + G::TILE;
-    if (s == 0) {  // delta is in shared memory now
-      dr[0] = dls[row0 + g];
-      dr[1] = dls[row0 + g + 8];
-    }
-    float sc[8][4];  // S = Q K^T, then P
+  // P = exp2(c S - lse) (keys at or past kn at 0) and dP = dO V^T of the
+  // warp's 16 query rows against one 64-key tile
+  auto p_and_dp = [&](const uint32_t* ks, const uint32_t* vs, int kn, float (&sc)[8][4],
+                      float (&dp)[8][4]) {
     zero_acc(sc);
 #pragma unroll
     for (int kk = 0; kk < G::KS; ++kk) {
@@ -539,7 +542,6 @@ attention_dense_bwd_dq_kernel(
         mp::load_b_nat(w, ks, G::LD, 8 * ni, 8 * kk);
       });
     }
-    const int kn = N - s * TROWS;
 #pragma unroll
     for (int ni = 0; ni < 8; ++ni)
 #pragma unroll
@@ -548,7 +550,6 @@ attention_dense_bwd_dq_kernel(
                         ? exp2f(fmaf(sc[ni][e], c, -lr[e >> 1]))
                         : 0.f;
       }
-    float dp[8][4];  // dP = dO V^T, then dS = P * (dP - delta)
     zero_acc(dp);
 #pragma unroll
     for (int kk = 0; kk < G::KS; ++kk) {
@@ -558,6 +559,39 @@ attention_dense_bwd_dq_kernel(
         mp::load_b_nat(w, vs, G::LD, 8 * ni, 8 * kk);
       });
     }
+  };
+  if constexpr (DELTA_SWEEP) {  // delta = rowsum(dP * P) in fp32
+    dr[0] = dr[1] = 0.f;
+#pragma unroll 1
+    for (int s = 0; s < tiles; ++s) {
+      const uint32_t* ks = ring.next();
+      float sc[8][4], dp[8][4];
+      p_and_dp(ks, ks + G::TILE, N - s * TROWS, sc, dp);
+#pragma unroll
+      for (int ni = 0; ni < 8; ++ni)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dr[e >> 1] = fmaf(sc[ni][e], dp[ni][e], dr[e >> 1]);
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {  // the quad's lanes hold the row's other keys
+      dr[r] += __shfl_xor_sync(0xffffffffu, dr[r], 1);
+      dr[r] += __shfl_xor_sync(0xffffffffu, dr[r], 2);
+      const int row = q0 + row0 + g + 8 * r;
+      if (t == 0 && row < N) delta[static_cast<long long>(bh) * N + row] = dr[r];
+    }
+  }
+  float acc[G::NO][4];
+  zero_acc(acc);
+#pragma unroll 1
+  for (int s = 0; s < tiles; ++s) {
+    const uint32_t* ks = ring.next();
+    const uint32_t* vs = ks + G::TILE;
+    if (!DELTA_SWEEP && s == 0) {  // delta is in shared memory now
+      dr[0] = dls[row0 + g];
+      dr[1] = dls[row0 + g + 8];
+    }
+    float sc[8][4], dp[8][4];  // P, and dP, then dS = P * (dP - delta)
+    p_and_dp(ks, vs, N - s * TROWS, sc, dp);
 #pragma unroll
     for (int ni = 0; ni < 8; ++ni)
 #pragma unroll

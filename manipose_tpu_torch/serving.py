@@ -4,8 +4,8 @@ Port of ``manipose_tpu/serving.py::Predictor``: sequence windowing with
 replicate padding (the native windowing core, ``data.native``), a fixed
 window batch, the TTA flip and weighted-average
 hypothesis aggregation, and weights from a reference ``.pth`` file or a
-seeded random init. On the card the trunk's attention and MLP run the
-port's CUDA kernels. The model computes in ``cfg.model.dtype`` (fp32 or
+seeded random init, or from a run directory of the port's training loop.
+On the card the trunk's attention and MLP run the port's CUDA kernels. The model computes in ``cfg.model.dtype`` (fp32 or
 bf16, with fp32 parameters).
 """
 
@@ -25,6 +25,7 @@ from .eval.engine import flip_poses
 from .geometry import h36m_skeleton_17
 from .geometry.skeleton import Skeleton
 from .models.rmcl import aggregate_hypotheses
+from .train.checkpoint import tag_weights
 from .weights import load_torch_checkpoint
 
 
@@ -110,22 +111,29 @@ class Predictor:
     @classmethod
     def from_any(cls, checkpoint: str = "", tag: str = "best_val",
                  cfg: Optional[Config] = None, **kw):
-        """``*.pth`` -> reference weights; "" -> random weights (smoke-test
-        mode, with a warning). Orbax run directories (``tag`` selects the
-        best-tag subtree in the JAX package) wait for the training slice."""
+        """One loader for every kind of checkpoint: ``*.pth`` -> reference
+        weights; any other path -> a run directory of the port's training
+        loop (``tag`` selects the tag); "" -> random weights (smoke-test
+        mode, with a warning)."""
         checkpoint = str(checkpoint or "")
         if checkpoint.endswith(".pth"):
             return cls(cfg=cfg, state_dict=load_torch_checkpoint(checkpoint), **kw)
         if checkpoint:
-            raise NotImplementedError(
-                f"orbax checkpoints ({checkpoint}, tag {tag}) are not ported "
-                "yet; pass a reference .pth file"
-            )
+            return cls.from_checkpoint(checkpoint, tag=tag, cfg=cfg, **kw)
         warnings.warn(
             "no checkpoint given; using random weights (smoke-test mode)",
             stacklevel=2,
         )
         return cls(cfg=cfg, **kw)
+
+    @classmethod
+    def from_checkpoint(cls, directory, tag: str = "best_val",
+                        cfg: Optional[Config] = None, **kw):
+        """The weights of tag ``tag`` of a run directory the port's training
+        loop wrote (``directory/tag/model.pth``). The JAX package's orbax
+        directories are refused (``train.checkpoint.tag_weights``)."""
+        state_dict = load_torch_checkpoint(tag_weights(directory, tag))
+        return cls(cfg=cfg, state_dict=state_dict, **kw)
 
     def export_stablehlo(self, *args, **kwargs):
         raise NotImplementedError("export (torch.export) is not ported yet")

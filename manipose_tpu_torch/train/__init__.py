@@ -1,3 +1,4 @@
+from .init import flax_default_init, torch_default_init
 from .losses import LossConfig, compute_loss
 from .optim import (
     CosineAnnealingLR,
@@ -11,6 +12,8 @@ from .optim import (
 from .step import TrainState, make_eval_loss_step, make_train_step
 
 __all__ = [
+    "flax_default_init",
+    "torch_default_init",
     "LossConfig",
     "compute_loss",
     "CosineAnnealingLR",

@@ -1,0 +1,330 @@
+"""Training orchestration: epochs, validation cadence, best-tag
+checkpoints, host-side learning-rate schedules, resume.
+
+Port of ``manipose_tpu/train/loop.py:35-447`` (the reference's ``train()``,
+``hpe/main_h36m_lifting.py:212-508``), with its semantics:
+- the scheduler steps once per validation epoch and is fed the best
+  validation loss so far (monotone), not the epoch's;
+- checkpoint tags best_val, best_mpjpe, best_oracle_mpjpe,
+  best_ps_oracle_mpjpe and end; the best weights are in the model when it
+  returns;
+- a resume state is saved after the scheduler's step when the validation
+  loss improved, and at the end; ``run.checkpoint_params`` or
+  ``run.auto_resume`` resume from the newest committed one;
+- MPJPE on the validation loader every ``mpjpe_epoch_interval`` epochs;
+- the padded last batch trains and validates on its valid rows only.
+
+Each step's metrics stay 0-dim device tensors and are read once an epoch,
+so the steps queue back to back on the card (``train.skip_nonfinite``
+reads one flag a step). Batches are assembled, and for the card pinned,
+on the prefetch thread. The best weights are a copy taken on the device
+when an epoch is best: the optimizer updates the parameters in place.
+
+Each epoch's log row adds, beside the JAX package's columns, the host
+clock's split of the epoch (``epoch_seconds``: ``train_seconds`` to the
+last step's metrics, ``valid_seconds``, ``mpjpe_seconds``,
+``checkpoint_seconds`` on the launching thread) and, on the card, the
+epoch's peak device memory (``peak_memory_gb``).
+
+Not ported: ``parallel.data``, ``parallel.model`` or ``parallel.pipe``
+above 1, and the megastep (``train.steps_per_call > 1``); both raise.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from pathlib import Path
+from typing import Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..data.pipeline import SequenceLoader, prefetch
+from ..device import resolve_device
+from ..eval.engine import EvalConfig, evaluate
+from ..geometry.skeleton import Skeleton
+from ..utils.logging import MetricLogger
+from .checkpoint import (
+    atomic_write_json,
+    find_resume_state,
+    prune_resume_states,
+    restore_checkpoint,
+    save_checkpoint,
+    wait_for_checkpoints,
+)
+from .losses import LossConfig
+from .optim import make_scheduler, optimizer_from_config
+from .profiling import ThroughputMeter, trace
+from .step import TrainState, make_eval_loss_step, make_train_step
+
+
+@dataclasses.dataclass
+class TrainResult:
+    best_mpjpe: float
+    state: TrainState
+    best_params: dict
+    train_loss: list
+    valid_loss: list
+
+
+def refuse_unported(cfg) -> None:
+    """Raise for the training settings the port does not carry."""
+    pcfg = cfg.get("parallel") or {}
+    for axis in ("data", "model", "pipe"):
+        if int(pcfg.get(axis, 1)) > 1:
+            raise NotImplementedError(
+                f"parallel.{axis}={pcfg.get(axis)} (multi-card training) is not "
+                "ported yet; the port trains on one card"
+            )
+    if int(cfg.train.get("steps_per_call", 1)) > 1:
+        raise NotImplementedError(
+            "train.steps_per_call > 1 (the megastep) is not ported yet"
+        )
+
+
+def _snapshot(model: nn.Module) -> dict:
+    """A copy of the model's weights, on its device."""
+    return {k: v.detach().clone() for k, v in model.state_dict().items()}
+
+
+def _means(sums: dict) -> dict:
+    """{name: mean of its 0-dim tensors, as a float}: one transfer."""
+    if not sums:
+        return {}
+    means = torch.stack([torch.stack(v).double().mean() for v in sums.values()])
+    return dict(zip(sums, means.tolist()))
+
+
+def train(
+    model: nn.Module,
+    cfg,
+    skeleton: Skeleton,
+    train_loader: SequenceLoader,
+    valid_loader: SequenceLoader,
+    output_dir,
+    rmcl: bool,
+    logger: Optional[MetricLogger] = None,
+    start_epoch: int = 0,
+    save_checkpoints: bool = True,
+    device="cuda",
+) -> TrainResult:
+    """Train ``model`` (moved to ``device``, the card unless the caller asks
+    for the CPU) as ``cfg`` (the full Config) says, and leave the best
+    weights in it."""
+    refuse_unported(cfg)
+    device = resolve_device(device)
+    output_dir = Path(output_dir)
+    output_dir.mkdir(parents=True, exist_ok=True)
+    logger = logger or MetricLogger()
+    cfg_train = cfg.train
+
+    state = TrainState.create(model, optimizer_from_config(model, cfg),
+                              seed=cfg.run.seed, device=device)
+    scheduler = make_scheduler(
+        cfg_train.lr_scheduler,
+        base_lr=cfg_train.lr,
+        epochs=cfg_train.epochs,
+        n_annealing=cfg_train.n_annealing,
+        lr_min=cfg_train.lr_min,
+        lr_patience=cfg_train.lr_patience,
+        lr_threshold=cfg_train.lr_threshold,
+    )
+
+    resume_from = cfg.run.get("checkpoint_params", "")
+    if not resume_from and cfg.run.get("auto_resume", False):
+        # relaunching the same command after a preemption picks up this
+        # run's own newest committed resume state
+        if find_resume_state(output_dir) is not None:
+            resume_from = str(output_dir)
+            print(f"==> auto_resume: found train state in {output_dir}")
+    if resume_from:
+        resume_dir = Path(resume_from)
+        found = find_resume_state(resume_dir)
+        if found is None:
+            raise FileNotFoundError(
+                f"no committed resume state under {resume_dir} (expected "
+                "train_state_NNNNNN/ with host_state.json)"
+            )
+        tag, host = found
+        restore_checkpoint(resume_dir, tag, state)
+        scheduler.load_state_dict(host["scheduler"])
+        start_epoch = host["epoch"]
+        print(f"Resumed training state from {resume_dir}/{tag} @ epoch {start_epoch}")
+
+    loss_cfg = LossConfig(
+        sq_loss=cfg_train.sq_loss,
+        w_loss=cfg_train.w_loss,
+        vel_loss=cfg_train.vel_loss,
+        smooth_reg=cfg_train.smooth_reg,
+        rmcl_score_reg=cfg_train.rmcl_score_reg,
+        rigid_seg_reg=cfg_train.rigid_seg_reg,
+        rmcl=rmcl,
+    )
+    train_step = make_train_step(model, loss_cfg, skeleton, state.optimizer)
+    val_step = make_eval_loss_step(model, loss_cfg, skeleton)
+    eval_cfg = EvalConfig(tta=cfg_train.tta, rmcl=rmcl, compute_oracle=rmcl)
+    on_card = device.type == "cuda"
+
+    def batches(loader):
+        # pinned on the prefetch thread for the card, so the launching
+        # thread only queues the copies
+        return prefetch((b.pin_memory() for b in loader) if on_card else loader)
+
+    best_valid_loss = 1e10
+    best_mpjpe = 1e10
+    best_oracle = 1e10
+    best_psoracle = 1e10
+    # None until a validation or MPJPE epoch fires: if none ever does, the
+    # final weights are returned (the initial ones would poison the test
+    # protocol)
+    best_params = None
+    train_loss_hist, valid_loss_hist = [], []
+    ckpt_seconds = 0.0
+
+    def _ckpt(tag):
+        nonlocal ckpt_seconds
+        if not save_checkpoints:
+            return
+        t0 = time.perf_counter()
+        save_checkpoint(output_dir, tag, model)
+        ckpt_seconds += time.perf_counter() - t0
+
+    def _save_resume_state(epoch):
+        """The whole train state for a resume, and the scheduler and the
+        epoch to restart at (the reference's params{tag}.pth). Called after
+        the epoch's scheduler step. The save blocks and the sidecar, the
+        commit's marker, is written inside the committed directory after
+        it, so a kill at any point leaves the new state whole and marked or
+        the previous one the newest marked (``find_resume_state``)."""
+        nonlocal ckpt_seconds
+        if not save_checkpoints:
+            return
+        t0 = time.perf_counter()
+        tag = f"train_state_{epoch:06d}"
+        save_checkpoint(output_dir, tag, state, block=True)
+        host = {"scheduler": scheduler.state_dict(), "epoch": epoch, "tag": tag}
+        atomic_write_json(output_dir / tag / "host_state.json", host)
+        atomic_write_json(output_dir / "train_state_host.json", host)
+        prune_resume_states(output_dir, keep=2)
+        ckpt_seconds += time.perf_counter() - t0
+
+    with trace(cfg.run.get("profile_dir", "")):
+        for epoch in range(start_epoch, cfg_train.epochs):
+            t_epoch = time.perf_counter()
+            ckpt_seconds = 0.0
+            if on_card:
+                torch.cuda.reset_peak_memory_stats(device)
+            meter = ThroughputMeter()
+            train_loader.set_epoch(epoch)
+            # --- train epoch ---
+            term_sums: dict = {}
+            for batch in batches(train_loader):
+                n_valid = int(batch.valid.sum())
+                meter.step(n_valid)
+                x2d, x3d, _ = batch.to_device(device)
+                metrics = train_step(
+                    state, x2d, x3d, scheduler.lr,
+                    n_valid if n_valid < batch.batch_size else None,
+                )
+                for k, v in metrics.items():
+                    term_sums.setdefault(k, []).append(v)
+            terms = _means(term_sums)  # waits for the epoch's last step
+            seq_per_sec = meter.seq_per_sec
+            t_train = time.perf_counter() - t_epoch
+            epoch_loss = terms.pop("loss")
+            train_loss_hist.append(epoch_loss)
+            metrics_to_log = {"tr_loss": epoch_loss, "lr": scheduler.lr,
+                              "seq_per_sec": seq_per_sec, **terms}
+            timings = {"train_seconds": t_train, "valid_seconds": 0.0,
+                       "mpjpe_seconds": 0.0}
+
+            # --- validation loss ---
+            if (epoch + 1) % cfg_train.valid_epoch_interval == 0:
+                t0 = time.perf_counter()
+                val_losses = []
+                for batch in batches(valid_loader):
+                    vx2d, vx3d, _ = batch.to_device(device)
+                    val_losses.append(val_step(vx2d, vx3d, int(batch.valid.sum()))["loss"])
+                epoch_val = _means({"loss": val_losses})["loss"] if val_losses else np.inf
+                timings["valid_seconds"] = time.perf_counter() - t0
+                valid_loss_hist.append(epoch_val)
+                metrics_to_log["val_loss"] = epoch_val
+
+                improved = best_valid_loss > epoch_val
+                if improved:
+                    best_valid_loss = epoch_val
+                    _ckpt("best_val")
+                    best_params = _snapshot(model)
+                    metrics_to_log.update(
+                        {"best_epoch_loss": epoch, "best_val_loss": epoch_val}
+                    )
+                # the reference steps the scheduler on validation epochs only
+                # and feeds plateau the best loss
+                scheduler.step(best_valid_loss)
+                if improved:
+                    _save_resume_state(epoch + 1)
+
+            # --- MPJPE eval ---
+            if (epoch + 1) % cfg_train.mpjpe_epoch_interval == 0:
+                t0 = time.perf_counter()
+                results = evaluate(model, valid_loader, skeleton, eval_cfg)
+                timings["mpjpe_seconds"] = time.perf_counter() - t0
+                mpjpe_val = results[2]
+                metrics_to_log["val_mpjpe"] = mpjpe_val
+                if rmcl:
+                    oracle_val, psoracle_val = results[3], results[4]
+                    metrics_to_log["val_oracle_mpjpe"] = oracle_val
+                    metrics_to_log["val_ps_oracle_mpjpe"] = psoracle_val
+                    if best_oracle > oracle_val:
+                        best_oracle = oracle_val
+                        _ckpt("best_oracle_mpjpe")
+                        metrics_to_log.update({"best_epoch_oracle_mpjpe": epoch,
+                                               "best_val_oracle_mpjpe": oracle_val})
+                    if best_psoracle > psoracle_val:
+                        best_psoracle = psoracle_val
+                        _ckpt("best_ps_oracle_mpjpe")
+                        metrics_to_log.update({"best_epoch_ps_oracle_mpjpe": epoch,
+                                               "best_val_ps_oracle_mpjpe": psoracle_val})
+                if best_mpjpe > mpjpe_val:
+                    best_mpjpe = mpjpe_val
+                    _ckpt("best_mpjpe")
+                    best_params = _snapshot(model)
+                    metrics_to_log.update(
+                        {"best_epoch_mpjpe": epoch, "best_val_mpjpe": best_mpjpe}
+                    )
+
+            metrics_to_log.update(timings, checkpoint_seconds=ckpt_seconds,
+                                  epoch_seconds=time.perf_counter() - t_epoch)
+            if on_card:
+                metrics_to_log["peak_memory_gb"] = torch.cuda.max_memory_allocated(device) / 1e9
+            print(f"epoch {epoch}: train loss {epoch_loss:.6f}, {seq_per_sec:.2f} "
+                  f"sequences/s; " + ", ".join(
+                      f"{k} {metrics_to_log[k]:.4f}" for k in (
+                          "val_loss", "val_mpjpe", "train_seconds", "valid_seconds",
+                          "mpjpe_seconds", "checkpoint_seconds", "epoch_seconds")
+                      if k in metrics_to_log), flush=True)
+            logger.log(metrics_to_log, step=epoch)
+
+    _ckpt("end")
+    _save_resume_state(cfg_train.epochs)
+    if save_checkpoints:
+        wait_for_checkpoints()  # every background write committed
+    np.save(output_dir / "train_loss.npy", np.asarray(train_loss_hist))
+    np.save(output_dir / "valid_loss.npy", np.asarray(valid_loss_hist))
+    if best_params is None:
+        print(
+            "WARNING: no validation/eval epoch fired "
+            f"(epochs={cfg_train.epochs}, valid_epoch_interval="
+            f"{cfg_train.valid_epoch_interval}); returning FINAL params"
+        )
+        best_params = _snapshot(model)
+    model.load_state_dict(best_params)  # the best weights, for the test protocol
+    return TrainResult(
+        best_mpjpe=best_mpjpe,
+        state=state,
+        best_params=best_params,
+        train_loss=train_loss_hist,
+        valid_loss=valid_loss_hist,
+    )

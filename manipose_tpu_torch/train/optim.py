@@ -11,7 +11,8 @@ Port of ``manipose_tpu/train/optim.py``:
   moments and Adam's step count untouched;
 - the learning rate is written into the param groups on every step, by
   schedules that run on the host (stepped once per validation epoch, as
-  in the reference).
+  in the reference); a group may carry a fixed multiplier of it (muP,
+  ``train/mup.py``).
 """
 
 from __future__ import annotations
@@ -33,10 +34,23 @@ class Optimizer:
 
     def __init__(self, params: Iterable[torch.nn.Parameter],
                  weight_decay: float = 1e-6, grad_clip: float = 0.0,
-                 skip_nonfinite: bool = False):
-        self.params = [p for p in params if p.requires_grad]
-        self.adam = torch.optim.Adam(self.params, lr=0.0, betas=(0.9, 0.999),
-                                     eps=1e-8, weight_decay=weight_decay)
+                 skip_nonfinite: bool = False,
+                 lr_scales: Optional[Iterable[float]] = None):
+        params = list(params)
+        scales = [1.0] * len(params) if lr_scales is None else list(lr_scales)
+        if len(scales) != len(params):
+            raise ValueError(f"{len(scales)} learning-rate scales for {len(params)} "
+                             "parameters")
+        # one Adam param group per distinct scale, in the order first seen;
+        # each step sets a group's lr to the step's lr times its scale
+        groups = {}
+        for p, scale in zip(params, scales):
+            if p.requires_grad:
+                groups.setdefault(float(scale), []).append(p)
+        self.params = [p for group in groups.values() for p in group]
+        self.adam = torch.optim.Adam(
+            [{"params": group, "lr_scale": scale} for scale, group in groups.items()],
+            lr=0.0, betas=(0.9, 0.999), eps=1e-8, weight_decay=weight_decay)
         self.grad_clip = grad_clip
         self.skip_nonfinite = skip_nonfinite
         self.notfinite_count = 0  # steps skipped so far
@@ -67,7 +81,7 @@ class Optimizer:
         if self.grad_clip > 0.0:
             self.clip(grads)
         for group in self.adam.param_groups:
-            group["lr"] = lr
+            group["lr"] = lr * group["lr_scale"]
         self.adam.step()
         return True
 
@@ -81,22 +95,25 @@ def make_optimizer(params: Iterable[torch.nn.Parameter],
     return Optimizer(params, weight_decay, grad_clip, skip_nonfinite)
 
 
-def optimizer_from_config(params: Iterable[torch.nn.Parameter], cfg) -> Optimizer:
+def optimizer_from_config(model: torch.nn.Module, cfg) -> Optimizer:
     """The optimizer the JAX train loop builds from a Config
-    (``manipose_tpu/train/loop.py:70-84``): weight decay 1e-6,
-    ``train.grad_clip`` and ``train.skip_nonfinite`` (the guard for bf16
-    runs; off in ``configs/config.yaml``)."""
-    if cfg.model.get("mup", False):
-        raise NotImplementedError(
-            "muP's per-parameter learning rates (train/mup.py) are not "
-            "ported yet"
-        )
+    (``manipose_tpu/train/loop.py:67-85``) for ``model``'s parameters:
+    weight decay 1e-6, ``train.grad_clip`` and ``train.skip_nonfinite``
+    (the guard for bf16 runs; off in ``configs/config.yaml``), and under
+    ``model.mup=true`` muP's per-parameter learning rates
+    (``train/mup.py``)."""
     t = cfg.train
-    return make_optimizer(
-        params, weight_decay=1e-6,
-        grad_clip=float(t.get("grad_clip", 0.0)),
-        skip_nonfinite=bool(t.get("skip_nonfinite", False)),
-    )
+    grad_clip = float(t.get("grad_clip", 0.0))
+    skip_nonfinite = bool(t.get("skip_nonfinite", False))
+    if cfg.model.get("mup", False):
+        from .mup import make_mup_optimizer
+
+        return make_mup_optimizer(
+            model, width=cfg.model.channels,
+            base_width=cfg.model.get("mup_base_width", 64), weight_decay=1e-6,
+            grad_clip=grad_clip, skip_nonfinite=skip_nonfinite)
+    return make_optimizer(model.parameters(), weight_decay=1e-6, grad_clip=grad_clip,
+                          skip_nonfinite=skip_nonfinite)
 
 
 def lr_decay(step: int, lr: float, decay_step: int, gamma: float) -> float:

@@ -436,7 +436,7 @@ def test_skip_nonfinite_is_read_from_the_config(value):
     overrides = OVERRIDES + ([] if value is None else [f"train.skip_nonfinite={value}"])
     cfg = load_config("config", overrides + ["model.dtype=bfloat16"])
     model = tm.MixSTE(tm.MixSTEConfig(dtype=torch.bfloat16, **TRUNK))
-    opt = tt.optimizer_from_config(model.parameters(), cfg)
+    opt = tt.optimizer_from_config(model, cfg)
     assert opt.skip_nonfinite == (value == "true")
     assert opt.grad_clip == float(cfg.train.grad_clip)
     before = {n: p.detach().clone() for n, p in model.named_parameters()}
@@ -454,12 +454,14 @@ def test_bf16_loss_gradients_are_ill_conditioned_at_random_weights():
     fixed cotangent closely and the loss's gradients only to be finite: at
     random weights, a 1e-3 change of the input moves the bf16 rMCL loss's
     gradients (through FK's Gram-Schmidt and the WTA loss) by a large part
-    of their norm on the CPU, and the branches' gradients by under 2 %."""
+    of their norm on the CPU, and the branches' gradients by under 2 %.
+    The random weights are torch's init (``model.init=torch``), the port's
+    only init when this was measured."""
     from manipose_tpu_torch.drivers import instantiate_model
 
     cfg = load_config("config", ["model=small", "model.layers=2", "model.layers_seg=1",
                                  "multi_hyp.n_hyp=2", "model.drop_path_rate=0.0",
-                                 "model.dtype=bfloat16"])
+                                 "model.dtype=bfloat16", "model.init=torch"])
     weights = instantiate_model(cfg, T_SKEL)[0].state_dict()
     rng = np.random.default_rng(0)
     x = rng.normal(size=(2, 243, J, 2)).astype(np.float32)

@@ -22,6 +22,8 @@ same bf16 inputs and differ in the final rounding. Gradients: the JAX
 package's 5e-4 (attention) and 5e-4 * max(1, |ref|max) (MLP) in fp32;
 0.05 * max(1, |ref|max) in bf16."""
 
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -717,7 +719,11 @@ def test_bf16_flagship_forward_on_card_matches_cpu(gen):
 # csrc/attention.cu), so against fp64 from the same bf16 inputs they are
 # as accurate as the plain version, which keeps them in fp32: within 5 %
 # of its error (+1e-6). Rounded to one bf16 part they were 30-45 % off.
+# K2 takes delta = rowsum(dP * P) in fp32, as the plain version and the
+# TPU kernel do, so its dq, dk and dv are held within 2 %; with delta
+# from the bf16-rounded output its dq sat 4.6 % off at d = 16.
 BF16_ACCURACY_RATIO, BF16_ACCURACY_SLACK = 1.05, 1e-6
+K2_BF16_ACCURACY_RATIO = 1.02
 
 
 @pytest.mark.parametrize("kind,b,n,d", [
@@ -728,12 +734,15 @@ def test_bf16_attention_kernels_are_as_accurate_as_plain(gen, kind, b, n, d):
     """bf16 K1/K2 (temporal: N 243 at the rotations' d 64 and the segments'
     d 16) and K3/K4 (per window: 17 joints at d 64, 16 bones at d 16),
     one flagship window's worth of rows and more: every output within
-    1.05 x the plain version's error against fp64 (+1e-6)."""
+    1.05 x the plain version's error against fp64 (+1e-6), K2's dq, dk and
+    dv within 1.02 x."""
     qkv = torch.randn((b // 8, n, 3, 8, d), generator=gen, device="cuda").bfloat16()
     dout = torch.randn((b // 8, n, 8, d), generator=gen, device="cuda").bfloat16()
     errs = bf16_attention_errors(kind, qkv, dout.transpose(1, 2), d**-0.5)
     for name, (kernel, plain) in errs.items():
-        assert kernel <= BF16_ACCURACY_RATIO * plain + BF16_ACCURACY_SLACK, (name, errs)
+        ratio = (K2_BF16_ACCURACY_RATIO if kind == "dense" and name != "out"
+                 else BF16_ACCURACY_RATIO)
+        assert kernel <= ratio * plain + BF16_ACCURACY_SLACK, (name, errs)
 
 
 # ---- evaluation on the card -------------------------------------------------
@@ -794,3 +803,76 @@ def test_batches_are_pinned_off_the_launching_thread(gen):
                              (b.pose_2d, b.pose_3d, b.valid)):
             assert got.is_cuda
             np.testing.assert_array_equal(got.cpu().numpy(), want)
+
+
+# ---- the training loop on the card ------------------------------------------
+
+ADAM_STEP = 0.1 / 0.001**0.5  # the most one Adam step moves a parameter, in lr
+
+
+def _h36m_npz(data_dir, frames=54):
+    """Seeded H36M-format npz files: S1 (train), S9 and S11 (validation),
+    two actions, four cameras, ``frames`` frames."""
+    rng = np.random.default_rng(0)
+    subjects, actions = ["S1", "S9", "S11"], ["Walking", "Eating"]
+    np.savez(data_dir / "data_3d_h36m.npz", positions_3d={
+        s: {a: rng.normal(scale=0.3, size=(frames, 32, 3)).astype(np.float32)
+            for a in actions} for s in subjects})
+    np.savez(data_dir / "data_2d_h36m_cpn_ft_h36m_dbb.npz", positions_2d={
+        s: {a: [rng.uniform(0, 1000, size=(frames, 17, 2)).astype(np.float32)
+                for _ in range(4)] for a in actions} for s in subjects})
+
+
+def _driver_cfg(data_dir, out_dir, *extra):
+    return load_config("config", OVERRIDES + [
+        f"data.data_dir={data_dir}", f"run.output_dir={out_dir}", "data.seq_len=27",
+        "data.data=one", "data.actions=walking,eating", "train=debug",
+        "train.batch_size=4", "train.batch_size_test=4", "run.test=false", *extra])
+
+
+def _run(cfg):
+    """``drivers.h36m.main``; (train losses, validation losses, end weights)."""
+    from manipose_tpu_torch.drivers.h36m import main
+    from manipose_tpu_torch.weights import load_torch_checkpoint
+
+    main(cfg)
+    out = Path(cfg.run.output_dir) / cfg.run.experiment
+    return (np.load(out / "train_loss.npy"), np.load(out / "valid_loss.npy"),
+            load_torch_checkpoint(out / "end" / "model.pth"))
+
+
+def test_train_driver_on_card_matches_cpu(gen, tmp_path):
+    """One epoch of the training driver (fp32, drop-path off, 4 steps of 4
+    windows) on the card and on the CPU from the same seeded weights: the
+    train and validation losses within 1e-4 relative, every parameter
+    within 2 * steps * lr * (1 - b1) / sqrt(1 - b2), twice the most Adam
+    can move it over the run."""
+    _h36m_npz(tmp_path)
+    runs = {device: _run(_driver_cfg(tmp_path, tmp_path / device, "model.drop_path_rate=0.0",
+                                     f"device={device}"))
+            for device in ("cpu", "cuda")}
+    (tr_c, va_c, w_c), (tr_g, va_g, w_g) = runs["cpu"], runs["cuda"]
+    np.testing.assert_allclose(tr_g, tr_c, rtol=1e-4, atol=0)
+    np.testing.assert_allclose(va_g, va_c, rtol=1e-4, atol=0)
+    cfg = _driver_cfg(tmp_path, tmp_path)
+    envelope = 2 * 4 * cfg.train.lr * ADAM_STEP
+    assert max((w_g[k] - w_c[k]).abs().max().item() for k in w_c) <= envelope
+
+
+def test_resume_on_card_continues_the_straight_run(gen, tmp_path):
+    """Drop-path on (the card's generator is saved): 2 straight epochs, and 1
+    epoch + a resumed 1, on the card. The epoch-2 train loss agrees within
+    5e-5 relative and the end weights within one epoch's Adam envelope
+    (the kernels are deterministic, so the runs should agree bit for
+    bit)."""
+    _h36m_npz(tmp_path)
+    dp = "model.drop_path_rate=0.1"
+    straight = _run(_driver_cfg(tmp_path, tmp_path / "straight", dp, "train.epochs=2"))
+    _run(_driver_cfg(tmp_path, tmp_path / "part1", dp, "train.epochs=1"))
+    resumed = _run(_driver_cfg(tmp_path, tmp_path / "part2", dp, "train.epochs=2",
+                               f"run.checkpoint_params={tmp_path / 'part1' / 'default'}"))
+    assert len(straight[0]) == 2 and len(resumed[0]) == 1
+    np.testing.assert_allclose(resumed[0][0], straight[0][1], rtol=5e-5, atol=0)
+    envelope = 2 * 4 * _driver_cfg(tmp_path, tmp_path).train.lr * ADAM_STEP
+    gap = max((resumed[2][k] - straight[2][k]).abs().max().item() for k in straight[2])
+    assert gap <= envelope, gap

@@ -129,8 +129,18 @@ def test_from_any(tmp_path, predictors):
     video = np.random.default_rng(2).normal(size=(9, 17, 2)).astype(np.float32)
     np.testing.assert_array_equal(loaded.predict_video(video),
                                   t_pred.predict_video(video))
-    with pytest.raises(NotImplementedError):
-        Predictor.from_any(str(tmp_path), cfg=cfg, device="cpu")
+    # a run directory of the port's training loop: directory/tag/model.pth
+    (tmp_path / "run" / "best_mpjpe").mkdir(parents=True)
+    path.rename(tmp_path / "run" / "best_mpjpe" / "model.pth")
+    from_run = Predictor.from_any(str(tmp_path / "run"), tag="best_mpjpe", cfg=cfg,
+                                  device="cpu")
+    np.testing.assert_array_equal(from_run.predict_video(video),
+                                  t_pred.predict_video(video))
+    with pytest.raises(FileNotFoundError):  # no best_val tag in this run
+        Predictor.from_any(str(tmp_path / "run"), cfg=cfg, device="cpu")
+    (tmp_path / "run" / "best_val").mkdir()  # a tag without model.pth: orbax's
+    with pytest.raises(ValueError, match="save_torch_checkpoint"):
+        Predictor.from_any(str(tmp_path / "run"), cfg=cfg, device="cpu")
 
 
 def test_cuda_without_a_card_raises():
@@ -142,9 +152,10 @@ def test_cuda_without_a_card_raises():
 
 def test_port_imports_neither_jax_nor_the_jax_package():
     """Every module of the port, the eval slice's data, metrics, eval,
-    logging and driver modules among them, and chip_smoke.py, import
-    without loading jax, flax, optax or manipose_tpu (matched exactly: the
-    port shares the prefix)."""
+    logging and driver modules and the training slice's loop, checkpoint,
+    init, muP and profiling modules among them, and chip_smoke.py, import
+    without loading jax, flax, optax, orbax or manipose_tpu (matched
+    exactly: the port shares the prefix)."""
     code = """
 import importlib, pkgutil, sys
 import manipose_tpu_torch
@@ -153,11 +164,12 @@ for m in pkgutil.walk_packages(manipose_tpu_torch.__path__, "manipose_tpu_torch.
 import chip_smoke
 walked = {"data.cameras", "data.h36m", "data.h36m_cameras", "data.native",
           "data.pipeline", "data.quaternion", "data.windowing", "drivers.h36m",
-          "eval.engine", "metrics.joint_errors", "metrics.pck", "utils.logging"}
+          "eval.engine", "metrics.joint_errors", "metrics.pck", "utils.logging",
+          "train.checkpoint", "train.init", "train.loop", "train.mup", "train.profiling"}
 missing = sorted(m for m in walked if "manipose_tpu_torch." + m not in sys.modules)
 bad = sorted(m for m in sys.modules
-             if m in ("jax", "flax", "optax", "manipose_tpu")
-             or m.startswith(("jax.", "flax.", "optax.", "manipose_tpu.")))
+             if m in ("jax", "flax", "optax", "orbax", "manipose_tpu")
+             or m.startswith(("jax.", "flax.", "optax.", "orbax.", "manipose_tpu.")))
 print(missing, bad)
 sys.exit(1 if bad or missing else 0)
 """
