@@ -12,11 +12,16 @@ package. Phases, each fatal on failure:
               must be more than 0, and of each device kernel, which must
               be more than 0 in every instantiation of K3 and K4; print
               K3's and K4's launch shapes (warps, ring slots, blocks an
-              SM) per dtype and head dim.
+              SM) per dtype and head dim at N = 17, 16 and 27.
 2. kernels  - each kernel (K1 dense attention, K3 per-window attention,
               K5 fused MLP, and their backward kernels K2, K4, K6) against
               its plain PyTorch version at the shapes the flagship gives
-              it, in fp32 and bf16, timed (with its achieved TFLOP/s)
+              it, K3-K6 at the 3DHP model's (L = 27, batch 25: K3/K4
+              on the temporal layers' windows of 27 frames, K5/K6 on
+              11475 and 10800 rows), and K1, K3 and K5 at a streaming
+              session's one-window shapes at L = 243 and L = 27
+              (STREAM_ATTENTION_CASES, STREAM_MLP_CASES), in fp32 and
+              bf16, timed (with its achieved TFLOP/s)
               beside its plain version, its roofline bound and one PyTorch
               library call computing the same function (the median of 5
               groups of 10 launches). Times are CUDA events around 10
@@ -96,10 +101,39 @@ package. Phases, each fatal on failure:
               change under input changes of +-MODEL_TOL + 1e-4, every
               parameter within twice the most Adam can move it over the
               run.
-21. profile - only with ``--profile``: one flagship ``predict_video`` and
+21-24. 3dhp - FK-synthetic MPI-INF-3DHP archives (the port's
+              ``tools.make_synthetic_3dhp`` from ``run.seed``: 2 train
+              sequences x 2 cameras x 2000 frames, TS1-TS6 of 1500 frames)
+              and the 3DHP driver (``drivers.dhp3.main``, run.train=true,
+              data=mpi_inf_3dhp, L = 27) at the flagship's widths in bf16,
+              then fp32: batch 25, 2 epochs with validation and MPJPE each,
+              then the PCK/AUC protocol (test batch 30). K1 and K2 never
+              launched; K3-K6 launched on the dtype's operands, the
+              backward kernels once a layer a step; finite losses; every
+              tag and the five CSVs written; PCK, AUC, agg_pck and agg_auc
+              in [0, 100]. Per epoch the meter's sequences/s, the wall
+              split and peak memory; the protocol's valid frames/s. After
+              each, the protocol on TS1 and TS5 cut to 2 windows each, from
+              the run's best_mpjpe weights with targets at the model's
+              scale, on the card and on the CPU: fp32 predictions within
+              MODEL_TOL of their magnitude, the metrics within 1e-4
+              relative and PCK/AUC within one joint-frame's share; bf16 by
+              the spread rule.
+25. stream  - ``Predictor.stream`` on the card: stride L, lookahead 0
+              equals ``predict_video``; then at the H36M flagship (L = 243)
+              and the 3DHP model (L = 27), fp32 and bf16, strides 1 and 3,
+              default lookahead: ms per firing push (median, p90 of warm
+              pushes) and frames/s beside latency_frames.
+26. stream cpu-card - a stride-1 session (default lookahead) at both
+              models in fp32 and bf16, STREAM_CPU_WINDOWS firing pushes, on
+              the card and on the CPU from the same weights: fp32 within
+              MODEL_TOL of the magnitude, bf16 by the spread rule.
+27. profile - only with ``--profile``: one flagship ``predict_video`` and
               one flagship train step under ``torch.profiler``, in fp32
-              and in bf16, and one epoch of the train loop in each, device
-              time by kernel class and the device's busy share of each.
+              and in bf16, one epoch of the train loop in each, ten train
+              steps of the 3DHP model (L = 27) and ten firing pushes of a
+              stream at L = 243 and at L = 27 in each, device time by
+              kernel class and the device's busy share of each.
 
 The last lines are the card's name and power limit (as nvidia-smi prints
 them), one JSON object ``{"kernels": [...]}``, and
@@ -262,6 +296,57 @@ LOOP_FRAMES = 108
 LOOP_LOSS_TOL = 1e-4
 ADAM_BETAS = (0.9, 0.999)
 
+# The 3DHP phases: FK-synthetic MPI-INF-3DHP archives written by the port's
+# make_synthetic_3dhp from run.seed (train: 2 sequences x 2 cameras x 2000
+# frames; test: TS1-TS6 of 1500 frames, about 5 % invalid, TS5/TS6 at
+# 1920x1080), and the 3DHP driver at configs/config.yaml's widths with the
+# data=mpi_inf_3dhp group (L = 27): train=mix_ste's batch of 25, the
+# README's test batch of 30, DRIVER_EPOCHS epochs with validation and MPJPE
+# every epoch, then the PCK/AUC protocol.
+DHP3_TRAIN_SEQS, DHP3_CAMS, DHP3_FRAMES, DHP3_TEST_FRAMES = 2, 2, 2000, 1500
+DHP3_SEQ_LEN = 27
+DHP3_BATCH, DHP3_BATCH_TEST = 25, 30
+# at L = 27 every attention layer runs per window (N <= 32): per forward 8 +
+# 2 temporal and 8 + 2 spatial K3 launches, 16 + 4 K5; a train step adds
+# one backward kernel for each
+DHP3_LAUNCHES_PER_TRAIN_STEP = {"attention_packed": 20, "fused_mlp": 20,
+                                "attention_packed_bwd": 20, "fused_mlp_bwd": 20}
+DHP3_OUTPUT_CSVS = ("seg_symmetry", "seg_consistency", "jw_err", "cw_err", "test_metrics")
+# the card against the CPU: the protocol on TS1 and TS5 cut to
+# DHP3_CPU_WINDOWS windows each, in one batch
+DHP3_CPU_SEQUENCES, DHP3_CPU_WINDOWS = ("TS1", "TS5"), 2
+# streaming: sessions at the H36M flagship (L = 243) and the 3DHP model
+# (L = 27), default lookahead, these strides; each push one frame, the
+# first STREAM_WARM firing pushes not timed, STREAM_FIRINGS timed
+STREAM_STRIDES = (1, 3)
+STREAM_WARM, STREAM_FIRINGS = 3, 30
+# a firing push is a one-window forward, so its kernels run on a window's
+# rows alone: at L = 243 K1 on the temporal layers (17 joints or 16 bones
+# x 8 heads), K3 on the spatial ones (243 frames x 8 heads); at L = 27 K3
+# on both (temporal 17 or 16 x 8 windows of 27, spatial 27 x 8 of 17 or
+# 16); K5 on L * 17 and L * 16 rows. Phase 2 holds each against its plain
+# version at these shapes (kind, trunk, batch, heads, N, d).
+STREAM_ATTENTION_CASES = (
+    ("attention_dense", "stream-243-rotations", 17, 8, 243, 64),
+    ("attention_dense", "stream-243-segments", 16, 8, 243, 16),
+    ("attention_packed", "stream-243-rot-spatial", 243, 8, 17, 64),
+    ("attention_packed", "stream-243-seg-spatial", 243, 8, 16, 16),
+    ("attention_packed", "stream-27-rot-temporal", 17, 8, 27, 64),
+    ("attention_packed", "stream-27-seg-temporal", 16, 8, 27, 16),
+    ("attention_packed", "stream-27-rot-spatial", 27, 8, 17, 64),
+    ("attention_packed", "stream-27-seg-spatial", 27, 8, 16, 16),
+)
+# (trunk, rows, C, H)
+STREAM_MLP_CASES = (
+    ("stream-243-rotations", 243 * 17, 512, 1024),
+    ("stream-243-segments", 243 * 16, 128, 256),
+    ("stream-27-rotations", 27 * 17, 512, 1024),
+    ("stream-27-segments", 27 * 16, 128, 256),
+)
+# the card against the CPU on a stride-1 session with default lookahead:
+# this many firing pushes (one window each), at both models and dtypes
+STREAM_CPU_WINDOWS = 2
+
 ATTENTION_CU = "manipose_tpu_torch/ops/csrc/attention.cu"
 MLP_CU = "manipose_tpu_torch/ops/csrc/mlp.cu"
 KERNELS = {
@@ -377,7 +462,7 @@ def phase_build(build) -> None:
                             f"every {device_name} runs on the tensor cores")
     for dtype in (torch.float32, torch.bfloat16):
         for d in ca.HEAD_DIMS:
-            for n in (17, 16):
+            for n in (17, 16, DHP3_SEQ_LEN):
                 line = []
                 for kind, backward in (("K3", False), ("K4", True)):
                     shape = ca.packed_launch_shape(dtype, d, n, backward, 1 << 30)
@@ -597,9 +682,13 @@ def mlp_bwd_case(trunk, m, c, h, dtype, gen):
 
 def phase_kernels():
     """Every kernel against its plain version at the flagship's shapes
-    (B = 16 windows, L = 243, J = 17 joints, S = 16 bones, 8 heads)."""
+    (B = 16 windows, L = 243, J = 17 joints, S = 16 bones, 8 heads), and the
+    per-window kernels and the MLPs at the 3DHP model's (B = 25, L = 27):
+    K3/K4 on the temporal layers' windows of 27 frames, K5/K6 on 25 * 27 *
+    17 and 25 * 27 * 16 rows."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     b, l, j, s = TRAIN_BATCH, 243, 17, 16
+    b3, l3 = DHP3_BATCH, DHP3_SEQ_LEN
     cases = {name: [] for name in KERNELS}
     for dtype in (torch.float32, torch.bfloat16):
         for kind in ("attention_dense", "attention_dense_bwd"):
@@ -613,16 +702,25 @@ def phase_kernels():
             cases[kind] += [
                 case(kind, "rotations", b * l, 8, j, 64, dtype, gen),
                 case(kind, "segments", b * l, 8, s, 16, dtype, gen),
+                case(kind, "3dhp-rotations-temporal", b3 * j, 8, l3, 64, dtype, gen),
+                case(kind, "3dhp-segments-temporal", b3 * s, 8, l3, 16, dtype, gen),
             ]
         for kind, case in (("fused_mlp", mlp_case), ("fused_mlp_bwd", mlp_bwd_case)):
             cases[kind] += [
                 case("rotations", b * l * j, 512, 1024, dtype, gen),
                 case("segments", b * l * s, 128, 256, dtype, gen),
+                case("3dhp-rotations", b3 * l3 * j, 512, 1024, dtype, gen),
+                case("3dhp-segments", b3 * l3 * s, 128, 256, dtype, gen),
             ]
             torch.cuda.empty_cache()
+        # a streaming session's firing push: one window (batch 1) a forward
+        for kind, trunk, *shape in STREAM_ATTENTION_CASES:
+            cases[kind].append(attention_case(kind, trunk, *shape, dtype, gen))
+        for trunk, *shape in STREAM_MLP_CASES:
+            cases["fused_mlp"].append(mlp_case(trunk, *shape, dtype, gen))
     for name, rows in cases.items():
         for r in rows:
-            print(f"kernel {name:20s} {r['trunk']:9s} {r['dtype']:8s} "
+            print(f"kernel {name:20s} {r['trunk']:23s} {r['dtype']:8s} "
                   f"shape={r['shape']} err={r['max_abs_err']:.3g} "
                   f"ms={r['ms']:.4f} "
                   f"({r['tflops']:.1f} TFLOP/s) "
@@ -1023,7 +1121,7 @@ def phase_bf16_accuracy(cases) -> None:
     for name in ("attention_dense", "attention_dense_bwd", "attention_packed",
                  "attention_packed_bwd"):
         for c in cases[name]:
-            if c["dtype"] == "bfloat16":
+            if c["dtype"] == "bfloat16" and (name, c["trunk"]) in ONE_PART_BF16_MS:
                 from_o = (f", delta from O {DELTA_FROM_O_BF16_MS[c['trunk']]:.4f} ms"
                           if name == "attention_dense_bwd" else "")
                 print(f"bf16 time {name:20s} {c['trunk']:9s} {c['ms']:.4f} ms "
@@ -1495,6 +1593,333 @@ def phase_profile_epoch(dtype: str, data_dir: Path) -> None:
                  lambda: train(model, cfg, dataset.skeleton, *loaders, run_dir(cfg), rmcl))
 
 
+def dhp3_config(dtype: str, data_dir: Path, extra=()):
+    """The 3DHP driver at the flagship's widths on the phase's archives."""
+    from manipose_tpu_torch.config import load_config
+
+    return load_config("config", [
+        "data=mpi_inf_3dhp", f"model.dtype={dtype}", f"data.data_dir={data_dir}",
+        f"run.output_dir={data_dir / 'outputs'}", f"run.experiment=dhp3_{dtype}",
+        "run.train=true", "run.test=true", f"train.epochs={DRIVER_EPOCHS}",
+        f"train.batch_size={DHP3_BATCH}", f"train.batch_size_test={DHP3_BATCH_TEST}",
+        "train.valid_epoch_interval=1", "train.mpjpe_epoch_interval=1", *extra])
+
+
+def write_3dhp(data_dir: Path) -> None:
+    from manipose_tpu_torch.tools.make_synthetic_3dhp import generate
+
+    t0 = time.perf_counter()
+    generate(data_dir, DHP3_TRAIN_SEQS, DHP3_CAMS, DHP3_FRAMES, DHP3_TEST_FRAMES,
+             seed=dhp3_config("float32", data_dir).run.seed)
+    print(f"3dhp data: FK-synthetic archives in {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def phase_dhp3_driver(dtype: str, data_dir: Path):
+    """The 3DHP driver (``drivers.dhp3.main``, run.train=true) at the
+    flagship's widths and L = 27 on the card: K1 and K2 never launched; K3,
+    K4, K5 and K6 launched, every launch on the dtype's operands and the
+    backward kernels once a layer a step; finite losses; every tag written;
+    PCK, AUC, agg_pck and agg_auc finite and in [0, 100]; the five CSVs
+    written. Returns (launch counts, per-epoch log rows, protocol valid
+    frames/s)."""
+    import csv
+
+    from manipose_tpu_torch import ops
+    from manipose_tpu_torch.data.dhp3 import Dataset3DHP
+    from manipose_tpu_torch.drivers import dhp3
+    from manipose_tpu_torch.utils.logging import MetricLogger
+
+    cfg = dhp3_config(dtype, data_dir)
+    steps = DRIVER_EPOCHS * len(dhp3.create_loader(Dataset3DHP(data_dir, train=True), cfg))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    logger = MetricLogger()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    best = dhp3.main(cfg, logger=logger)
+    torch.cuda.synchronize()
+    main_s = time.perf_counter() - t0
+    counts, on_dtype = ops.launch_counts(), ops.launch_counts(DTYPES[dtype])
+    print(f"3dhp driver {dtype} launches {counts} ({dtype} operands: {on_dtype}); "
+          f"{steps} train steps of {DHP3_BATCH} windows of {DHP3_SEQ_LEN} frames")
+    for name in KERNELS:
+        if name not in DHP3_LAUNCHES_PER_TRAIN_STEP:
+            require(counts[name] == 0, f"3dhp driver {dtype}: {name} launched "
+                                       f"{counts[name]} times at L = {DHP3_SEQ_LEN}")
+            continue
+        require(counts[name] > 0, f"3dhp driver {dtype}: {name} launched")
+        require(on_dtype[name] == counts[name],
+                f"3dhp driver {dtype}: {name} launched {counts[name] - on_dtype[name]} "
+                f"times on other than {dtype} operands")
+        if name.endswith("_bwd"):
+            want = DHP3_LAUNCHES_PER_TRAIN_STEP[name] * steps
+            require(counts[name] == want, f"3dhp driver {dtype}: {name} launched "
+                                          f"{counts[name]}, want {want}")
+    out = run_dir(cfg)
+    losses = {n: np.load(out / f"{n}.npy") for n in ("train_loss", "valid_loss")}
+    for n, v in losses.items():
+        require(v.shape == (DRIVER_EPOCHS,) and bool(np.isfinite(v).all()), f"3dhp {n} {v}")
+    require(best is not None and bool(np.isfinite(best)), f"3dhp best validation MPJPE {best}")
+    for tag in RUN_TAGS:
+        require((out / tag / "model.pth").is_file(), f"3dhp driver {dtype}: tag {tag}")
+    for name in DHP3_OUTPUT_CSVS:
+        require((out / f"{name}.csv").is_file(), f"3dhp driver {dtype}: {name}.csv")
+    with open(out / "test_metrics.csv", newline="") as f:
+        (metrics,) = [{k: float(v) for k, v in row.items()} for row in csv.DictReader(f)]
+    require(all(np.isfinite(v) for v in metrics.values()), f"3dhp test metrics {metrics}")
+    for k in ("pck", "auc", "agg_pck", "agg_auc"):
+        require(0.0 <= metrics[k] <= 100.0, f"3dhp {k} = {metrics[k]} in [0, 100]")
+    epochs = epoch_rows(logger)
+    require([r["step"] for r in epochs] == list(range(DRIVER_EPOCHS)), f"epochs {epochs}")
+    print_epochs(f"3dhp driver {dtype}", epochs)
+    (timed,) = [r for r in logger.history if "eval_frames" in r]
+    fps = timed["eval_frames"] / timed["eval_seconds"]
+    print(f"3dhp driver {dtype}: main {main_s:.1f} s; train losses {losses['train_loss']}, "
+          f"validation losses {losses['valid_loss']}, best validation MPJPE {best:.4f} mm; "
+          f"protocol: {timed['eval_frames']} valid frames in {timed['eval_seconds']:.3f} s "
+          f"({fps:.1f} frames/s, batch {DHP3_BATCH_TEST}, TTA); "
+          + ", ".join(f"{k} {v:.4f}" for k, v in metrics.items()), flush=True)
+    return counts, epochs, fps
+
+
+def dhp3_cut(cfg, data_dir: Path, weights):
+    """TS1 and TS5 of the phase's test archive, cut to DHP3_CPU_WINDOWS
+    windows each, with 3D targets at the model's own scale: per frame one
+    of the CPU fp32 model's hypotheses (drawn from run.seed) plus
+    N(0, EVAL_TARGET_NOISE_M) a coordinate. A Dataset3DHP stand-in."""
+    from types import SimpleNamespace
+
+    from manipose_tpu_torch.data.dhp3 import Dataset3DHP
+    from manipose_tpu_torch.tools.make_synthetic_3dhp import TEST_SEQUENCES
+
+    full = Dataset3DHP(data_dir, train=False)
+    n = DHP3_CPU_WINDOWS * cfg.data.seq_len
+    poses_2d = [full.poses_2d[TEST_SEQUENCES.index(seq)][:n] for seq in DHP3_CPU_SEQUENCES]
+    model = dhp3_model(dhp3_config("float32", data_dir), "cpu", weights)
+    x = torch.from_numpy(np.stack(poses_2d).reshape(-1, cfg.data.seq_len, 17, 2))
+    with torch.inference_mode():
+        hyps = model(x)[0].float().numpy()  # (windows, H, L, J, 3)
+    rng = np.random.default_rng(cfg.run.seed)
+    pick = rng.integers(0, hyps.shape[1], size=(hyps.shape[0], hyps.shape[2]))
+    chosen = np.take_along_axis(hyps, pick[:, None, :, None, None], axis=1)[:, 0]
+    chosen = chosen + rng.normal(scale=EVAL_TARGET_NOISE_M, size=chosen.shape)
+    poses = list(chosen.astype(np.float32).reshape(len(poses_2d), n, 17, 3))
+    return SimpleNamespace(skeleton=full.skeleton, poses=poses, poses_2d=poses_2d)
+
+
+def dhp3_model(cfg, device, weights):
+    """``cfg``'s model with ``weights`` on ``device``, in eval mode."""
+    from manipose_tpu_torch.data.dhp3 import dhp3_skeleton
+    from manipose_tpu_torch.drivers import instantiate_model
+
+    model, _ = instantiate_model(cfg, dhp3_skeleton())
+    model.load_state_dict(weights, strict=True)
+    return model.to(device).eval()
+
+
+def dhp3_protocol_on(cfg, device, weights, dataset, out_dir: Path):
+    """The cut protocol on ``device``: (aggregated predictions (mm),
+    metrics), both from its one ``evaluate``."""
+    from manipose_tpu_torch.drivers import dhp3
+
+    model = dhp3_model(cfg, device, weights)
+    metrics, preds = dhp3.run_test_protocol(model, cfg, dataset, True, out_dir,
+                                            return_predictions=True)
+    return preds, metrics
+
+
+def phase_dhp3_cpu_vs_card(dtype: str, data_dir: Path) -> None:
+    """The 3DHP protocol on TS1 and TS5 cut to DHP3_CPU_WINDOWS windows each
+    (``dhp3_cut``: targets at the model's scale), from the phase's
+    best_mpjpe weights, on the card and on the CPU. fp32: predictions within
+    MODEL_TOL of their magnitude, the MPJPE family, MPSSE and MPSCE within
+    EVAL_METRIC_TOL relative, PCK and AUC within one joint-frame's share,
+    100 / (valid frames * 17). bf16: each within max(BF16_TOL, 2 * the CPU's
+    bf16 spread under a one-ulp input nudge + GAP_SLACK) relative to
+    max(1, |ref|), PCK and AUC at least one joint-frame's share."""
+    from types import SimpleNamespace
+
+    from manipose_tpu_torch.weights import load_torch_checkpoint
+
+    n_windows = len(DHP3_CPU_SEQUENCES) * DHP3_CPU_WINDOWS
+    cfg = dhp3_config(dtype, data_dir, [f"train.batch_size_test={n_windows}"])
+    weights = load_torch_checkpoint(run_dir(cfg) / "best_mpjpe" / "model.pth")
+    dataset = dhp3_cut(cfg, data_dir, weights)
+    out = data_dir / f"cpu_vs_card_{dtype}"
+    t0 = time.perf_counter()
+    ref_preds, ref = dhp3_protocol_on(cfg, "cpu", weights, dataset, out / "cpu")
+    cpu_s = time.perf_counter() - t0
+    got_preds, got = dhp3_protocol_on(cfg, "cuda", weights, dataset, out / "card")
+    require(got_preds.shape == (n_windows, cfg.data.seq_len, 17, 3), f"preds {got_preds.shape}")
+    joint_frame = 100.0 / (n_windows * cfg.data.seq_len * 17)
+    share = {k for k in ref if "pck" in k or "auc" in k}
+    errs = {}
+    if dtype == "float32":
+        errs["predictions"] = (float(np.abs(got_preds - ref_preds).max()),
+                               MODEL_TOL * max(1.0, float(np.abs(ref_preds).max())))
+        for k, want in ref.items():
+            errs[k] = (abs(got[k] - want),
+                       joint_frame if k in share else EVAL_METRIC_TOL * abs(want))
+    else:
+        nudged_set = SimpleNamespace(skeleton=dataset.skeleton, poses=dataset.poses,
+                                     poses_2d=[p * BF16_NUDGE for p in dataset.poses_2d])
+        nudged_preds, nudged = dhp3_protocol_on(cfg, "cpu", weights, nudged_set,
+                                                out / "nudged")
+        errs["predictions"] = (rel_err(got_preds, ref_preds),
+                               max(BF16_TOL, 2 * rel_err(nudged_preds, ref_preds) + GAP_SLACK))
+        for k, want in ref.items():
+            spread = rel_err(np.asarray(nudged[k]), np.asarray(want))
+            tol = max(BF16_TOL, 2 * spread + GAP_SLACK)
+            errs[k] = (rel_err(np.asarray(got[k]), np.asarray(want)),
+                       max(tol, joint_frame) if k in share else tol)
+    for k, (err, tol) in errs.items():
+        require(err <= tol, f"3dhp cpu vs card {dtype} {k}: {err} > {tol}")
+    print(f"3dhp cpu vs card {dtype} ({'+'.join(DHP3_CPU_SEQUENCES)}, {n_windows} windows "
+          f"of {cfg.data.seq_len} in one batch, best_mpjpe weights, targets a seeded "
+          f"hypothesis + {1000 * EVAL_TARGET_NOISE_M:g} mm noise; the CPU took {cpu_s:.1f} s; "
+          f"one joint-frame {joint_frame:.4f}): "
+          + ", ".join(f"{k} err {e:.3g} (tol {t:.3g})" for k, (e, t) in errs.items())
+          + "; cpu " + ", ".join(f"{k} {v:.4f}" for k, v in ref.items())
+          + "; card " + ", ".join(f"{k} {v:.4f}" for k, v in got.items()), flush=True)
+
+
+def stream_predictor(model: str, dtype: str, **kw):
+    """A batch-1, TTA-on ``Predictor`` of the H36M flagship or of the 3DHP
+    model (``data=mpi_inf_3dhp``) in ``dtype``; ``kw`` goes to it."""
+    from manipose_tpu_torch.config import load_config
+    from manipose_tpu_torch.data.dhp3 import dhp3_skeleton
+    from manipose_tpu_torch.serving import Predictor
+
+    if model == "3dhp":
+        return Predictor(cfg=load_config("config", ["data=mpi_inf_3dhp", f"model.dtype={dtype}"]),
+                         skeleton=dhp3_skeleton(), batch_size=1, tta=True, **kw)
+    return Predictor(cfg=load_config("config", [f"model.dtype={dtype}"]), batch_size=1,
+                     tta=True, **kw)
+
+
+def phase_stream_cpu_vs_card() -> None:
+    """A stride-1 session with default lookahead at the H36M flagship (L =
+    243) and at the 3DHP model (L = 27), fp32 and bf16, on the card and on
+    the CPU from the same weights: STREAM_CPU_WINDOWS firing pushes, each a
+    one-window forward (TTA on), so every kernel of a stream runs at a
+    firing push's shapes. fp32: within MODEL_TOL of the magnitude. bf16:
+    within max(BF16_TOL, 2 * the CPU's bf16 spread under a one-ulp input
+    nudge + GAP_SLACK) relative to max(1, |ref|max)."""
+    for model in ("h36m", "3dhp"):
+        for dtype in ("float32", "bfloat16"):
+            card = stream_predictor(model, dtype)
+            state = {k: v.cpu() for k, v in card.model.state_dict().items()}
+            cpu = stream_predictor(model, dtype, state_dict=state, device="cpu")
+            n = card.seq_len // 2 + STREAM_CPU_WINDOWS
+            video = np.random.default_rng(3).normal(size=(n, 17, 2)).astype(np.float32)
+            t0 = time.perf_counter()
+            ref = cpu.stream(stride=1).push(video)
+            cpu_s = time.perf_counter() - t0
+            got = card.stream(stride=1).push(video)
+            require(got.shape == ref.shape == (STREAM_CPU_WINDOWS, 17, 3),
+                    f"stream {model} {dtype}: shapes {got.shape}, {ref.shape}")
+            if dtype == "float32":
+                err = float(np.abs(got - ref).max())
+                tol = MODEL_TOL * max(1.0, float(np.abs(ref).max()))
+                spread = ""
+            else:
+                nudged = cpu.stream(stride=1).push(video * BF16_NUDGE)
+                err, s = rel_err(got, ref), rel_err(nudged, ref)
+                tol = max(BF16_TOL, 2 * s + GAP_SLACK)
+                spread = f", cpu bf16 spread {s:.3g}, relative to max(1, |ref|max)"
+            require(bool(np.isfinite(got).all()) and err <= tol,
+                    f"stream {model} {dtype} cpu vs card: {err} > {tol}")
+            print(f"stream cpu vs card {model:4s} L={card.seq_len:3d} {dtype:8s} (stride 1, "
+                  f"lookahead {card.seq_len // 2}, {STREAM_CPU_WINDOWS} firing pushes; the CPU "
+                  f"took {cpu_s:.1f} s): err {err:.3g} (tol {tol:.3g}{spread})", flush=True)
+            del card, cpu
+
+
+def phase_stream():
+    """Live streaming sessions on the card. A session of stride L and
+    lookahead 0 equals ``predict_video`` (batch 1) within MODEL_TOL of the
+    magnitude at the H36M flagship (fp32). Then, at the H36M flagship (L =
+    243) and the 3DHP model (L = 27), fp32 and bf16, default lookahead
+    (L // 2), strides STREAM_STRIDES: frames pushed one at a time; ms per
+    firing push (host clock: each firing push ends with its result on the
+    host) over STREAM_FIRINGS warm firing pushes, median and p90, frames/s
+    over those pushes, beside latency_frames. Returns the launch counts of
+    the timed sessions."""
+    from manipose_tpu_torch import ops
+
+    pred = stream_predictor("h36m", "float32")
+    l = pred.seq_len
+    video = np.random.default_rng(2).normal(size=(2 * l + 10, 17, 2)).astype(np.float32)
+    sess = pred.stream(stride=l, lookahead=0)
+    got = np.concatenate([sess.push(video), sess.flush()], axis=0)
+    want = pred.predict_video(video)
+    err, tol = float(np.abs(got - want).max()), MODEL_TOL * max(1.0, float(np.abs(want).max()))
+    require(got.shape == want.shape and err <= tol,
+            f"stream(stride={l}, lookahead=0) against predict_video: {err} > {tol}")
+    print(f"stream: stride {l}, lookahead 0 against predict_video (flagship fp32, "
+          f"{len(video)} frames): max err {err:.3g} (tol {tol:.3g})", flush=True)
+    counts = {name: 0 for name in KERNELS}
+    for model in ("h36m", "3dhp"):
+        for dtype in ("float32", "bfloat16"):
+            pred = stream_predictor(model, dtype)
+            l = pred.seq_len
+            for stride in STREAM_STRIDES:
+                sess = pred.stream(stride=stride)
+                n_frames = sess.lookahead + stride * (STREAM_WARM + STREAM_FIRINGS)
+                video = np.random.default_rng(stride).normal(size=(n_frames, 17, 2))
+                video = video.astype(np.float32)
+                times, emitted = [], 0
+                ops.reset_launch_counts()
+                for frame in video:
+                    t0 = time.perf_counter()
+                    out = sess.push(frame)
+                    if len(out):
+                        times.append(time.perf_counter() - t0)
+                        emitted += len(out)
+                for name, n in ops.launch_counts().items():
+                    counts[name] += n
+                require(emitted == n_frames - sess.lookahead and len(times) == STREAM_WARM
+                        + STREAM_FIRINGS, f"stream {model} {dtype} stride {stride}: "
+                                          f"{len(times)} firing pushes, {emitted} frames")
+                warm = np.asarray(times[STREAM_WARM:]) * 1e3
+                fps = stride * len(warm) / (warm.sum() / 1e3)
+                print(f"stream {model:4s} L={l:3d} {dtype:8s} stride {stride} lookahead "
+                      f"{sess.lookahead:3d}: latency_frames {sess.latency_frames}; ms per firing "
+                      f"push median {float(np.median(warm)):.3f}, p90 "
+                      f"{float(np.percentile(warm, 90)):.3f} over {len(warm)} warm pushes "
+                      f"(first {times[0] * 1e3:.1f}); {fps:.1f} frames/s", flush=True)
+    print(f"stream launches {counts}")
+    for name in ("attention_dense", "attention_packed", "fused_mlp"):
+        require(counts[name] > 0, f"stream: {name} launched")
+    return counts
+
+
+def phase_profile_l27(dtype: str) -> None:
+    """Ten warm train steps of the 3DHP model (L = 27, B = 25 synthetic
+    windows, drop-path 0.1) and ten warm firing pushes of a stride-1
+    session at the H36M flagship and at the 3DHP model, in ``dtype``, under
+    the profiler: how much of a short step and of a one-window push the
+    card is busy."""
+    from manipose_tpu_torch.config import load_config
+
+    cfg = load_config("config", ["data=mpi_inf_3dhp", f"model.dtype={dtype}"])
+    state, step = make_trainer(cfg, "cuda")
+    x, y = (t.cuda() for t in flagship_batch(DHP3_SEQ_LEN, DHP3_BATCH))
+    for _ in range(3):
+        step(state, x, y, TRAIN_LR)
+    profile_call(f"{dtype} 10 train steps of the 3dhp model (B={DHP3_BATCH}, "
+                 f"L={DHP3_SEQ_LEN})", lambda: [step(state, x, y, TRAIN_LR) for _ in range(10)])
+    del state, step, x, y
+    for model in ("h36m", "3dhp"):
+        pred = stream_predictor(model, dtype)
+        sess = pred.stream(stride=1)
+        warm = sess.lookahead + 3
+        frames = np.random.default_rng(0).normal(size=(warm + 10, 17, 2)).astype(np.float32)
+        sess.push(frames[:warm])
+        profile_call(f"{dtype} 10 firing pushes of a {model} session (L={pred.seq_len}, "
+                     f"stride 1)", lambda: [sess.push(f) for f in frames[warm:]])
+
+
 def kernel_group(name: str) -> str:
     """Coarse class of a device kernel, by its (mangled) name."""
     for ours, device_names in DEVICE_KERNELS.items():
@@ -1673,6 +2098,41 @@ def main() -> int:
     finally:
         shutil.rmtree(scratch, ignore_errors=True)
 
+    if "--profile" in sys.argv[1:]:
+        phase_profile("fp32", predictor, (state, step, batch))
+        phase_profile("bf16", predictor16, (state16, step16, batch16))
+    del predictor, predictor16, state, step, batch, state16, step16, batch16
+    torch.cuda.empty_cache()
+
+    scratch = ROOT / "build" / "chip_smoke_3dhp"
+    shutil.rmtree(scratch, ignore_errors=True)
+    scratch.mkdir(parents=True)
+    try:
+        write_3dhp(scratch)
+        dhp3_counts, dhp3_epochs, dhp3_fps = {}, {}, {}
+        for dtype in ("bfloat16", "float32"):
+            t0 = time.perf_counter()
+            dhp3_counts[dtype], dhp3_epochs[dtype], dhp3_fps[dtype] = phase_dhp3_driver(
+                dtype, scratch)
+            print(f"3dhp driver {dtype} phase: {time.perf_counter() - t0:.1f} s", flush=True)
+            t0 = time.perf_counter()
+            phase_dhp3_cpu_vs_card(dtype, scratch)
+            print(f"3dhp cpu-card {dtype} phase: {time.perf_counter() - t0:.1f} s; "
+                  f"total {time.perf_counter() - t_start:.1f} s", flush=True)
+    finally:
+        shutil.rmtree(scratch, ignore_errors=True)
+    t0 = time.perf_counter()
+    stream_counts = phase_stream()
+    print(f"stream phase: {time.perf_counter() - t0:.1f} s; "
+          f"total {time.perf_counter() - t_start:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    phase_stream_cpu_vs_card()
+    print(f"stream cpu-card phase: {time.perf_counter() - t0:.1f} s; "
+          f"total {time.perf_counter() - t_start:.1f} s", flush=True)
+    if "--profile" in sys.argv[1:]:
+        for dtype in ("bfloat16", "float32"):
+            phase_profile_l27(dtype)
+
     kernels = []
     for name, meta in KERNELS.items():
         # this slice's main path is the bf16 training driver, which runs all
@@ -1683,7 +2143,9 @@ def main() -> int:
                    "serve_bf16": counts16, "train_step_bf16": train_counts16,
                    "eval": eval_counts["float32"], "eval_bf16": eval_counts["bfloat16"],
                    "train_driver": driver_counts["float32"],
-                   "train_driver_bf16": driver_counts["bfloat16"]}
+                   "train_driver_bf16": driver_counts["bfloat16"],
+                   "dhp3_driver": dhp3_counts["float32"],
+                   "dhp3_driver_bf16": dhp3_counts["bfloat16"], "stream": stream_counts}
         kernels.append(dict(
             name=name, route="cuda", **meta,
             launches=driver_counts["bfloat16"][name],
@@ -1696,16 +2158,17 @@ def main() -> int:
             timed_case=f"{head['trunk']} {head['dtype']} {head['shape']}",
             cases=cases[name],
         ))
-    if "--profile" in sys.argv[1:]:
-        phase_profile("fp32", predictor, (state, step, batch))
-        phase_profile("bf16", predictor16, (state16, step16, batch16))
     loop_seq = {d: ", ".join(f"{r['seq_per_sec']:.2f}" for r in rows)
                 for d, rows in driver_epochs.items()}
+    dhp3_seq = {d: ", ".join(f"{r['seq_per_sec']:.2f}" for r in rows)
+                for d, rows in dhp3_epochs.items()}
     print(f"flagship frames/s fp32 {fps:.1f}, bf16 {fps16:.1f}; train sequences/s "
           f"fp32 {seq_s:.2f} (peak {peak_gb:.2f} GB), bf16 {seq_s16:.2f} (peak "
           f"{peak_gb16:.2f} GB); eval frames/s fp32 {eval_fps['float32']:.1f}, bf16 "
           f"{eval_fps['bfloat16']:.1f}; train-loop sequences/s by epoch fp32 "
-          f"{loop_seq['float32']}, bf16 {loop_seq['bfloat16']}; total "
+          f"{loop_seq['float32']}, bf16 {loop_seq['bfloat16']}; 3dhp train-loop sequences/s "
+          f"by epoch fp32 {dhp3_seq['float32']}, bf16 {dhp3_seq['bfloat16']}; 3dhp test "
+          f"valid frames/s fp32 {dhp3_fps['float32']:.1f}, bf16 {dhp3_fps['bfloat16']:.1f}; total "
           f"{time.perf_counter() - t_start:.1f} s on {smi}")
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -8,6 +8,9 @@ from .cameras import (
     uvd2xyz_from_cam,
     world_to_camera,
 )
+from .chunked import ChunkedGenerator, PoseGenerator
+from .dhp3 import MAP_H36M_TO_MPI_JOINTS, Dataset3DHP, dhp3_skeleton
+from .graph_utils import adj_mx_from_edges, adj_mx_from_skeleton, edges_from_parents
 from .h36m import (
     ALL_ACTIONS,
     Human36mDataset,
@@ -28,6 +31,14 @@ __all__ = [
     "uvd2xyz",
     "uvd2xyz_from_cam",
     "world_to_camera",
+    "ChunkedGenerator",
+    "PoseGenerator",
+    "MAP_H36M_TO_MPI_JOINTS",
+    "Dataset3DHP",
+    "dhp3_skeleton",
+    "adj_mx_from_edges",
+    "adj_mx_from_skeleton",
+    "edges_from_parents",
     "ALL_ACTIONS",
     "Human36mDataset",
     "create_2d_data",

@@ -1,4 +1,4 @@
-from . import common, h36m
+from . import common, dhp3, h36m
 from .common import (
     create_loader,
     get_subjects_and_actions,
@@ -9,6 +9,7 @@ from .common import (
 
 __all__ = [
     "common",
+    "dhp3",
     "h36m",
     "create_loader",
     "get_subjects_and_actions",

@@ -138,8 +138,19 @@ class Predictor:
     def export_stablehlo(self, *args, **kwargs):
         raise NotImplementedError("export (torch.export) is not ported yet")
 
-    def stream(self, *args, **kwargs):
-        raise NotImplementedError("streaming sessions are not ported yet")
+    def stream(self, stride: int = 1, lookahead: Optional[int] = None):
+        """Open a real-time :class:`~manipose_tpu_torch.streaming.StreamingSession`.
+
+        ``session.push(frames)`` feeds live 2D keypoints and returns 3D
+        poses as they clear the ``lookahead`` margin (default
+        ``seq_len // 2``: center-frame quality from the bidirectional
+        trunk; ``0`` is fully causal); ``session.flush()`` drains the
+        tail. Each firing push is one window's forward on the predictor's
+        device.
+        """
+        from .streaming import StreamingSession
+
+        return StreamingSession(self, stride=stride, lookahead=lookahead)
 
     # ------------------------------------------------------------------
     def _dispatch(self, batch: np.ndarray, want_hyps: bool):
@@ -172,6 +183,13 @@ class Predictor:
             done.synchronize()
         # numpy has no bf16: bf16 results widen to fp32 exactly
         return [t.float().numpy() for t in outs]
+
+    def forward_windows(self, windows: np.ndarray) -> np.ndarray:
+        """The aggregated poses (W, L, J, 3) of a batch of windows (W, L, J,
+        2), as ``predict_video`` computes each batch (TTA included)."""
+        with torch.inference_mode():
+            return self._harvest(self._dispatch(np.ascontiguousarray(windows, np.float32),
+                                                want_hyps=False))[0]
 
     def predict_video(
         self,

@@ -8,8 +8,10 @@ bit-for-bit equality, what the wrappers refuse, the autograd Functions
 against autograd through the plain versions, head dims and MLP widths the
 kernels take zero-padded, and a small model's Predictor and train step on
 the card against the CPU, in fp32 and under bf16 compute (with each
-kernel's launches counted on bf16 operands), and the flagship model's
-bf16 forward on one window.
+kernel's launches counted on bf16 operands), the flagship model's
+bf16 forward on one window, K3-K6 at the 3DHP model's shapes (L = 27,
+batch 25), the 3DHP test protocol and a streaming session on the card
+against the CPU.
 Marked ``cuda``; without a CUDA device every test skips. Run them on the
 card with ``python -m pytest tests/test_torch_port_cuda.py -q
 --noconftest``: tests/conftest.py sets up JAX for the rest of the suite,
@@ -876,3 +878,87 @@ def test_resume_on_card_continues_the_straight_run(gen, tmp_path):
     envelope = 2 * 4 * _driver_cfg(tmp_path, tmp_path).train.lr * ADAM_STEP
     gap = max((resumed[2][k] - straight[2][k]).abs().max().item() for k in straight[2])
     assert gap <= envelope, gap
+
+
+# ---- the MPI-INF-3DHP path and streaming on the card -------------------------
+
+# the 3DHP test's shapes at the flagship's widths (L = 27, batch 25): the
+# temporal layers' windows (rotations 25 * 17 windows of 27 frames at head
+# dim 64, segments 25 * 16 at 16) and the MLPs' rows (25 * 27 * 17 and
+# 25 * 27 * 16)
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b,d", [(25 * 17, 64), (25 * 16, 16)])
+def test_packed_kernels_at_the_3dhp_shapes(gen, b, d, dtype):
+    q, k, v = _qkv(gen, b, 8, 27, d, dtype, strided=True)
+    dout = torch.randn((b, 27, 8, d), generator=gen, device="cuda").to(dtype).transpose(1, 2)
+    _packed_check(q, k, v, dout, d**-0.5, dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("m,c,hidden", [(25 * 27 * 17, 512, 1024), (25 * 27 * 16, 128, 256)])
+def test_mlp_kernels_at_the_3dhp_shapes(gen, m, c, hidden, dtype):
+    x, w1, b1, w2, b2 = _mlp_operands(gen, m, c, hidden, dtype)
+    assert _max_err(fused_mlp(x, w1, b1, w2, b2), mlp_plain(x, w1, b1, w2, b2)) \
+        <= TOL[dtype][1]
+    g = torch.randn((m, c), generator=gen, device="cuda").to(dtype)
+    for name, a, r in zip(("dx", "dw1", "db1", "dw2", "db2"),
+                          fused_mlp_bwd(x, w1, b1, w2, g), mlp_plain_bwd(x, w1, b1, w2, g)):
+        assert _max_err(a, r) <= _grad_tol(r, dtype, relative=True), name
+
+
+DHP3_OVERRIDES = ["data=mpi_inf_3dhp", "model=small", "model.layers=2",
+                  "model.layers_seg=1", "multi_hyp.n_hyp=2", "train.batch_size_test=4"]
+
+
+def test_3dhp_protocol_on_card_matches_cpu(gen, tmp_path):
+    """The 3DHP test protocol (``drivers.dhp3.run_test_protocol``) of a
+    small model at L = 27 on FK-synthetic archives, on the card and on the
+    CPU from the same weights: the MPJPE family, MPSSE and MPSCE within
+    1e-4 relative, PCK and AUC within one joint-frame's share; the card
+    runs K3 and K5 (every attention layer per window at N = 27) and
+    neither K1 nor a backward kernel."""
+    from manipose_tpu_torch.data.dhp3 import Dataset3DHP
+    from manipose_tpu_torch.drivers.dhp3 import create_loader, run_test_protocol
+    from manipose_tpu_torch.tools.make_synthetic_3dhp import generate
+
+    generate(tmp_path / "data", train_seqs=1, cams=1, frames=30, test_frames=60, seed=0)
+    cfg = load_config("config", DHP3_OVERRIDES)
+    dataset = Dataset3DHP(tmp_path / "data", train=False)
+    model, rmcl = instantiate_model(cfg, dataset.skeleton)
+    metrics = {}
+    for device in ("cpu", "cuda"):
+        ops.reset_launch_counts()
+        metrics[device] = run_test_protocol(model.to(device), cfg, dataset, rmcl,
+                                            tmp_path / device)
+    n_batches = len(create_loader(dataset, cfg, train=False))
+    assert ops.launch_counts() == {
+        **{name: 0 for name in PER_BACKWARD}, "attention_dense": 0,
+        "attention_packed": 2 * 6 * n_batches, "fused_mlp": 2 * 6 * n_batches}
+    frames = len(create_loader(dataset, cfg, train=False).dataset) * 27
+    for k, w in metrics["cpu"].items():
+        g = metrics["cuda"][k]
+        tol = 100.0 / (frames * 17) if "pck" in k or "auc" in k else 1e-4 * abs(w)
+        assert abs(g - w) <= tol, (k, g, w)
+
+
+def test_stream_on_card_matches_predict_video(gen):
+    """A session of stride L, lookahead 0 on the card equals the card's
+    ``predict_video`` (batch 1: the same one-window forward), and a
+    stride-1 session on the card matches the CPU's within 5e-5 of the
+    magnitude."""
+    cfg = load_config("config", DHP3_OVERRIDES)
+    card = Predictor(cfg=cfg, batch_size=1, tta=True)
+    state = {k: v.cpu() for k, v in card.model.state_dict().items()}
+    cpu = Predictor(cfg=cfg, batch_size=1, tta=True, state_dict=state, device="cpu")
+    video = np.random.default_rng(0).normal(size=(70, 17, 2)).astype(np.float32)
+
+    def stream(pred, stride, lookahead):
+        sess = pred.stream(stride=stride, lookahead=lookahead)
+        return np.concatenate([sess.push(video), sess.flush()], axis=0)
+
+    want = card.predict_video(video)
+    np.testing.assert_allclose(stream(card, 27, 0), want, rtol=0,
+                               atol=5e-5 * max(1.0, float(np.abs(want).max())))
+    want = stream(cpu, 1, None)
+    np.testing.assert_allclose(stream(card, 1, None), want, rtol=0,
+                               atol=5e-5 * max(1.0, float(np.abs(want).max())))
