@@ -132,8 +132,34 @@ package. Phases, each fatal on failure:
               one flagship train step under ``torch.profiler``, in fp32
               and in bf16, one epoch of the train loop in each, ten train
               steps of the 3DHP model (L = 27) and ten firing pushes of a
-              stream at L = 243 and at L = 27 in each, device time by
+              stream at L = 243 and at L = 27 in each, and one int8
+              ``predict_video`` in each (phases 29-30), device time by
               kernel class and the device's busy share of each.
+28. int8 gemms - ``quant.int8_speedup()`` (the gate of
+              ``quantize=True``), then the trunks' int8 products (qkv,
+              proj, fc1, fc2 of both trunks at 16 windows of 243) through
+              ``quant.int_mm`` (``torch._int_mm``), exact against fp64,
+              timed beside a bf16 ``F.linear`` and their bound.
+29-30. int8 serving - ``Predictor(quantize="force")`` at the flagship
+              (16 windows, TTA) in fp32, then bf16 compute: outputs
+              finite, K1 and K3 launched on the dtype's operands and K5
+              never, frames/s, the gap to the float predictor (fatal at
+              0.2 relative), and 2 windows on the card against the CPU
+              (fp32: 2 x the CPU's change under a one-ulp input nudge +
+              MODEL_TOL of the magnitude; bf16: the bf16 spread rule).
+31. data-parallel - ``Predictor(data_parallel=True)`` on the one card
+              bit-equal to the plain predictor, and its stream (each
+              window replicated up to the batch) within MODEL_TOL of the
+              plain one's.
+32. export  - ``export_program`` (symbolic batch) and ``load_program`` of
+              the fp32 flagship on the card: batches 1, 2 and 16 within
+              1e-5 of the magnitude of the live forward, K1, K3 and K5
+              launched inside the program, frames/s of program and live
+              forward.
+33. http    - the port's HTTP server (``tools.serve``) in this process on
+              a local port: /healthz, /predict and a stream lifecycle
+              equal to the direct calls, then requests/s and latency of
+              /predict requests of 4 windows of 243 frames.
 
 The last lines are the card's name and power limit (as nvidia-smi prints
 them), one JSON object ``{"kernels": [...]}``, and
@@ -346,6 +372,33 @@ STREAM_MLP_CASES = (
 # the card against the CPU on a stride-1 session with default lookahead:
 # this many firing pushes (one window each), at both models and dtypes
 STREAM_CPU_WINDOWS = 2
+
+# The rest of serving (phases 28-32). The trunks' int8 products at the
+# flagship's serving batch (16 windows of 243): (trunk, M, k, n) for qkv,
+# proj, fc1 and fc2, rows M = 16 * 243 * 17 joints (rotations) or 16 bones
+# (segments); int8 peak of one H100 SXM (dense, data sheet, 700 W)
+INT8_GEMM_CASES = tuple(
+    (f"{trunk}-{layer}", TRAIN_BATCH * 243 * rows, k, n)
+    for trunk, rows, c in (("rotations", 17, 512), ("segments", 16, 128))
+    for layer, k, n in (("qkv", c, 3 * c), ("proj", c, c), ("fc1", c, 2 * c),
+                        ("fc2", 2 * c, c))
+)
+PEAK_INT8_OPS = 1979e12
+# int8 serving: 16 windows of 243, TTA, quantize="force"; per window batch
+# K1 and K3 run as in float serving and K5 never (two QuantLinears instead)
+INT8_LAUNCHES_PER_FORWARD = {"attention_dense": 10, "attention_packed": 10}
+# int8 card vs CPU: 2 windows, TTA off; fp32 within 2 * the CPU's own change
+# under a one-ulp input nudge (int8 codes flip where a row's sums differ in
+# the last bit) + MODEL_TOL of the magnitude; bf16 by the bf16 spread rule
+INT8_CPU_WINDOWS = 2
+# the int8 predictor's poses against the float one's on the card, relative
+# in norm (tests/test_serving.py's bound)
+INT8_FLOAT_REL = 0.2
+# export: the program against the live forward (tests/test_serving.py)
+EXPORT_TOL = 1e-5
+# the HTTP server: requests of SERVE_WINDOWS windows of 243 frames to a
+# predictor of that batch, SERVE_WARM untimed, then SERVE_REQUESTS timed
+SERVE_WINDOWS, SERVE_WARM, SERVE_REQUESTS = 4, 2, 10
 
 ATTENTION_CU = "manipose_tpu_torch/ops/csrc/attention.cu"
 MLP_CU = "manipose_tpu_torch/ops/csrc/mlp.cu"
@@ -1894,6 +1947,299 @@ def phase_stream():
     return counts
 
 
+def phase_int8_gemms() -> list:
+    """The int8 probe's ratio (``quant.int8_speedup``, the gate of
+    ``quantize=True``), then the trunks' int8 products (``quant.int_mm``:
+    ``torch._int_mm``) at the flagship's serving shapes, each exact against
+    an fp64 product of the same codes, timed beside a bf16 ``F.linear`` of
+    the same shape and a bound (bytes: the codes read, the int32 result
+    written; operations: 2 M k n at the int8 peak)."""
+    import torch.nn.functional as F
+
+    from manipose_tpu_torch.ops import quant
+
+    ratio = quant.int8_speedup()
+    print(f"int8 probe: int8_speedup() = {ratio:.4f} (bf16 / int8 GEMM time at "
+          f"8192 x 512 x 512; quantize=True serves int8 at >= 1.05)", flush=True)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    rows = []
+    for name, m, k, n in INT8_GEMM_CASES:
+        a = torch.randint(-127, 128, (m, k), generator=gen, device="cuda", dtype=torch.int8)
+        w = torch.randint(-127, 128, (n, k), generator=gen, device="cuda", dtype=torch.int8)
+        got = quant.int_mm(a, w)
+        want = (a.double() @ w.double().t()).to(torch.int32)
+        require(bool(torch.equal(got, want)), f"int8 GEMM {name}: not exact")
+        ms = time_ms(lambda: quant.int_mm(a, w))
+        xb, wb = a.to(torch.bfloat16), w.to(torch.bfloat16)
+        bf16_ms = time_ms(lambda: F.linear(xb, wb))
+        t_bytes = (m * k + n * k + 4 * m * n) / HBM_BYTES_PER_S * 1e3
+        t_ops = 2.0 * m * k * n / PEAK_INT8_OPS * 1e3
+        row = dict(name=name, shape=[m, k, n], ms=ms, tops=2.0 * m * k * n / ms * 1e-9,
+                   bound_ms=max(t_bytes, t_ops),
+                   bound_by="bytes" if t_bytes >= t_ops else "operations",
+                   bf16_linear_ms=bf16_ms)
+        rows.append(row)
+        print(f"int8 gemm {name:15s} M={m} k={k} n={n}: {ms:.4f} ms ({row['tops']:.1f} TOPS), "
+              f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}), bf16 F.linear "
+              f"{bf16_ms:.4f} ms ({bf16_ms / ms:.2f}x)", flush=True)
+    return rows
+
+
+def flagship_state(cfg) -> dict:
+    """The flagship's float weights drawn from ``cfg.run.seed`` (the
+    Predictor's own random init), on the CPU."""
+    from manipose_tpu_torch.drivers import instantiate_model
+    from manipose_tpu_torch.geometry import h36m_skeleton_17
+
+    return instantiate_model(cfg, h36m_skeleton_17())[0].state_dict()
+
+
+def phase_int8_serving(dtype: str):
+    """int8 serving at the flagship (16 windows of 243, TTA,
+    ``quantize="force"``) in ``dtype`` compute: output checks, K1 and K3
+    launched on the dtype's operands and K5 never, frames/s (mean of 5),
+    the poses' gap to the float predictor of the same weights (mm and
+    relative), then INT8_CPU_WINDOWS windows (TTA off) on the card and on
+    the CPU by the spread rule. Returns (launch counts, frames/s)."""
+    from manipose_tpu_torch import ops
+    from manipose_tpu_torch.config import load_config
+    from manipose_tpu_torch.serving import Predictor
+
+    cfg = load_config("config", [f"model.dtype={dtype}"])
+    state = flagship_state(cfg)
+    pred = Predictor(cfg=cfg, state_dict=state, batch_size=16, tta=True, quantize="force")
+    require(pred.quantized, "quantize='force' serves int8")
+    l = cfg.data.seq_len
+    video = np.random.default_rng(0).normal(size=(16 * l, 17, 2)).astype(np.float32)
+    pred.predict_video(video)  # warm-up
+    ops.reset_launch_counts()
+    poses, hyps, scores = pred.predict_video(video, return_hypotheses=True)
+    counts = require_counts(dtype, {k: 2 * n for k, n in INT8_LAUNCHES_PER_FORWARD.items()},
+                            f"int8 {dtype} serving (1 window batch)")
+    for name, a in (("poses", poses), ("hyps", hyps), ("scores", scores)):
+        require(bool(np.isfinite(a).all()), f"int8 {dtype} {name} not finite")
+    score_err = float(np.abs(scores.sum(axis=1) - 1.0).max())
+    require(score_err <= 1e-5, f"int8 scores sum to 1 over H within 1e-5 ({score_err})")
+    reps = 5
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        pred.predict_video(video)
+    fps = video.shape[0] / ((time.perf_counter() - t0) / reps)
+    if "--profile" in sys.argv[1:]:
+        profile_call(f"int8 {dtype} predict_video of {video.shape[0]} frames",
+                     lambda: pred.predict_video(video))
+    floats = Predictor(cfg=cfg, state_dict=state, batch_size=16, tta=True)
+    ref = floats.predict_video(video)
+    del floats
+    gap_mm = float(np.linalg.norm(poses - ref, axis=-1).mean() * 1000.0)
+    rel = float(np.linalg.norm(poses - ref) / np.linalg.norm(ref))
+    require(rel < INT8_FLOAT_REL, f"int8 {dtype} against float: {rel} >= {INT8_FLOAT_REL}")
+    print(f"int8 {dtype} predict_video: {video.shape[0]} frames -> {fps:.1f} frames/s (mean "
+          f"of {reps}, TTA on, batch 16); gap to float {gap_mm:.3f} mm mean per joint, "
+          f"{rel:.4f} relative", flush=True)
+
+    window = video[: INT8_CPU_WINDOWS * l]
+    outs = {}
+    for device in ("cuda", "cpu"):
+        p = Predictor(cfg=cfg, state_dict=state, batch_size=INT8_CPU_WINDOWS, tta=False,
+                      quantize="force", device=device)
+        outs[device] = p.predict_video(window)
+    if dtype == "float32":
+        nudged = p.predict_video(np.nextafter(window, np.float32(np.inf)))
+        spread = float(np.abs(nudged - outs["cpu"]).max())
+        err = float(np.abs(outs["cuda"] - outs["cpu"]).max())
+        tol = 2 * spread + MODEL_TOL * max(1.0, float(np.abs(outs["cpu"]).max()))
+    else:
+        nudged = p.predict_video(window * BF16_NUDGE)
+        spread = rel_err(nudged, outs["cpu"])
+        err = rel_err(outs["cuda"], outs["cpu"])
+        tol = max(BF16_TOL, 2 * spread + GAP_SLACK)
+    require(err <= tol, f"int8 {dtype} cpu vs card: {err} > {tol}")
+    print(f"int8 {dtype} cpu vs card ({INT8_CPU_WINDOWS} windows, TTA off): err {err:.3g} "
+          f"(tol {tol:.3g}; the CPU's spread {spread:.3g}"
+          f"{'' if dtype == 'float32' else ', relative to max(1, |ref|max)'})", flush=True)
+    return counts, fps
+
+
+def phase_data_parallel(plain):
+    """``Predictor(data_parallel=True)`` on the one card (one shard on a
+    stream of its own) against the plain predictor of the same weights:
+    ``predict_video`` bit for bit, then a stream (stride 81, default
+    lookahead: each window replicated up to the batch) within MODEL_TOL of
+    the plain predictor's stream. Returns the launch counts of the
+    data-parallel ``predict_video``."""
+    from manipose_tpu_torch import ops
+    from manipose_tpu_torch.serving import Predictor
+
+    cfg = plain.cfg
+    state = {k: v.cpu() for k, v in plain.model.state_dict().items()}
+    dp = Predictor(cfg=cfg, state_dict=state, batch_size=plain.batch_size, tta=True,
+                   data_parallel=True)
+    l = cfg.data.seq_len
+    video = np.random.default_rng(4).normal(size=(16 * l, 17, 2)).astype(np.float32)
+    want = plain.predict_video(video, return_hypotheses=True)
+    ops.reset_launch_counts()
+    got = dp.predict_video(video, return_hypotheses=True)
+    counts = require_counts("float32", {k: 2 * n for k, n in LAUNCHES_PER_FORWARD.items()},
+                            "data-parallel serving (1 card, 1 window batch)")
+    for name, g, w in zip(("poses", "hyps", "scores"), got, want):
+        require(bool(np.array_equal(g, w)), f"data-parallel {name} equal to plain")
+    frames = video[: l // 2 + 2 * 81]
+    streams = []
+    for p in (plain, dp):
+        sess = p.stream(stride=81)
+        streams.append(np.concatenate([sess.push(frames), sess.flush()], axis=0))
+    err = float(np.abs(streams[1] - streams[0]).max())
+    tol = MODEL_TOL * max(1.0, float(np.abs(streams[0]).max()))
+    require(streams[1].shape == streams[0].shape == frames.shape[:1] + (17, 3) and err <= tol,
+            f"data-parallel stream against plain: {err} > {tol}")
+    print(f"data-parallel on {torch.cuda.device_count()} card(s): predict_video of "
+          f"{video.shape[0]} frames bit-equal to plain; a stride-81 stream of "
+          f"{len(frames)} frames within {err:.3g} of plain (tol {tol:.3g})", flush=True)
+    return counts
+
+
+def phase_export(plain):
+    """``export_program`` of the fp32 flagship predictor on the card
+    (symbolic batch), ``load_program``, then the program at batches 1, 2 and
+    16 against the live forward within EXPORT_TOL of the magnitude; K1, K3
+    and K5 launched inside the program (the counters at batch 16); frames/s
+    of the program and of the live forward on the same 16 windows (mean of
+    5, ending in a synchronize). Returns the program's launch counts."""
+    from manipose_tpu_torch import ops
+    from manipose_tpu_torch.serving import Predictor
+
+    t0 = time.perf_counter()
+    data = plain.export_program()
+    t1 = time.perf_counter()
+    program = Predictor.load_program(data)
+    t2 = time.perf_counter()
+    l = plain.seq_len
+    live = plain.serving_forward
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    for b in (1, 2, 16):
+        x = torch.randn((b, l, 17, 2), generator=gen, device="cuda")
+        with torch.no_grad():
+            want = live(x)
+        ops.reset_launch_counts()
+        got = program(x)
+        for name, g, w in zip(("poses", "hyps", "scores"), got, want):
+            err = float((g - w).abs().max())
+            tol = EXPORT_TOL * max(1.0, float(w.abs().max()))
+            require(g.shape == w.shape and err <= tol,
+                    f"exported program {name} at batch {b}: {err} > {tol}")
+    counts = require_counts("float32", {k: 2 * n for k, n in LAUNCHES_PER_FORWARD.items()},
+                            "exported program (batch 16)")
+
+    def fps(fn) -> float:
+        fn(x)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(5):
+            fn(x)
+        torch.cuda.synchronize()
+        return 16 * l / ((time.perf_counter() - t) / 5)
+
+    with torch.no_grad():
+        live_fps = fps(live)
+    program_fps = fps(program)
+    print(f"export: {len(data) / 1e6:.1f} MB, export_program {t1 - t0:.1f} s, load_program "
+          f"{t2 - t1:.1f} s; batches 1, 2, 16 within {EXPORT_TOL} of the live forward; "
+          f"16 windows: program {program_fps:.1f} frames/s, live forward "
+          f"{live_fps:.1f} frames/s", flush=True)
+    return counts
+
+
+def http_call(port: int, method: str, path: str, body=None):
+    from http.client import HTTPConnection
+
+    conn = HTTPConnection("127.0.0.1", port, timeout=120)
+    try:
+        conn.request(method, path, body=None if body is None else json.dumps(body),
+                     headers={"Content-Type": "application/json"})
+        r = conn.getresponse()
+        return r.status, json.loads(r.read())
+    finally:
+        conn.close()
+
+
+def phase_http(state: dict):
+    """The port's HTTP server (``tools.serve``) in this process on a local
+    port, over a flagship fp32 predictor of batch SERVE_WINDOWS (TTA): one
+    /predict of SERVE_WINDOWS windows and a stream lifecycle (open, pushes
+    of 100 frames, flush) equal to the direct calls; then SERVE_REQUESTS
+    timed /predict requests of SERVE_WINDOWS windows of 243 frames each,
+    one at a time: requests/s and the latency's median and p90. Returns
+    the launch counts of the timed requests."""
+    import threading
+
+    from manipose_tpu_torch import ops
+    from manipose_tpu_torch.config import load_config
+    from manipose_tpu_torch.serving import Predictor
+    from manipose_tpu_torch.tools.serve import PoseServer, make_http_server
+
+    cfg = load_config("config")
+    pred = Predictor(cfg=cfg, state_dict=state, batch_size=SERVE_WINDOWS, tta=True)
+    server = PoseServer(pred)
+    httpd = make_http_server(server, "127.0.0.1", 0)
+    port = httpd.server_address[1]
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    try:
+        video = np.random.default_rng(6).normal(
+            size=(SERVE_WINDOWS * pred.seq_len, 17, 2)).astype(np.float32)
+        body = {"keypoints": video.tolist()}
+        status, out = http_call(port, "GET", "/healthz")
+        require(status == 200 and out["device"] == "cuda", f"healthz {status} {out}")
+        status, out = http_call(port, "POST", "/predict", body)
+        require(status == 200, f"/predict {status} {out.get('error')}")
+        require(bool(np.array_equal(np.asarray(out["poses"], np.float32),
+                                    pred.predict_video(video))),
+                "/predict equal to predict_video")
+        status, opened = http_call(port, "POST", "/stream/open", {"stride": 9})
+        require(status == 200, f"/stream/open {status}")
+        sid, got = opened["session"], []
+        frames = video[:200]
+        for i in range(0, len(frames), 50):
+            status, out = http_call(port, "POST", f"/stream/{sid}/push",
+                                    {"frames": frames[i:i + 50].tolist()})
+            require(status == 200, f"/stream push {status}")
+            got.append(np.asarray(out["poses"], np.float32).reshape(-1, 17, 3))
+        status, out = http_call(port, "POST", f"/stream/{sid}/flush")
+        got.append(np.asarray(out["poses"], np.float32).reshape(-1, 17, 3))
+        sess = pred.stream(stride=9)
+        want = np.concatenate([sess.push(frames), sess.flush()], axis=0)
+        require(bool(np.array_equal(np.concatenate(got), want)),
+                "the HTTP stream equal to a direct session")
+        status, _ = http_call(port, "POST", f"/stream/{sid}/push", {"frames": []})
+        require(status == 404, f"a flushed session is gone ({status})")
+        for _ in range(SERVE_WARM):
+            http_call(port, "POST", "/predict", body)
+        ops.reset_launch_counts()
+        times = []
+        for _ in range(SERVE_REQUESTS):
+            t0 = time.perf_counter()
+            status, _ = http_call(port, "POST", "/predict", body)
+            times.append(time.perf_counter() - t0)
+            require(status == 200, f"/predict {status}")
+        counts = ops.launch_counts()
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=60)
+    require(not thread.is_alive(), "the server thread stopped")
+    for name in ("attention_dense", "attention_packed", "fused_mlp"):
+        require(counts[name] == 2 * SERVE_REQUESTS * LAUNCHES_PER_FORWARD[name],
+                f"http serving: {name} launched {counts[name]}")
+    ms = np.asarray(times) * 1e3
+    print(f"http /predict ({SERVE_WINDOWS} windows of {pred.seq_len} frames a request, "
+          f"{len(json.dumps(body)) / 1e6:.2f} MB of JSON in): {SERVE_REQUESTS / ms.sum() * 1e3:.2f} "
+          f"requests/s, {SERVE_REQUESTS * video.shape[0] / ms.sum() * 1e3:.1f} frames/s; latency "
+          f"median {float(np.median(ms)):.1f} ms, p90 {float(np.percentile(ms, 90)):.1f} ms; "
+          f"/predict and a stream lifecycle equal to the direct calls", flush=True)
+    return counts
+
+
 def phase_profile_l27(dtype: str) -> None:
     """Ten warm train steps of the 3DHP model (L = 27, B = 25 synthetic
     windows, drop-path 0.1) and ten warm firing pushes of a stride-1
@@ -2133,6 +2479,32 @@ def main() -> int:
         for dtype in ("bfloat16", "float32"):
             phase_profile_l27(dtype)
 
+    t0 = time.perf_counter()
+    int8_rows = phase_int8_gemms()
+    print(f"int8 gemm phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    int8_counts, int8_fps = {}, {}
+    for dtype in ("float32", "bfloat16"):
+        t0 = time.perf_counter()
+        int8_counts[dtype], int8_fps[dtype] = phase_int8_serving(dtype)
+        print(f"int8 serving {dtype} phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    from manipose_tpu_torch.config import load_config
+    from manipose_tpu_torch.serving import Predictor
+
+    t0 = time.perf_counter()
+    plain = Predictor(cfg=load_config("config"), batch_size=16, tta=True)
+    dp_counts = phase_data_parallel(plain)
+    print(f"data-parallel phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    export_counts = phase_export(plain)
+    print(f"export phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    state = {k: v.cpu() for k, v in plain.model.state_dict().items()}
+    del plain
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    http_counts = phase_http(state)
+    print(f"http phase: {time.perf_counter() - t0:.1f} s; "
+          f"total {time.perf_counter() - t_start:.1f} s", flush=True)
+
     kernels = []
     for name, meta in KERNELS.items():
         # this slice's main path is the bf16 training driver, which runs all
@@ -2145,7 +2517,11 @@ def main() -> int:
                    "train_driver": driver_counts["float32"],
                    "train_driver_bf16": driver_counts["bfloat16"],
                    "dhp3_driver": dhp3_counts["float32"],
-                   "dhp3_driver_bf16": dhp3_counts["bfloat16"], "stream": stream_counts}
+                   "dhp3_driver_bf16": dhp3_counts["bfloat16"], "stream": stream_counts,
+                   "serve_int8": int8_counts["float32"],
+                   "serve_int8_bf16": int8_counts["bfloat16"],
+                   "serve_data_parallel": dp_counts, "export": export_counts,
+                   "http_serve": http_counts}
         kernels.append(dict(
             name=name, route="cuda", **meta,
             launches=driver_counts["bfloat16"][name],
@@ -2168,8 +2544,10 @@ def main() -> int:
           f"{eval_fps['bfloat16']:.1f}; train-loop sequences/s by epoch fp32 "
           f"{loop_seq['float32']}, bf16 {loop_seq['bfloat16']}; 3dhp train-loop sequences/s "
           f"by epoch fp32 {dhp3_seq['float32']}, bf16 {dhp3_seq['bfloat16']}; 3dhp test "
-          f"valid frames/s fp32 {dhp3_fps['float32']:.1f}, bf16 {dhp3_fps['bfloat16']:.1f}; total "
-          f"{time.perf_counter() - t_start:.1f} s on {smi}")
+          f"valid frames/s fp32 {dhp3_fps['float32']:.1f}, bf16 {dhp3_fps['bfloat16']:.1f}; int8 "
+          f"serving frames/s fp32 {int8_fps['float32']:.1f}, bf16 {int8_fps['bfloat16']:.1f}; "
+          f"total {time.perf_counter() - t_start:.1f} s on {smi}")
+    print("int8 gemms " + json.dumps(int8_rows))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -66,8 +66,10 @@ def _check_supported(m: Config) -> None:
             )
 
 
-def instantiate_model(cfg: Config, skeleton: Skeleton):
-    """Model factory. Returns (module on the CPU, is_rmcl)."""
+def instantiate_model(cfg: Config, skeleton: Skeleton, quant: bool = False):
+    """Model factory. Returns (module on the CPU, is_rmcl). ``quant=True``
+    builds the int8 serving variant (``ops/quant.py``), whose quantized
+    layers hold zeros until a quantized state dict is loaded."""
     m = cfg.model
     _check_supported(m)
     dtype = compute_dtype(m)
@@ -84,6 +86,7 @@ def instantiate_model(cfg: Config, skeleton: Skeleton):
                 drop_path_rate=m.drop_path_rate,
                 mup=m.mup,
                 dtype=dtype,
+                quant=quant,
             )
         )
         rmcl = False
@@ -104,6 +107,7 @@ def instantiate_model(cfg: Config, skeleton: Skeleton):
             n_hyp=cfg.multi_hyp.n_hyp,
             mup=m.mup,
             dtype=dtype,
+            quant=quant,
         )
         if m.arch == "manifold":
             model, rmcl = ManifoldMixSTE(manifold_cfg, skeleton), False

@@ -5,7 +5,8 @@ MixSTE emitting one 6D/4D rotation per joint per frame; the segments
 branch (BonesMixSTE) emits one length per bone per sequence (temporal
 mean); forward kinematics puts every output pose on the
 constant-bone-length manifold. ``ManifoldConfig.dtype`` (fp32 or bf16)
-is both trunks' compute dtype, as in the JAX package.
+is both trunks' compute dtype, and ``ManifoldConfig.quant`` quantizes both
+trunks' qkv, proj, fc1 and fc2 (int8 serving), as in the JAX package.
 """
 
 from __future__ import annotations
@@ -41,6 +42,7 @@ class ManifoldConfig:
     mup: bool = False
     mup_base_width: int = 64
     dtype: torch.dtype = torch.float32  # compute dtype; parameters stay fp32
+    quant: bool = False  # int8 serving in both trunks
 
     def _trunk(self, **kw) -> MixSTEConfig:
         return MixSTEConfig(
@@ -48,7 +50,7 @@ class ManifoldConfig:
             mlp_ratio=self.mlp_ratio, qkv_bias=self.qkv_bias,
             qk_scale=self.qk_scale, drop_path_rate=self.drop_path_rate,
             mup=self.mup, mup_base_width=self.mup_base_width,
-            dtype=self.dtype, **kw,
+            dtype=self.dtype, quant=self.quant, **kw,
         )
 
     def rot_trunk_config(self) -> MixSTEConfig:

@@ -30,6 +30,14 @@ gradient back to its fp32 parameter; at fp32 every cast is a no-op.
 On the card the attention cores run kernels K1/K3 (backward K2/K4) and
 every MLP runs the fused kernel K5 (backward K6); on the CPU their plain
 versions run.
+
+``MixSTEConfig.quant`` builds the int8 serving variant (``ops/quant.py``),
+as the JAX package's ``quant`` flag does: qkv, proj, fc1 and fc2 become
+``QuantLinear``s, and an MLP runs fc1 -> exact GELU -> fc2 through two of
+them, bypassing K5 as the JAX quant branch bypasses the fused MLP. The
+attention core stays on K1/K3. Its parameter layout differs (``weight_q``
+and ``scale`` in place of ``weight``), so float weights go through
+``quantize_state_dict`` first.
 """
 
 from __future__ import annotations
@@ -44,6 +52,7 @@ from torch import nn
 
 from ..ops.attention import multi_head_attention
 from ..ops.cuda_mlp import fused_mlp
+from ..ops.quant import QuantLinear
 
 
 @dataclasses.dataclass(frozen=True)
@@ -64,6 +73,7 @@ class MixSTEConfig:
     mup: bool = False
     mup_base_width: int = 64
     dtype: torch.dtype = torch.float32  # compute dtype; parameters stay fp32
+    quant: bool = False  # int8 serving (qkv, proj, fc1, fc2)
 
     def drop_path_rates(self):
         return np.linspace(0.0, self.drop_path_rate, self.depth).tolist()
@@ -108,18 +118,34 @@ class LayerNorm(nn.LayerNorm):
         return y.to(self.compute_dtype)
 
 
+def _linear(in_features: int, out_features: int, bias: bool, dtype: torch.dtype,
+            quant: bool) -> nn.Module:
+    if quant:
+        return QuantLinear(in_features, out_features, bias=bias, compute_dtype=dtype)
+    return Dense(in_features, out_features, bias=bias, compute_dtype=dtype)
+
+
 class Mlp(nn.Module):
     """fc1 -> exact GELU -> fc2, run as one fused kernel (K5) on operands
-    cast to the compute dtype, as the JAX package's fused path takes them."""
+    cast to the compute dtype, as the JAX package's fused path takes them;
+    under ``quant`` as two ``QuantLinear``s around ``F.gelu``
+    (``mix_ste.py:133-141`` of the JAX package)."""
 
     def __init__(self, in_features: int, hidden_features: int,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, quant: bool = False):
         super().__init__()
-        self.fc1 = nn.Linear(in_features, hidden_features)
-        self.fc2 = nn.Linear(hidden_features, in_features)
+        if quant:
+            self.fc1 = QuantLinear(in_features, hidden_features, compute_dtype=dtype)
+            self.fc2 = QuantLinear(hidden_features, in_features, compute_dtype=dtype)
+        else:
+            self.fc1 = nn.Linear(in_features, hidden_features)
+            self.fc2 = nn.Linear(hidden_features, in_features)
         self.dtype = dtype
+        self.quant = quant
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.quant:
+            return self.fc2(F.gelu(self.fc1(x)))
         dt = self.dtype
         y = fused_mlp(
             x.reshape(-1, x.shape[-1]).to(dt),
@@ -134,14 +160,15 @@ class Attention(nn.Module):
 
     def __init__(self, dim: int, num_heads: int, qkv_bias: bool = True,
                  qk_scale: Optional[float] = None, comb: bool = False,
-                 mup: bool = False, dtype: torch.dtype = torch.float32):
+                 mup: bool = False, dtype: torch.dtype = torch.float32,
+                 quant: bool = False):
         super().__init__()
         self.num_heads = num_heads
         head_dim = dim // num_heads
         self.scale = qk_scale or ((1.0 / head_dim) if mup else head_dim**-0.5)
         self.comb = comb
-        self.qkv = Dense(dim, dim * 3, bias=qkv_bias, compute_dtype=dtype)
-        self.proj = Dense(dim, dim, compute_dtype=dtype)
+        self.qkv = _linear(dim, dim * 3, qkv_bias, dtype, quant)
+        self.proj = _linear(dim, dim, True, dtype, quant)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         # the kernels read q, k and v in place from the qkv projection and
@@ -191,15 +218,16 @@ class Block(nn.Module):
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 2.0,
                  qkv_bias: bool = True, qk_scale: Optional[float] = None,
                  drop_path: float = 0.0, residual_scale: float = 1.0,
-                 mup: bool = False, dtype: torch.dtype = torch.float32):
+                 mup: bool = False, dtype: torch.dtype = torch.float32,
+                 quant: bool = False):
         super().__init__()
         self.residual_scale = residual_scale
         self.norm1 = LayerNorm(dim, 1e-6, dtype)
         self.attn = Attention(dim, num_heads, qkv_bias, qk_scale, mup=mup,
-                              dtype=dtype)
+                              dtype=dtype, quant=quant)
         self.drop_path = DropPath(drop_path)
         self.norm2 = LayerNorm(dim, 1e-6, dtype)
-        self.mlp = Mlp(dim, int(dim * mlp_ratio), dtype)
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), dtype, quant)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x * self.residual_scale + self.drop_path(self.attn(self.norm1(x)))
@@ -233,7 +261,8 @@ class MixSTE(nn.Module):
         def blocks():
             return nn.ModuleList(
                 Block(c, cfg.num_heads, cfg.mlp_ratio, cfg.qkv_bias,
-                      cfg.qk_scale, dpr[i], residual_scale, cfg.mup, dt)
+                      cfg.qk_scale, dpr[i], residual_scale, cfg.mup, dt,
+                      cfg.quant)
                 for i in range(cfg.depth)
             )
 

@@ -20,6 +20,14 @@ K1 writes no log-sum-exp.
 Dispatch depends on the device alone: a CPU tensor takes the plain
 version, a CUDA tensor launches the kernel (or the call raises). The plain
 versions double as the reference that the kernels are held against.
+
+The forward kernels are also PyTorch operators, ``manipose::attention_dense``
+and ``manipose::attention_packed`` (``torch.library.custom_op``), which
+:func:`attention` calls when no gradient is wanted. Their fake versions give
+the real output's shape and strides, so ``torch.export`` records the
+operators in a program (the ctypes launches stay inside them) and the
+program launches the kernels when it runs on the card, once this module is
+imported.
 """
 
 from __future__ import annotations
@@ -150,11 +158,12 @@ def _grad_views(dqkv):
 def attention_dense(q, k, v, scale: float, lse=None) -> torch.Tensor:
     """K1: whole-sequence attention. q, k, v: (B, h, N, d) -> (B, h, N, d);
     on CUDA the result is a view of a (B, N, h, d) tensor, so merging
-    heads afterwards costs no copy. With ``lse`` (fp32, B*h*N elements)
-    the kernel also writes each row's log-sum-exp of the scaled scores,
-    which K2 needs."""
+    heads afterwards costs no copy (the plain version's result is copied
+    into the same layout on the CPU, so the operator's fake output holds on
+    both devices). With ``lse`` (fp32, B*h*N elements) the kernel also
+    writes each row's log-sum-exp of the scaled scores, which K2 needs."""
     if _plain_or_raise(q):
-        return attention_plain(q, k, v, scale)
+        return _empty_out(q).copy_(attention_plain(q, k, v, scale))
     _check(q, k, v)
     _refuse_grad(q, k, v)
     b, h, n, d = q.shape
@@ -178,7 +187,7 @@ def attention_packed(q, k, v, scale: float) -> torch.Tensor:
     contract as :func:`attention_dense`, without the log-sum-exp: its
     backward recomputes each tiny window whole."""
     if _plain_or_raise(q):
-        return attention_plain(q, k, v, scale)
+        return _empty_out(q).copy_(attention_plain(q, k, v, scale))
     _check(q, k, v, max_n=PACKED_MAX_N)
     _refuse_grad(q, k, v)
     b, h, n, d = q.shape
@@ -223,6 +232,26 @@ def attention_dense_bwd(q, k, v, out, dout, lse, scale: float) -> torch.Tensor:
     build.check(lib, err, "mp_attention_dense_bwd")
     LAUNCHES["attention_dense_bwd"][q.dtype] += 1
     return dqkv
+
+
+@torch.library.custom_op("manipose::attention_dense", mutates_args=())
+def attention_dense_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       scale: float) -> torch.Tensor:
+    """:func:`attention_dense` (K1, no log-sum-exp) as an operator."""
+    return attention_dense(q, k, v, scale)
+
+
+@torch.library.custom_op("manipose::attention_packed", mutates_args=())
+def attention_packed_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        scale: float) -> torch.Tensor:
+    """:func:`attention_packed` (K3) as an operator."""
+    return attention_packed(q, k, v, scale)
+
+
+@attention_dense_op.register_fake
+@attention_packed_op.register_fake
+def _attention_fake(q, k, v, scale):
+    return _empty_out(q)
 
 
 def attention_packed_bwd(q, k, v, dout, scale: float) -> torch.Tensor:
@@ -350,5 +379,6 @@ def attention(qkv, num_heads: int, scale: float) -> torch.Tensor:
     if torch.is_grad_enabled() and qkv.requires_grad:
         fn = PackedAttention if packed else DenseAttention
         return fn.apply(qkv, num_heads, scale)
-    kernel = attention_packed if packed else attention_dense
+    _plain_or_raise(qkv)  # the operator would run its fake on another device
+    kernel = attention_packed_op if packed else attention_dense_op
     return merge_heads(kernel(*split_heads(qkv, num_heads), scale))

@@ -20,6 +20,11 @@ slices the gradients.
 
 A CPU tensor takes the plain version, a CUDA tensor launches the kernel
 (or the call raises).
+
+K5 is also a PyTorch operator, ``manipose::mlp_forward``
+(``torch.library.custom_op``), which :func:`fused_mlp` calls when no
+gradient is wanted; its fake version lets ``torch.export`` record it in a
+program, which launches K5 when it runs on the card.
 """
 
 from __future__ import annotations
@@ -159,6 +164,18 @@ def mlp_forward(x, w1, b1, w2, b2) -> torch.Tensor:
     return out
 
 
+@torch.library.custom_op("manipose::mlp_forward", mutates_args=())
+def mlp_forward_op(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
+                   w2: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
+    """:func:`mlp_forward` (K5) as an operator."""
+    return mlp_forward(x, w1, b1, w2, b2)
+
+
+@mlp_forward_op.register_fake
+def _mlp_forward_fake(x, w1, b1, w2, b2):
+    return x.new_empty(x.shape)
+
+
 def wgrad_splits(m: int, c: int, h: int) -> int:
     """How many slices of M K6 sums its weight gradients over (fixed by the
     shapes, so repeated runs sum in one order)."""
@@ -232,4 +249,5 @@ def fused_mlp(x, w1, b1, w2, b2) -> torch.Tensor:
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (x, w1, b1, w2, b2)):
         return FusedMLP.apply(x, w1, b1, w2, b2)
-    return mlp_forward(x, w1, b1, w2, b2)
+    _plain_or_raise(x)  # the operator would run its fake on another device
+    return mlp_forward_op(x, w1, b1, w2, b2)

@@ -21,9 +21,9 @@ same dispatch and harvest as ``Predictor.predict_video``. So with
 session reproduces ``predict_video`` exactly (the same non-overlapping
 windows and replicate padding, the same one-window forward).
 
-The JAX session's data-parallel branch (a window replicated up to a
-mesh-sharded batch) waits for ``Predictor(data_parallel=True)``, which the
-port does not have yet.
+On a data-parallel predictor (``Predictor(data_parallel=True)``) a window
+is replicated up to the predictor's batch size, which divides over its
+devices, and row 0 is read, as the JAX session does on a mesh.
 """
 
 from __future__ import annotations
@@ -98,8 +98,13 @@ class StreamingSession:
         """Run inference while a full stride-block is emittable."""
         out = []
         lo = self.seq_len - self.lookahead - self.stride
+        p = self.predictor
         while self._count - self.lookahead - self._emitted >= self.stride:
-            agg = self.predictor.forward_windows(self._window()[None])  # (1, L, J, 3)
+            window = self._window()[None]  # (1, L, J, 2)
+            if p.data_parallel:
+                # a batch of one does not divide over the devices
+                window = np.broadcast_to(window, (p.batch_size,) + window.shape[1:])
+            agg = p.forward_windows(window)  # (B, L, J, 3)
             # flush padding can overshoot: the window end advances in
             # stride steps, so up to stride-1 emitted slots may lie past
             # the real stream; flush trims via n_real

@@ -3,8 +3,10 @@
 ``state_dict_from_jax`` maps the JAX package's flax variables (as numpy
 arrays) to the port's state dict, which uses the reference's names; flax
 kernels (in, out) become torch weights (out, in), and the K stacked MCL
-heads are split per head. ``load_torch_checkpoint`` reads a reference
-``.pth`` file. Either result loads with ``load_state_dict(strict=True)``.
+heads are split per head; the int8 layers of a ``quantize_params`` tree
+(``kernel_q`` (in, out) int8 and ``scale``) become ``weight_q`` (out, in)
+and ``scale``. ``load_torch_checkpoint`` reads a reference ``.pth`` file.
+Either result loads with ``load_state_dict(strict=True)``.
 """
 
 from __future__ import annotations
@@ -26,8 +28,15 @@ def _trunk(params: Dict[str, Any], prefix: str) -> Dict[str, torch.Tensor]:
 
     def linear(flax_name, torch_name, mod=None):
         mod = params.get(flax_name) if mod is None else mod
-        if mod is not None:
+        if mod is None:
+            return
+        if "kernel_q" in mod:  # an int8 layer (ops/quant.py)
+            w_q = torch.from_numpy(np.array(mod["kernel_q"], dtype=np.int8))
+            sd[f"{prefix}{torch_name}.weight_q"] = w_q.T.contiguous()
+            sd[f"{prefix}{torch_name}.scale"] = _t(mod["scale"])
+        else:
             sd[f"{prefix}{torch_name}.weight"] = _t(mod["kernel"]).T.contiguous()
+        if "bias" in mod:
             sd[f"{prefix}{torch_name}.bias"] = _t(mod["bias"])
 
     def layernorm(flax_name, torch_name, mod=None):

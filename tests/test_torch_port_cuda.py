@@ -11,7 +11,8 @@ the card against the CPU, in fp32 and under bf16 compute (with each
 kernel's launches counted on bf16 operands), the flagship model's
 bf16 forward on one window, K3-K6 at the 3DHP model's shapes (L = 27,
 batch 25), the 3DHP test protocol and a streaming session on the card
-against the CPU.
+against the CPU, the int8 predictor on the card against the CPU, an
+exported program on the card, and a data-parallel predictor on one card.
 Marked ``cuda``; without a CUDA device every test skips. Run them on the
 card with ``python -m pytest tests/test_torch_port_cuda.py -q
 --noconftest``: tests/conftest.py sets up JAX for the rest of the suite,
@@ -962,3 +963,85 @@ def test_stream_on_card_matches_predict_video(gen):
     want = stream(cpu, 1, None)
     np.testing.assert_allclose(stream(card, 1, None), want, rtol=0,
                                atol=5e-5 * max(1.0, float(np.abs(want).max())))
+
+
+# ---- the rest of serving: int8, export, data-parallel ----------------------
+
+def test_int8_predictor_on_card_matches_cpu(gen):
+    """``quantize="force"`` on the card (``torch._int_mm``, K1 and K3, no
+    K5) against the CPU from the same float weights. Every ``QuantLinear``
+    of a card forward, given its input on the CPU, gives the card's output
+    bit for bit (the codes, the int32 product and the dequantization are
+    exact on both). End to end the fp32 sums around the int8 layers run in
+    another order on each side, so an activation on a rounding boundary of
+    its int8 code lands on either code and moves the poses by a
+    quantization step: the poses are held in relative norm within 2 x the
+    CPU's own change under one-ulp input nudges (up and down) + 5e-5."""
+    from manipose_tpu_torch.ops.quant import QuantLinear
+
+    cfg = load_config("config", OVERRIDES)
+    state = Predictor(cfg=cfg, device="cpu").model.state_dict()
+    card = Predictor(cfg=cfg, batch_size=2, tta=True, quantize="force", state_dict=state)
+    cpu = Predictor(cfg=cfg, batch_size=2, tta=True, quantize="force", state_dict=state,
+                    device="cpu")
+    video = np.random.default_rng(0).normal(size=(300, 17, 2)).astype(np.float32)
+    layers = {name: m for name, m in card.model.named_modules() if isinstance(m, QuantLinear)}
+    seen = []
+    hooks = [m.register_forward_hook(
+        lambda m, args, out, name=name: seen.append((name, args[0].cpu(), out.cpu())))
+        for name, m in layers.items()]
+    ops.reset_launch_counts()
+    got = card.predict_video(video)
+    for h in hooks:
+        h.remove()
+    n_batches = 1  # 2 windows of 243 frames
+    assert ops.launch_counts() == {
+        **{name: 0 for name in PER_BACKWARD}, "fused_mlp": 0,
+        "attention_dense": 2 * 3 * n_batches, "attention_packed": 2 * 3 * n_batches}
+    cpu_layers = dict(cpu.model.named_modules())
+    assert len(seen) == 2 * len(layers)  # TTA: each layer twice
+    for name, x, out in seen:
+        assert torch.equal(cpu_layers[name](x), out), name
+
+    def rel(a, b):
+        return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+    want = cpu.predict_video(video)
+    spread = max(rel(cpu.predict_video(np.nextafter(video, np.float32(to))), want)
+                 for to in (np.inf, -np.inf))
+    assert got.shape == want.shape and np.isfinite(got).all()
+    assert rel(got, want) <= 2 * spread + 5e-5, (rel(got, want), spread)
+
+
+def test_exported_program_on_card_launches_the_kernels(gen):
+    """``export_program`` on the card: the loaded program launches K1, K3
+    and K5 (the ``manipose::`` operators) and equals the live forward
+    within 1e-5 of the magnitude, at 2 windows and at 1."""
+    cfg = load_config("config", OVERRIDES)
+    pred = Predictor(cfg=cfg, batch_size=2, tta=True)
+    program = Predictor.load_program(pred.export_program())
+    for b in (2, 1):
+        x = torch.randn((b, 243, 17, 2), generator=gen, device="cuda")
+        with torch.no_grad():
+            want = pred.serving_forward(x)
+        ops.reset_launch_counts()
+        got = program(x)
+        assert ops.launch_counts() == {
+            **{name: 0 for name in PER_BACKWARD},
+            **{name: 2 * n for name, n in PER_FORWARD.items()}}
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, rtol=0,
+                                       atol=1e-5 * max(1.0, float(w.abs().max())))
+
+
+def test_data_parallel_on_one_card_equals_plain(gen):
+    """One card: the data-parallel predictor runs the batch as one shard
+    on a stream of its own, bit for bit the plain predictor's result."""
+    cfg = load_config("config", OVERRIDES)
+    plain = Predictor(cfg=cfg, batch_size=2, tta=True)
+    state = {k: v.cpu() for k, v in plain.model.state_dict().items()}
+    dp = Predictor(cfg=cfg, batch_size=2, tta=True, state_dict=state, data_parallel=True)
+    video = np.random.default_rng(1).normal(size=(600, 17, 2)).astype(np.float32)
+    for g, w in zip(dp.predict_video(video, return_hypotheses=True),
+                    plain.predict_video(video, return_hypotheses=True)):
+        np.testing.assert_array_equal(g, w)

@@ -1,7 +1,8 @@
 """PyTorch port vs the JAX package: ``Predictor.predict_video`` with the
 same weights (the JAX side running its Pallas attention in interpret
-mode), the serving surface the slice does not port yet, and import
-isolation of the port."""
+mode), ``from_any``, and import isolation of the port. int8 serving, export
+and data-parallel serving are in ``tests/test_torch_port_quant.py``,
+``tests/test_torch_port_export.py`` and ``tests/test_torch_port_serve.py``."""
 
 import subprocess
 import sys
@@ -101,20 +102,6 @@ def test_bad_inputs_raise(predictors):
         t_pred.predict_video(np.zeros((0, 17, 2), np.float32))
 
 
-@pytest.mark.parametrize("kwargs", [{"quantize": True}, {"data_parallel": True}])
-def test_unported_options_raise(kwargs):
-    with pytest.raises(NotImplementedError):
-        Predictor(cfg=load_config("config", OVERRIDES), device="cpu", **kwargs)
-
-
-def test_unported_methods_raise(predictors):
-    """``export_stablehlo`` (torch.export) is not ported yet; ``stream`` is
-    (``tests/test_torch_port_streaming.py``)."""
-    _, t_pred = predictors
-    with pytest.raises(NotImplementedError):
-        t_pred.export_stablehlo()
-
-
 def test_from_any(tmp_path, predictors):
     _, t_pred = predictors
     cfg = load_config("config", OVERRIDES)
@@ -153,8 +140,9 @@ def test_cuda_without_a_card_raises():
 def test_port_imports_neither_jax_nor_the_jax_package():
     """Every module of the port, the eval slice's data, metrics, eval,
     logging and driver modules, the training slice's loop, checkpoint,
-    init, muP and profiling modules and the 3DHP slice's data, driver,
-    streaming and tools modules among them, and chip_smoke.py, import
+    init, muP and profiling modules, the 3DHP slice's data, driver,
+    streaming and tools modules and the serving slice's quant module and
+    tools among them, and chip_smoke.py, import
     without loading jax, flax, optax, orbax or manipose_tpu (matched
     exactly: the port shares the prefix)."""
     code = """
@@ -169,7 +157,8 @@ walked = {"data.cameras", "data.h36m", "data.h36m_cameras", "data.native",
           "train.checkpoint", "train.init", "train.loop", "train.mup", "train.profiling",
           "data.chunked", "data.dhp3", "data.graph_utils", "drivers.dhp3", "streaming",
           "tools.synthetic_overfit", "tools.make_synthetic_3dhp",
-          "tools.make_synthetic_h36m", "tools.streaming_eval"}
+          "tools.make_synthetic_h36m", "tools.streaming_eval", "ops.quant",
+          "tools.serve", "tools.predict", "tools.export_model"}
 missing = sorted(m for m in walked if "manipose_tpu_torch." + m not in sys.modules)
 bad = sorted(m for m in sys.modules
              if m in ("jax", "flax", "optax", "orbax", "manipose_tpu")
