@@ -160,6 +160,46 @@ package. Phases, each fatal on failure:
               a local port: /healthz, /predict and a stream lifecycle
               equal to the direct calls, then requests/s and latency of
               /predict requests of 4 windows of 243 frames.
+34. joint-major kernels - K3/K4 on the joint-major trunk's strided
+              windows at the flagship's shapes (B = 16, L = 243; J = 17 at
+              d = 64, S = 16 at d = 16; rows a frame's qkv row apart), fp32
+              and bf16: against their plain versions (TOL, GRAD_TOL), bf16
+              against fp64 within BF16_ACCURACY_RATIO x the plain version's
+              error, and timed beside the fold layout's windows of the same
+              shape, their bound and SDPA on the same views. The kernels
+              line names them as K3's and K4's ``_strided`` variants.
+35-36. joint-major serving and train step - ``predict_video`` (16 windows,
+              TTA) and the train step (B = 16, drop-path 0.1) with
+              model.layout=joint_major, fp32 then bf16: launches as in the
+              fold layout, on the dtype's operands; frames/s and
+              sequences/s beside the fold layout's; fold against
+              joint-major on the card (fp32 MODEL_TOL of the magnitude,
+              bf16 both branches within BF16_TOL); fp32 2 windows and one
+              train-step window on the card against the CPU; bf16
+              joint-major against fold gradients on the card, and the
+              bf16 train step on one window against the CPU by phase 10's
+              rules.
+37. remat   - the flagship train step with model.remat=true against the
+              plain step from the same weights and generator, fp32 and
+              bf16: losses, gradients (GRAD_TOL) and the generator state;
+              K1, K3 and K5 launched twice a layer; peak memory and
+              sequences/s of both.
+38. megastep - ``make_multi_train_step`` (one CUDA graph of K steps) on the
+              3DHP bf16 step (L = 27, B = 25, K = 4), the flagship bf16
+              step (K = 2) and the 3DHP step with remat (K = 4): one call
+              against K single steps from the same weights and generator
+              (losses 1e-4 relative, weights within 2 K lr (1 - b1) /
+              sqrt(1 - b2), the generator alike), new masks at the second
+              replay, replayed launches = captured x replays; sequences/s
+              and the device's busy share beside single steps. Then (after
+              phase 24) the 3DHP driver in bf16 with train.steps_per_call=4
+              (the loop's megastep, protocol off): finite losses, replays
+              made, sequences/s by epoch beside phase 21's.
+39. toy     - ``toy.main`` on the card and on the CPU: hard-2 with
+              constrained_rmcl, torus-2Dto3D with constrained_rmcl, hard-2
+              with the plain MLP and the hard-2 diffusion baseline, their
+              config groups cut to TOY_EPOCHS epochs: finite losses and
+              metrics, printed side by side with each run's wall time.
 
 The last lines are the card's name and power limit (as nvidia-smi prints
 them), one JSON object ``{"kernels": [...]}``, and
@@ -1071,7 +1111,7 @@ def branch_grads(cfg, device, weights, x):
     return {n: p.grad.cpu() for n, p in model.named_parameters()}
 
 
-def phase_cpu_vs_card_train_bf16(weights) -> None:
+def phase_cpu_vs_card_train_bf16(weights, extra=()) -> None:
     """One flagship train step on one window under bf16 compute, drop-path
     off, on the CPU and on the card from the fp32 phase's weights: each loss
     term within BF16_TOL of the larger of its size and GAP_SLACK times the
@@ -1082,10 +1122,12 @@ def phase_cpu_vs_card_train_bf16(weights) -> None:
     parameter's gradient of both branches' outputs under a fixed cotangent
     (every kernel forward and backward, the trunks and heads, without FK
     and the WTA loss) within BF16_TOL relative in norm, or 2 * the CPU's
-    bf16 spread + GAP_SLACK where that is larger."""
+    bf16 spread + GAP_SLACK where that is larger. ``extra``: overrides of
+    the model (the joint-major layout in phase 36)."""
     from manipose_tpu_torch.config import load_config
 
-    cfg = load_config("config", ["model.drop_path_rate=0.0", "model.dtype=bfloat16"])
+    cfg = load_config("config", ["model.drop_path_rate=0.0", "model.dtype=bfloat16",
+                                 *extra])
     x, y = (t[:1] for t in flagship_batch(cfg.data.seq_len, 1))
     t0 = time.perf_counter()
     cpu_metrics, cpu_grads = train_step_on(cfg, "cpu", weights, x, y)
@@ -1109,8 +1151,8 @@ def phase_cpu_vs_card_train_bf16(weights) -> None:
             step_worst = (name, err)
     want = branch_grads(cfg, "cpu", weights, x)
     nudged = branch_grads(cfg, "cpu", weights, x * BF16_NUDGE)
-    want32 = branch_grads(load_config("config", ["model.drop_path_rate=0.0"]), "cpu",
-                          weights, x)
+    want32 = branch_grads(load_config("config", ["model.drop_path_rate=0.0", *extra]),
+                          "cpu", weights, x)
     got = branch_grads(cfg, "cuda", weights, x)
 
     def rel(a, b):
@@ -1126,7 +1168,8 @@ def phase_cpu_vs_card_train_bf16(weights) -> None:
         widened += tol > BF16_TOL
         if err / tol > worst[1]:
             worst = (name, err / tol, err, tol)
-    print(f"cpu vs card bf16 train step (one flagship window, drop-path off; the "
+    print(f"cpu vs card bf16 train step {' '.join(extra)} (one flagship window, "
+          f"drop-path off; the "
           f"CPU step took {cpu_s:.1f} s): loss {cpu_metrics['loss']:.6f} cpu, "
           f"{metrics['loss']:.6f} card, worst term err {worst_term[1]:.3g} at "
           f"{worst_term[0]} (of max(|term|, {GAP_SLACK} |loss|); tol {BF16_TOL}); every "
@@ -2334,6 +2377,494 @@ def phase_profile(dtype, predictor, train) -> None:
                  lambda: step(state, x, y, TRAIN_LR))
 
 
+# ---- trunk variants and the toy experiments (phases 34-39) -------------------
+
+def jm_views(gen, batch, l, j, heads, d, dtype):
+    """q, k, v as (B, L, h, J, d) views of one joint-major (B, J, L, 3*h*d)
+    qkv tensor (the joint-major trunk's spatial layer), and an output
+    gradient in the joint-major output's layout."""
+    from manipose_tpu_torch.ops import cuda_attention as ca
+
+    qkv = torch.randn((batch, j, l, 3 * heads * d), generator=gen, device="cuda").to(dtype)
+    dout = torch.randn((batch, j, l, heads, d), generator=gen, device="cuda").to(dtype)
+    return ca.split_heads(qkv, heads), dout.permute(0, 2, 3, 1, 4)
+
+
+def jm_fp64(q, k, v, dout, scale):
+    """out, dq, dk, dv in fp64 from the same (bf16) values."""
+    q64, k64, v64, do64 = (t.double() for t in (q, k, v, dout))
+    p = torch.softmax(q64 @ k64.transpose(-1, -2) * scale, -1)
+    dp = do64 @ v64.transpose(-1, -2)
+    ds = p * (dp - (dp * p).sum(-1, keepdim=True))
+    return [p @ v64, ds @ k64 * scale, ds.transpose(-1, -2) @ q64 * scale,
+            p.transpose(-1, -2) @ do64]
+
+
+def phase_joint_major_kernels():
+    """K3/K4 on the joint-major trunk's strided windows at the flagship's
+    shapes (B = 16, L = 243: windows (b, l, h) of J = 17 joints at d = 64
+    and of S = 16 bones at d = 16, rows a frame's qkv row apart), fp32 and
+    bf16: against their plain versions (TOL, GRAD_TOL), in bf16 against
+    fp64 within BF16_ACCURACY_RATIO x the plain version's error, and timed
+    beside the fold layout's windows of the same shape, their bound and
+    SDPA (forward, and its autograd backward) on the same views. Returns
+    {kernel: [case]}."""
+    import torch.nn.functional as F
+
+    from manipose_tpu_torch.ops import cuda_attention as ca
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    b, l = TRAIN_BATCH, 243
+    out = {"attention_packed": [], "attention_packed_bwd": []}
+    for dtype in (torch.float32, torch.bfloat16):
+        for trunk, j, d in (("rotations", 17, 64), ("segments", 16, 16)):
+            (q, k, v), dout = jm_views(gen, b, l, j, 8, d, dtype)
+            scale = d**-0.5
+            fwd = ca.attention_packed(q, k, v, scale)
+            bwd = ca.attention_packed_bwd(q, k, v, dout, scale)
+            require(fwd.permute(0, 3, 1, 2, 4).is_contiguous(),
+                    "K3 writes the joint-major output in place")
+            require(bwd.shape == (b, j, l, 3, 8, d) and bwd.is_contiguous(),
+                    "K4 writes the joint-major qkv gradient in place")
+            plain_out = ca.attention_plain(q, k, v, scale)
+            plain_grads = ca.attention_plain_bwd(q, k, v, dout, scale)
+            want = torch.stack([g.permute(0, 3, 1, 2, 4) for g in plain_grads], dim=3)
+            torch.cuda.synchronize()
+            f_err = (fwd.float() - plain_out.float()).abs().max().item()
+            b_err = (bwd.float() - want.float()).abs().max().item()
+            f_tol, b_tol = TOL[("attention", dtype)], grad_tol(want, dtype, relative=False)
+            require(f_err <= f_tol, f"joint-major K3 {trunk} {dtype}: {f_err} > {f_tol}")
+            require(b_err <= b_tol, f"joint-major K4 {trunk} {dtype}: {b_err} > {b_tol}")
+            accuracy = ""
+            if dtype == torch.bfloat16:
+                ref = jm_fp64(q, k, v, dout, scale)
+                got = [fwd] + [t.permute(0, 2, 3, 1, 4) for t in bwd.unbind(3)]
+                ratios = []
+                for name, g, pl, w in zip(("out", "dq", "dk", "dv"), got,
+                                          [plain_out, *plain_grads], ref):
+                    e_k = ((g.double() - w).norm() / w.norm()).item()
+                    e_p = ((pl.double() - w).norm() / w.norm()).item()
+                    bound = BF16_ACCURACY_RATIO * e_p + BF16_ACCURACY_SLACK
+                    require(e_k <= bound, f"joint-major bf16 {trunk} {name}: error against "
+                                          f"fp64 {e_k} > {BF16_ACCURACY_RATIO} x plain {e_p}")
+                    ratios.append(f"{name} {e_k / e_p:.4f}")
+                del ref, got
+                accuracy = "; bf16 error against fp64 / plain's: " + ", ".join(ratios)
+            del plain_out, plain_grads, want
+            windows = b * l * 8
+            elem = q.element_size()
+            # fold layout: the same windows as strided (B*L, h, J, d) views
+            fold_qkv = torch.randn((b * l, j, 3, 8, d), generator=gen, device="cuda").to(dtype)
+            fq, fk, fv = (t.transpose(1, 2) for t in fold_qkv.unbind(2))
+            fdout = torch.randn((b * l, j, 8, d), generator=gen,
+                                device="cuda").to(dtype).transpose(1, 2)
+            leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+            lib_out = F.scaled_dot_product_attention(*leaves, scale=scale)
+            for kind, run, fold_run, plain_run, lib, n_bytes, flops, err, tol in (
+                ("attention_packed", lambda: ca.attention_packed(q, k, v, scale),
+                 lambda: ca.attention_packed(fq, fk, fv, scale),
+                 lambda: ca.attention_plain(q, k, v, scale),
+                 lambda: F.scaled_dot_product_attention(q, k, v, scale=scale),
+                 4 * windows * j * d * elem, 4.0 * windows * j * j * d, f_err, f_tol),
+                ("attention_packed_bwd", lambda: ca.attention_packed_bwd(q, k, v, dout, scale),
+                 lambda: ca.attention_packed_bwd(fq, fk, fv, fdout, scale),
+                 lambda: ca.attention_plain_bwd(q, k, v, dout, scale),
+                 lambda: torch.autograd.grad(lib_out, leaves, dout, retain_graph=True),
+                 7 * windows * j * d * elem, 10.0 * windows * j * j * d, b_err, b_tol),
+            ):
+                b_ms, b_by = bound_ms(n_bytes, flops, dtype)
+                ms, fold_ms = time_ms(run), time_ms(fold_run)
+                case = dict(trunk=f"joint-major {trunk}", dtype=str(dtype)[6:],
+                            shape=[b, l, 8, j, d], max_abs_err=err, tol=tol, ms=ms,
+                            tflops=flops / ms * 1e-9, fold_ms=fold_ms,
+                            plain_ms=time_ms(plain_run), bound_ms=b_ms, bound_by=b_by,
+                            library_ms=median_ms(lib))
+                out[kind].append(case)
+                print(f"kernel {kind:20s} joint-major {trunk:9s} {case['dtype']:8s} "
+                      f"(B, L, h, J, d)={case['shape']} row stride "
+                      f"{l * 3 * 8 * d * elem} B: err={err:.3g} ms={ms:.4f} "
+                      f"({case['tflops']:.1f} TFLOP/s) fold_ms={fold_ms:.4f} "
+                      f"plain_ms={case['plain_ms']:.4f} bound_ms={b_ms:.4f} ({b_by}) "
+                      f"library_ms={case['library_ms']:.4f}"
+                      + (accuracy if kind == "attention_packed" else ""), flush=True)
+            del q, k, v, dout, fwd, bwd, fold_qkv, fq, fk, fv, fdout, leaves, lib_out
+            torch.cuda.empty_cache()
+    return out
+
+
+def serving_fps(predictor, video, reps: int = 3) -> float:
+    predictor.predict_video(video)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        predictor.predict_video(video)
+    return video.shape[0] * reps / (time.perf_counter() - t0)
+
+
+def phase_joint_major_serving(dtype: str, fold_predictor):
+    """``predict_video`` of the flagship in the joint-major layout (16
+    windows of 243, TTA, the fold predictor's weights) on the card: K1, K3
+    and K5 launched per window batch as in fold serving, all on the dtype's
+    operands; frames/s beside the fold predictor's in this phase; fold
+    against joint-major on the card (fp32: poses, hypotheses and scores
+    within MODEL_TOL of the magnitude; bf16: both branches' outputs before
+    FK within BF16_TOL); and in fp32, 2 windows (TTA off) on the card
+    against the CPU within MODEL_TOL of the magnitude. Returns (launch
+    counts, frames/s)."""
+    from manipose_tpu_torch import ops
+    from manipose_tpu_torch.config import load_config
+    from manipose_tpu_torch.serving import Predictor
+
+    cfg = load_config("config", [f"model.dtype={dtype}", "model.layout=joint_major"])
+    state = {k: v.cpu() for k, v in fold_predictor.model.state_dict().items()}
+    jm = Predictor(cfg=cfg, state_dict=state, batch_size=16, tta=True)
+    video = np.random.default_rng(0).normal(size=(16 * 243, 17, 2)).astype(np.float32)
+    jm.predict_video(video)
+    ops.reset_launch_counts()
+    got = jm.predict_video(video, return_hypotheses=True)
+    counts = require_counts(dtype, {k: 2 * n for k, n in LAUNCHES_PER_FORWARD.items()},
+                            f"joint-major {dtype} serving (1 window batch)")
+    want = fold_predictor.predict_video(video, return_hypotheses=True)
+    errs = []
+    if dtype == "float32":
+        for name, g, w in zip(("poses", "hyps", "scores"), got, want):
+            err, tol = float(np.abs(g - w).max()), MODEL_TOL * max(1.0, float(np.abs(w).max()))
+            require(err <= tol, f"fold vs joint-major {name}: {err} > {tol}")
+            errs.append(f"{name} {err:.3g} (tol {tol:.3g})")
+    else:
+        x = torch.from_numpy(video[:243 * 2].reshape(2, 243, 17, 2)).cuda()
+        with torch.inference_mode():
+            outs = [(*p.model.rotations_module(x), p.model.segments_module(x))
+                    for p in (jm, fold_predictor)]
+        for name, g, w in zip(("hypotheses (6D)", "scores", "lengths"), *outs):
+            err = rel_err(g.float().cpu().numpy(), w.float().cpu().numpy())
+            require(err <= BF16_TOL, f"bf16 fold vs joint-major {name}: {err} > {BF16_TOL}")
+            errs.append(f"{name} {err:.3g} (tol {BF16_TOL})")
+    fps_fold, fps_jm = serving_fps(fold_predictor, video), serving_fps(jm, video)
+    fps_jm = max(fps_jm, serving_fps(jm, video))
+    fps_fold = max(fps_fold, serving_fps(fold_predictor, video))
+    print(f"joint-major {dtype} serving: {fps_jm:.1f} frames/s, fold {fps_fold:.1f} "
+          f"frames/s (best of 2 x 3 calls each, fold, jm, jm, fold; 16 windows, TTA); "
+          f"fold vs joint-major on the card: " + ", ".join(errs), flush=True)
+    if dtype == "float32":
+        window = video[:2 * 243]
+        outs = {}
+        for device in ("cpu", "cuda"):
+            pred = Predictor(cfg=cfg, state_dict=state, batch_size=2, tta=False,
+                             device=device)
+            outs[device] = pred.predict_video(window, return_hypotheses=True)
+        errs = []
+        for name, g, w in zip(("poses", "hyps", "scores"), outs["cuda"], outs["cpu"]):
+            err, tol = float(np.abs(g - w).max()), MODEL_TOL * max(1.0, float(np.abs(w).max()))
+            require(err <= tol, f"joint-major cpu vs card {name}: {err} > {tol}")
+            errs.append(f"{name} {err:.3g} (tol {tol:.3g})")
+        print("joint-major cpu vs card (2 flagship windows, TTA off, fp32): "
+              + ", ".join(errs), flush=True)
+    del jm
+    torch.cuda.empty_cache()
+    return counts, fps_jm
+
+
+def timed_steps(step, state, x, y, n: int) -> float:
+    """sequences/s of ``n`` steps after two warm-ups."""
+    for _ in range(2):
+        step(state, x, y, TRAIN_LR)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        step(state, x, y, TRAIN_LR)
+    torch.cuda.synchronize()
+    return x.shape[0] * n / (time.perf_counter() - t0)
+
+
+def phase_joint_major_train(dtype: str, fold_seq_s: float, weights):
+    """The flagship train step in the joint-major layout (B = 16, drop-path
+    0.1): all six kernels launched once a layer, on the dtype's operands;
+    sequences/s beside the fold step's (phase 5/9). Then one window,
+    drop-path off, from the fold phases' weights: fp32 on the card against
+    the CPU (loss terms within TRAIN_LOSS_TOL, every gradient within
+    GRAD_TOL of its magnitude); bf16 joint-major against fold on the card
+    (the gradients of both branches' outputs under a fixed cotangent within
+    BF16_TOL relative in norm), and on the card against the CPU by phase
+    10's rules. Returns (launch counts, sequences/s)."""
+    from manipose_tpu_torch import ops
+    from manipose_tpu_torch.config import load_config
+
+    cfg = load_config("config", [f"model.dtype={dtype}", "model.layout=joint_major"])
+    state, step = make_trainer(cfg, "cuda")
+    x, y = (t.cuda() for t in flagship_batch(cfg.data.seq_len, TRAIN_BATCH))
+    ops.reset_launch_counts()
+    require_finite(step(state, x, y, TRAIN_LR), "joint-major train step")
+    torch.cuda.synchronize()
+    counts = require_counts(dtype, LAUNCHES_PER_TRAIN_STEP, f"joint-major {dtype} train step")
+    seq_s = timed_steps(step, state, x, y, 5)
+    del state, step
+    torch.cuda.empty_cache()
+    cfg0 = load_config("config", [f"model.dtype={dtype}", "model.layout=joint_major",
+                                  "model.drop_path_rate=0.0"])
+    x1, y1 = (t[:1] for t in flagship_batch(cfg0.data.seq_len, 1))
+    if dtype == "float32":
+        metrics, grads = {}, {}
+        for device in ("cpu", "cuda"):
+            metrics[device], grads[device] = train_step_on(cfg0, device, weights, x1, y1)
+        for k, want in metrics["cpu"].items():
+            require(abs(metrics["cuda"][k] - want) <= TRAIN_LOSS_TOL * abs(want),
+                    f"joint-major cpu vs card train {k}: {metrics['cuda'][k]} vs {want}")
+        worst = max(((g - grads["cpu"][n]).abs().max().item()
+                     / max(1.0, grads["cpu"][n].abs().max().item()), n)
+                    for n, g in grads["cuda"].items())
+        require(worst[0] <= GRAD_TOL[torch.float32],
+                f"joint-major cpu vs card gradient {worst[1]}: {worst[0]}")
+        check = (f"cpu vs card (one window, drop-path off): loss {metrics['cpu']['loss']:.6f} "
+                 f"cpu, {metrics['cuda']['loss']:.6f} card; worst gradient err / max(1, "
+                 f"|g|max) {worst[0]:.3g} at {worst[1]} (tol {GRAD_TOL[torch.float32]})")
+    else:
+        fold_cfg = load_config("config", [f"model.dtype={dtype}", "model.drop_path_rate=0.0"])
+        jm_g = branch_grads(cfg0, "cuda", weights, x1)
+        fold_g = branch_grads(fold_cfg, "cuda", weights, x1)
+        worst = max(((jm_g[n] - g).norm().item() / max(g.norm().item(), 1e-12), n)
+                    for n, g in fold_g.items())
+        require(worst[0] <= BF16_TOL, f"bf16 joint-major vs fold gradient {worst[1]}: "
+                                      f"{worst[0]} > {BF16_TOL}")
+        check = (f"joint-major vs fold on the card (one window, drop-path off): worst "
+                 f"branch-output gradient rel err in norm {worst[0]:.3g} at {worst[1]} "
+                 f"(tol {BF16_TOL})")
+        phase_cpu_vs_card_train_bf16(weights, ["model.layout=joint_major"])
+    print(f"joint-major {dtype} train step: {seq_s:.2f} sequences/s, fold {fold_seq_s:.2f} "
+          f"(B={TRAIN_BATCH}, drop-path 0.1, mean of 5 after 2 warm-ups); {check}",
+          flush=True)
+    return counts, seq_s
+
+
+def phase_remat(dtype: str):
+    """The flagship train step with remat (model.remat=true: every block
+    recomputed in the backward pass) against the plain step from the same
+    weights and generator seed (B = 16, drop-path 0.1): the same loss terms
+    (5e-5 relative), every gradient within the gradient limit (GRAD_TOL of
+    max(1, |g|max)) and the generator left in the same state; the
+    recomputed forward launches K1, K3 and K5 twice a layer; peak device
+    memory and sequences/s of both. Returns the remat step's launch counts."""
+    from manipose_tpu_torch import ops
+    from manipose_tpu_torch.config import load_config
+
+    x, y = (t.cuda() for t in flagship_batch(243, TRAIN_BATCH))
+    runs = {}
+    for remat in ("false", "true"):
+        cfg = load_config("config", [f"model.dtype={dtype}", f"model.remat={remat}"])
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        before = torch.cuda.memory_allocated()
+        state, step = make_trainer(cfg, "cuda")
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        metrics = {k: float(v) for k, v in step(state, x, y, TRAIN_LR).items()}
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        peak = (torch.cuda.max_memory_allocated() - before) / 1e9
+        grads = {n: p.grad.detach().clone() for n, p in state.model.named_parameters()}
+        gen_state = state.generator.get_state()
+        seq_s = timed_steps(step, state, x, y, 5)
+        runs[remat] = (metrics, grads, gen_state, peak, seq_s, counts)
+        del state, step
+    (m0, g0, s0, p0, q0, _), (m1, g1, s1, p1, q1, c1) = runs["false"], runs["true"]
+    require(torch.equal(s0, s1), "remat leaves the generator where the plain step does")
+    for k, want in m0.items():
+        require(abs(m1[k] - want) <= TRAIN_LOSS_TOL * max(1.0, abs(want)),
+                f"remat {dtype} loss {k}: {m1[k]} vs {want}")
+    tol = GRAD_TOL[DTYPES[dtype]]
+    worst = max(((g1[n] - g).abs().max().item() / max(1.0, g.abs().max().item()), n)
+                for n, g in g0.items())
+    require(worst[0] <= tol, f"remat {dtype} gradient {worst[1]}: {worst[0]} > {tol}")
+    for name, n in LAUNCHES_PER_FORWARD.items():
+        require(c1[name] == 2 * n, f"remat {dtype}: {name} launched {c1[name]}, want {2 * n}")
+    print(f"remat {dtype} train step (B={TRAIN_BATCH}): peak {p1:.2f} GB vs plain "
+          f"{p0:.2f} GB; {q1:.2f} sequences/s vs plain {q0:.2f}; worst gradient err / "
+          f"max(1, |g|max) {worst[0]:.3g} at {worst[1]} (tol {tol}); generator state equal; "
+          f"launches {c1}", flush=True)
+    del runs
+    torch.cuda.empty_cache()
+    return c1
+
+
+def phase_megastep(label: str, overrides, batch: int, seq_len: int, k: int, calls: int):
+    """``train.steps_per_call = k`` (the megastep, one CUDA graph of k
+    steps) against k single steps from the same weights and generator seed
+    (drop-path on): the losses within 1e-4 relative, every parameter within
+    2 k lr (1 - b1) / sqrt(1 - b2), the generator left alike; a second
+    replay on the same batches gives other losses (new masks); one capture,
+    the replay counter and the replays' launches (the capture's times the
+    replays). Then sequences/s and the device's busy share of ``calls``
+    megastep calls beside ``calls * k`` single steps. Returns (sequences/s
+    single, megastep; busy share single, megastep; replayed launches)."""
+    from manipose_tpu_torch import ops
+    from manipose_tpu_torch.config import load_config
+    from manipose_tpu_torch.geometry import h36m_skeleton_17
+    from manipose_tpu_torch.train import LossConfig, make_multi_train_step
+
+    cfg = load_config("config", list(overrides))
+    rng = np.random.default_rng(3)
+    xs = torch.from_numpy(rng.normal(size=(k, batch, seq_len, 17, 2)).astype(np.float32))
+    ys = torch.from_numpy((0.1 * rng.normal(size=(k, batch, seq_len, 17, 3)))
+                          .astype(np.float32))
+    xs_d, ys_d = xs.cuda(), ys.cuda()
+    state, step = make_trainer(cfg, "cuda")
+    weights = {n: v.detach().clone() for n, v in state.model.state_dict().items()}
+    singles = [step(state, xs_d[i], ys_d[i], TRAIN_LR) for i in range(k)]
+    want_w = {n: p.detach().clone() for n, p in state.model.named_parameters()}
+    want_gen = state.generator.get_state()
+    state2, _ = make_trainer(cfg, "cuda", state_dict=weights)
+    t = cfg.train
+    loss_cfg = LossConfig(sq_loss=t.sq_loss, w_loss=t.w_loss, vel_loss=t.vel_loss,
+                          smooth_reg=t.smooth_reg, rmcl_score_reg=t.rmcl_score_reg,
+                          rigid_seg_reg=t.rigid_seg_reg, rmcl=True)
+    multi = make_multi_train_step(state2.model, loss_cfg, h36m_skeleton_17(),
+                                  state2.optimizer, k)
+    ops.reset_launch_counts()
+    got = multi(state2, xs_d, ys_d, TRAIN_LR)
+    torch.cuda.synchronize()
+    require(multi.captures == 1 and multi.replays == 1, f"{label}: one capture, one replay")
+    # the launches the capture recorded (the wrappers counted them there;
+    # the warm-up step before it launched one step's worth eagerly)
+    (graph,) = multi.graphs.values()
+    captured = {n: sum(by_dtype.values()) for n, by_dtype in graph.launches.items()}
+    require(torch.equal(state2.generator.get_state(), want_gen),
+            f"{label}: the generator advanced as {k} single steps advance it")
+    for key, v in got.items():
+        for i in range(k):
+            ref = float(singles[i][key])
+            require(abs(float(v[i]) - ref) <= 1e-4 * max(1.0, abs(ref)),
+                    f"{label} step {i} {key}: {float(v[i])} vs {ref}")
+    b1, b2 = ADAM_BETAS
+    envelope = 2 * k * TRAIN_LR * (1 - b1) / (1 - b2) ** 0.5
+    worst = max(((p - want_w[n]).abs().max().item(), n)
+                for n, p in state2.model.named_parameters())
+    require(worst[0] <= envelope, f"{label} weights: {worst} > {envelope}")
+    again = multi(state2, xs_d, ys_d, TRAIN_LR)
+    torch.cuda.synchronize()
+    require(not torch.equal(again["loss"], got["loss"]), f"{label}: new masks every replay")
+    replayed = ops.replayed_counts()
+    require(ops.GRAPH_REPLAYS["replays"] == 2 and all(
+        replayed[n] == 2 * c for n, c in captured.items()),
+        f"{label}: replayed launches {replayed} = 2 x captured {captured}")
+    require(all(captured[n] > 0 for n in captured if n in LAUNCHES_PER_TRAIN_STEP
+                and (seq_len > 32 or not n.startswith("attention_dense"))),
+            f"{label}: every kernel of the step captured {captured}")
+    # timing: calls megastep calls against calls * k single steps, same batches
+    for _ in range(2):
+        step(state, xs_d[0], ys_d[0], TRAIN_LR)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        for i in range(k):
+            step(state, xs_d[i], ys_d[i], TRAIN_LR)
+    torch.cuda.synchronize()
+    single_s = batch * k * calls / (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        multi(state2, xs_d, ys_d, TRAIN_LR)
+    torch.cuda.synchronize()
+    multi_s = batch * k * calls / (time.perf_counter() - t0)
+    wall, busy = profile_call(f"{label}: {calls * k} single steps",
+                              lambda: [step(state, xs_d[i], ys_d[i], TRAIN_LR)
+                                       for _ in range(calls) for i in range(k)])
+    wall_m, busy_m = profile_call(f"{label}: {calls} megastep calls of {k}",
+                                  lambda: [multi(state2, xs_d, ys_d, TRAIN_LR)
+                                           for _ in range(calls)])
+    share = busy / wall if busy else float("nan")
+    share_m = busy_m / wall_m if busy_m else float("nan")
+    print(f"megastep {label}: {multi_s:.2f} sequences/s ({k} steps a call) vs single "
+          f"steps {single_s:.2f}; device busy {100 * share_m:.1f} % vs "
+          f"{100 * share:.1f} %; captured launches {captured}, 2 replays -> {replayed}; "
+          f"losses within 1e-4 of the single steps', worst weight gap {worst[0]:.3g} at "
+          f"{worst[1]} (envelope {envelope:.3g})", flush=True)
+    del state, state2, step, multi
+    torch.cuda.empty_cache()
+    return single_s, multi_s, share, share_m, replayed
+
+
+def phase_dhp3_megastep(data_dir: Path, single_epochs) -> None:
+    """The 3DHP driver in bf16 with train.steps_per_call=4 (the megastep
+    inside the train loop: four full batches a graph replay, the epoch's
+    leftover as single steps), test protocol off: finite losses, graph
+    replays made, and the meter's sequences/s by epoch beside the
+    steps_per_call=1 run of phase 21."""
+    from manipose_tpu_torch import ops
+    from manipose_tpu_torch.drivers import dhp3
+    from manipose_tpu_torch.utils.logging import MetricLogger
+
+    cfg = dhp3_config("bfloat16", data_dir, ["train.steps_per_call=4", "run.test=false",
+                                             "run.experiment=dhp3_megastep"])
+    logger = MetricLogger()
+    ops.reset_launch_counts()
+    dhp3.main(cfg, logger=logger)
+    torch.cuda.synchronize()
+    replays = ops.GRAPH_REPLAYS["replays"]
+    require(replays > 0, "3dhp megastep driver: no graph replayed")
+    losses = np.load(run_dir(cfg) / "train_loss.npy")
+    require(losses.shape == (DRIVER_EPOCHS,) and bool(np.isfinite(losses).all()),
+            f"3dhp megastep driver losses {losses}")
+    epochs = epoch_rows(logger)
+    print_epochs("3dhp megastep driver bf16", epochs)
+    by_epoch = {name: ", ".join(f"{r['seq_per_sec']:.2f}" for r in rows)
+                for name, rows in (("megastep", epochs), ("single", single_epochs))}
+    print(f"3dhp megastep driver bf16 (steps_per_call=4): {replays} graph replays; train "
+          f"sequences/s by epoch {by_epoch['megastep']} against steps_per_call=1 "
+          f"{by_epoch['single']}; train losses {losses}", flush=True)
+
+
+TOY_RUNS = (  # (label, overrides): configs/toy.yaml's groups, epochs cut
+    ("hard-2 constrained_rmcl", ["data.scenario=hard-2", "model.arch=constrained_rmcl",
+                                 "train=rmcl_constrained_hard2"]),
+    ("torus-2Dto3D constrained_rmcl", ["data=3D_setup", "train=3D_setup",
+                                       "model.arch=constrained_rmcl"]),
+    ("hard-2 mlp", ["data.scenario=hard-2", "model.arch=mlp", "train=mlp_hard2"]),
+    ("hard-2 diffusion", ["data.scenario=hard-2", "diffusion.enabled=true",
+                          "train=diff_hard2"]),
+)
+TOY_EPOCHS = 3
+
+
+def phase_toy(out_dir: Path) -> dict:
+    """``toy.main`` (the paper's toy experiments) on the card and on the
+    CPU for TOY_RUNS, TOY_EPOCHS epochs each from run.seed: the loss
+    history and every metric finite on both, printed side by side with the
+    wall time of each. Returns {label: card wall seconds}."""
+    import contextlib
+    import io
+
+    from manipose_tpu_torch.config import load_config
+    from manipose_tpu_torch.toy import main as toy_main
+
+    seconds = {}
+    for label, overrides in TOY_RUNS:
+        rows = {}
+        for device in ("cuda", "cpu"):
+            run = out_dir / f"{label.replace(' ', '_')}_{device}"
+            cfg = load_config("toy", [*overrides, f"train.epochs={TOY_EPOCHS}",
+                                      f"run.output_dir={run}", f"device={device}"])
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                toy_main.main(cfg)
+            if device == "cuda":
+                torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            losses = np.load(run / "default" / "train_loss.npy")
+            metrics = {k: float(v) for k, v in (
+                line.split(": ") for line in
+                (run / "default" / "metrics.txt").read_text().splitlines())}
+            require(losses.shape == (TOY_EPOCHS,) and bool(np.isfinite(losses).all()),
+                    f"toy {label} {device} losses {losses}")
+            require(all(np.isfinite(v) for v in metrics.values()),
+                    f"toy {label} {device} metrics {metrics}")
+            rows[device] = (wall, losses, metrics)
+        seconds[label] = rows["cuda"][0]
+        print(f"toy {label} ({TOY_EPOCHS} epochs): " + "; ".join(
+            f"{dev} {wall:.2f} s, losses {', '.join(f'{v:.5f}' for v in losses)}, "
+            + ", ".join(f"{k} {v:.5f}" for k, v in metrics.items())
+            for dev, (wall, losses, metrics) in rows.items()), flush=True)
+    return seconds
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2409,6 +2940,37 @@ def main() -> int:
     print(f"bf16 cpu-card train phase: {time.perf_counter() - t0:.1f} s; "
           f"total {time.perf_counter() - t_start:.1f} s", flush=True)
 
+    # the trunk variants: joint-major, remat, the megastep (phases 34-38)
+    t0 = time.perf_counter()
+    jm_cases = phase_joint_major_kernels()
+    print(f"joint-major kernels phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    jm_counts, jm_fps, jm_train_counts, jm_seq = {}, {}, {}, {}
+    for dtype, fold_pred, fold_seq in (("float32", predictor, seq_s),
+                                       ("bfloat16", predictor16, seq_s16)):
+        t0 = time.perf_counter()
+        jm_counts[dtype], jm_fps[dtype] = phase_joint_major_serving(dtype, fold_pred)
+        jm_train_counts[dtype], jm_seq[dtype] = phase_joint_major_train(dtype, fold_seq,
+                                                                        weights)
+        print(f"joint-major {dtype} phases: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    remat_counts = {dtype: phase_remat(dtype) for dtype in ("float32", "bfloat16")}
+    print(f"remat phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    megastep = {
+        "3dhp_bf16": phase_megastep(
+            f"3dhp bf16 (L={DHP3_SEQ_LEN}, B={DHP3_BATCH}, steps_per_call=4)",
+            ["data=mpi_inf_3dhp", "model.dtype=bfloat16"], DHP3_BATCH, DHP3_SEQ_LEN, 4, 5),
+        "flagship_bf16": phase_megastep(
+            f"flagship bf16 (L=243, B={TRAIN_BATCH}, steps_per_call=2)",
+            ["model.dtype=bfloat16"], TRAIN_BATCH, 243, 2, 3),
+        "3dhp_bf16_remat": phase_megastep(
+            f"3dhp bf16 remat (L={DHP3_SEQ_LEN}, B={DHP3_BATCH}, steps_per_call=4)",
+            ["data=mpi_inf_3dhp", "model.dtype=bfloat16", "model.remat=true"],
+            DHP3_BATCH, DHP3_SEQ_LEN, 4, 2),
+    }
+    print(f"megastep phase: {time.perf_counter() - t0:.1f} s; "
+          f"total {time.perf_counter() - t_start:.1f} s", flush=True)
+
     scratch = ROOT / "build" / "chip_smoke_h36m"
     shutil.rmtree(scratch, ignore_errors=True)
     scratch.mkdir(parents=True)
@@ -2465,6 +3027,9 @@ def main() -> int:
             phase_dhp3_cpu_vs_card(dtype, scratch)
             print(f"3dhp cpu-card {dtype} phase: {time.perf_counter() - t0:.1f} s; "
                   f"total {time.perf_counter() - t_start:.1f} s", flush=True)
+        t0 = time.perf_counter()
+        phase_dhp3_megastep(scratch, dhp3_epochs["bfloat16"])
+        print(f"3dhp megastep driver phase: {time.perf_counter() - t0:.1f} s", flush=True)
     finally:
         shutil.rmtree(scratch, ignore_errors=True)
     t0 = time.perf_counter()
@@ -2505,6 +3070,16 @@ def main() -> int:
     print(f"http phase: {time.perf_counter() - t0:.1f} s; "
           f"total {time.perf_counter() - t_start:.1f} s", flush=True)
 
+    scratch = ROOT / "build" / "chip_smoke_toy"
+    shutil.rmtree(scratch, ignore_errors=True)
+    try:
+        t0 = time.perf_counter()
+        phase_toy(scratch)
+        print(f"toy phase: {time.perf_counter() - t0:.1f} s; "
+              f"total {time.perf_counter() - t_start:.1f} s", flush=True)
+    finally:
+        shutil.rmtree(scratch, ignore_errors=True)
+
     kernels = []
     for name, meta in KERNELS.items():
         # this slice's main path is the bf16 training driver, which runs all
@@ -2521,7 +3096,24 @@ def main() -> int:
                    "serve_int8": int8_counts["float32"],
                    "serve_int8_bf16": int8_counts["bfloat16"],
                    "serve_data_parallel": dp_counts, "export": export_counts,
-                   "http_serve": http_counts}
+                   "http_serve": http_counts,
+                   "serve_joint_major": jm_counts["float32"],
+                   "serve_joint_major_bf16": jm_counts["bfloat16"],
+                   "train_step_joint_major": jm_train_counts["float32"],
+                   "train_step_joint_major_bf16": jm_train_counts["bfloat16"],
+                   "train_step_remat": remat_counts["float32"],
+                   "train_step_remat_bf16": remat_counts["bfloat16"],
+                   **{f"megastep_{k}_replayed": v[4] for k, v in megastep.items()}}
+        variants = [dict(name=f"{name}_strided", layout="joint_major", route="cuda",
+                         source=meta["source"], replaces=meta["replaces"],
+                         launches=jm_train_counts["bfloat16"][name],
+                         max_abs_err=max(c["max_abs_err"] for c in jm_cases[name]
+                                         if c["dtype"] == "bfloat16"),
+                         **{key: c[key] for key in ("ms", "fold_ms", "plain_ms", "bound_ms",
+                                                    "bound_by", "library_ms")},
+                         timed_case=f"{c['trunk']} {c['dtype']} {c['shape']}",
+                         cases=jm_cases[name])
+                    for c in jm_cases.get(name, [])[2:3]]
         kernels.append(dict(
             name=name, route="cuda", **meta,
             launches=driver_counts["bfloat16"][name],
@@ -2532,7 +3124,7 @@ def main() -> int:
             bound_ms=head["bound_ms"], bound_by=head["bound_by"],
             library_ms=head["library_ms"],
             timed_case=f"{head['trunk']} {head['dtype']} {head['shape']}",
-            cases=cases[name],
+            cases=cases[name], **({"variants": variants} if variants else {}),
         ))
     loop_seq = {d: ", ".join(f"{r['seq_per_sec']:.2f}" for r in rows)
                 for d, rows in driver_epochs.items()}
@@ -2546,7 +3138,11 @@ def main() -> int:
           f"by epoch fp32 {dhp3_seq['float32']}, bf16 {dhp3_seq['bfloat16']}; 3dhp test "
           f"valid frames/s fp32 {dhp3_fps['float32']:.1f}, bf16 {dhp3_fps['bfloat16']:.1f}; int8 "
           f"serving frames/s fp32 {int8_fps['float32']:.1f}, bf16 {int8_fps['bfloat16']:.1f}; "
-          f"total {time.perf_counter() - t_start:.1f} s on {smi}")
+          f"joint-major serving frames/s fp32 {jm_fps['float32']:.1f}, bf16 "
+          f"{jm_fps['bfloat16']:.1f}; joint-major train sequences/s fp32 "
+          f"{jm_seq['float32']:.2f}, bf16 {jm_seq['bfloat16']:.2f}; megastep sequences/s "
+          + ", ".join(f"{k} {v[1]:.2f} (single {v[0]:.2f})" for k, v in megastep.items())
+          + f"; total {time.perf_counter() - t_start:.1f} s on {smi}")
     print("int8 gemms " + json.dumps(int8_rows))
     print(smi)
     print(json.dumps({"kernels": kernels}))

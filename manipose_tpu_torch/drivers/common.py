@@ -10,7 +10,11 @@ with ``model.init=torch``; ``train/init.py``) drawn from a
 weights on every machine.
 ``model.dtype`` (``float32`` or ``bfloat16``) is the compute dtype; the
 parameters are fp32 under both, so the init and the weight maps do not
-depend on it.
+depend on it. ``model.layout`` (``fold`` or ``joint_major``) is read as
+the JAX package reads it (``manipose_tpu/drivers/common.py:38``).
+``model.remat=true`` (absent from ``configs/config.yaml``: false) builds
+both trunks with ``remat``, which the JAX package sets in its model
+configs only; it changes memory and time, not the math.
 """
 
 from __future__ import annotations
@@ -34,13 +38,6 @@ from ..models import (
 )
 from ..train.init import init_from_config
 
-# (config key, value the port implements) for settings the port does not
-# carry yet; the JAX kernel knobs attn_impl / mlp_impl need no entry: on the
-# card every attention and MLP runs the port's kernels
-_UNPORTED = (
-    ("layout", "fold"),
-)
-
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
@@ -53,17 +50,14 @@ def compute_dtype(m: Config) -> torch.dtype:
 
 
 def _check_supported(m: Config) -> None:
+    """The JAX kernel knobs attn_impl / mlp_impl choose nothing in the port
+    (on the card every attention and MLP runs the port's kernels); attn_impl
+    is still read by the joint-major refusal, as in the JAX package."""
     if m.get("attn_impl", "xla") == "ring":
         raise NotImplementedError(
             "model.attn_impl=ring (sequence-parallel attention) is not "
             "ported yet"
         )
-    for key, supported in _UNPORTED:
-        if m.get(key, supported) != supported:
-            raise NotImplementedError(
-                f"model.{key}={m.get(key)} is not ported yet (only "
-                f"{supported})"
-            )
 
 
 def instantiate_model(cfg: Config, skeleton: Skeleton, quant: bool = False):
@@ -73,6 +67,9 @@ def instantiate_model(cfg: Config, skeleton: Skeleton, quant: bool = False):
     m = cfg.model
     _check_supported(m)
     dtype = compute_dtype(m)
+    layout = m.get("layout", "fold")
+    attn_impl = m.get("attn_impl", "xla")
+    remat = bool(m.get("remat", False))
     if m.arch == "mixste":
         model = MixSTE(
             MixSTEConfig(
@@ -87,6 +84,9 @@ def instantiate_model(cfg: Config, skeleton: Skeleton, quant: bool = False):
                 mup=m.mup,
                 dtype=dtype,
                 quant=quant,
+                layout=layout,
+                remat=remat,
+                attn_impl=attn_impl,
             )
         )
         rmcl = False
@@ -108,6 +108,9 @@ def instantiate_model(cfg: Config, skeleton: Skeleton, quant: bool = False):
             mup=m.mup,
             dtype=dtype,
             quant=quant,
+            layout=layout,
+            remat=remat,
+            attn_impl=attn_impl,
         )
         if m.arch == "manifold":
             model, rmcl = ManifoldMixSTE(manifold_cfg, skeleton), False

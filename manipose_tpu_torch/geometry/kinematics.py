@@ -19,6 +19,8 @@ rotations' dtype.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -39,10 +41,20 @@ def _check_topological(skeleton: Skeleton) -> None:
             )
 
 
+@functools.lru_cache(maxsize=None)
+def _t_pose_on(skeleton: Skeleton, device: torch.device) -> torch.Tensor:
+    """The skeleton's (J, 3) T-pose operators on ``device``, copied there
+    once: a step makes no host-to-device copy (and can be captured in a
+    CUDA graph, where a copy from pageable memory is refused). Made outside
+    inference mode, so that autograd may save it whoever asked first."""
+    with torch.inference_mode(False):
+        return torch.as_tensor(skeleton.t_pose_array(), device=device)
+
+
 def _offsets(bone_lengths: torch.Tensor, skeleton: Skeleton) -> torch.Tensor:
     """(..., num_bones) -> (..., J, 3): ops[j] * len[j-1], row 0 zero, in
     the lengths' dtype promoted with the fp32 operators."""
-    ops = torch.as_tensor(skeleton.t_pose_array(), device=bone_lengths.device)
+    ops = _t_pose_on(skeleton, bone_lengths.device)
     lengths = torch.cat(
         [torch.zeros_like(bone_lengths[..., :1]), bone_lengths], dim=-1
     )
@@ -54,6 +66,15 @@ def build_t_pose(bone_lengths: torch.Tensor, skeleton: Skeleton) -> torch.Tensor
     (root at the origin): position_j = sum over ancestors a of j (j
     included, root excluded) of operator_a * length_{a-1}."""
     _check_topological(skeleton)
+    offsets = _offsets(bone_lengths, skeleton)
+    ancestry = _ancestry_on(skeleton, offsets.device).to(offsets.dtype)
+    return torch.einsum("ja,...ac->...jc", ancestry, offsets)
+
+
+@functools.lru_cache(maxsize=None)
+def _ancestry_on(skeleton: Skeleton, device: torch.device) -> torch.Tensor:
+    """(J, J) fp32: [j, a] = 1 where a is j or an ancestor of j below the
+    root; on ``device``, copied there once."""
     n_joints = skeleton.num_joints
     ancestry = np.zeros((n_joints, n_joints), dtype=np.float32)
     for j in range(1, n_joints):
@@ -61,9 +82,8 @@ def build_t_pose(bone_lengths: torch.Tensor, skeleton: Skeleton) -> torch.Tensor
         while a != 0:
             ancestry[j, a] = 1.0
             a = skeleton.parents[a]
-    offsets = _offsets(bone_lengths, skeleton)
-    ancestry = torch.as_tensor(ancestry, dtype=offsets.dtype, device=offsets.device)
-    return torch.einsum("ja,...ac->...jc", ancestry, offsets)
+    with torch.inference_mode(False):
+        return torch.as_tensor(ancestry, device=device)
 
 
 def forward_kinematics(
@@ -105,8 +125,11 @@ def forward_kinematics(
         js = list(level)
         r_parent = torch.stack([world_rot[parents[j]] for j in js], dim=-3)
         p_parent = torch.stack([positions[parents[j]] for j in js], dim=-2)
-        r_world = compose_rotations(r_parent, rotations[..., js, :, :])
-        off = offsets[..., js, :]
+        # stacks of views, not list indexing: an index list would be copied
+        # to the device at every call, which a CUDA-graph capture refuses
+        r_world = compose_rotations(
+            r_parent, torch.stack([rotations[..., j, :, :] for j in js], dim=-3))
+        off = torch.stack([offsets[..., j, :] for j in js], dim=-2)
         pos = rotate_vectors(r_world.to(off.dtype), off) + p_parent
         for i, j in enumerate(js):
             world_rot[j] = r_world[..., i, :, :]

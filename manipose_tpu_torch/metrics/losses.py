@@ -22,7 +22,9 @@ STANDARD_HEVA_WEIGHTS = (1, 1, 2.5, 2.5, 1, 2.5, 2.5, 1, 1.5, 1.5, 4, 4, 1.5, 4,
 
 @functools.lru_cache(maxsize=None)
 def _weights_on(device: torch.device) -> torch.Tensor:
-    return torch.tensor(STANDARD_H36M_WEIGHTS, dtype=torch.float32, device=device)
+    # made outside inference mode, so that autograd may save it later
+    with torch.inference_mode(False):
+        return torch.tensor(STANDARD_H36M_WEIGHTS, dtype=torch.float32, device=device)
 
 
 def h36m_weights(like: torch.Tensor) -> torch.Tensor:

@@ -6,7 +6,9 @@ branch (BonesMixSTE) emits one length per bone per sequence (temporal
 mean); forward kinematics puts every output pose on the
 constant-bone-length manifold. ``ManifoldConfig.dtype`` (fp32 or bf16)
 is both trunks' compute dtype, and ``ManifoldConfig.quant`` quantizes both
-trunks' qkv, proj, fc1 and fc2 (int8 serving), as in the JAX package.
+trunks' qkv, proj, fc1 and fc2 (int8 serving), as in the JAX package;
+``layout`` and ``remat`` reach both trunks as the JAX package passes them
+(``manipose_tpu/models/manifold.py:52,77,105``).
 """
 
 from __future__ import annotations
@@ -43,6 +45,9 @@ class ManifoldConfig:
     mup_base_width: int = 64
     dtype: torch.dtype = torch.float32  # compute dtype; parameters stay fp32
     quant: bool = False  # int8 serving in both trunks
+    layout: str = "fold"  # both trunks' residual-stream layout (MixSTEConfig)
+    remat: bool = False  # recompute both trunks' blocks in the backward pass
+    attn_impl: str = "xla"  # read only for the joint-major refusal
 
     def _trunk(self, **kw) -> MixSTEConfig:
         return MixSTEConfig(
@@ -50,7 +55,8 @@ class ManifoldConfig:
             mlp_ratio=self.mlp_ratio, qkv_bias=self.qkv_bias,
             qk_scale=self.qk_scale, drop_path_rate=self.drop_path_rate,
             mup=self.mup, mup_base_width=self.mup_base_width,
-            dtype=self.dtype, quant=self.quant, **kw,
+            dtype=self.dtype, quant=self.quant, layout=self.layout,
+            remat=self.remat, attn_impl=self.attn_impl, **kw,
         )
 
     def rot_trunk_config(self) -> MixSTEConfig:

@@ -3,7 +3,19 @@
 Port of ``manipose_tpu/models/mix_ste.py``: alternating spatial attention
 over J joints (batch folded as B*L) and temporal attention over L frames
 (batch folded as B*J), depth x 2 blocks, shared post-block LayerNorms,
-learned positional tables and a LayerNorm + Linear head. Parameter names
+learned positional tables and a LayerNorm + Linear head.
+
+``MixSTEConfig.layout="joint_major"`` keeps one persistent (B, J, L, C)
+residual stream: temporal blocks fold it to (B*J, L, C) by a reshape, and
+spatial blocks run on it whole, their attention over J with (B, L, h) as
+batch (K3/K4 read those windows in place); one transpose in, one out. Same
+math as the fold layout, and one generator gives both layouts the same
+drop-path masks (per (b, l) row in spatial blocks, per (b, j) row in
+temporal ones). ``MixSTEConfig.remat`` recomputes each block in the
+backward pass (``torch.utils.checkpoint``): its drop-path masks are drawn
+before the checkpointed call, in the plain block's order, and passed in,
+so a remat step gives the plain step's gradients and leaves the generator
+where the plain step leaves it. Parameter names
 are the reference's state-dict names (``Spatial_patch_to_embedding``,
 ``STEblocks.{i}.attn.qkv``, ``head.0`` ...), so a reference ``.pth`` loads
 with ``strict=True``.
@@ -49,6 +61,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import multi_head_attention
 from ..ops.cuda_mlp import fused_mlp
@@ -74,6 +87,13 @@ class MixSTEConfig:
     mup_base_width: int = 64
     dtype: torch.dtype = torch.float32  # compute dtype; parameters stay fp32
     quant: bool = False  # int8 serving (qkv, proj, fc1, fc2)
+    # residual-stream layout: "fold" (the reference's) or "joint_major"
+    layout: str = "fold"
+    # recompute every block in the backward pass (activation memory for time)
+    remat: bool = False
+    # the JAX package's kernel choice, read only to refuse what it refuses
+    # with joint-major; on the card every attention runs the port's kernels
+    attn_impl: str = "xla"
 
     def drop_path_rates(self):
         return np.linspace(0.0, self.drop_path_rate, self.depth).tolist()
@@ -183,25 +203,42 @@ class DropPath(nn.Module):
     training with a nonzero rate, then one mask per folded-batch row, drawn
     from ``generator`` (a ``torch.Generator`` on the input's device, set by
     :func:`set_drop_path_generator`; the global RNG is never drawn from).
-    The output keeps the input's dtype."""
+    ``keep_axes`` lists the axes the mask varies over (the others
+    broadcast): (0,) per folded-batch row; (0, 2) per (b, l) for a
+    joint-major spatial block on (B, J, L, C), whose draw of B*L values
+    gives the fold layout's (B*L, 1, 1) masks. The output keeps the input's
+    dtype."""
 
-    def __init__(self, rate: float = 0.0):
+    def __init__(self, rate: float = 0.0, keep_axes: tuple = (0,)):
         super().__init__()
         self.rate = rate
+        self.keep_axes = keep_axes
         self.generator: Optional[torch.Generator] = None
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if not self.training or self.rate == 0.0:
-            return x
+    def active(self) -> bool:
+        return self.training and self.rate != 0.0
+
+    def draw(self, x: torch.Tensor) -> Optional[torch.Tensor]:
+        """The mask for ``x`` (None when inactive): one draw from the
+        generator."""
+        if not self.active():
+            return None
         if self.generator is None:
             raise RuntimeError(
                 "DropPath needs a generator in training; call "
                 "set_drop_path_generator (the train step does)"
             )
-        keep = 1.0 - self.rate
-        mask = torch.rand((x.shape[0],) + (1,) * (x.dim() - 1),
-                          generator=self.generator, device=x.device) < keep
-        return x * mask / keep
+        shape = tuple(n if i in self.keep_axes else 1 for i, n in enumerate(x.shape))
+        return torch.rand(shape, generator=self.generator, device=x.device) < 1.0 - self.rate
+
+    def forward(self, x: torch.Tensor,
+                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``mask``: one drawn beforehand (by :meth:`draw`), else drawn now."""
+        if not self.active():
+            return x
+        if mask is None:
+            mask = self.draw(x)
+        return x * mask / (1.0 - self.rate)
 
 
 def set_drop_path_generator(model: nn.Module,
@@ -219,20 +256,34 @@ class Block(nn.Module):
                  qkv_bias: bool = True, qk_scale: Optional[float] = None,
                  drop_path: float = 0.0, residual_scale: float = 1.0,
                  mup: bool = False, dtype: torch.dtype = torch.float32,
-                 quant: bool = False):
+                 quant: bool = False, drop_path_keep_axes: tuple = (0,)):
         super().__init__()
         self.residual_scale = residual_scale
         self.norm1 = LayerNorm(dim, 1e-6, dtype)
         self.attn = Attention(dim, num_heads, qkv_bias, qk_scale, mup=mup,
                               dtype=dtype, quant=quant)
-        self.drop_path = DropPath(drop_path)
+        self.drop_path = DropPath(drop_path, drop_path_keep_axes)
         self.norm2 = LayerNorm(dim, 1e-6, dtype)
         self.mlp = Mlp(dim, int(dim * mlp_ratio), dtype, quant)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x * self.residual_scale + self.drop_path(self.attn(self.norm1(x)))
-        x = x * self.residual_scale + self.drop_path(self.mlp(self.norm2(x)))
+    def forward(self, x: torch.Tensor, mask1: Optional[torch.Tensor] = None,
+                mask2: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``mask1``/``mask2``: the drop-path masks of the attention and MLP
+        branches when drawn beforehand (remat), else drawn here, in that
+        order."""
+        x = x * self.residual_scale + self.drop_path(self.attn(self.norm1(x)), mask1)
+        x = x * self.residual_scale + self.drop_path(self.mlp(self.norm2(x)), mask2)
         return x
+
+    def checkpointed(self, x: torch.Tensor) -> torch.Tensor:
+        """The block under ``torch.utils.checkpoint``: both masks drawn
+        first (the residual stream has the branches' shape) and passed in,
+        so the recompute reuses them; nothing inside draws from a default
+        generator, so no RNG state is stashed."""
+        mask1 = self.drop_path.draw(x)
+        mask2 = self.drop_path.draw(x)
+        return checkpoint(self, x, mask1, mask2, use_reentrant=False,
+                          preserve_rng_state=False)
 
 
 class MixSTE(nn.Module):
@@ -246,6 +297,20 @@ class MixSTE(nn.Module):
     def __init__(self, cfg: MixSTEConfig, use_patch_embed: bool = True,
                  apply_head: bool = True):
         super().__init__()
+        if cfg.layout not in ("fold", "joint_major"):
+            raise ValueError(f"layout={cfg.layout!r} is not one of 'fold', 'joint_major'")
+        # the JAX package's refusal (manipose_tpu/models/mix_ste.py:412-418):
+        # its joint-major spatial attention is an XLA einsum, so a spatial
+        # kernel choice ("pallas") is refused; "pallas_temporal" and "ring"
+        # keep spatial attention on XLA and pass
+        spatial_impl = ("xla" if cfg.attn_impl in ("pallas_temporal", "ring")
+                        else cfg.attn_impl)
+        if cfg.layout == "joint_major" and spatial_impl not in ("xla", "xla_direct"):
+            raise ValueError(
+                f"layout='joint_major' runs spatial attention over the J axis of "
+                f"the joint-major stream; attn_impl={cfg.attn_impl!r} is fold-layout "
+                "only (use 'xla', 'xla_direct', 'pallas_temporal' or 'ring')"
+            )
         self.cfg = cfg
         self.use_patch_embed = use_patch_embed
         self.apply_head = apply_head
@@ -258,15 +323,16 @@ class MixSTE(nn.Module):
         residual_scale = (1.0 / np.sqrt(cfg.depth)) if cfg.mup else 1.0
         dpr = cfg.drop_path_rates()
 
-        def blocks():
+        def blocks(keep_axes=(0,)):
             return nn.ModuleList(
                 Block(c, cfg.num_heads, cfg.mlp_ratio, cfg.qkv_bias,
                       cfg.qk_scale, dpr[i], residual_scale, cfg.mup, dt,
-                      cfg.quant)
+                      cfg.quant, keep_axes)
                 for i in range(cfg.depth)
             )
 
-        self.STEblocks = blocks()
+        # joint-major spatial blocks mask per (b, l), as the fold's (B*L) rows
+        self.STEblocks = blocks((0, 2) if cfg.layout == "joint_major" else (0,))
         self.TTEblocks = blocks()
         self.Spatial_norm = LayerNorm(c, 1e-6, dt)
         self.Temporal_norm = LayerNorm(c, 1e-6, dt)
@@ -275,10 +341,16 @@ class MixSTE(nn.Module):
                 LayerNorm(c, 1e-5, dt), Dense(c, cfg.out_dim, compute_dtype=dt)
             )
 
+    def _block(self, block: Block, x: torch.Tensor) -> torch.Tensor:
+        """``block`` on ``x``, recomputed in the backward pass under remat."""
+        if self.cfg.remat and torch.is_grad_enabled():
+            return block.checkpointed(x)
+        return block(x)
+
     def _spatial(self, x: torch.Tensor, i: int) -> torch.Tensor:
         """One spatial block on (B, L, J, C): fold L into the batch."""
         b, l, j, c = x.shape
-        x = self.Spatial_norm(self.STEblocks[i](x.reshape(b * l, j, c)))
+        x = self.Spatial_norm(self._block(self.STEblocks[i], x.reshape(b * l, j, c)))
         return x.reshape(b, l, j, c)
 
     def _temporal(self, x: torch.Tensor, i: int, pos=None) -> torch.Tensor:
@@ -287,9 +359,28 @@ class MixSTE(nn.Module):
         x = x.transpose(1, 2)  # (B, J, L, C)
         if pos is not None:
             x = x + pos.to(x.dtype)
-        x = self.TTEblocks[i](x.reshape(b * j, l, c))
+        x = self._block(self.TTEblocks[i], x.reshape(b * j, l, c))
         x = self.Temporal_norm(x)
         return x.reshape(b, j, l, c).transpose(1, 2)
+
+    def _temporal_jm(self, x: torch.Tensor, i: int) -> torch.Tensor:
+        """One temporal block on joint-major (B, J, L, C): the fold to
+        (B*J, L, C) is a reshape, no copy."""
+        b, j, l, c = x.shape
+        z = self._block(self.TTEblocks[i], x.reshape(b * j, l, c))
+        return self.Temporal_norm(z).reshape(b, j, l, c)
+
+    def _trunk_joint_major(self, x: torch.Tensor) -> torch.Tensor:
+        """The joint-major body: one transpose in, one out; every block in
+        between runs on the (B, J, L, C) stream, in the fold path's order."""
+        x = x.transpose(1, 2).contiguous()  # (B, J, L, C)
+        x = self.Spatial_norm(self._block(self.STEblocks[0], x))
+        x = x + self.Temporal_pos_embed.to(x.dtype)
+        x = self._temporal_jm(x, 0)
+        for i in range(1, self.cfg.depth):
+            x = self.Spatial_norm(self._block(self.STEblocks[i], x))
+            x = self._temporal_jm(x, i)
+        return x.transpose(1, 2).contiguous()
 
     def trunk(self, x: torch.Tensor) -> torch.Tensor:
         """(B, L, J, C_in) -> (B, L, J, embed_dim) features."""
@@ -306,6 +397,8 @@ class MixSTE(nn.Module):
         if self.use_patch_embed:
             x = self.Spatial_patch_to_embedding(x)
         x = x + self.Spatial_pos_embed.to(cfg.dtype)
+        if cfg.layout == "joint_major":
+            return self._trunk_joint_major(x)
         x = self._spatial(x, 0)
         x = self._temporal(x, 0, pos=self.Temporal_pos_embed)
         for i in range(1, cfg.depth):

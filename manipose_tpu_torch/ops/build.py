@@ -42,17 +42,18 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         # stride_n, scale, device, stream
         "mp_attention_dense": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                _L, _L, _L, _F, _I, _P],
-        # q, k, v, out, dtype, B, H, N, D, stride_b, stride_h, stride_n,
-        # scale, device, stream
-        "mp_attention_packed": [_P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                _L, _L, _L, _F, _I, _P],
+        # q, k, v, out, dtype, B, L, H, N, D, q/k/v strides (b, l, h, n),
+        # out strides (b, l, h, n), scale, device, stream
+        "mp_attention_packed": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I]
+                               + [_L] * 8 + [_F, _I, _P],
         # q, k, v, out, dout, lse, delta, dq, dk, dv, dtype, B, H, N, D,
         # q/k/v strides (b, h, n), out/dout strides, dq/dk/dv strides,
         # scale, device, stream
         "mp_attention_dense_bwd": [_P] * 10 + [_I] * 5 + [_L] * 9
                                   + [_F, _I, _P],
-        # q, k, v, dout, dq, dk, dv, then as the dense backward
-        "mp_attention_packed_bwd": [_P] * 7 + [_I] * 5 + [_L] * 9
+        # q, k, v, dout, dq, dk, dv, dtype, B, L, H, N, D, q/k/v strides
+        # (b, l, h, n), dout strides, dq/dk/dv strides, scale, device, stream
+        "mp_attention_packed_bwd": [_P] * 7 + [_I] * 6 + [_L] * 12
                                    + [_F, _I, _P],
         # dtype, D, N, backward, windows, device, int[5] out
         "mp_attention_packed_shape": [_I] * 6 + [_P],

@@ -22,6 +22,12 @@
 // backward kernels read the output and its gradient through their own
 // strides (ob, oh, on) and write dQ, dK and dV through theirs (gb, gh, gn):
 // views of one (B, N, 3, H, D) tensor, the gradient of the qkv projection.
+// The per-window kernels K3/K4 take a second batch extent L and its strides
+// (sl, ol, gl) as well: the joint-major trunk's spatial windows are
+// (b, l, h) views of a (B, J, L, 3, H, D) qkv projection, whose J rows sit a
+// frame's qkv row (L * 3 * H * D elements) apart, and whose output and
+// gradient are written in place in the (B, J, L, H, D) and (B, J, L, 3, H,
+// D) layouts, with no transposing copy on either side.
 //
 // What bounds them on an H100 (data sheet, dense, 700 W). Dense, at the
 // flagship's rotations trunk (2176 windows of 243 x 64): 4*N*N*D flop per
@@ -128,6 +134,7 @@
 // Not yet: wgmma and TMA with warp specialisation.
 
 #include <atomic>
+#include <climits>
 #include <cmath>
 #include <mutex>
 #include <type_traits>
@@ -954,6 +961,15 @@ __device__ __forceinline__ void packed_prologue(uint32_t* zero, uint32_t* ring, 
   __syncthreads();
 }
 
+// The start of window w = (b, l, h) = (w / (H L), (w / H) % L, w % H) in a
+// tensor of batch strides (sb, sl, sh), in elements.
+__device__ __forceinline__ long long window_offset(int w, int L, int H, long long sb,
+                                                   long long sl, long long sh) {
+  const int bl = w / H;
+  return static_cast<long long>(bl / L) * sb + static_cast<long long>(bl % L) * sl +
+         static_cast<long long>(w % H) * sh;
+}
+
 // A warp's walk over windows first, first + stride, ... below ``count``
 // (stride = the grid's warps; blocks of blockDim.x / 32 warps) through its
 // ring of SLOTS slots:
@@ -1022,13 +1038,18 @@ __device__ __forceinline__ void packed_fwd_window(const uint32_t* qs, const uint
 }
 
 // K3: each warp walks windows through its ring. Shared memory: the zero
-// row, then per warp SLOTS slots of (Q, K, V).
+// row, then per warp SLOTS slots of (Q, K, V). Window w is (b, l, h) =
+// (w / (H L), (w / H) % L, w % H): its rows start at b sb + l sl + h sh in
+// Q, K and V and at b ob + l ol + h oh in the output, sn and on elements
+// apart. The fold layout passes L = 1; joint-major passes the frames as L,
+// so its windows' rows (the joints) sit a frame's whole qkv row apart.
 template <typename T, int D, int MT>
 __global__ void __launch_bounds__(32 * Packed<T, D>::WARPS)
 attention_packed_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v, T* __restrict__ out, int BH,
-                        int H, int N, long long sb, long long sh, long long sn,
-                        float scale) {
+                        int L, int H, int N, long long sb, long long sl, long long sh,
+                        long long sn, long long ob, long long ol, long long oh,
+                        long long on, float scale) {
   using P = Packed<T, D>;
   extern __shared__ __align__(16) uint32_t packed_smem_words[];
   const uint32_t* zero = packed_smem_words;
@@ -1043,7 +1064,7 @@ attention_packed_kernel(const T* __restrict__ q, const T* __restrict__ k,
       BH,
       [&](int w, int slot) {
         if (w < BH) {
-          const long long off = (w / H) * sb + (w % H) * sh;
+          const long long off = window_offset(w, L, H, sb, sl, sh);
           const long long offs[3] = {off, off, off};
           stage_window<T, D, 3>(ring + slot * 3 * tw, src, offs, pitches, N);
         }
@@ -1051,10 +1072,9 @@ attention_packed_kernel(const T* __restrict__ q, const T* __restrict__ k,
       },
       [&](int w, int slot) {
         const uint32_t* s = ring + slot * 3 * tw;
-        const int b = w / H, h = w % H;
         packed_fwd_window<T, D, MT>(s, s + tw, s + 2 * tw, zero,
-                                    out + (static_cast<long long>(b) * N * H + h) * D,
-                                    static_cast<long long>(H) * D, N, scale * LOG2E);
+                                    out + window_offset(w, L, H, ob, ol, oh), on, N,
+                                    scale * LOG2E);
       });
 }
 
@@ -1216,15 +1236,17 @@ __device__ __forceinline__ void packed_bwd_window(const uint32_t* qs, const uint
 
 // K4: each warp walks windows through its ring. Shared memory: the zero
 // row, then per warp SLOTS slots of (Q, K, V, dO) and the P^T, dS^T
-// scratch.
+// scratch. Windows as K3's: Q, K and V at (sb, sl, sh, sn), dO at (ob, ol,
+// oh, on), dQ, dK and dV at (gb, gl, gh, gn), so that joint-major writes
+// its gradient straight into the (B, J, L, 3, H, D) layout of qkv.
 template <typename T, int D, int MT>
 __global__ void __launch_bounds__(32 * Packed<T, D>::WARPS)
 attention_packed_bwd_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const T* __restrict__ dout, T* __restrict__ dq, T* __restrict__ dk,
-    T* __restrict__ dv, int BH, int H, int N, long long sb, long long sh,
-    long long sn, long long ob, long long oh, long long on, long long gb,
-    long long gh, long long gn, float scale) {
+    T* __restrict__ dv, int BH, int L, int H, int N, long long sb, long long sl,
+    long long sh, long long sn, long long ob, long long ol, long long oh, long long on,
+    long long gb, long long gl, long long gh, long long gn, float scale) {
   using P = Packed<T, D>;
   extern __shared__ __align__(16) uint32_t packed_smem_words[];
   const uint32_t* zero = packed_smem_words;
@@ -1240,16 +1262,15 @@ attention_packed_bwd_kernel(
       BH,
       [&](int w, int slot) {
         if (w < BH) {
-          const int b = w / H, h = w % H;
-          const long long off = b * sb + h * sh;
-          const long long offs[4] = {off, off, off, b * ob + h * oh};
+          const long long off = window_offset(w, L, H, sb, sl, sh);
+          const long long offs[4] = {off, off, off, window_offset(w, L, H, ob, ol, oh)};
           stage_window<T, D, 4>(ring + slot * 4 * tw, src, offs, pitches, N);
         }
         mp::cp_async_commit();
       },
       [&](int w, int slot) {
         const uint32_t* s = ring + slot * 4 * tw;
-        const long long g = (w / H) * gb + (w % H) * gh;
+        const long long g = window_offset(w, L, H, gb, gl, gh);
         packed_bwd_window<T, D, MT>(s, s + tw, s + 2 * tw, s + 3 * tw, xt, zero, dq + g,
                                     dk + g, dv + g, gn, N, scale);
       });
@@ -1278,11 +1299,7 @@ cudaError_t with_types(int dtype, int d, int device, F f) {
   });
 }
 
-template <typename K>
-cudaError_t allow_smem(K kernel, size_t bytes) {
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(bytes));
-}
+using mp::allow_smem;
 
 // Calls f(std::integral_constant<int, MT>{}) for the row tiles of a window
 // of n rows (MT = 1 up to 16 rows, 2 up to 32).
@@ -1419,19 +1436,24 @@ extern "C" int mp_attention_dense_bwd(
   });
 }
 
+// Windows (b, l, h) of B x L x H (L = 1 for the fold layout; see K3).
 extern "C" int mp_attention_packed(const void* q, const void* k,
                                    const void* v, void* out, int dtype, int B,
-                                   int H, int N, int D, long long sb,
-                                   long long sh, long long sn, float scale,
-                                   int device, void* stream) {
-  if (N < 1 || N > PACKED_MAX_N) return cudaErrorInvalidValue;
+                                   int L, int H, int N, int D, long long sb,
+                                   long long sl, long long sh, long long sn,
+                                   long long ob, long long ol, long long oh,
+                                   long long on, float scale, int device,
+                                   void* stream) {
+  if (N < 1 || N > PACKED_MAX_N || L < 1) return cudaErrorInvalidValue;
+  const long long windows = static_cast<long long>(B) * L * H;
+  if (windows < 1 || windows > INT_MAX) return cudaErrorInvalidValue;
   auto st = static_cast<cudaStream_t>(stream);
   return with_types(dtype, D, device, [&](auto tag, auto dim) {
     using T = decltype(tag);
     constexpr int d = decltype(dim)::value;
     return with_row_tiles(N, [&](auto tiles) {
       constexpr int mt = decltype(tiles)::value;
-      const int bh = B * H;
+      const int bh = static_cast<int>(windows);
       size_t smem = 0;
       int warps = 0, blocks = 0, per_sm = 0;
       cudaError_t err =
@@ -1439,8 +1461,8 @@ extern "C" int mp_attention_packed(const void* q, const void* k,
       if (err != cudaSuccess) return err;
       attention_packed_kernel<T, d, mt><<<blocks, 32 * warps, smem, st>>>(
           static_cast<const T*>(q), static_cast<const T*>(k),
-          static_cast<const T*>(v), static_cast<T*>(out), bh, H, N, sb, sh, sn,
-          scale);
+          static_cast<const T*>(v), static_cast<T*>(out), bh, L, H, N, sb, sl, sh, sn,
+          ob, ol, oh, on, scale);
       return cudaGetLastError();
     });
   });
@@ -1448,18 +1470,20 @@ extern "C" int mp_attention_packed(const void* q, const void* k,
 
 extern "C" int mp_attention_packed_bwd(
     const void* q, const void* k, const void* v, const void* dout, void* dq,
-    void* dk, void* dv, int dtype, int B, int H, int N, int D, long long sb,
-    long long sh, long long sn, long long ob, long long oh, long long on,
-    long long gb, long long gh, long long gn, float scale, int device,
-    void* stream) {
-  if (N < 1 || N > PACKED_MAX_N) return cudaErrorInvalidValue;
+    void* dk, void* dv, int dtype, int B, int L, int H, int N, int D, long long sb,
+    long long sl, long long sh, long long sn, long long ob, long long ol, long long oh,
+    long long on, long long gb, long long gl, long long gh, long long gn, float scale,
+    int device, void* stream) {
+  if (N < 1 || N > PACKED_MAX_N || L < 1) return cudaErrorInvalidValue;
+  const long long windows = static_cast<long long>(B) * L * H;
+  if (windows < 1 || windows > INT_MAX) return cudaErrorInvalidValue;
   auto st = static_cast<cudaStream_t>(stream);
   return with_types(dtype, D, device, [&](auto tag, auto dim) {
     using T = decltype(tag);
     constexpr int d = decltype(dim)::value;
     return with_row_tiles(N, [&](auto tiles) {
       constexpr int mt = decltype(tiles)::value;
-      const int bh = B * H;
+      const int bh = static_cast<int>(windows);
       size_t smem = 0;
       int warps = 0, blocks = 0, per_sm = 0;
       cudaError_t err =
@@ -1468,8 +1492,8 @@ extern "C" int mp_attention_packed_bwd(
       attention_packed_bwd_kernel<T, d, mt><<<blocks, 32 * warps, smem, st>>>(
           static_cast<const T*>(q), static_cast<const T*>(k),
           static_cast<const T*>(v), static_cast<const T*>(dout),
-          static_cast<T*>(dq), static_cast<T*>(dk), static_cast<T*>(dv), bh, H,
-          N, sb, sh, sn, ob, oh, on, gb, gh, gn, scale);
+          static_cast<T*>(dq), static_cast<T*>(dk), static_cast<T*>(dv), bh, L, H,
+          N, sb, sl, sh, sn, ob, ol, oh, on, gb, gl, gh, gn, scale);
       return cudaGetLastError();
     });
   });

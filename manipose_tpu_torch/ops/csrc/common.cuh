@@ -1,13 +1,18 @@
 // Helpers shared by the port's CUDA kernels: 4-element vector loads and
 // stores for fp32 and bf16 (every kernel computes in fp32), the device
-// guard around a launch, and the C entry point that names a CUDA error
-// code.
+// guard around a launch, the one-time shared-memory opt-in, and the C entry
+// point that names a CUDA error code. Every runtime call a launch makes
+// (cudaGetDevice, cudaSetDevice, cudaGetLastError, the launch) is legal
+// under CUDA-graph stream capture, so a captured train step replays them.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <mutex>
+#include <set>
+#include <tuple>
 
 namespace mp {
 
@@ -52,6 +57,26 @@ cudaError_t on_device(int device, F launch) {
   const cudaError_t launched = launch();
   err = cudaSetDevice(prev);
   return launched != cudaSuccess ? launched : err;
+}
+
+// Raises ``kernel``'s dynamic shared-memory limit to ``bytes`` on the current
+// device, once per kernel, device and size. A kernel's first launch (a
+// warm-up, before any CUDA-graph capture) sets it; later launches, those
+// under capture included, make no runtime call but the launch itself.
+template <typename K>
+cudaError_t allow_smem(K kernel, size_t bytes) {
+  static std::mutex lock;
+  static std::set<std::tuple<const void*, int, size_t>> done;
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  const auto key = std::make_tuple(reinterpret_cast<const void*>(kernel), device, bytes);
+  std::lock_guard<std::mutex> guard(lock);
+  if (done.count(key)) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(bytes));
+  if (err == cudaSuccess) done.insert(key);
+  return err;
 }
 
 __device__ __forceinline__ float to_float(float v) { return v; }

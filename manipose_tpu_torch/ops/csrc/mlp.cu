@@ -587,11 +587,7 @@ fused_mlp_bwd_reduce_kernel(const float* __restrict__ part,
   if (lane == 0) store1(out + (j < H ? hc + j : 2 * hc + j), t);
 }
 
-template <typename K>
-cudaError_t allow_smem(K kernel, size_t bytes) {
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(bytes));
-}
+using mp::allow_smem;
 
 template <typename T, int NJ>
 cudaError_t launch(const void* x, const void* w1, const void* b1,

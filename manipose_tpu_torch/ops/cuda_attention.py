@@ -15,7 +15,13 @@ qkv projection (B, N, 3*h*d) and returns the merged heads (B, N, h*d).
 When a gradient is wanted it runs :class:`DenseAttention` or
 :class:`PackedAttention`, whose backward writes dq, dk and dv straight into
 one gradient of qkv; otherwise it launches the forward kernel alone, and
-K1 writes no log-sum-exp.
+K1 writes no log-sum-exp. It also takes the joint-major trunk's qkv
+projection (B, J, L, 3*h*d) and returns (B, J, L, h*d): spatial attention
+over the J axis, each (b, l, h) a window of J rows a frame's qkv row
+apart. K3/K4 read those windows in place through a second batch extent and
+its strides and write the output and the gradient in the joint-major
+layouts, so neither side makes a transposing copy (``joint_major_attention``
+of ``manipose_tpu/ops/attention.py``).
 
 Dispatch depends on the device alone: a CPU tensor takes the plain
 version, a CUDA tensor launches the kernel (or the call raises). The plain
@@ -49,6 +55,8 @@ PACKED_MAX_N = 32
 LAUNCHES = {name: dict.fromkeys(KERNEL_DTYPES, 0)
             for name in ("attention_dense", "attention_packed",
                          "attention_dense_bwd", "attention_packed_bwd")}
+# launches made by CUDA-graph replays (``ops.record_replay``), likewise
+REPLAYED = {name: dict.fromkeys(KERNEL_DTYPES, 0) for name in LAUNCHES}
 
 
 def attention_plain(q, k, v, scale: float) -> torch.Tensor:
@@ -76,13 +84,17 @@ def attention_plain_bwd(q, k, v, do, scale: float):
 
 
 def _check(q, k, v, max_n=None) -> None:
+    """q, k and v: (B, h, N, d), or for the per-window kernels (``max_n``
+    given) also (B, L, h, N, d)."""
     if not (q.is_cuda and k.device == q.device and v.device == q.device):
         raise ValueError("q, k and v must lie on one CUDA device")
     if q.dtype not in KERNEL_DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"attention kernels take fp32 or bf16, got {q.dtype}")
-    if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
-        raise ValueError("q, k and v must share one (B, h, N, d) shape")
-    n, d = q.shape[2], q.shape[3]
+    dims = (4,) if max_n is None else (4, 5)
+    if q.dim() not in dims or k.shape != q.shape or v.shape != q.shape:
+        raise ValueError("q, k and v must share one (B, h, N, d) shape"
+                         + ("" if max_n is None else " or one (B, L, h, N, d) shape"))
+    n, d = q.shape[-2], q.shape[-1]
     if d not in HEAD_DIMS:
         raise ValueError(f"head dim {d} not in {HEAD_DIMS}")
     if max_n is not None and n > max_n:
@@ -96,7 +108,7 @@ def _check_rows(t, others, what: str) -> None:
     time)."""
     if any(o.stride() != t.stride() for o in others):
         raise ValueError(f"{what} must share strides (views of one tensor)")
-    if t.stride(3) != 1 or any(s * t.element_size() % 16 for s in t.stride()[:3]):
+    if t.stride(-1) != 1 or any(s * t.element_size() % 16 for s in t.stride()[:-1]):
         raise ValueError(f"{what} rows must be contiguous and 16-byte aligned")
     for o in (t, *others):
         if o.data_ptr() % 16:
@@ -105,7 +117,7 @@ def _check_rows(t, others, what: str) -> None:
 
 def _check_grad_inputs(q, tensors, what: str) -> None:
     """Backward operands other than q, k, v: same device, dtype and shape
-    as q, and (B, h, N, d) views with the kernels' alignment."""
+    as q, and views of q's rank with the kernels' alignment."""
     for t in tensors:
         if t.device != q.device or t.dtype != q.dtype or t.shape != q.shape:
             raise ValueError(f"{what} must match q's device, dtype and shape")
@@ -126,6 +138,19 @@ def _strides(t):
     return t.stride(0), t.stride(1), t.stride(2)
 
 
+def _window_strides(t):
+    """(b, l, h, n) strides of a (B, h, N, d) view (l: 0, the one frame of
+    the fold layout) or of a (B, L, h, N, d) view."""
+    if t.dim() == 4:
+        return t.stride(0), 0, t.stride(1), t.stride(2)
+    return t.stride(0), t.stride(1), t.stride(2), t.stride(3)
+
+
+def _window_shape(q):
+    """(B, L, h, N, d) of a (B, h, N, d) or (B, L, h, N, d) view."""
+    return (q.shape[0], 1, *q.shape[1:]) if q.dim() == 4 else tuple(q.shape)
+
+
 def _stream(t) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
@@ -139,20 +164,40 @@ def _plain_or_raise(q) -> bool:
 
 
 def _empty_out(q) -> torch.Tensor:
-    """(B, h, N, d) view of a new (B, N, h, d) tensor."""
-    b, h, n, d = q.shape
-    return torch.empty((b, n, h, d), dtype=q.dtype, device=q.device).transpose(1, 2)
+    """(B, h, N, d) view of a new (B, N, h, d) tensor, or (B, L, h, N, d)
+    view of a new (B, N, L, h, d) tensor (the joint-major output)."""
+    if q.dim() == 4:
+        b, h, n, d = q.shape
+        return torch.empty((b, n, h, d), dtype=q.dtype, device=q.device).transpose(1, 2)
+    b, l, h, n, d = q.shape
+    out = torch.empty((b, n, l, h, d), dtype=q.dtype, device=q.device)
+    return out.permute(0, 2, 3, 1, 4)
 
 
 def _empty_dqkv(q) -> torch.Tensor:
-    """A new (B, N, 3, h, d) tensor: the gradient of the qkv projection."""
-    b, h, n, d = q.shape
-    return torch.empty((b, n, 3, h, d), dtype=q.dtype, device=q.device)
+    """A new (B, N, 3, h, d) tensor, the gradient of the qkv projection; for
+    (B, L, h, N, d) views a new (B, N, L, 3, h, d) one (joint-major's)."""
+    if q.dim() == 4:
+        b, h, n, d = q.shape
+        return torch.empty((b, n, 3, h, d), dtype=q.dtype, device=q.device)
+    b, l, h, n, d = q.shape
+    return torch.empty((b, n, l, 3, h, d), dtype=q.dtype, device=q.device)
 
 
 def _grad_views(dqkv):
-    """dq, dk, dv as (B, h, N, d) views of one (B, N, 3, h, d) tensor."""
-    return [t.transpose(1, 2) for t in dqkv.unbind(2)]
+    """dq, dk, dv as (B, h, N, d) views of one (B, N, 3, h, d) tensor, or
+    as (B, L, h, N, d) views of one (B, N, L, 3, h, d) tensor."""
+    if dqkv.dim() == 5:
+        return [t.transpose(1, 2) for t in dqkv.unbind(2)]
+    return [t.permute(0, 2, 3, 1, 4) for t in dqkv.unbind(3)]
+
+
+def _plain_dqkv(q, k, v, dout, scale: float) -> torch.Tensor:
+    """The plain backward's dq, dk and dv in the layout the kernels write."""
+    dqkv = _empty_dqkv(q)
+    for view, g in zip(_grad_views(dqkv), attention_plain_bwd(q, k, v, dout, scale)):
+        view.copy_(g)
+    return dqkv
 
 
 def attention_dense(q, k, v, scale: float, lse=None) -> torch.Tensor:
@@ -185,18 +230,21 @@ def attention_dense(q, k, v, scale: float, lse=None) -> torch.Tensor:
 def attention_packed(q, k, v, scale: float) -> torch.Tensor:
     """K3: per-window attention for N <= 32 (the spatial layout). Same
     contract as :func:`attention_dense`, without the log-sum-exp: its
-    backward recomputes each tiny window whole."""
+    backward recomputes each tiny window whole. q, k and v may also be
+    (B, L, h, N, d) views (the joint-major layout's windows, rows at any
+    aligned stride); the result is then a (B, L, h, N, d) view of a new
+    (B, N, L, h, d) tensor."""
     if _plain_or_raise(q):
         return _empty_out(q).copy_(attention_plain(q, k, v, scale))
     _check(q, k, v, max_n=PACKED_MAX_N)
     _refuse_grad(q, k, v)
-    b, h, n, d = q.shape
+    b, l, h, n, d = _window_shape(q)
     out = _empty_out(q)
     lib = build.load("attention")
     err = lib.mp_attention_packed(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        KERNEL_DTYPES[q.dtype], b, h, n, d, *_strides(q), float(scale),
-        q.device.index, _stream(q),
+        KERNEL_DTYPES[q.dtype], b, l, h, n, d, *_window_strides(q),
+        *_window_strides(out), float(scale), q.device.index, _stream(q),
     )
     build.check(lib, err, "mp_attention_packed")
     LAUNCHES["attention_packed"][q.dtype] += 1
@@ -208,10 +256,7 @@ def attention_dense_bwd(q, k, v, out, dout, lse, scale: float) -> torch.Tensor:
     tensor; out and dout: (B, h, N, d), sharing strides; lse: K1's
     log-sum-exp. Returns the (B, N, 3, h, d) gradient of the qkv tensor."""
     if _plain_or_raise(q):
-        return torch.stack(
-            [g.transpose(1, 2) for g in attention_plain_bwd(q, k, v, dout, scale)],
-            dim=2,
-        )
+        return _plain_dqkv(q, k, v, dout, scale)
     _check(q, k, v)
     _check_grad_inputs(q, (out, dout), "out and dout")
     b, h, n, d = q.shape
@@ -256,23 +301,22 @@ def _attention_fake(q, k, v, scale):
 
 def attention_packed_bwd(q, k, v, dout, scale: float) -> torch.Tensor:
     """K4: the gradient of K3 (N <= 32), recomputing each window's scores.
-    Same contract as :func:`attention_dense_bwd` without out and lse."""
+    Same contract as :func:`attention_dense_bwd` without out and lse; for
+    (B, L, h, N, d) views (joint-major) it returns the (B, N, L, 3, h, d)
+    gradient of the (B, J, L, 3*h*d) qkv tensor."""
     if _plain_or_raise(q):
-        return torch.stack(
-            [g.transpose(1, 2) for g in attention_plain_bwd(q, k, v, dout, scale)],
-            dim=2,
-        )
+        return _plain_dqkv(q, k, v, dout, scale)
     _check(q, k, v, max_n=PACKED_MAX_N)
     _check_grad_inputs(q, (dout,), "dout")
-    b, h, n, d = q.shape
+    b, l, h, n, d = _window_shape(q)
     dqkv = _empty_dqkv(q)
     dq, dk, dv = _grad_views(dqkv)
     lib = build.load("attention")
     err = lib.mp_attention_packed_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
         dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), KERNEL_DTYPES[q.dtype],
-        b, h, n, d, *_strides(q), *_strides(dout), *_strides(dq),
-        float(scale), q.device.index, _stream(q),
+        b, l, h, n, d, *_window_strides(q), *_window_strides(dout),
+        *_window_strides(dq), float(scale), q.device.index, _stream(q),
     )
     build.check(lib, err, "mp_attention_packed_bwd")
     LAUNCHES["attention_packed_bwd"][q.dtype] += 1
@@ -296,18 +340,37 @@ def packed_launch_shape(dtype, d: int, n: int, backward: bool, windows: int,
 
 
 def split_heads(qkv, num_heads: int):
-    """(B, N, 3*h*d) -> q, k, v as strided (B, h, N, d) views: the kernels
-    read them in place."""
+    """(B, N, 3*h*d) -> q, k, v as strided (B, h, N, d) views; joint-major
+    (B, J, L, 3*h*d) -> q, k, v as strided (B, L, h, J, d) views. The
+    kernels read them in place."""
+    if qkv.dim() == 4:
+        b, j, l, c3 = qkv.shape
+        qkv = qkv.reshape(b, j, l, 3, num_heads, c3 // (3 * num_heads))
+        return [t.permute(0, 2, 3, 1, 4) for t in qkv.unbind(3)]
     b, n, c3 = qkv.shape
     qkv = qkv.reshape(b, n, 3, num_heads, c3 // (3 * num_heads))
     return [t.transpose(1, 2) for t in qkv.unbind(2)]
 
 
 def merge_heads(out) -> torch.Tensor:
-    """(B, h, N, d) -> (B, N, h*d); free for the kernels' (B, N, h, d)
-    outputs."""
+    """(B, h, N, d) -> (B, N, h*d), or joint-major (B, L, h, J, d) ->
+    (B, J, L, h*d); free for the kernels' outputs."""
+    if out.dim() == 5:
+        b, l, h, j, d = out.shape
+        return out.permute(0, 3, 1, 2, 4).reshape(b, j, l, h * d)
     b, h, n, d = out.shape
     return out.transpose(1, 2).reshape(b, n, h * d)
+
+
+def split_out(grad, num_heads: int):
+    """The inverse of :func:`merge_heads`: (B, N, h*d) -> (B, h, N, d), or
+    (B, J, L, h*d) -> (B, L, h, J, d), as views of a contiguous copy."""
+    grad = grad.contiguous()
+    if grad.dim() == 4:
+        b, j, l, c = grad.shape
+        return grad.view(b, j, l, num_heads, c // num_heads).permute(0, 2, 3, 1, 4)
+    b, n, c = grad.shape
+    return grad.view(b, n, num_heads, c // num_heads).transpose(1, 2)
 
 
 class DenseAttention(torch.autograd.Function):
@@ -329,13 +392,14 @@ class DenseAttention(torch.autograd.Function):
     def backward(ctx, grad):
         qkv, out, lse = ctx.saved_tensors
         q, k, v = split_heads(qkv, ctx.num_heads)
-        dout = grad.contiguous().view(out.transpose(1, 2).shape).transpose(1, 2)
+        dout = split_out(grad, ctx.num_heads)
         dqkv = attention_dense_bwd(q, k, v, out, dout, lse, ctx.scale)
         return dqkv.view(qkv.shape), None, None
 
 
 class PackedAttention(torch.autograd.Function):
-    """K3 forward, K4 backward, on the qkv tensor (N <= 32)."""
+    """K3 forward, K4 backward, on the qkv tensor (N <= 32): (B, N, 3*h*d),
+    or joint-major (B, J, L, 3*h*d) with windows over J."""
 
     @staticmethod
     def forward(ctx, qkv, num_heads: int, scale: float):
@@ -348,8 +412,7 @@ class PackedAttention(torch.autograd.Function):
     def backward(ctx, grad):
         (qkv,) = ctx.saved_tensors
         q, k, v = split_heads(qkv, ctx.num_heads)
-        b, h, n, d = q.shape
-        dout = grad.contiguous().view(b, n, h, d).transpose(1, 2)
+        dout = split_out(grad, ctx.num_heads)
         dqkv = attention_packed_bwd(q, k, v, dout, ctx.scale)
         return dqkv.view(qkv.shape), None, None
 
@@ -362,20 +425,24 @@ def padded_head_dim(d: int):
 
 def attention(qkv, num_heads: int, scale: float) -> torch.Tensor:
     """Multi-head attention on the qkv projection: (B, N, 3*h*d) ->
-    (B, N, h*d). N <= 32 (the spatial layout) goes to K3/K4, longer
-    sequences (the temporal layout) to K1/K2. A head dim the kernels are
-    not built for is zero-padded up to the next built one: zero columns of
-    q and k leave q k^T unchanged and zero columns of v give output
-    columns that are sliced away (autograd pads dO and slices dq, dk, dv
-    back); the scale stays the caller's."""
-    b, n, c3 = qkv.shape
-    d = c3 // (3 * num_heads)
+    (B, N, h*d), or joint-major (B, J, L, 3*h*d) -> (B, J, L, h*d) with
+    attention over J (J <= 32, always K3/K4). N <= 32 (the spatial layout)
+    goes to K3/K4, longer sequences (the temporal layout) to K1/K2. A head
+    dim the kernels are not built for is zero-padded up to the next built
+    one: zero columns of q and k leave q k^T unchanged and zero columns of
+    v give output columns that are sliced away (autograd pads dO and
+    slices dq, dk, dv back); the scale stays the caller's."""
+    lead = qkv.shape[:-1]
+    d = qkv.shape[-1] // (3 * num_heads)
     dp = padded_head_dim(d)
     if dp is not None and dp != d:
-        qkv = F.pad(qkv.reshape(b, n, 3, num_heads, d), (0, dp - d))
-        out = attention(qkv.reshape(b, n, 3 * num_heads * dp), num_heads, scale)
-        return out.reshape(b, n, num_heads, dp)[..., :d].reshape(b, n, num_heads * d)
+        qkv = F.pad(qkv.reshape(*lead, 3, num_heads, d), (0, dp - d))
+        out = attention(qkv.reshape(*lead, 3 * num_heads * dp), num_heads, scale)
+        return out.reshape(*lead, num_heads, dp)[..., :d].reshape(*lead, num_heads * d)
     packed = qkv.shape[1] <= PACKED_MAX_N
+    if qkv.dim() == 4 and not packed:
+        raise ValueError(f"joint-major attention takes J <= {PACKED_MAX_N}, got "
+                         f"{qkv.shape[1]}")
     if torch.is_grad_enabled() and qkv.requires_grad:
         fn = PackedAttention if packed else DenseAttention
         return fn.apply(qkv, num_heads, scale)

@@ -50,6 +50,8 @@ WGRAD_MIN_ROWS = 256
 # launches per kernel and operand dtype; reset by ``ops.reset_launch_counts``
 LAUNCHES = {name: dict.fromkeys(KERNEL_DTYPES, 0)
             for name in ("fused_mlp", "fused_mlp_bwd")}
+# launches made by CUDA-graph replays (``ops.record_replay``), likewise
+REPLAYED = {name: dict.fromkeys(KERNEL_DTYPES, 0) for name in LAUNCHES}
 
 
 def mlp_plain(x, w1, b1, w2, b2) -> torch.Tensor:

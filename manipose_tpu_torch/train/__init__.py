@@ -9,7 +9,13 @@ from .optim import (
     make_scheduler,
     optimizer_from_config,
 )
-from .step import TrainState, make_eval_loss_step, make_train_step
+from .step import (
+    MultiTrainStep,
+    TrainState,
+    make_eval_loss_step,
+    make_multi_train_step,
+    make_train_step,
+)
 
 __all__ = [
     "flax_default_init",
@@ -23,7 +29,9 @@ __all__ = [
     "make_optimizer",
     "make_scheduler",
     "optimizer_from_config",
+    "MultiTrainStep",
     "TrainState",
     "make_eval_loss_step",
+    "make_multi_train_step",
     "make_train_step",
 ]

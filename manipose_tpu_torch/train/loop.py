@@ -26,8 +26,15 @@ last step's metrics, ``valid_seconds``, ``mpjpe_seconds``,
 ``checkpoint_seconds`` on the launching thread) and, on the card, the
 epoch's peak device memory (``peak_memory_gb``).
 
+``train.steps_per_call = K > 1`` runs the megastep (``train/step.py``) as
+the JAX loop does (``manipose_tpu/train/loop.py:188-206,268-330``): full
+batches are buffered and every K of them flushed in one call (on the card
+one CUDA-graph replay); a partial batch flushes what is pending and then
+takes a single step, and the leftover of an epoch takes single steps, so
+the data order stays the order of the optimizer's steps.
+
 Not ported: ``parallel.data``, ``parallel.model`` or ``parallel.pipe``
-above 1, and the megastep (``train.steps_per_call > 1``); both raise.
+above 1; they raise.
 """
 
 from __future__ import annotations
@@ -57,7 +64,12 @@ from .checkpoint import (
 from .losses import LossConfig
 from .optim import make_scheduler, optimizer_from_config
 from .profiling import ThroughputMeter, trace
-from .step import TrainState, make_eval_loss_step, make_train_step
+from .step import (
+    TrainState,
+    make_eval_loss_step,
+    make_multi_train_step,
+    make_train_step,
+)
 
 
 @dataclasses.dataclass
@@ -78,10 +90,6 @@ def refuse_unported(cfg) -> None:
                 f"parallel.{axis}={pcfg.get(axis)} (multi-card training) is not "
                 "ported yet; the port trains on one card"
             )
-    if int(cfg.train.get("steps_per_call", 1)) > 1:
-        raise NotImplementedError(
-            "train.steps_per_call > 1 (the megastep) is not ported yet"
-        )
 
 
 def _snapshot(model: nn.Module) -> dict:
@@ -163,6 +171,12 @@ def train(
         rmcl=rmcl,
     )
     train_step = make_train_step(model, loss_cfg, skeleton, state.optimizer)
+    steps_per_call = int(cfg_train.get("steps_per_call", 1))
+    multi_step = None
+    if steps_per_call > 1:
+        multi_step = make_multi_train_step(model, loss_cfg, skeleton, state.optimizer,
+                                           steps_per_call)
+        print(f"==> Megastep: {steps_per_call} optimizer steps per call")
     val_step = make_eval_loss_step(model, loss_cfg, skeleton)
     eval_cfg = EvalConfig(tta=cfg_train.tta, rmcl=rmcl, compute_oracle=rmcl)
     on_card = device.type == "cuda"
@@ -220,16 +234,43 @@ def train(
             train_loader.set_epoch(epoch)
             # --- train epoch ---
             term_sums: dict = {}
+            pending: list = []  # full batches buffered for the megastep
+
+            def record(metrics):
+                for k, v in metrics.items():
+                    term_sums.setdefault(k, []).extend(v.unbind(0) if v.dim() else [v])
+
+            def flush():
+                """The pending batches: one megastep call when there are K,
+                else single steps (the epoch's leftover)."""
+                if not pending:
+                    return
+                meter.step(sum(x.shape[0] for x, _ in pending))
+                if len(pending) == steps_per_call:
+                    record(multi_step(state, torch.stack([x for x, _ in pending]),
+                                      torch.stack([y for _, y in pending]), scheduler.lr))
+                else:
+                    for x2d, x3d in pending:
+                        record(train_step(state, x2d, x3d, scheduler.lr))
+                pending.clear()
+
             for batch in batches(train_loader):
                 n_valid = int(batch.valid.sum())
-                meter.step(n_valid)
                 x2d, x3d, _ = batch.to_device(device)
-                metrics = train_step(
+                if multi_step is not None and n_valid == batch.batch_size:
+                    pending.append((x2d, x3d))
+                    if len(pending) == steps_per_call:
+                        flush()
+                    continue
+                # a partial batch runs after the buffered full ones: the data
+                # order is the optimizer's step order
+                flush()
+                meter.step(n_valid)
+                record(train_step(
                     state, x2d, x3d, scheduler.lr,
                     n_valid if n_valid < batch.batch_size else None,
-                )
-                for k, v in metrics.items():
-                    term_sums.setdefault(k, []).append(v)
+                ))
+            flush()
             terms = _means(term_sums)  # waits for the epoch's last step
             seq_per_sec = meter.seq_per_sec
             t_train = time.perf_counter() - t_epoch

@@ -8,11 +8,17 @@ Port of ``manipose_tpu/train/optim.py``:
   scaled by max / |g| only when |g| >= max, with no epsilon on the norm;
 - ``skip_nonfinite`` follows ``optax.apply_if_finite``: a step whose
   gradients hold a NaN or an infinity leaves the parameters, the Adam
-  moments and Adam's step count untouched;
-- the learning rate is written into the param groups on every step, by
-  schedules that run on the host (stepped once per validation epoch, as
+  moments and Adam's step count untouched. The decision is a select on the
+  device, so no step waits on it and a step can sit inside a CUDA graph;
+  the count of skipped steps is a device tensor, read when asked for;
+- the learning rate is written into the param groups before every step,
+  by schedules that run on the host (stepped once per validation epoch, as
   in the reference); a group may carry a fixed multiplier of it (muP,
-  ``train/mup.py``).
+  ``train/mup.py``). On the card Adam runs with ``capturable=True`` and
+  each group's learning rate is a 0-dim device tensor filled before the
+  step (:meth:`Optimizer.set_lr`), so that a captured step reads the rate
+  of its replay, not the one it was captured with; on the CPU it stays a
+  float.
 """
 
 from __future__ import annotations
@@ -25,11 +31,9 @@ import torch
 
 class Optimizer:
     """torch-semantics Adam with a per-step learning rate, global-norm
-    clipping and the non-finite-step guard of the JAX package.
-
-    ``skip_nonfinite`` reads one flag back from the device per step (the
-    decision to skip is taken on the host); the other paths never wait on
-    the device.
+    clipping and the non-finite-step guard of the JAX package. No path
+    waits on the device: :meth:`set_lr` (host) and :meth:`apply` (device
+    work only, capturable) make one :meth:`step`.
     """
 
     def __init__(self, params: Iterable[torch.nn.Parameter],
@@ -53,7 +57,50 @@ class Optimizer:
             lr=0.0, betas=(0.9, 0.999), eps=1e-8, weight_decay=weight_decay)
         self.grad_clip = grad_clip
         self.skip_nonfinite = skip_nonfinite
-        self.notfinite_count = 0  # steps skipped so far
+        self._notfinite = torch.zeros((), dtype=torch.int64)  # steps skipped
+
+    @property
+    def notfinite_count(self) -> int:
+        """Steps skipped so far (waits for the device)."""
+        return int(self._notfinite)
+
+    @notfinite_count.setter
+    def notfinite_count(self, value: int) -> None:
+        self._notfinite = torch.tensor(int(value), dtype=torch.int64,
+                                       device=self._notfinite.device)
+
+    def _place(self) -> torch.device:
+        """Follow the parameters' device: on the card Adam is capturable, its
+        step counts and the learning rates are device tensors; on the CPU
+        they are a CPU tensor and floats."""
+        device = self.params[0].device
+        cuda = device.type == "cuda"
+        for group in self.adam.param_groups:
+            if group["capturable"] != cuda:
+                group["capturable"] = cuda
+                for p in group["params"]:
+                    st = self.adam.state.get(p)
+                    if st and "step" in st:
+                        st["step"] = st["step"].to(device if cuda else "cpu")
+            lr = group["lr"]
+            if cuda and not (torch.is_tensor(lr) and lr.device == device):
+                group["lr"] = torch.tensor(float(lr), dtype=torch.float32, device=device)
+            elif not cuda and torch.is_tensor(lr):
+                group["lr"] = float(lr)
+        if self._notfinite.device != device:
+            self._notfinite = self._notfinite.to(device)
+        return device
+
+    def set_lr(self, lr: float) -> None:
+        """Each group's learning rate for the next steps: ``lr`` times the
+        group's scale (a fill of its device tensor on the card)."""
+        self._place()
+        for group in self.adam.param_groups:
+            value = lr * group["lr_scale"]
+            if torch.is_tensor(group["lr"]):
+                group["lr"].fill_(value)
+            else:
+                group["lr"] = value
 
     def zero_grad(self) -> None:
         self.adam.zero_grad(set_to_none=True)
@@ -69,21 +116,52 @@ class Optimizer:
         for g in grads:
             g.copy_(torch.where(keep, g, g / norm.to(g.dtype) * self.grad_clip))
 
-    def step(self, lr: float) -> bool:
-        """Apply the accumulated gradients at learning rate ``lr``.
-        Returns False when ``skip_nonfinite`` skipped the step."""
+    def _adam_tensors(self):
+        """Each parameter's Adam state as it stands: (exp_avg, exp_avg_sq,
+        step), None before its first step."""
+        out = []
+        for p in self.params:
+            st = self.adam.state.get(p)
+            out.append(tuple(st[k] for k in ("exp_avg", "exp_avg_sq", "step"))
+                       if st else None)
+        return out
+
+    def apply(self):
+        """Apply the accumulated gradients at the rate :meth:`set_lr` set:
+        device work only. Returns True, or under ``skip_nonfinite`` a 0-dim
+        bool device tensor, False where the step was skipped: then the
+        parameters, Adam's moments and its step count are put back (a
+        select on the device) and the skipped count goes up by one."""
+        self._place()
         grads = self._grads()
+        finite = None
         if self.skip_nonfinite:
             finite = torch.stack([torch.isfinite(g).all() for g in grads]).all()
-            if not bool(finite):
-                self.notfinite_count += 1
-                return False
+            saved = [p.detach().clone() for p in self.params]
+            saved_state = [None if t is None else tuple(x.clone() for x in t)
+                           for t in self._adam_tensors()]
         if self.grad_clip > 0.0:
             self.clip(grads)
-        for group in self.adam.param_groups:
-            group["lr"] = lr * group["lr_scale"]
         self.adam.step()
-        return True
+        if finite is None:
+            return True
+        with torch.no_grad():
+            for p, old, new, old_state in zip(self.params, saved,
+                                              self._adam_tensors(), saved_state):
+                p.copy_(torch.where(finite, p, old))
+                if new is None:
+                    continue
+                for t, o in zip(new, old_state or (None,) * 3):
+                    t.copy_(torch.where(finite, t, torch.zeros_like(t) if o is None else o))
+            self._notfinite.add_((~finite).to(torch.int64))
+        return finite
+
+    def step(self, lr: float):
+        """Apply the accumulated gradients at learning rate ``lr``
+        (:meth:`set_lr`, then :meth:`apply`); returns what :meth:`apply`
+        returns."""
+        self.set_lr(lr)
+        return self.apply()
 
 
 def make_optimizer(params: Iterable[torch.nn.Parameter],

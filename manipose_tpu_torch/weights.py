@@ -6,7 +6,10 @@ kernels (in, out) become torch weights (out, in), and the K stacked MCL
 heads are split per head; the int8 layers of a ``quantize_params`` tree
 (``kernel_q`` (in, out) int8 and ``scale``) become ``weight_q`` (out, in)
 and ``scale``. ``load_torch_checkpoint`` reads a reference ``.pth`` file.
-Either result loads with ``load_state_dict(strict=True)``.
+``toy_state_dict_from_jax`` does the same for the toy models
+(``manipose_tpu/toy``): their params and ``batch_stats`` become the port's
+parameters and BatchNorm buffers (``toy/models.py``). Each result loads
+with ``load_state_dict(strict=True)``.
 """
 
 from __future__ import annotations
@@ -113,6 +116,47 @@ def state_dict_from_jax(variables: Dict, arch: str) -> Dict[str, torch.Tensor]:
     else:
         raise ValueError(f"unknown arch: {arch}")
     sd.update(_segments(params["segments_module"], "segments_module."))
+    return sd
+
+
+def _toy_name(key: str) -> str:
+    """A flax toy module name -> the port's: ``fc_in_dense`` -> ``fc_in.dense``,
+    ``fcs_0_bn`` -> ``fcs.0.bn``; others unchanged."""
+    m = re.fullmatch(r"(fc_in|fcs_(\d+))_(dense|bn)", key)
+    if m is None:
+        return key
+    block = "fc_in" if m.group(2) is None else f"fcs.{m.group(2)}"
+    return f"{block}.{m.group(3)}"
+
+
+def toy_state_dict_from_jax(variables: Dict) -> Dict[str, torch.Tensor]:
+    """A toy model's flax variables (``{"params": ..., "batch_stats": ...}``,
+    numpy leaves) -> the port's state dict: Dense kernels (in, out) become
+    weights (out, in), BatchNorm ``scale``/``bias`` and ``mean``/``var``
+    its weight, bias and running statistics (``num_batches_tracked`` 0,
+    which flax does not keep), the stacked rMCL heads' (H, C, D) kernel
+    stays as it is."""
+    sd: Dict[str, torch.Tensor] = OrderedDict()
+
+    def walk(params, stats, prefix):
+        for key, sub in params.items():
+            name = prefix + _toy_name(key)
+            if "scale" in sub:  # BatchNorm
+                sd[f"{name}.weight"] = _t(sub["scale"])
+                sd[f"{name}.bias"] = _t(sub["bias"])
+                sd[f"{name}.running_mean"] = _t(stats[key]["mean"])
+                sd[f"{name}.running_var"] = _t(stats[key]["var"])
+                sd[f"{name}.num_batches_tracked"] = torch.tensor(0)
+            elif "kernel" in sub and np.ndim(sub["kernel"]) == 2:  # Dense
+                sd[f"{name}.weight"] = _t(sub["kernel"]).T.contiguous()
+                sd[f"{name}.bias"] = _t(sub["bias"])
+            elif "kernel" in sub:  # the stacked heads
+                sd[f"{name}.kernel"] = _t(sub["kernel"])
+                sd[f"{name}.bias"] = _t(sub["bias"])
+            else:
+                walk(sub, stats.get(key, {}), name + ".")
+
+    walk(variables["params"], variables.get("batch_stats", {}), "")
     return sd
 
 

@@ -12,7 +12,10 @@ kernel's launches counted on bf16 operands), the flagship model's
 bf16 forward on one window, K3-K6 at the 3DHP model's shapes (L = 27,
 batch 25), the 3DHP test protocol and a streaming session on the card
 against the CPU, the int8 predictor on the card against the CPU, an
-exported program on the card, and a data-parallel predictor on one card.
+exported program on the card, a data-parallel predictor on one card, K3/K4
+on the joint-major layout's strided windows, a joint-major model against
+the fold layout, the megastep's CUDA graph against single steps (with and
+without remat), and a remat step against the plain one.
 Marked ``cuda``; without a CUDA device every test skips. Run them on the
 card with ``python -m pytest tests/test_torch_port_cuda.py -q
 --noconftest``: tests/conftest.py sets up JAX for the rest of the suite,
@@ -1045,3 +1048,180 @@ def test_data_parallel_on_one_card_equals_plain(gen):
     for g, w in zip(dp.predict_video(video, return_hypotheses=True),
                     plain.predict_video(video, return_hypotheses=True)):
         np.testing.assert_array_equal(g, w)
+
+
+# ---- trunk variants: joint-major K3/K4, the megastep as a graph, remat ------
+
+def _jm_qkv(gen, b, j, l, h, d, dtype):
+    """The joint-major qkv projection (b, j, l, 3*h*d) and its q, k, v as
+    (b, l, h, j, d) views: rows (joints) a frame's qkv row apart."""
+    qkv = torch.randn((b, j, l, 3 * h * d), generator=gen, device="cuda").to(dtype)
+    return qkv, split_heads(qkv, h)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b,j,l,h,d", [(2, 17, 27, 8, 64), (3, 16, 9, 8, 16),
+                                       (1, 5, 33, 2, 8), (2, 32, 4, 3, 32)])
+def test_joint_major_packed_kernels_match_plain(gen, b, j, l, h, d, dtype):
+    """K3/K4 on the strided joint-major views against their plain versions:
+    K3 writes the (B, J, L, h, d) output in place, K4 the (B, J, L, 3, h, d)
+    gradient of the qkv tensor; no copy of q, k or v is made."""
+    qkv, (q, k, v) = _jm_qkv(gen, b, j, l, h, d, dtype)
+    assert q.stride() == (j * l * 3 * h * d, 3 * h * d, d, l * 3 * h * d, 1)
+    scale = d**-0.5
+    out = attention_packed(q, k, v, scale)
+    assert out.shape == (b, l, h, j, d) and out.permute(0, 3, 1, 2, 4).is_contiguous()
+    assert _max_err(out, attention_plain(q, k, v, scale)) <= TOL[dtype][0]
+    dout = torch.randn((b, j, l, h, d), generator=gen,
+                       device="cuda").to(dtype).permute(0, 2, 3, 1, 4)
+    got = attention_packed_bwd(q, k, v, dout, scale)
+    assert got.shape == (b, j, l, 3, h, d) and got.is_contiguous()
+    want = torch.stack([g.permute(0, 3, 1, 2, 4) for g in
+                        attention_plain_bwd(q, k, v, dout, scale)], dim=3)
+    assert _max_err(got, want) <= _grad_tol(want, dtype, relative=False)
+    # the differentiable entry on the qkv tensor, against autograd of plain
+    x = qkv.detach().float().clone().requires_grad_(True)
+    ref = merge_heads(attention_plain(*split_heads(x, h), scale))
+    g = torch.randn(ref.shape, generator=gen, device="cuda")
+    (ref * g).sum().backward()
+    y = qkv.detach().clone().requires_grad_(True)
+    ops.reset_launch_counts()
+    out2 = attention(y, h, scale)
+    (out2.float() * g).sum().backward()
+    assert ops.launch_counts()["attention_packed"] == 1
+    assert ops.launch_counts()["attention_packed_bwd"] == 1
+    assert _max_err(out2, ref) <= TOL[dtype][0]
+    assert _max_err(y.grad, x.grad) <= _grad_tol(x.grad, dtype, relative=False)
+
+
+def test_joint_major_model_on_card_matches_fold(gen):
+    """A small rMCL model in the joint-major layout on the card against the
+    fold layout on the same weights: the eval forward, then a train step
+    with drop-path on from one generator seed (the same masks), gradients
+    within the JAX package's fp32 limits; K3/K4 on every spatial layer."""
+    skeleton = h36m_skeleton_17()
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.normal(size=(2, 243, 17, 2)).astype(np.float32)).cuda()
+    y = torch.from_numpy(0.1 * rng.normal(size=(2, 243, 17, 3)).astype(np.float32)).cuda()
+    runs = {}
+    for layout in ("fold", "joint_major"):
+        cfg = load_config("config", OVERRIDES + [f"model.layout={layout}"])
+        model, _ = instantiate_model(cfg, skeleton)
+        opt = make_optimizer(model.parameters(), weight_decay=1e-6)
+        state = TrainState.create(model, opt, seed=3, device="cuda")
+        model.eval()
+        with torch.no_grad():
+            fwd = model(x)
+        ops.reset_launch_counts()
+        metrics = make_train_step(model, LossConfig(), skeleton, opt)(state, x, y, 4e-5)
+        assert ops.launch_counts() == {**PER_FORWARD, **PER_BACKWARD}
+        runs[layout] = (fwd, metrics, {n: p.detach().clone() for n, p in
+                                       model.named_parameters()})
+    (f_fwd, f_m, f_w), (j_fwd, j_m, j_w) = runs["fold"], runs["joint_major"]
+    for a, b in zip(j_fwd, f_fwd):
+        assert _max_err(a, b) <= 5e-5 * max(1.0, b.abs().max().item())
+    for k, v in f_m.items():
+        assert abs(j_m[k].item() - v.item()) <= 5e-5 * max(1.0, abs(v.item())), k
+    b1, b2 = 0.9, 0.999
+    envelope = 2 * 4e-5 * (1 - b1) / (1 - b2) ** 0.5
+    for n, w in f_w.items():
+        assert _max_err(j_w[n], w) <= envelope, n
+
+
+def _small_trainer(cfg, weights=None):
+    skeleton = h36m_skeleton_17()
+    model, _ = instantiate_model(cfg, skeleton)
+    if weights is not None:
+        model.load_state_dict(weights)
+    opt = make_optimizer(model.parameters(), weight_decay=1e-6)
+    state = TrainState.create(model, opt, seed=5, device="cuda")
+    return skeleton, model, opt, state
+
+
+@pytest.mark.parametrize("remat", [False, True])
+def test_megastep_graph_matches_single_steps(gen, remat):
+    """The megastep on the card is one CUDA graph of K steps, captured once
+    and replayed: its weights after one call against K single steps from the
+    same state (drop-path on) within 2 K lr (1 - b1) / sqrt(1 - b2), its
+    losses within 1e-4 relative, the generator left where K steps leave it,
+    new masks at every replay, and its launches its capture's times its
+    replays."""
+    from manipose_tpu_torch.train import make_multi_train_step
+
+    k_steps, lr = 3, 4e-5
+    cfg = load_config("config", OVERRIDES + ["model.drop_path_rate=0.3",
+                                             f"model.remat={str(remat).lower()}"])
+    rng = np.random.default_rng(2)
+    xs = torch.from_numpy(rng.normal(size=(k_steps, 2, 243, 17, 2)).astype(np.float32))
+    ys = torch.from_numpy(0.1 * rng.normal(size=(k_steps, 2, 243, 17, 3)).astype(np.float32))
+    skeleton, model, opt, state = _small_trainer(cfg)
+    init = {n: v.detach().cpu().clone() for n, v in model.state_dict().items()}
+    single = make_train_step(model, LossConfig(), skeleton, opt)
+    want = [single(state, xs[i], ys[i], lr) for i in range(k_steps)]
+    want_w = {n: p.detach().clone() for n, p in model.named_parameters()}
+    want_gen = state.generator.get_state()
+
+    _, model2, opt2, state2 = _small_trainer(cfg, init)
+    multi = make_multi_train_step(model2, LossConfig(), skeleton, opt2, k_steps)
+    ops.reset_launch_counts()
+    got = multi(state2, xs, ys, lr)
+    assert multi.captures == 1 and multi.replays == 1 and state2.step == k_steps
+    # the wrappers counted one eager warm-up step, then the K captured steps
+    (graph,) = multi.graphs.values()
+    captured = {n: sum(by_dtype.values()) for n, by_dtype in graph.launches.items()}
+    per_step = {**{n: c * (2 if remat else 1) for n, c in PER_FORWARD.items()},
+                **PER_BACKWARD}
+    assert captured == {n: k_steps * c for n, c in per_step.items()}
+    assert ops.launch_counts() == {n: (k_steps + 1) * c for n, c in per_step.items()}
+    assert ops.replayed_counts() == captured and ops.GRAPH_REPLAYS["replays"] == 1
+    assert torch.equal(state2.generator.get_state(), want_gen)
+    for key, v in got.items():
+        assert v.shape == (k_steps,)
+        for i in range(k_steps):
+            ref = want[i][key].item()
+            assert abs(v[i].item() - ref) <= 1e-4 * max(1.0, abs(ref)), (key, i)
+    envelope = 2 * k_steps * lr * (1 - 0.9) / (1 - 0.999) ** 0.5
+    for n, p in model2.named_parameters():
+        assert _max_err(p, want_w[n]) <= envelope, n
+    # a second replay: new masks, so new losses on the same batches
+    again = multi(state2, xs, ys, lr)
+    assert multi.captures == 1 and multi.replays == 2
+    assert ops.GRAPH_REPLAYS["replays"] == 2
+    assert ops.replayed_counts() == {n: 2 * c for n, c in captured.items()}
+    assert not torch.equal(again["loss"], got["loss"])
+    # a new batch shape captures anew
+    multi(state2, xs[:, :1], ys[:, :1], lr)
+    assert multi.captures == 2
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_remat_step_on_card_matches_plain(gen, dtype):
+    """A remat train step (model.remat=true) on the card against the plain
+    step from the same weights and generator state (drop-path on): the loss
+    and every gradient within the gradient limit (fp32 5e-4, bf16 0.05, of
+    max(1, |g|max)), and the generator left in the same state."""
+    from manipose_tpu_torch.train.losses import compute_loss
+
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy(rng.normal(size=(2, 243, 17, 2)).astype(np.float32)).cuda()
+    y = torch.from_numpy(0.1 * rng.normal(size=(2, 243, 17, 3)).astype(np.float32)).cuda()
+    results, weights = [], None
+    for remat in ("false", "true"):
+        cfg = load_config("config", OVERRIDES + ["model.drop_path_rate=0.3",
+                                                 f"model.dtype={dtype}",
+                                                 f"model.remat={remat}"])
+        skeleton, model, opt, state = _small_trainer(cfg, weights)
+        weights = {n: v.detach().cpu().clone() for n, v in model.state_dict().items()}
+        model.train()
+        opt.zero_grad()
+        total, _ = compute_loss(model(x), y, LossConfig(), skeleton)
+        total.backward()
+        results.append((total.item(), {n: p.grad.clone() for n, p in
+                                       model.named_parameters()},
+                        state.generator.get_state()))
+    (l0, g0, s0), (l1, g1, s1) = results
+    tol = 5e-4 if dtype == "float32" else 0.05
+    assert torch.equal(s0, s1)
+    assert abs(l1 - l0) <= 5e-5 * max(1.0, abs(l0))
+    for n, g in g0.items():
+        assert _max_err(g1[n], g) <= tol * max(1.0, g.abs().max().item()), n

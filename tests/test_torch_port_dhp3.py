@@ -376,13 +376,17 @@ def test_protocol_returns_the_predictions_it_scored(runs, archives, tmp_path):
     np.testing.assert_array_equal(preds, np.concatenate(agg, axis=0))
 
 
-def test_driver_refuses_what_it_does_not_run(archives):
+def test_driver_refuses_what_it_does_not_run(archives, tmp_path):
+    """What the port does not carry raises; the megastep
+    (train.steps_per_call=2) runs."""
     with pytest.raises(NotImplementedError, match="pipe"):
         driver.main(load_config("config", OVERRIDES + [
             f"data.data_dir={archives}", "device=cpu", "parallel.pipe=2"]))
-    with pytest.raises(NotImplementedError, match="megastep"):
-        driver.main(load_config("config", OVERRIDES + [
-            f"data.data_dir={archives}", "device=cpu", "train.steps_per_call=2"]))
+    best = driver.main(load_config("config", OVERRIDES + [
+        f"data.data_dir={archives}", "device=cpu", "train.steps_per_call=2",
+        "train.epochs=1", f"run.output_dir={tmp_path}"]))
+    assert np.isfinite(best)
+    assert np.isfinite(np.load(tmp_path / "default" / "train_loss.npy")).all()
     with pytest.raises(ValueError, match="mpi_inf_3dhp"):
         driver.main(load_config("config", ["device=cpu"]))
 

@@ -453,7 +453,7 @@ def test_eval_only_driver_runs_on_the_cpu(h36m_dir, tmp_path, monkeypatch):
     assert head[:2] == ["act", "mpjpe"] and [r[0] for r in rows] == ["walking", "average"]
     assert np.isfinite(np.asarray([r[1:] for r in rows], float)).all()
     for extra in ("run.viz=true", "parallel.pipe=2", "run.mlflow_on=true",
-                  "train.steps_per_call=2", "parallel.data=2"):
+                  "parallel.data=2"):
         with pytest.raises(NotImplementedError):
             main(load_config("config", base + [extra]))
     with pytest.raises(FileNotFoundError):  # eval-only restore of a missing tag

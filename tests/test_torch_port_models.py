@@ -146,9 +146,20 @@ def test_factory_init_is_seeded():
 @pytest.mark.parametrize("override", ["model.attn_impl=ring",
                                       "model.layout=joint_major"])
 def test_factory_refuses_unported_settings(override):
+    """Ring attention is not ported; joint-major is, and the factory refuses
+    only what the JAX package refuses with it: a fold-layout spatial kernel
+    (attn_impl=pallas)."""
     cfg = load_config("config", OVERRIDES + [override])
-    with pytest.raises(NotImplementedError):
-        instantiate_model(cfg, t_skeleton())
+    if override == "model.attn_impl=ring":
+        with pytest.raises(NotImplementedError):
+            instantiate_model(cfg, t_skeleton())
+        return
+    model, _ = instantiate_model(cfg, t_skeleton())
+    assert model.rotations_module.cfg.layout == "joint_major"
+    assert model.segments_module.cfg.layout == "joint_major"
+    with pytest.raises(ValueError, match="joint_major"):
+        instantiate_model(load_config("config", OVERRIDES + [
+            override, "model.attn_impl=pallas"]), t_skeleton())
 
 
 @pytest.mark.parametrize("arch", ["mixste", "manifold", "rmcl_manifold"])

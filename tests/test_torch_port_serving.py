@@ -141,8 +141,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     """Every module of the port, the eval slice's data, metrics, eval,
     logging and driver modules, the training slice's loop, checkpoint,
     init, muP and profiling modules, the 3DHP slice's data, driver,
-    streaming and tools modules and the serving slice's quant module and
-    tools among them, and chip_smoke.py, import
+    streaming and tools modules, the serving slice's quant module and
+    tools and the toy experiments' modules among them, and chip_smoke.py, import
     without loading jax, flax, optax, orbax or manipose_tpu (matched
     exactly: the port shares the prefix)."""
     code = """
@@ -158,7 +158,9 @@ walked = {"data.cameras", "data.h36m", "data.h36m_cameras", "data.native",
           "data.chunked", "data.dhp3", "data.graph_utils", "drivers.dhp3", "streaming",
           "tools.synthetic_overfit", "tools.make_synthetic_3dhp",
           "tools.make_synthetic_h36m", "tools.streaming_eval", "ops.quant",
-          "tools.serve", "tools.predict", "tools.export_model"}
+          "tools.serve", "tools.predict", "tools.export_model", "toy.distributions",
+          "toy.datasets", "toy.metrics", "toy.models", "toy.diffusion", "toy.trainer",
+          "toy.main"}
 missing = sorted(m for m in walked if "manipose_tpu_torch." + m not in sys.modules)
 bad = sorted(m for m in sys.modules
              if m in ("jax", "flax", "optax", "orbax", "manipose_tpu")
