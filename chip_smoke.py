@@ -200,6 +200,35 @@ package. Phases, each fatal on failure:
               with the plain MLP and the hard-2 diffusion baseline, their
               config groups cut to TOY_EPOCHS epochs: finite losses and
               metrics, printed side by side with each run's wall time.
+40. rank probes - whether two ranks can share the one card: two
+              processes of this script on cuda:0 over nccl, then over gloo
+              with CUDA tensors, each trying parallel/'s all-reduce,
+              all-gather and P2P hop; what each backend did is printed (no
+              staging through host memory is added to make one work).
+41. ring    - ``parallel.ring_attention`` at the flagship's temporal shape
+              (272 x 8 heads x 243 x 64), fp32 and bf16, over a world-1
+              nccl group: forward and dQ/dK/dV against the plain dense
+              attention (TOL, GRAD_TOL), its ms beside K1's and K2's.
+42. sharded steps - on that group, the pipelined flagship
+              (``make_pipelined_apply``, M = 4) and the flagship under each
+              ``shard_params`` mode (tp, dp, fsdp_dp, fsdp): one bf16 train
+              step (B = 16, drop-path off) each against the plain step from
+              the same weights (losses, gradients gathered into the
+              single-device layout), K1-K6 launched inside on bf16
+              operands, sequences/s beside phase 9's and peak memory.
+43. figures - ``toy.paper_figures.train_figure_models`` (hard-2) on the
+              card and on the CPU by phase 39's rules, then Figures 4 and 8
+              where matplotlib imports (else reported as not drawn).
+
+What one card cannot show (collectives between cards, scaling over
+cards, the pipeline's bubble) is not measured here. On a machine with N
+cards ``python3 chip_smoke.py --ranks N`` builds the kernels, then runs N
+ranks under torchrun over nccl, one card each: phase 41's ring on a ring
+of N; phase 42's step under every layout (dp and fsdp_dp on N x 1; tp,
+fsdp, ring and the pipeline on N/2 x 2 and 1 x N) against the plain
+step, fp32 within the limits, bf16 finite and timed; and the H36M
+training driver under dp x N and tp, fsdp, the pipeline and ring on
+N/2 x 2, with its checkpoints, serving and resume (``rank_worker``).
 
 The last lines are the card's name and power limit (as nvidia-smi prints
 them), one JSON object ``{"kernels": [...]}``, and
@@ -2865,6 +2894,605 @@ def phase_toy(out_dir: Path) -> dict:
     return seconds
 
 
+# ---- parallel/ on one card (phases 40-43) ----------------------------------
+
+# the ranks of phase 40's probes, each a process of this script
+RANK_PROBE_TIMEOUT_S = 120
+# phase 42: the flagship's microbatches (configs/config.yaml parallel.microbatches)
+PIPE_MICROBATCHES = 4
+SHARD_MODES = ("tp", "dp", "fsdp_dp", "fsdp")
+# phase 42's loss terms against the plain step, relative (the pipeline's
+# microbatches and the sharded reductions sum in other orders)
+SHARDED_LOSS_TOL = 1e-4
+# phase 43: the figure models' epochs on each device (the JAX default is 50)
+FIGURE_EPOCHS = 5
+
+
+def rank_probe(backend: str, rank: int, port: int, out: Path) -> int:
+    """One of two ranks on the one card (cuda:0): which collectives of the
+    port's ``parallel/`` run on CUDA tensors over ``backend``. Writes
+    {op: "ok" | the error} to ``out``."""
+    import torch.distributed as dist
+
+    results = {}
+    try:
+        torch.cuda.set_device(0)
+        dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{port}",
+                                world_size=2, rank=rank)
+    except Exception as exc:  # noqa: BLE001 - the finding is the failure
+        results["init"] = f"{type(exc).__name__}: {str(exc).splitlines()[0][:300]}"
+        out.write_text(json.dumps(results))
+        return 0
+    results["init"] = "ok"
+    x = torch.full((4,), float(rank + 1), device="cuda")
+
+    def all_reduce():
+        t = x.clone()
+        dist.all_reduce(t)
+        return torch.equal(t.cpu(), torch.full((4,), 3.0))
+
+    def all_gather():
+        parts = [torch.empty_like(x) for _ in range(2)]
+        dist.all_gather(parts, x)
+        return torch.equal(torch.cat(parts).cpu(), torch.tensor([1.0] * 4 + [2.0] * 4))
+
+    def send_recv():  # the ring's and the pipeline's hop (parallel/comm.py)
+        got = torch.empty_like(x)
+        reqs = dist.batch_isend_irecv([dist.P2POp(dist.isend, x, 1 - rank),
+                                       dist.P2POp(dist.irecv, got, 1 - rank)])
+        for req in reqs:
+            req.wait()
+        return torch.equal(got.cpu(), torch.full((4,), float(2 - rank)))
+
+    for name, fn in (("all_reduce", all_reduce), ("all_gather", all_gather),
+                     ("send_recv", send_recv)):
+        try:
+            results[name] = "ok" if fn() else "wrong result"
+        except Exception as exc:  # noqa: BLE001 - the finding is the failure
+            results[name] = f"{type(exc).__name__}: {str(exc).splitlines()[0][:300]}"
+    torch.cuda.synchronize()
+    out.write_text(json.dumps(results))
+    dist.destroy_process_group()
+    return 0
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def phase_rank_probes(scratch: Path) -> dict:
+    """Whether two ranks can share the one card: two processes of this
+    script on cuda:0 over nccl and two over gloo with CUDA tensors (the
+    pairs at once, on ports of their own), each trying the port's collectives (all-reduce, all-gather, the P2P hop).
+    Nothing stages through host memory here; a backend that refuses, or
+    hangs past RANK_PROBE_TIMEOUT_S, is the finding. Returns {backend:
+    {op: outcome}} (rank 0's, or "timeout")."""
+    scratch.mkdir(parents=True, exist_ok=True)
+    runs, ports = {}, set()  # both backends' pairs start together
+    for backend in ("nccl", "gloo"):
+        port = free_port()
+        while port in ports:
+            port = free_port()
+        ports.add(port)
+        outs = [scratch / f"{backend}_{r}.json" for r in range(2)]
+        runs[backend] = (outs, [subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--rank-probe", backend, str(r),
+             str(port), str(outs[r])],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for r in range(2)])
+    findings = {}
+    for backend, (outs, procs) in runs.items():
+        timed_out = False
+        for p in procs:
+            try:
+                p.communicate(timeout=RANK_PROBE_TIMEOUT_S)
+            except subprocess.TimeoutExpired:
+                timed_out = True
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+        found = json.loads(outs[0].read_text()) if outs[0].exists() else {}
+        if timed_out:
+            found["timeout"] = f"a rank was still running after {RANK_PROBE_TIMEOUT_S} s"
+        findings[backend] = found
+        print(f"ranks on one card, {backend}, two processes on cuda:0: "
+              + json.dumps(found), flush=True)
+    return findings
+
+
+def carries_ring(found: dict) -> bool:
+    return all(found.get(op) == "ok" for op in ("init", "all_reduce", "all_gather",
+                                                "send_recv"))
+
+
+def dense_attention(q, k, v, scale):
+    """The plain attention the ring is held against: fp32 from the inputs'
+    values, the result in their dtype."""
+    q32, k32, v32 = (t.float() for t in (q, k, v))
+    p = torch.softmax(torch.einsum("bhnd,bhmd->bhnm", q32, k32) * scale, dim=-1)
+    return torch.einsum("bhnm,bhmd->bhnd", p, v32).to(q.dtype)
+
+
+def phase_ring(mesh, cases=None) -> dict:
+    """Ring attention (``parallel.ring_attention``) at the flagship's
+    temporal shape (B*J = 16*17 windows x 8 heads x 243 frames x d 64), fp32
+    and bf16, over the nccl group's ``model`` axis (a ring of 1 in the main
+    run, of every rank under ``--ranks``): forward and dQ/dK/dV against the
+    plain dense attention (TOL and GRAD_TOL of the attention kernels), then
+    the ring's forward and forward+backward ms, beside K1's and K2's at
+    that shape (phase 2's ``cases``) where given. Returns {dtype: ms}."""
+    from manipose_tpu_torch.parallel import ring_attention
+    from manipose_tpu_torch.parallel.mesh import axis_size
+
+    ring_size = axis_size(mesh, "model")
+    b, h, n, d = TRAIN_BATCH * 17, 8, 243, 64
+    scale = d ** -0.5
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    times = {}
+    for dtype in ("float32", "bfloat16"):
+        dt = DTYPES[dtype]
+        q, k, v, dout = (torch.randn(b, h, n, d, device="cuda", generator=gen).to(dt)
+                         for _ in range(4))
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        out = ring_attention(*leaves, scale, mesh, "model", "data")
+        out.backward(dout)
+        ref_leaves = [t.float().clone().requires_grad_() for t in (q, k, v)]
+        ref = dense_attention(*ref_leaves, scale)
+        ref.backward(dout.float())
+        err = (out.float() - ref).abs().max().item()
+        tol = TOL[("attention", dt)]
+        require(err <= tol, f"ring {dtype} forward: {err} > {tol}")
+        grad_errs = {}
+        for name, got, want in zip(("dq", "dk", "dv"), leaves, ref_leaves):
+            g, w = got.grad.float(), want.grad
+            limit = GRAD_TOL[dt] * max(1.0, w.abs().max().item())
+            grad_errs[name] = (g - w).abs().max().item()
+            require(grad_errs[name] <= limit,
+                    f"ring {dtype} {name}: {grad_errs[name]} > {limit}")
+
+        def forward():
+            with torch.no_grad():
+                ring_attention(q, k, v, scale, mesh, "model", "data")
+
+        def train():
+            ring_attention(*leaves, scale, mesh, "model", "data").backward(dout)
+
+        fwd_ms, train_ms = time_ms(forward, reps=5), time_ms(train, reps=5)
+        times[dtype] = {"forward_ms": fwd_ms, "forward_backward_ms": train_ms}
+        beside = ""
+        if cases is not None:
+            head = {name: next(c for c in cases[name] if c["dtype"] == dtype
+                               and c["trunk"] == "rotations")
+                    for name in ("attention_dense", "attention_dense_bwd")}
+            times[dtype].update(k1_ms=head["attention_dense"]["ms"],
+                                k2_ms=head["attention_dense_bwd"]["ms"])
+            beside = (f"; K1 {head['attention_dense']['ms']:.4f} ms, K2 "
+                      f"{head['attention_dense_bwd']['ms']:.4f} ms at "
+                      f"{head['attention_dense']['shape']}")
+        print(f"ring attention {dtype} ({b}x{h}x{n}x{d}, ring of {ring_size} over nccl): "
+              f"forward err {err:.3g} (tol {tol}), grad errs "
+              + ", ".join(f"{k} {v:.3g}" for k, v in grad_errs.items())
+              + f"; forward {fwd_ms:.3f} ms, forward+backward {train_ms:.3f} ms" + beside,
+              flush=True)
+        del leaves, ref_leaves, out, ref
+    torch.cuda.empty_cache()
+    return times
+
+
+def sharded_trainer(cfg, weights, net_of, mesh=None):
+    """A flagship trainer on the card whose model is ``net_of(model)``
+    (sharded or pipelined), from ``weights`` (None: the seeded init);
+    ``mesh``: the run's mesh, which ring attention needs."""
+    from manipose_tpu_torch.drivers import instantiate_model
+    from manipose_tpu_torch.geometry import h36m_skeleton_17
+    from manipose_tpu_torch.parallel.mesh import GradSync, layout_of
+    from manipose_tpu_torch.train import (
+        LossConfig,
+        TrainState,
+        make_train_step,
+        optimizer_from_config,
+    )
+
+    skeleton = h36m_skeleton_17()
+    model, _ = instantiate_model(cfg, skeleton, mesh=mesh)
+    if weights is not None:
+        model.load_state_dict(weights, strict=True)
+    net = net_of(model.cuda())
+    opt = optimizer_from_config(net, cfg)
+    if layout_of(net) is not None:
+        opt.sharding = GradSync(net, opt.params)
+    state = TrainState.create(net, opt, seed=cfg.run.seed, device="cuda")
+    t = cfg.train
+    loss_cfg = LossConfig(sq_loss=t.sq_loss, w_loss=t.w_loss, vel_loss=t.vel_loss,
+                          smooth_reg=t.smooth_reg, rmcl_score_reg=t.rmcl_score_reg,
+                          rigid_seg_reg=t.rigid_seg_reg, rmcl=True)
+    return state, make_train_step(net, loss_cfg, skeleton, opt)
+
+
+def sharded_legs(world: int, pipe_mesh=None, mesh=None) -> list:
+    """[(label, mesh, net_of, config overrides)]: at world 1 the pipelined
+    flagship (M = PIPE_MICROBATCHES) on ``pipe_mesh`` and each
+    ``shard_params`` mode on ``mesh``; at world N (``--ranks``) dp and
+    fsdp_dp on (N, 1), then tp, fsdp, ring (``model.attn_impl=ring``, mode
+    dp) and the pipeline (mode dp) on (N/2, 2) and (1, N) meshes, built
+    here."""
+    from manipose_tpu_torch.parallel import make_mesh, shard_params
+    from manipose_tpu_torch.parallel.flagship import make_pipelined_apply, pick_microbatches
+
+    def pipelined(pmesh, n_data):
+        m = pick_microbatches(TRAIN_BATCH, n_data, PIPE_MICROBATCHES)
+        return lambda model: shard_params(make_pipelined_apply(
+            model, pmesh, data_axis="data", microbatches=m), pmesh, "dp")
+
+    def sharded(smesh, mode):
+        return lambda model: shard_params(model, smesh, mode)
+
+    if world == 1:
+        return ([("pipeline", pipe_mesh, pipelined(pipe_mesh, 1), [])]
+                + [(mode, mesh, sharded(mesh, mode), []) for mode in SHARD_MODES])
+    wide = make_mesh(world, 1)
+    legs = [("dp", wide, sharded(wide, "dp"), []),
+            ("fsdp_dp", wide, sharded(wide, "fsdp_dp"), [])]
+    for width in sorted({2, world}):
+        n_data = world // width
+        smesh, pmesh = make_mesh(n_data, width), make_mesh(n_data, pipe=width)
+        legs += [(f"tp{width}", smesh, sharded(smesh, "tp"), []),
+                 (f"fsdp{width}", smesh, sharded(smesh, "fsdp"), []),
+                 (f"ring{width}", smesh, sharded(smesh, "dp"),
+                  ["model.attn_impl=ring", f"parallel.data={n_data}",
+                   f"parallel.model={width}"]),
+                 (f"pipeline{width}", pmesh, pipelined(pmesh, n_data), [])]
+    return legs
+
+
+def run_sharded_legs(legs, dtype: str, plain_seq_s, strict: bool = True,
+                     per_step=None) -> dict:
+    """One train step of the flagship (B = TRAIN_BATCH, drop-path off) under
+    each leg of ``sharded_legs``, from the plain step's weights, each rank on
+    its rows: the loss terms (averaged over ``data``) against the plain
+    step's within SHARDED_LOSS_TOL relative and every gradient, gathered
+    into the single-device layout, within GRAD_TOL of max(1, |g|max); with
+    ``strict`` False (bf16 on a split batch: another split is another
+    rounding) only finite. The launches of that step: ``per_step[label]``
+    on ``dtype`` operands, or without ``per_step`` every kernel launched
+    (K1/K2 not under ring, whose temporal attention is the ring). Then sequences/s of 5 steps (the whole
+    batch) and rank 0's peak memory. Returns {label: launch counts}."""
+    import torch.distributed as dist
+
+    from manipose_tpu_torch import ops
+    from manipose_tpu_torch.config import load_config
+    from manipose_tpu_torch.parallel import shard_batch
+    from manipose_tpu_torch.parallel.mesh import axis_size, full_grads, mesh_shape
+
+    base = [f"model.dtype={dtype}", "model.drop_path_rate=0.0"]
+    x, y = (t.cuda() for t in flagship_batch(243, TRAIN_BATCH))
+    state, step = sharded_trainer(load_config("config", base), None, lambda m: m)
+    weights = {k: v.detach().clone() for k, v in state.model.state_dict().items()}
+    plain = {k: float(v) for k, v in step(state, x, y, TRAIN_LR).items()}
+    plain_grads = {n: p.grad.detach().float().clone()
+                   for n, p in state.model.named_parameters()}
+    if plain_seq_s is None:
+        plain_seq_s = timed_steps(step, state, x, y, 5)
+    del state, step
+    counts = {}
+    for label, mesh, net_of, extra in legs:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        before = torch.cuda.memory_allocated()
+        cfg = load_config("config", base + extra)
+        state, step = sharded_trainer(cfg, weights, net_of, mesh)
+        xs, ys = shard_batch((x, y), mesh)
+        n_data = axis_size(mesh, "data")
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        terms = step(state, xs, ys, TRAIN_LR)
+        torch.cuda.synchronize()
+        names = sorted(terms)
+        mean = torch.stack([terms[k].detach().float() for k in names])
+        if n_data > 1:
+            dist.all_reduce(mean, group=mesh.get_group("data"))
+        got = dict(zip(names, (mean / n_data).tolist()))
+        if per_step is not None:
+            counts[label] = require_counts(dtype, per_step[label],
+                                           f"{label} {dtype} train step")
+        else:
+            counts[label] = ops.launch_counts()
+            ring = "attn_impl=ring" in " ".join(extra)
+            for name in LAUNCHES_PER_TRAIN_STEP:
+                if not (ring and name.startswith("attention_dense")):
+                    require(counts[label][name] > 0, f"{label} {dtype}: {name} launched")
+        grads = full_grads(state.model)
+        require(set(grads) == set(plain_grads), f"{label}: gradients of other parameters")
+        worst = max(((grads[n].float() - g).abs().max().item()
+                     / max(1.0, g.abs().max().item()), n) for n, g in plain_grads.items())
+        loss_err = max(abs(got[k] - want) / max(1.0, abs(want)) for k, want in plain.items())
+        finite = (all(np.isfinite(v) for v in got.values())
+                  and all(bool(torch.isfinite(g).all()) for g in grads.values()))
+        require(finite, f"{label} {dtype}: loss or gradients not finite")
+        tol = GRAD_TOL[DTYPES[dtype]]
+        if strict:
+            require(loss_err <= SHARDED_LOSS_TOL,
+                    f"{label} {dtype} loss: {got} vs {plain}")
+            require(worst[0] <= tol, f"{label} {dtype} gradient {worst[1]}: {worst[0]} > {tol}")
+        peak = (torch.cuda.max_memory_allocated() - before) / 1e9
+        seq_s = timed_steps(step, state, xs, ys, 5) * n_data
+        print(f"{label} {dtype} train step (B={TRAIN_BATCH}, mesh {mesh_shape(mesh)} over "
+              f"nccl): loss {got['loss']:.6f} vs plain {plain['loss']:.6f} (largest relative "
+              f"term error {loss_err:.3g}{'' if strict else ', held to finiteness only'}); "
+              f"worst gradient err / max(1, |g|max) {worst[0]:.3g} at {worst[1]} "
+              f"({'tol ' + str(tol) if strict else 'not held'}); {seq_s:.2f} sequences/s vs "
+              f"plain {plain_seq_s:.2f} on one rank; peak {peak:.2f} GB on rank 0", flush=True)
+        del state, step, grads
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_sharded_steps(mesh, pipe_mesh, plain_seq_s: float) -> dict:
+    """The pipelined flagship (``make_pipelined_apply``, M =
+    PIPE_MICROBATCHES) and the flagship under each ``shard_params`` mode, on
+    the world-1 nccl group: one bf16 train step each against the plain step
+    (``run_sharded_legs``, strict), K1-K6 launched inside on bf16 operands
+    (the pipeline's trunk once a microbatch), sequences/s beside phase 9's
+    plain step. Returns {path: launch counts}."""
+    m = PIPE_MICROBATCHES
+    per_step = {mode: LAUNCHES_PER_TRAIN_STEP for mode in SHARD_MODES}
+    per_step["pipeline"] = {
+        "attention_dense": 8 * m + 2, "attention_packed": 8 * m + 2, "fused_mlp": 16 * m + 4,
+        "attention_dense_bwd": 8 * m + 2, "attention_packed_bwd": 8 * m + 2,
+        "fused_mlp_bwd": 16 * m + 4}
+    return run_sharded_legs(sharded_legs(1, pipe_mesh, mesh), "bfloat16", plain_seq_s,
+                            per_step=per_step)
+
+
+def phase_figures(out_dir: Path) -> None:
+    """``toy.paper_figures.train_figure_models`` (hard-2, FIGURE_EPOCHS
+    epochs) on the card and on the CPU from the same seed, by phase 39's
+    rules: finite losses and predictions on both, printed side by side with
+    their gap and wall times. Then Figures 4 and 8 where matplotlib
+    imports; where it does not, the figures are reported as not drawn (the
+    training above still ran)."""
+    from manipose_tpu_torch.toy import paper_figures
+    from manipose_tpu_torch.toy.distributions import HardBimodalDist
+
+    runs = {}
+    for device in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        _, _, preds, hyps, trainers = paper_figures.train_figure_models(
+            HardBimodalDist(radius=1.0, random_state=0), seed=0, epochs=FIGURE_EPOCHS,
+            device=device)
+        runs[device] = (time.perf_counter() - t0, preds, hyps, trainers)
+        for name, p in preds.items():
+            losses = trainers[name].loss_list
+            require(bool(np.isfinite(p).all()) and bool(np.isfinite(losses).all()),
+                    f"figure model {name} on {device}: not finite")
+    gaps = {name: float(np.abs(runs["cuda"][1][name] - p).max())
+            for name, p in runs["cpu"][1].items()}
+    print(f"figure models (hard-2, {FIGURE_EPOCHS} epochs): card {runs['cuda'][0]:.2f} s, "
+          f"cpu {runs['cpu'][0]:.2f} s; final losses card "
+          + ", ".join(f"{n} {t.loss_list[-1]:.5f}" for n, t in runs["cuda"][3].items())
+          + "; cpu " + ", ".join(f"{n} {t.loss_list[-1]:.5f}" for n, t in runs["cpu"][3].items())
+          + "; prediction gap card-cpu " + ", ".join(f"{n} {g:.3g}" for n, g in gaps.items()),
+          flush=True)
+    try:
+        import matplotlib  # noqa: F401
+    except ImportError:
+        print("figures: matplotlib is not installed here; Figures 4 and 8 not drawn "
+              "(the figure models trained on the card above)", flush=True)
+        return
+    out_dir.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    paths = [paper_figures.figure4(out_dir / "figure4.png", epochs=FIGURE_EPOCHS,
+                                   device="cuda"),
+             paper_figures.figure8(out_dir / "figure8.png")]
+    for path in paths:
+        require(Path(path).read_bytes()[:8] == b"\x89PNG\r\n\x1a\n", f"{path} is no PNG")
+    print(f"figures: {', '.join(Path(p).name for p in paths)} drawn in "
+          f"{time.perf_counter() - t0:.2f} s (figure 4's six models trained on the card)",
+          flush=True)
+
+
+def phases_parallel(cases, plain_seq_s: float) -> dict:
+    """Phases 40-43. Returns {path: launch counts} of phase 42."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from manipose_tpu_torch.parallel import make_mesh
+
+    scratch = ROOT / "build" / "chip_smoke_parallel"
+    shutil.rmtree(scratch, ignore_errors=True)
+    try:
+        t0 = time.perf_counter()
+        findings = phase_rank_probes(scratch / "probes")
+        gloo_ring = carries_ring(findings.get("gloo", {}))
+        print(f"rank probes phase: {time.perf_counter() - t0:.1f} s; two ranks on the one "
+              f"card: nccl {'runs' if carries_ring(findings['nccl']) else 'refused'}, gloo "
+              f"with CUDA tensors {'carries' if gloo_ring else 'does not carry'} the "
+              "collectives and the hop of parallel/", flush=True)
+        dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}",
+                                world_size=1, rank=0)
+        try:
+            mesh = make_mesh(1, 1)
+            pipe_mesh = init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "pipe"))
+            t0 = time.perf_counter()
+            ring = phase_ring(mesh, cases)
+            print(f"ring phase: {time.perf_counter() - t0:.1f} s", flush=True)
+            t0 = time.perf_counter()
+            counts = phase_sharded_steps(mesh, pipe_mesh, plain_seq_s)
+            print(f"sharded steps phase: {time.perf_counter() - t0:.1f} s", flush=True)
+        finally:
+            dist.destroy_process_group()
+        t0 = time.perf_counter()
+        phase_figures(scratch / "figures")
+        print(f"figures phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    finally:
+        shutil.rmtree(scratch, ignore_errors=True)
+    print("parallel " + json.dumps({"rank_probes": findings, "ring_ms": ring}), flush=True)
+    return counts
+
+
+# ---- parallel/ across cards (``--ranks N``) ---------------------------------
+
+
+def phase_rank_drivers(world: int, scratch: Path) -> dict:
+    """The H36M training driver (``drivers.h36m.main``, bf16, the phases'
+    npz files) on the whole world of ranks under each layout: data
+    parallel over all of them; tp, fsdp, the GPipe trunk and ring
+    attention on (N/2, 2). Each trains DRIVER_EPOCHS epochs and runs the
+    test protocol, with every kernel launched (K1/K2 not under ring); its
+    best validation MPJPE is finite; rank 0 alone wrote the run, whose
+    tags hold the single-device model's keys and shapes and serve through
+    ``Predictor.from_any``; then the run is relaunched with
+    run.auto_resume=true and one more epoch, which resumes from the saved
+    train state and trains that one epoch. Returns {layout: launch
+    counts}."""
+    import torch.distributed as dist
+
+    from manipose_tpu_torch import ops
+    from manipose_tpu_torch.drivers import h36m, instantiate_model
+    from manipose_tpu_torch.geometry import h36m_skeleton_17
+    from manipose_tpu_torch.parallel import is_primary
+    from manipose_tpu_torch.serving import Predictor
+    from manipose_tpu_torch.utils.logging import MetricLogger
+    from manipose_tpu_torch.weights import load_torch_checkpoint
+
+    half = [f"parallel.data={world // 2}"]
+    layouts = {"dp": [f"parallel.data={world}"],
+               "tp": half + ["parallel.model=2"],
+               "fsdp": half + ["parallel.model=2", "parallel.mode=fsdp"],
+               "pipeline": half + ["parallel.pipe=2"],
+               "ring": half + ["model.attn_impl=ring", "parallel.model=2"]}
+    if is_primary():
+        scratch.mkdir(parents=True, exist_ok=True)
+        write_h36m(scratch, train_config("bfloat16", scratch).run.seed)
+    dist.barrier()
+    plain_cfg = train_config("bfloat16", scratch)
+    want = {k: tuple(v.shape) for k, v in
+            instantiate_model(plain_cfg, h36m_skeleton_17())[0].state_dict().items()}
+    counts = {}
+    for label, extra in layouts.items():
+        common = [f"run.experiment=ranks_{label}", f"train.batch_size_test={TRAIN_BATCH}",
+                  *extra]
+        cfg = train_config("bfloat16", scratch, common)
+        logger = MetricLogger()
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        best = h36m.main(cfg, logger=logger)
+        torch.cuda.synchronize()
+        main_s = time.perf_counter() - t0
+        counts[label] = ops.launch_counts()
+        for name in KERNELS:
+            if not (label == "ring" and name.startswith("attention_dense")):
+                require(counts[label][name] > 0, f"driver {label}: {name} launched")
+        require(best is not None and bool(np.isfinite(best)), f"driver {label}: best {best}")
+        epochs = epoch_rows(logger)
+        print_epochs(f"driver {label} ({world} ranks)", epochs)
+        dist.barrier()
+        out = run_dir(cfg)
+        if is_primary():
+            for tag in RUN_TAGS:
+                got = {k: tuple(v.shape)
+                       for k, v in load_torch_checkpoint(out / tag / "model.pth").items()}
+                require(got == want, f"driver {label}: tag {tag} is not the single-device "
+                                     "layout")
+            require(not list(out.parent.glob("manipose-rank-*")), "a rank's files left")
+            pred = Predictor.from_any(str(out), tag="best_mpjpe", cfg=plain_cfg,
+                                      batch_size=1, tta=True)
+            pose_2d, _ = eval_windows(plain_cfg)
+            poses = pred.predict_video(pose_2d[:plain_cfg.data.seq_len])
+            require(bool(np.isfinite(poses).all()), f"driver {label}: served poses")
+            del pred
+        resumed = MetricLogger()
+        h36m.main(train_config("bfloat16", scratch, common + [
+            f"train.epochs={DRIVER_EPOCHS + 1}", "run.auto_resume=true", "run.test=false"]),
+            logger=resumed)
+        steps = [r["step"] for r in epoch_rows(resumed)]
+        require(steps == [DRIVER_EPOCHS], f"driver {label}: resumed epochs {steps}")
+        print(f"driver {label} ({world} ranks, mesh of {' '.join(extra)}): main {main_s:.1f} "
+              f"s, best validation MPJPE {best:.4f} mm, tags in the single-device layout, "
+              f"served; resumed at epoch {steps[0]}; launches {counts[label]}", flush=True)
+        dist.barrier()
+        torch.cuda.empty_cache()
+    return counts
+
+
+def rank_worker() -> int:
+    """One rank of ``--ranks N`` (under torchrun, nccl, one card a rank):
+    ring attention on a ring of every rank (phase 41's checks), each
+    layout's flagship train step against the plain step (fp32 strict, bf16
+    finite and timed), and the training driver under each layout."""
+    import os
+
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT))
+    from manipose_tpu_torch.parallel import initialize_multihost, is_primary, make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    initialize_multihost(auto=True, backend="nccl")
+    world, primary = dist.get_world_size(), is_primary()
+    quiet = None
+    if not primary:
+        quiet = sys.stdout = open(os.devnull, "w")
+    scratch = ROOT / "build" / "chip_smoke_ranks"
+    try:
+        t0 = time.perf_counter()
+        ring = phase_ring(make_mesh(1, world))
+        print(f"ring phase ({world} ranks): {time.perf_counter() - t0:.1f} s", flush=True)
+        legs = {}
+        for dtype, strict in (("float32", True), ("bfloat16", False)):
+            t0 = time.perf_counter()
+            legs[dtype] = run_sharded_legs(sharded_legs(world), dtype, None, strict=strict)
+            print(f"sharded steps {dtype} ({world} ranks): {time.perf_counter() - t0:.1f} s",
+                  flush=True)
+        t0 = time.perf_counter()
+        drivers = phase_rank_drivers(world, scratch)
+        print(f"drivers phase ({world} ranks): {time.perf_counter() - t0:.1f} s", flush=True)
+        dist.barrier()
+    finally:
+        if primary:
+            shutil.rmtree(scratch, ignore_errors=True)
+        dist.destroy_process_group()
+        if quiet is not None:
+            sys.stdout = sys.__stdout__
+            quiet.close()
+    if primary:
+        print("ranks " + json.dumps({"world": world, "ring_ms": ring, "legs": legs,
+                                     "drivers": drivers}), flush=True)
+    return 0
+
+
+def main_ranks(n: int) -> int:
+    """``--ranks N``: build every kernel here, then run ``rank_worker`` on N
+    cards under torchrun (``python -m torch.distributed.run``)."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    if torch.cuda.device_count() < n:
+        print(f"chip_smoke: --ranks {n} needs {n} cards, this machine has "
+              f"{torch.cuda.device_count()}", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT))
+    from manipose_tpu_torch.ops import build
+
+    print(cmd_output(["nvidia-smi", "--query-gpu=name,power.limit",
+                      "--format=csv,noheader"]), flush=True)
+    t0 = time.perf_counter()
+    build.build_all()
+    print(f"build: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    rc = subprocess.call([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                          f"--nproc-per-node={n}", str(Path(__file__).resolve()),
+                          "--rank-worker"])
+    print(f"--ranks {n}: exit {rc} after {time.perf_counter() - t0:.1f} s", flush=True)
+    return rc
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3080,6 +3708,12 @@ def main() -> int:
     finally:
         shutil.rmtree(scratch, ignore_errors=True)
 
+    # parallel/ on the one card: phases 40-43
+    t0 = time.perf_counter()
+    parallel_counts = phases_parallel(cases, seq_s16)
+    print(f"parallel phases: {time.perf_counter() - t0:.1f} s; "
+          f"total {time.perf_counter() - t_start:.1f} s", flush=True)
+
     kernels = []
     for name, meta in KERNELS.items():
         # this slice's main path is the bf16 training driver, which runs all
@@ -3103,7 +3737,8 @@ def main() -> int:
                    "train_step_joint_major_bf16": jm_train_counts["bfloat16"],
                    "train_step_remat": remat_counts["float32"],
                    "train_step_remat_bf16": remat_counts["bfloat16"],
-                   **{f"megastep_{k}_replayed": v[4] for k, v in megastep.items()}}
+                   **{f"megastep_{k}_replayed": v[4] for k, v in megastep.items()},
+                   **{f"train_step_{k}_bf16": v for k, v in parallel_counts.items()}}
         variants = [dict(name=f"{name}_strided", layout="joint_major", route="cuda",
                          source=meta["source"], replaces=meta["replaces"],
                          launches=jm_train_counts["bfloat16"][name],
@@ -3154,4 +3789,11 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--rank-probe"]:  # one rank of phase 40
+        backend, rank, port, out = sys.argv[2:6]
+        sys.exit(rank_probe(backend, int(rank), int(port), Path(out)))
+    if sys.argv[1:2] == ["--rank-worker"]:  # one rank of --ranks N
+        sys.exit(rank_worker())
+    if sys.argv[1:2] == ["--ranks"]:
+        sys.exit(main_ranks(int(sys.argv[2])))
     sys.exit(main())

@@ -12,6 +12,8 @@ weights on every machine.
 parameters are fp32 under both, so the init and the weight maps do not
 depend on it. ``model.layout`` (``fold`` or ``joint_major``) is read as
 the JAX package reads it (``manipose_tpu/drivers/common.py:38``).
+``model.attn_impl=ring`` builds both trunks with ring temporal attention
+over the run's (data, model) mesh, which the caller passes (``ring_spec``).
 ``model.remat=true`` (absent from ``configs/config.yaml``: false) builds
 both trunks with ``remat``, which the JAX package sets in its model
 configs only; it changes memory and time, not the math.
@@ -19,6 +21,8 @@ configs only; it changes memory and time, not the math.
 
 from __future__ import annotations
 
+import contextlib
+import tempfile
 from pathlib import Path
 from typing import Sequence
 
@@ -49,23 +53,36 @@ def compute_dtype(m: Config) -> torch.dtype:
     return _DTYPES[name]
 
 
-def _check_supported(m: Config) -> None:
-    """The JAX kernel knobs attn_impl / mlp_impl choose nothing in the port
-    (on the card every attention and MLP runs the port's kernels); attn_impl
-    is still read by the joint-major refusal, as in the JAX package."""
-    if m.get("attn_impl", "xla") == "ring":
-        raise NotImplementedError(
-            "model.attn_impl=ring (sequence-parallel attention) is not "
-            "ported yet"
-        )
+def ring_spec(cfg: Config, mesh=None):
+    """The ``RingSpec`` of ``model.attn_impl=ring`` on ``mesh``, else None.
+    The frame axis splits over the mesh's ``model`` axis (so the parameters
+    are not tensor-parallel there: ``train/loop.py`` switches the mode to
+    dp), and that needs ``parallel.model > 1``
+    (``manipose_tpu/drivers/common.py:40-55``) and the run's (data, model)
+    mesh (``parallel.mesh.mesh_from_config``). The other JAX kernel knobs
+    (attn_impl, mlp_impl) choose nothing in the port: on the card every
+    other attention and MLP runs the port's kernels; attn_impl is still
+    read by the joint-major refusal, as in the JAX package."""
+    if cfg.model.get("attn_impl", "xla") != "ring":
+        return None
+    from ..parallel import RingSpec
+
+    if int((cfg.get("parallel") or {}).get("model", 1)) <= 1:
+        raise ValueError("model.attn_impl=ring shards the sequence over the 'model' "
+                         "mesh axis; set parallel.model > 1")
+    if mesh is None or "model" not in mesh.mesh_dim_names:
+        raise ValueError("model.attn_impl=ring needs the run's (data, model) mesh: pass "
+                         "mesh=parallel.mesh.mesh_from_config(cfg)")
+    return RingSpec(mesh=mesh, axis="model", batch_axis="data")
 
 
-def instantiate_model(cfg: Config, skeleton: Skeleton, quant: bool = False):
+def instantiate_model(cfg: Config, skeleton: Skeleton, quant: bool = False, mesh=None):
     """Model factory. Returns (module on the CPU, is_rmcl). ``quant=True``
     builds the int8 serving variant (``ops/quant.py``), whose quantized
-    layers hold zeros until a quantized state dict is loaded."""
+    layers hold zeros until a quantized state dict is loaded. ``mesh``: the
+    run's mesh, which ``model.attn_impl=ring`` needs."""
     m = cfg.model
-    _check_supported(m)
+    ring = ring_spec(cfg, mesh)
     dtype = compute_dtype(m)
     layout = m.get("layout", "fold")
     attn_impl = m.get("attn_impl", "xla")
@@ -87,6 +104,7 @@ def instantiate_model(cfg: Config, skeleton: Skeleton, quant: bool = False):
                 layout=layout,
                 remat=remat,
                 attn_impl=attn_impl,
+                ring=ring,
             )
         )
         rmcl = False
@@ -111,6 +129,7 @@ def instantiate_model(cfg: Config, skeleton: Skeleton, quant: bool = False):
             layout=layout,
             remat=remat,
             attn_impl=attn_impl,
+            ring=ring,
         )
         if m.arch == "manifold":
             model, rmcl = ManifoldMixSTE(manifold_cfg, skeleton), False
@@ -198,3 +217,17 @@ def create_loader(
         shuffle=train,
         seed=cfg.run.seed,
     )
+
+
+@contextlib.contextmanager
+def rank_output_dir(output_dir: Path):
+    """``output_dir`` on the primary rank; on every other rank of a process
+    group a temporary directory, removed afterwards: each rank runs the test
+    protocol (its collectives need them all) and one writes its files."""
+    from ..parallel.multihost import is_primary
+
+    if is_primary():
+        yield output_dir
+        return
+    with tempfile.TemporaryDirectory(prefix="manipose-rank-") as tmp:
+        yield Path(tmp)

@@ -16,8 +16,11 @@ Run it as ``python -m manipose_tpu_torch.drivers.dhp3 data.data_dir=<dir>``
 ``run.auto_resume=true`` to pick up a preempted run,
 ``run.train=false run.checkpoint_model=<.pth>`` or
 ``run.checkpoint_params=<run dir>/<tag>`` to test weights); the overrides
-are those of ``scripts/main_3dhp.py``. ``parallel.pipe > 1`` raises, and so
-do the training settings ``train/loop.py`` does not carry.
+are those of ``scripts/main_3dhp.py``. ``parallel.data``,
+``parallel.model``, ``parallel.pipe`` (the GPipe trunk) and
+``model.attn_impl=ring`` run under ``torchrun --nproc-per-node N`` (N =
+data x model x pipe; add ``device=cpu`` for gloo CPU ranks): every rank
+trains and runs the protocol, the primary rank writes the run's files.
 """
 
 from __future__ import annotations
@@ -45,11 +48,18 @@ from ..metrics import (
     segments_time_consistency,
     segments_time_consistency_per_bone,
 )
-from ..train.loop import refuse_unported as refuse_unported_training
+from ..parallel.flagship import maybe_pipelined_apply
+from ..parallel.mesh import mesh_from_config
+from ..parallel.multihost import is_primary
 from ..train.loop import train as train_loop
 from ..utils.logging import MetricLogger, save_csv_log
 from ..weights import load_torch_checkpoint
-from .common import init_model_params, instantiate_model, maybe_restore_eval_params
+from .common import (
+    init_model_params,
+    instantiate_model,
+    maybe_restore_eval_params,
+    rank_output_dir,
+)
 
 PCK_THRESHOLD_MM = 150.0
 
@@ -185,13 +195,6 @@ def run_test_protocol(
     return metrics
 
 
-def _refuse_unported(cfg: Config) -> None:
-    if int((cfg.get("parallel") or {}).get("pipe", 1)) > 1:
-        raise NotImplementedError(
-            "parallel.pipe > 1 (pipeline parallelism) is not ported yet")
-    refuse_unported_training(cfg)
-
-
 def main(cfg: Config, logger: Optional[MetricLogger] = None) -> Optional[float]:
     """The driver: the 3DHP archives, the model (``run.checkpoint_model``,
     the seeded init, or with ``run.train=false`` a tag of a port run through
@@ -201,10 +204,11 @@ def main(cfg: Config, logger: Optional[MetricLogger] = None) -> Optional[float]:
     run, or None when nothing was trained."""
     if cfg.data.dataset != "3dhp":
         raise ValueError("use the data=mpi_inf_3dhp group for the 3DHP driver")
-    _refuse_unported(cfg)
     device = resolve_device(cfg.get("device", "cuda"))
-    print("==> Using settings:")
-    print(cfg.to_yaml())
+    mesh = mesh_from_config(cfg, device)  # the run's one mesh, or None
+    if is_primary():
+        print("==> Using settings:")
+        print(cfg.to_yaml())
     output_dir = Path(cfg.run.output_dir) / cfg.run.experiment
     output_dir.mkdir(parents=True, exist_ok=True)
 
@@ -212,29 +216,33 @@ def main(cfg: Config, logger: Optional[MetricLogger] = None) -> Optional[float]:
     dataset_test = Dataset3DHP(cfg.data.data_dir, train=False) if cfg.run.test else None
     skeleton = (dataset_test or dataset_train).skeleton
 
-    model, rmcl = instantiate_model(cfg, skeleton)
+    model, rmcl = instantiate_model(cfg, skeleton, mesh=mesh)
     if cfg.run.checkpoint_model:
         model.load_state_dict(load_torch_checkpoint(cfg.run.checkpoint_model), strict=True)
     else:
         model = maybe_restore_eval_params(init_model_params(model, cfg), cfg)
     model.to(device)
+    # parallel.pipe > 1: the GPipe-staged trunk, for training and the protocol
+    net = maybe_pipelined_apply(model, cfg, mesh)
 
     logger = logger or MetricLogger(mlflow_on=cfg.run.mlflow_on)
     best_valid_mpjpe = None
-    if cfg.run.train:
-        train_loader = create_loader(dataset_train, cfg, train=True)
-        valid_loader = create_loader(
-            dataset_test if dataset_test is not None
-            else Dataset3DHP(cfg.data.data_dir, train=False),
-            cfg, train=False,
-        )
-        result = train_loop(model, cfg, skeleton, train_loader, valid_loader, output_dir,
-                            rmcl=rmcl, logger=logger, device=device)
-        best_valid_mpjpe = result.best_mpjpe  # the model holds the best weights
-        logger.save_csv(output_dir)
+    with rank_output_dir(output_dir) as out_dir:
+        if cfg.run.train:
+            train_loader = create_loader(dataset_train, cfg, train=True)
+            valid_loader = create_loader(
+                dataset_test if dataset_test is not None
+                else Dataset3DHP(cfg.data.data_dir, train=False),
+                cfg, train=False,
+            )
+            result = train_loop(net, cfg, skeleton, train_loader, valid_loader,
+                                output_dir, rmcl=rmcl, logger=logger, device=device,
+                                mesh=mesh)
+            best_valid_mpjpe = result.best_mpjpe  # the model holds the best weights
+            logger.save_csv(out_dir)
 
-    if cfg.run.test:
-        run_test_protocol(model, cfg, dataset_test, rmcl, output_dir, logger=logger)
+        if cfg.run.test:
+            run_test_protocol(net, cfg, dataset_test, rmcl, out_dir, logger=logger)
     return best_valid_mpjpe
 
 

@@ -13,9 +13,12 @@ Run it as ``python -m manipose_tpu_torch.drivers.h36m data.data_dir=<dir>``
 (add ``device=cpu`` to run on the CPU, ``run.auto_resume=true`` to pick up
 a preempted run, ``run.train=false run.checkpoint_model=<.pth>`` or
 ``run.checkpoint_params=<run dir>/<tag>`` to test weights); the overrides
-are those of ``scripts/main_h36m.py``. ``run.viz=true`` and
-``parallel.pipe > 1`` raise, and so do the training settings
-``train/loop.py`` does not carry.
+are those of ``scripts/main_h36m.py``. ``run.viz=true`` raises.
+``parallel.data``, ``parallel.model``, ``parallel.pipe`` (the GPipe trunk,
+``parallel.maybe_pipelined_apply``) and ``model.attn_impl=ring`` run under
+``torchrun --nproc-per-node N`` (N = data x model x pipe; add
+``device=cpu`` for gloo CPU ranks): every rank trains and runs the
+protocol, the primary rank writes the run's files.
 
 As in the JAX package, the test subjects default to S11 alone
 (``run.test_subjects``), as the reference tests.
@@ -51,7 +54,9 @@ from ..metrics import (
     segments_time_consistency,
     segments_time_consistency_per_bone,
 )
-from ..train.loop import refuse_unported as refuse_unported_training
+from ..parallel.flagship import maybe_pipelined_apply
+from ..parallel.mesh import mesh_from_config
+from ..parallel.multihost import is_primary
 from ..train.loop import train as train_loop
 from ..utils.logging import MetricLogger, save_csv_log
 from ..weights import load_torch_checkpoint
@@ -61,6 +66,7 @@ from .common import (
     init_model_params,
     instantiate_model,
     maybe_restore_eval_params,
+    rank_output_dir,
 )
 
 ALL_TEST_ACTIONS = [
@@ -268,15 +274,8 @@ def run_test_protocol(
 
 
 def _refuse_unported(cfg: Config) -> None:
-    unported = {
-        "run.viz=true (rendering)": cfg.run.viz,
-        "parallel.pipe > 1 (pipeline parallelism)":
-            int((cfg.get("parallel") or {}).get("pipe", 1)) > 1,
-    }
-    for what, asked in unported.items():
-        if asked:
-            raise NotImplementedError(f"{what} is not ported yet")
-    refuse_unported_training(cfg)
+    if cfg.run.viz:
+        raise NotImplementedError("run.viz=true (rendering) is not ported yet")
 
 
 def main(cfg: Config, logger: Optional[MetricLogger] = None) -> Optional[float]:
@@ -288,8 +287,10 @@ def main(cfg: Config, logger: Optional[MetricLogger] = None) -> Optional[float]:
     run, or None when nothing was trained."""
     _refuse_unported(cfg)
     device = resolve_device(cfg.get("device", "cuda"))
-    print("==> Using settings:")
-    print(cfg.to_yaml())
+    mesh = mesh_from_config(cfg, device)  # the run's one mesh, or None
+    if is_primary():
+        print("==> Using settings:")
+        print(cfg.to_yaml())
 
     output_dir = Path(cfg.run.output_dir) / cfg.run.experiment
     output_dir.mkdir(parents=True, exist_ok=True)
@@ -298,32 +299,36 @@ def main(cfg: Config, logger: Optional[MetricLogger] = None) -> Optional[float]:
     subjects_split, actions = get_subjects_and_actions(dataset, cfg)
     subjects_train, subjects_val, subjects_test = subjects_split
 
-    model, rmcl = instantiate_model(cfg, dataset.skeleton)
+    model, rmcl = instantiate_model(cfg, dataset.skeleton, mesh=mesh)
     if cfg.run.checkpoint_model:
         model.load_state_dict(load_torch_checkpoint(cfg.run.checkpoint_model), strict=True)
     else:
         model = maybe_restore_eval_params(init_model_params(model, cfg), cfg)
     model.to(device)
+    # parallel.pipe > 1: the GPipe-staged trunk, for training and the protocol
+    net = maybe_pipelined_apply(model, cfg, mesh)
 
     logger = logger or MetricLogger(mlflow_on=cfg.run.mlflow_on)
     best_valid_mpjpe = None
-    if cfg.run.train:
-        train_loader = create_loader(
-            keypoints, dataset, actions, subjects_train, cfg, train=True
-        )
-        valid_loader = create_loader(
-            keypoints, dataset, actions,
-            subjects_val if cfg.data.use_valid else subjects_test,
-            cfg, train=False,
-        )
-        result = train_loop(model, cfg, dataset.skeleton, train_loader, valid_loader,
-                            output_dir, rmcl=rmcl, logger=logger, device=device)
-        best_valid_mpjpe = result.best_mpjpe  # the model holds the best weights
-        logger.save_csv(output_dir)
+    with rank_output_dir(output_dir) as out_dir:
+        if cfg.run.train:
+            train_loader = create_loader(
+                keypoints, dataset, actions, subjects_train, cfg, train=True
+            )
+            valid_loader = create_loader(
+                keypoints, dataset, actions,
+                subjects_val if cfg.data.use_valid else subjects_test,
+                cfg, train=False,
+            )
+            result = train_loop(net, cfg, dataset.skeleton, train_loader, valid_loader,
+                                output_dir, rmcl=rmcl, logger=logger, device=device,
+                                mesh=mesh)
+            best_valid_mpjpe = result.best_mpjpe  # the model holds the best weights
+            logger.save_csv(out_dir)
 
-    if cfg.run.test:
-        run_test_protocol(model, cfg, dataset, keypoints, rmcl, output_dir,
-                          actions=actions, logger=logger)
+        if cfg.run.test:
+            run_test_protocol(net, cfg, dataset, keypoints, rmcl, out_dir,
+                              actions=actions, logger=logger)
     return best_valid_mpjpe
 
 

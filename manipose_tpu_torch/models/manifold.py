@@ -47,7 +47,8 @@ class ManifoldConfig:
     quant: bool = False  # int8 serving in both trunks
     layout: str = "fold"  # both trunks' residual-stream layout (MixSTEConfig)
     remat: bool = False  # recompute both trunks' blocks in the backward pass
-    attn_impl: str = "xla"  # read only for the joint-major refusal
+    attn_impl: str = "xla"  # "ring" runs ring temporal attention in both trunks
+    ring: Optional[object] = None  # the RingSpec of attn_impl="ring"
 
     def _trunk(self, **kw) -> MixSTEConfig:
         return MixSTEConfig(
@@ -56,7 +57,7 @@ class ManifoldConfig:
             qk_scale=self.qk_scale, drop_path_rate=self.drop_path_rate,
             mup=self.mup, mup_base_width=self.mup_base_width,
             dtype=self.dtype, quant=self.quant, layout=self.layout,
-            remat=self.remat, attn_impl=self.attn_impl, **kw,
+            remat=self.remat, attn_impl=self.attn_impl, ring=self.ring, **kw,
         )
 
     def rot_trunk_config(self) -> MixSTEConfig:

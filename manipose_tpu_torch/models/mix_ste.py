@@ -43,6 +43,17 @@ On the card the attention cores run kernels K1/K3 (backward K2/K4) and
 every MLP runs the fused kernel K5 (backward K6); on the CPU their plain
 versions run.
 
+``MixSTEConfig.ring`` (a ``parallel.RingSpec``, with ``attn_impl="ring"``)
+runs every temporal block's attention as ring attention with the frame
+axis split over the spec's mesh axis (``parallel/ring_attention.py``),
+while the spatial blocks stay on K3/K4, as the JAX package's ring trunk
+keeps them on XLA (``manipose_tpu/models/mix_ste.py:398-445``). Under
+tensor parallelism (``parallel.shard_params``) an Attention or Mlp holds
+its rank's heads or hidden slice and the ``model`` group in ``tp``: its
+input passes :func:`~..parallel.comm.copy_to_group`, its row-parallel
+output is summed over the group, and the proj and fc2 biases are added
+once, after the sum.
+
 ``MixSTEConfig.quant`` builds the int8 serving variant (``ops/quant.py``),
 as the JAX package's ``quant`` flag does: qkv, proj, fc1 and fc2 become
 ``QuantLinear``s, and an MLP runs fc1 -> exact GELU -> fc2 through two of
@@ -66,6 +77,7 @@ from torch.utils.checkpoint import checkpoint
 from ..ops.attention import multi_head_attention
 from ..ops.cuda_mlp import fused_mlp
 from ..ops.quant import QuantLinear
+from ..parallel.comm import copy_to_group, reduce_from_group
 
 
 @dataclasses.dataclass(frozen=True)
@@ -91,9 +103,12 @@ class MixSTEConfig:
     layout: str = "fold"
     # recompute every block in the backward pass (activation memory for time)
     remat: bool = False
-    # the JAX package's kernel choice, read only to refuse what it refuses
-    # with joint-major; on the card every attention runs the port's kernels
+    # the JAX package's kernel choice, read to refuse what it refuses with
+    # joint-major and to run "ring"; on the card every other attention runs
+    # the port's kernels
     attn_impl: str = "xla"
+    # the sharding plan of attn_impl="ring" (parallel.RingSpec)
+    ring: Optional[object] = None
 
     def drop_path_rates(self):
         return np.linspace(0.0, self.drop_path_rate, self.depth).tolist()
@@ -162,17 +177,26 @@ class Mlp(nn.Module):
             self.fc2 = nn.Linear(hidden_features, in_features)
         self.dtype = dtype
         self.quant = quant
+        self.tp = None  # the tensor-parallel group (parallel.shard_params)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.quant:
             return self.fc2(F.gelu(self.fc1(x)))
         dt = self.dtype
+        b2 = self.fc2.bias.to(dt)
+        if self.tp is not None:
+            # fc1 column-parallel, fc2 row-parallel: b2 after the sum
+            x = copy_to_group(x, self.tp)
+            b2 = torch.zeros_like(b2)
         y = fused_mlp(
             x.reshape(-1, x.shape[-1]).to(dt),
             self.fc1.weight.to(dt), self.fc1.bias.to(dt),
-            self.fc2.weight.to(dt), self.fc2.bias.to(dt),
+            self.fc2.weight.to(dt), b2,
         )
-        return y.reshape(x.shape)
+        y = y.reshape(x.shape)
+        if self.tp is not None:
+            y = reduce_from_group(y, self.tp) + self.fc2.bias.to(dt)
+        return y
 
 
 class Attention(nn.Module):
@@ -181,21 +205,44 @@ class Attention(nn.Module):
     def __init__(self, dim: int, num_heads: int, qkv_bias: bool = True,
                  qk_scale: Optional[float] = None, comb: bool = False,
                  mup: bool = False, dtype: torch.dtype = torch.float32,
-                 quant: bool = False):
+                 quant: bool = False, ring: Optional[object] = None):
         super().__init__()
         self.num_heads = num_heads
-        head_dim = dim // num_heads
+        self.head_dim = head_dim = dim // num_heads
         self.scale = qk_scale or ((1.0 / head_dim) if mup else head_dim**-0.5)
         self.comb = comb
+        self.ring = ring
+        self.tp = None  # the tensor-parallel group (parallel.shard_params)
+        self.dtype = dtype
         self.qkv = _linear(dim, dim * 3, qkv_bias, dtype, quant)
         self.proj = _linear(dim, dim, True, dtype, quant)
 
+    def _ring(self, qkv: torch.Tensor) -> torch.Tensor:
+        from ..parallel.ring_attention import ring_attention
+
+        b, n, _ = qkv.shape
+        q, k, v = qkv.reshape(b, n, 3, self.num_heads, self.head_dim).permute(
+            2, 0, 3, 1, 4).unbind(0)
+        spec = self.ring
+        out = ring_attention(q, k, v, self.scale, spec.mesh, spec.axis, spec.batch_axis)
+        return out.transpose(1, 2).reshape(b, n, self.num_heads * self.head_dim)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        # the kernels read q, k and v in place from the qkv projection and
-        # their backward writes its gradient whole
-        out = multi_head_attention(self.qkv(x), self.num_heads, self.scale,
-                                   comb=self.comb)
-        return self.proj(out)
+        if self.tp is not None:
+            x = copy_to_group(x, self.tp)
+        qkv = self.qkv(x)
+        if self.ring is not None:
+            out = self._ring(qkv)
+        else:
+            # the kernels read q, k and v in place from the qkv projection
+            # and their backward writes its gradient whole
+            out = multi_head_attention(qkv, self.num_heads, self.scale, comb=self.comb)
+        if self.tp is None:
+            return self.proj(out)
+        # row-parallel proj: the bias once, after the sum over the group
+        dt = self.dtype
+        out = F.linear(out.to(dt), self.proj.weight.to(dt))
+        return reduce_from_group(out, self.tp) + self.proj.bias.to(dt)
 
 
 class DropPath(nn.Module):
@@ -221,6 +268,12 @@ class DropPath(nn.Module):
     def draw(self, x: torch.Tensor) -> Optional[torch.Tensor]:
         """The mask for ``x`` (None when inactive): one draw from the
         generator."""
+        shape = tuple(n if i in self.keep_axes else 1 for i, n in enumerate(x.shape))
+        return self.draw_shape(shape, x.device)
+
+    def draw_shape(self, shape: tuple, device) -> Optional[torch.Tensor]:
+        """A mask of ``shape`` (None when inactive): one draw from the
+        generator."""
         if not self.active():
             return None
         if self.generator is None:
@@ -228,8 +281,7 @@ class DropPath(nn.Module):
                 "DropPath needs a generator in training; call "
                 "set_drop_path_generator (the train step does)"
             )
-        shape = tuple(n if i in self.keep_axes else 1 for i, n in enumerate(x.shape))
-        return torch.rand(shape, generator=self.generator, device=x.device) < 1.0 - self.rate
+        return torch.rand(shape, generator=self.generator, device=device) < 1.0 - self.rate
 
     def forward(self, x: torch.Tensor,
                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -256,12 +308,13 @@ class Block(nn.Module):
                  qkv_bias: bool = True, qk_scale: Optional[float] = None,
                  drop_path: float = 0.0, residual_scale: float = 1.0,
                  mup: bool = False, dtype: torch.dtype = torch.float32,
-                 quant: bool = False, drop_path_keep_axes: tuple = (0,)):
+                 quant: bool = False, drop_path_keep_axes: tuple = (0,),
+                 ring: Optional[object] = None):
         super().__init__()
         self.residual_scale = residual_scale
         self.norm1 = LayerNorm(dim, 1e-6, dtype)
         self.attn = Attention(dim, num_heads, qkv_bias, qk_scale, mup=mup,
-                              dtype=dtype, quant=quant)
+                              dtype=dtype, quant=quant, ring=ring)
         self.drop_path = DropPath(drop_path, drop_path_keep_axes)
         self.norm2 = LayerNorm(dim, 1e-6, dtype)
         self.mlp = Mlp(dim, int(dim * mlp_ratio), dtype, quant)
@@ -311,6 +364,8 @@ class MixSTE(nn.Module):
                 f"the joint-major stream; attn_impl={cfg.attn_impl!r} is fold-layout "
                 "only (use 'xla', 'xla_direct', 'pallas_temporal' or 'ring')"
             )
+        if cfg.attn_impl == "ring" and cfg.ring is None:
+            raise ValueError("attn_impl='ring' needs MixSTEConfig.ring (a RingSpec)")
         self.cfg = cfg
         self.use_patch_embed = use_patch_embed
         self.apply_head = apply_head
@@ -323,17 +378,17 @@ class MixSTE(nn.Module):
         residual_scale = (1.0 / np.sqrt(cfg.depth)) if cfg.mup else 1.0
         dpr = cfg.drop_path_rates()
 
-        def blocks(keep_axes=(0,)):
+        def blocks(keep_axes=(0,), ring=None):
             return nn.ModuleList(
                 Block(c, cfg.num_heads, cfg.mlp_ratio, cfg.qkv_bias,
                       cfg.qk_scale, dpr[i], residual_scale, cfg.mup, dt,
-                      cfg.quant, keep_axes)
+                      cfg.quant, keep_axes, ring)
                 for i in range(cfg.depth)
             )
 
         # joint-major spatial blocks mask per (b, l), as the fold's (B*L) rows
         self.STEblocks = blocks((0, 2) if cfg.layout == "joint_major" else (0,))
-        self.TTEblocks = blocks()
+        self.TTEblocks = blocks(ring=cfg.ring if cfg.attn_impl == "ring" else None)
         self.Spatial_norm = LayerNorm(c, 1e-6, dt)
         self.Temporal_norm = LayerNorm(c, 1e-6, dt)
         if apply_head:

@@ -15,8 +15,9 @@ init, carried across by ``weights.toy_state_dict_from_jax``). It writes
 (multi-hypothesis models) and ``metrics.txt`` under
 ``run.output_dir/run.experiment``.
 
-Not ported: the plots (``manipose_tpu/toy/plots.py``, matplotlib);
-``run.plots=true`` raises until that module is ported.
+With ``run.plots=true`` (a port key: the JAX main always draws) it also
+draws the JAX main's ``predictions_plot.png`` and ``training.png``
+(``toy/plots.py``; matplotlib, which must be installed then).
 """
 
 from __future__ import annotations
@@ -185,10 +186,24 @@ def main(cfg: Config, state_dict: Optional[dict] = None) -> Optional[float]:
                 f.write(f"{k}: {v}\n")
         print("\n".join(f"{k}: {v}" for k, v in metrics.items()))
         if cfg.run.get("plots", False):
-            raise NotImplementedError(
-                "the toy plots (manipose_tpu/toy/plots.py) are not ported yet; "
-                "the metrics and predictions are written"
-            )
+            # the JAX main's plots (manipose_tpu/toy/main.py:220-242)
+            from .plots import plot_predictions, plot_torus_predictions, plot_training_curve
+
+            if enabled_3d:
+                plot_torus_predictions(
+                    data.y_test, {cfg.model.arch: test_predictions},
+                    output_dir / "predictions_plot.png",
+                    major_radius=cfg.data.major_radius,
+                    minor_radius=cfg.data.minor_radius,
+                )
+            else:
+                plot_predictions(
+                    distribution, data.x_test, data.y_test,
+                    {cfg.model.arch: test_predictions},
+                    output_dir / "predictions_plot.png",
+                )
+            plot_training_curve(trainer.loss_list, trainer.val_loss_list,
+                                output_dir / "training.png")
     return metrics.get("val_mpjpe")
 
 

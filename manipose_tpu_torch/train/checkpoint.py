@@ -25,6 +25,14 @@ current stream, so later in-place updates do not reach it) and, unless
 ``block``, writes on a background thread as orbax's async save does;
 saves run one at a time and ``wait_for_checkpoints`` joins the last.
 
+Under a mesh (``parallel.shard_params``) every rank calls the save: the
+weights and Adam's moments are gathered into the single-device layout
+(``parallel.mesh.full_state_dict``), so ``Predictor.from_any`` and
+``load_torch_checkpoint`` read the files as they read a one-card run's,
+and the primary rank alone writes them; the resume state adds every
+rank's drop-path generator (``generators``). A restore puts each rank's
+part back.
+
 Resume discovery (``find_resume_state``) and pruning follow the JAX
 package's rules: numbered ``train_state_NNNNNN`` directories count only
 with their ``host_state.json``, the newest such one wins, and temporary
@@ -46,7 +54,15 @@ from pathlib import Path
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 
+from ..parallel.mesh import (
+    full_optimizer_state,
+    full_state_dict,
+    load_full_optimizer_state,
+    load_full_state_dict,
+)
+from ..parallel.multihost import is_primary, world_size
 from ..weights import load_torch_checkpoint
 from .step import TrainState
 
@@ -143,20 +159,27 @@ def save_checkpoint(directory, tag: str, what, block: bool = False) -> None:
 
     Waits for the previous save, copies ``what`` to the host, and returns
     while a background thread writes it, or after writing it with
-    ``block=True``."""
+    ``block=True``. Under a process group every rank calls it and the
+    primary rank writes."""
     global _pending
     wait_for_checkpoints()
     files = {}
     if isinstance(what, TrainState):
-        files[MODEL_FILE] = {"model_pos": what.model.state_dict()}
+        files[MODEL_FILE] = {"model_pos": full_state_dict(what.model)}
         files[STATE_FILE] = {
-            "optimizer": what.optimizer.adam.state_dict(),
+            "optimizer": full_optimizer_state(what.model, what.optimizer),
             "notfinite_count": what.optimizer.notfinite_count,
             "generator": what.generator.get_state(),
             "step": what.step,
         }
+        if world_size() > 1:
+            generators = [None] * world_size()
+            dist.all_gather_object(generators, what.generator.get_state())
+            files[STATE_FILE]["generators"] = generators
     else:
-        files[MODEL_FILE] = {"model_pos": what.state_dict()}
+        files[MODEL_FILE] = {"model_pos": full_state_dict(what)}
+    if not is_primary():
+        return
     files, done = _to_host(files)
     path = Path(directory).resolve() / tag
     if block:
@@ -190,13 +213,17 @@ def restore_checkpoint(directory, tag: str, target):
     wait_for_checkpoints()  # the tag may still be committing
     state_dict = load_torch_checkpoint(tag_weights(directory, tag))
     model = target.model if isinstance(target, TrainState) else target
-    model.load_state_dict(state_dict, strict=True)
+    load_full_state_dict(model, state_dict)
     if isinstance(target, TrainState):
         saved = torch.load(Path(directory) / tag / STATE_FILE, map_location="cpu",
                            weights_only=True)
-        target.optimizer.adam.load_state_dict(saved["optimizer"])
+        load_full_optimizer_state(model, target.optimizer, saved["optimizer"])
         target.optimizer.notfinite_count = int(saved["notfinite_count"])
-        target.generator.set_state(saved["generator"])
+        generators = saved.get("generators")
+        if generators is not None and len(generators) == world_size():
+            target.generator.set_state(generators[dist.get_rank()])
+        else:
+            target.generator.set_state(saved["generator"])
         target.step = int(saved["step"])
     return target
 

@@ -33,8 +33,29 @@ one CUDA-graph replay); a partial batch flushes what is pending and then
 takes a single step, and the leftover of an epoch takes single steps, so
 the data order stays the order of the optimizer's steps.
 
-Not ported: ``parallel.data``, ``parallel.model`` or ``parallel.pipe``
-above 1; they raise.
+``parallel.data``, ``parallel.model`` and ``parallel.pipe`` above 1 train
+on a mesh, as ``manipose_tpu/train/loop.py:87-128`` does, one process a
+device (``torchrun``; the process group must have data x model x pipe
+ranks, else a ValueError names the launch):
+
+- the mesh is (data, model), or (data, pipe) for a ``PipelinedModel``
+  (``parallel.maybe_pipelined_apply``, whose mesh is reused);
+  ``parallel.mode`` (tp, fsdp, dp, fsdp_dp) lays the parameters out
+  (``parallel.shard_params``), with tp and fsdp turned into dp and fsdp_dp
+  under ring attention or a pipe, whose meshes give the ``model`` axis no
+  matmuls to split;
+- ``train.batch_size`` and ``train.batch_size_test`` must divide over
+  ``data``; each rank trains and validates on its rows of every batch, the
+  whole padded batch (the JAX loop keeps it for static shard shapes, so
+  the padded last batch's repeated rows count in its loss), and the epoch's
+  losses are averaged over ``data``;
+- the MPJPE evaluation runs the whole valid loader on every rank;
+- the megastep is off, with the JAX loop's note;
+- drop-path draws from a generator a data shard
+  (``parallel.mesh.rank_seed``);
+- checkpoints hold the single-device layout; every rank takes part in the
+  gathering and the primary rank writes them, the loss histories and the
+  epoch lines.
 """
 
 from __future__ import annotations
@@ -46,12 +67,24 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
+from torch.nn.parallel import DistributedDataParallel
 
 from ..data.pipeline import SequenceLoader, prefetch
 from ..device import resolve_device
 from ..eval.engine import EvalConfig, evaluate
 from ..geometry.skeleton import Skeleton
+from ..parallel.mesh import (
+    GradSync,
+    axis_size,
+    mesh_from_config,
+    mesh_shape,
+    rank_seed,
+    shard_batch,
+    shard_params,
+)
+from ..parallel.multihost import is_primary
 from ..utils.logging import MetricLogger
 from .checkpoint import (
     atomic_write_json,
@@ -81,15 +114,42 @@ class TrainResult:
     valid_loss: list
 
 
-def refuse_unported(cfg) -> None:
-    """Raise for the training settings the port does not carry."""
+def _setup_mesh(net: nn.Module, cfg, device: torch.device, mesh):
+    """(net laid out on ``mesh``, the mesh) as cfg.parallel says, or (net,
+    None) for one process. Without ``mesh`` the run's mesh is built here."""
+    if mesh is None:
+        mesh = mesh_from_config(cfg, device)
+    if mesh is None:
+        return net, None
     pcfg = cfg.get("parallel") or {}
-    for axis in ("data", "model", "pipe"):
-        if int(pcfg.get(axis, 1)) > 1:
-            raise NotImplementedError(
-                f"parallel.{axis}={pcfg.get(axis)} (multi-card training) is not "
-                "ported yet; the port trains on one card"
-            )
+    n_data = axis_size(mesh, "data")
+    cfg_train = cfg.train
+    # every batch that is placed (train and validation) splits over data
+    for name, bs in (("train.batch_size", cfg_train.batch_size),
+                     ("train.batch_size_test",
+                      cfg_train.get("batch_size_test", cfg_train.batch_size))):
+        if bs % n_data:
+            raise ValueError(f"{name}={bs} must divide over the data mesh axis ({n_data})")
+    mode = pcfg.get("mode", "tp")
+    if cfg.model.get("attn_impl", "xla") == "ring" or axis_size(mesh, "pipe") > 1:
+        # ring gives the 'model' axis the sequence and a pipe mesh has no
+        # 'model' axis: the matmuls stay whole (dp) or ZeRO-3 over data only
+        mode = {"tp": "dp", "fsdp": "fsdp_dp"}.get(mode, mode)
+    net = shard_params(net.to(device), mesh, mode=mode)
+    if is_primary():
+        print(f"==> Training on mesh {mesh_shape(mesh)}, mode={mode}")
+    return net, mesh
+
+
+def _data_mean(values: dict, mesh) -> dict:
+    """``values`` ({name: float}) averaged over the data shards."""
+    if mesh is None or axis_size(mesh, "data") == 1 or not values:
+        return values
+    device = (torch.device("cuda", torch.cuda.current_device())
+              if mesh.device_type == "cuda" else torch.device("cpu"))
+    t = torch.tensor(list(values.values()), dtype=torch.float64, device=device)
+    dist.all_reduce(t, group=mesh.get_group("data"))
+    return dict(zip(values, (t / axis_size(mesh, "data")).tolist()))
 
 
 def _snapshot(model: nn.Module) -> dict:
@@ -117,19 +177,30 @@ def train(
     start_epoch: int = 0,
     save_checkpoints: bool = True,
     device="cuda",
+    mesh=None,
 ) -> TrainResult:
     """Train ``model`` (moved to ``device``, the card unless the caller asks
     for the CPU) as ``cfg`` (the full Config) says, and leave the best
-    weights in it."""
-    refuse_unported(cfg)
+    weights in it. Under ``parallel`` settings above 1 ``model`` (or the
+    ``PipelinedModel`` of ``parallel.maybe_pipelined_apply``) is laid out
+    on the mesh in place and the returned state holds what the steps call
+    (see the module docstring). ``mesh``: the run's mesh, the one the model
+    was built on (ring attention, the pipeline); built here when None."""
     device = resolve_device(device)
+    model, mesh = _setup_mesh(model, cfg, device, mesh)
     output_dir = Path(output_dir)
-    output_dir.mkdir(parents=True, exist_ok=True)
+    primary = is_primary()
+    if primary:
+        output_dir.mkdir(parents=True, exist_ok=True)
     logger = logger or MetricLogger()
     cfg_train = cfg.train
 
-    state = TrainState.create(model, optimizer_from_config(model, cfg),
-                              seed=cfg.run.seed, device=device)
+    optimizer = optimizer_from_config(model, cfg)
+    seed = cfg.run.seed
+    if mesh is not None:
+        optimizer.sharding = GradSync(model, optimizer.params)
+        seed = rank_seed(seed, mesh)
+    state = TrainState.create(model, optimizer, seed=seed, device=device)
     scheduler = make_scheduler(
         cfg_train.lr_scheduler,
         base_lr=cfg_train.lr,
@@ -174,12 +245,26 @@ def train(
     steps_per_call = int(cfg_train.get("steps_per_call", 1))
     multi_step = None
     if steps_per_call > 1:
-        multi_step = make_multi_train_step(model, loss_cfg, skeleton, state.optimizer,
-                                           steps_per_call)
-        print(f"==> Megastep: {steps_per_call} optimizer steps per call")
-    val_step = make_eval_loss_step(model, loss_cfg, skeleton)
+        if mesh is not None:
+            print("WARNING: train.steps_per_call > 1 is single-device only (stacked "
+                  "batches are not mesh-sharded); megastep DISABLED for this mesh run")
+        else:
+            multi_step = make_multi_train_step(model, loss_cfg, skeleton,
+                                               state.optimizer, steps_per_call)
+            print(f"==> Megastep: {steps_per_call} optimizer steps per call")
+    # DistributedDataParallel's forward machinery is for training; eval and
+    # validation call the module it wraps (whole on every rank)
+    eval_model = model.module if isinstance(model, DistributedDataParallel) else model
+    val_step = make_eval_loss_step(eval_model, loss_cfg, skeleton)
     eval_cfg = EvalConfig(tta=cfg_train.tta, rmcl=rmcl, compute_oracle=rmcl)
     on_card = device.type == "cuda"
+
+    def place(batch):
+        """(pose_2d, pose_3d) of this rank: its rows under a mesh."""
+        x2d, x3d, _ = batch.to_device(device)
+        if mesh is None:
+            return x2d, x3d
+        return shard_batch((x2d, x3d), mesh)
 
     def batches(loader):
         # pinned on the prefetch thread for the card, so the launching
@@ -202,7 +287,7 @@ def train(
         if not save_checkpoints:
             return
         t0 = time.perf_counter()
-        save_checkpoint(output_dir, tag, model)
+        save_checkpoint(output_dir, tag, model)  # every rank; the primary writes
         ckpt_seconds += time.perf_counter() - t0
 
     def _save_resume_state(epoch):
@@ -218,10 +303,11 @@ def train(
         t0 = time.perf_counter()
         tag = f"train_state_{epoch:06d}"
         save_checkpoint(output_dir, tag, state, block=True)
-        host = {"scheduler": scheduler.state_dict(), "epoch": epoch, "tag": tag}
-        atomic_write_json(output_dir / tag / "host_state.json", host)
-        atomic_write_json(output_dir / "train_state_host.json", host)
-        prune_resume_states(output_dir, keep=2)
+        if primary:
+            host = {"scheduler": scheduler.state_dict(), "epoch": epoch, "tag": tag}
+            atomic_write_json(output_dir / tag / "host_state.json", host)
+            atomic_write_json(output_dir / "train_state_host.json", host)
+            prune_resume_states(output_dir, keep=2)
         ckpt_seconds += time.perf_counter() - t0
 
     with trace(cfg.run.get("profile_dir", "")):
@@ -256,7 +342,7 @@ def train(
 
             for batch in batches(train_loader):
                 n_valid = int(batch.valid.sum())
-                x2d, x3d, _ = batch.to_device(device)
+                x2d, x3d = place(batch)
                 if multi_step is not None and n_valid == batch.batch_size:
                     pending.append((x2d, x3d))
                     if len(pending) == steps_per_call:
@@ -266,12 +352,14 @@ def train(
                 # order is the optimizer's step order
                 flush()
                 meter.step(n_valid)
+                # under a mesh the whole padded batch trains (static shards)
                 record(train_step(
                     state, x2d, x3d, scheduler.lr,
-                    n_valid if n_valid < batch.batch_size else None,
+                    n_valid if mesh is None and n_valid < batch.batch_size else None,
                 ))
             flush()
-            terms = _means(term_sums)  # waits for the epoch's last step
+            # waits for the epoch's last step
+            terms = _data_mean(_means(term_sums), mesh)
             seq_per_sec = meter.seq_per_sec
             t_train = time.perf_counter() - t_epoch
             epoch_loss = terms.pop("loss")
@@ -286,9 +374,12 @@ def train(
                 t0 = time.perf_counter()
                 val_losses = []
                 for batch in batches(valid_loader):
-                    vx2d, vx3d, _ = batch.to_device(device)
-                    val_losses.append(val_step(vx2d, vx3d, int(batch.valid.sum()))["loss"])
-                epoch_val = _means({"loss": val_losses})["loss"] if val_losses else np.inf
+                    vx2d, vx3d = place(batch)
+                    # under a mesh the whole padded batch, as in training
+                    n_valid_val = None if mesh is not None else int(batch.valid.sum())
+                    val_losses.append(val_step(vx2d, vx3d, n_valid_val)["loss"])
+                epoch_val = (_data_mean(_means({"loss": val_losses}), mesh)["loss"]
+                             if val_losses else np.inf)
                 timings["valid_seconds"] = time.perf_counter() - t0
                 valid_loss_hist.append(epoch_val)
                 metrics_to_log["val_loss"] = epoch_val
@@ -310,7 +401,7 @@ def train(
             # --- MPJPE eval ---
             if (epoch + 1) % cfg_train.mpjpe_epoch_interval == 0:
                 t0 = time.perf_counter()
-                results = evaluate(model, valid_loader, skeleton, eval_cfg)
+                results = evaluate(eval_model, valid_loader, skeleton, eval_cfg)
                 timings["mpjpe_seconds"] = time.perf_counter() - t0
                 mpjpe_val = results[2]
                 metrics_to_log["val_mpjpe"] = mpjpe_val
@@ -340,20 +431,22 @@ def train(
                                   epoch_seconds=time.perf_counter() - t_epoch)
             if on_card:
                 metrics_to_log["peak_memory_gb"] = torch.cuda.max_memory_allocated(device) / 1e9
-            print(f"epoch {epoch}: train loss {epoch_loss:.6f}, {seq_per_sec:.2f} "
-                  f"sequences/s; " + ", ".join(
-                      f"{k} {metrics_to_log[k]:.4f}" for k in (
-                          "val_loss", "val_mpjpe", "train_seconds", "valid_seconds",
-                          "mpjpe_seconds", "checkpoint_seconds", "epoch_seconds")
-                      if k in metrics_to_log), flush=True)
+            if primary:
+                print(f"epoch {epoch}: train loss {epoch_loss:.6f}, {seq_per_sec:.2f} "
+                      f"sequences/s; " + ", ".join(
+                          f"{k} {metrics_to_log[k]:.4f}" for k in (
+                              "val_loss", "val_mpjpe", "train_seconds", "valid_seconds",
+                              "mpjpe_seconds", "checkpoint_seconds", "epoch_seconds")
+                          if k in metrics_to_log), flush=True)
             logger.log(metrics_to_log, step=epoch)
 
     _ckpt("end")
     _save_resume_state(cfg_train.epochs)
     if save_checkpoints:
         wait_for_checkpoints()  # every background write committed
-    np.save(output_dir / "train_loss.npy", np.asarray(train_loss_hist))
-    np.save(output_dir / "valid_loss.npy", np.asarray(valid_loss_hist))
+    if primary:
+        np.save(output_dir / "train_loss.npy", np.asarray(train_loss_hist))
+        np.save(output_dir / "valid_loss.npy", np.asarray(valid_loss_hist))
     if best_params is None:
         print(
             "WARNING: no validation/eval epoch fired "

@@ -19,6 +19,15 @@ Port of ``manipose_tpu/train/optim.py``:
   step (:meth:`Optimizer.set_lr`), so that a captured step reads the rate
   of its replay, not the one it was captured with; on the CPU it stays a
   float.
+
+Under a mesh (``parallel.shard_params``) the parameters may be split over
+ranks: FSDP2 DTensors over ``data``, tensor-parallel parts over
+``model``. ``Optimizer.sharding`` (a ``parallel.mesh.GradSync``) then
+makes the gradient reductions that no wrapper makes (the pipeline's),
+the global norm of ``grad_clip`` sums each parameter's squares over the
+group its parts lie on, as XLA's norm over a sharded tree does, and a
+step is skipped when the gradients of any rank are not finite. Adam
+itself runs on each rank's parts.
 """
 
 from __future__ import annotations
@@ -27,6 +36,9 @@ import math
 from typing import Iterable, Optional
 
 import torch
+import torch.distributed as dist
+
+from ..parallel.mesh import local_part as _local
 
 
 class Optimizer:
@@ -58,6 +70,7 @@ class Optimizer:
         self.grad_clip = grad_clip
         self.skip_nonfinite = skip_nonfinite
         self._notfinite = torch.zeros((), dtype=torch.int64)  # steps skipped
+        self.sharding = None  # parallel.mesh.GradSync under a mesh
 
     @property
     def notfinite_count(self) -> int:
@@ -106,12 +119,29 @@ class Optimizer:
         self.adam.zero_grad(set_to_none=True)
 
     def _grads(self):
-        return [p.grad for p in self.params if p.grad is not None]
+        return [_local(p.grad) for p in self.params if p.grad is not None]
+
+    def _global_norm(self, grads) -> torch.Tensor:
+        if self.sharding is None:
+            return torch.sqrt(sum(torch.sum(g.float() ** 2) for g in grads))
+        # each parameter's squares summed over the group its parts lie on;
+        # the groups in the order of the parameters (the same on every rank,
+        # whichever parameters have a gradient here)
+        groups = list(dict.fromkeys(self.sharding.norm_groups))
+        sums = {g: torch.zeros((), dtype=torch.float32, device=grads[0].device)
+                for g in groups}
+        for p, group in zip(self.params, self.sharding.norm_groups):
+            if p.grad is not None:
+                sums[group] = sums[group] + torch.sum(_local(p.grad).float() ** 2)
+        for group in groups:
+            if group is not None:
+                dist.all_reduce(sums[group], group=group)
+        return torch.sqrt(sum(sums.values()))
 
     def clip(self, grads) -> None:
         """optax.clip_by_global_norm, in place: g / |g| * max where
         |g| >= max."""
-        norm = torch.sqrt(sum(torch.sum(g.float() ** 2) for g in grads))
+        norm = self._global_norm(grads)
         keep = norm < self.grad_clip
         for g in grads:
             g.copy_(torch.where(keep, g, g / norm.to(g.dtype) * self.grad_clip))
@@ -122,7 +152,7 @@ class Optimizer:
         out = []
         for p in self.params:
             st = self.adam.state.get(p)
-            out.append(tuple(st[k] for k in ("exp_avg", "exp_avg_sq", "step"))
+            out.append(tuple(_local(st[k]) for k in ("exp_avg", "exp_avg_sq", "step"))
                        if st else None)
         return out
 
@@ -133,11 +163,17 @@ class Optimizer:
         parameters, Adam's moments and its step count are put back (a
         select on the device) and the skipped count goes up by one."""
         self._place()
+        if self.sharding is not None:
+            self.sharding.reduce(self.params)
         grads = self._grads()
         finite = None
         if self.skip_nonfinite:
             finite = torch.stack([torch.isfinite(g).all() for g in grads]).all()
-            saved = [p.detach().clone() for p in self.params]
+            if self.sharding is not None:  # skipped where any rank's is not
+                flag = finite.to(torch.int32)
+                dist.all_reduce(flag, op=dist.ReduceOp.MIN, group=self.sharding.world)
+                finite = flag.bool()
+            saved = [_local(p).detach().clone() for p in self.params]
             saved_state = [None if t is None else tuple(x.clone() for x in t)
                            for t in self._adam_tensors()]
         if self.grad_clip > 0.0:
@@ -148,6 +184,7 @@ class Optimizer:
         with torch.no_grad():
             for p, old, new, old_state in zip(self.params, saved,
                                               self._adam_tensors(), saved_state):
+                p = _local(p)
                 p.copy_(torch.where(finite, p, old))
                 if new is None:
                     continue

@@ -377,9 +377,10 @@ def test_protocol_returns_the_predictions_it_scored(runs, archives, tmp_path):
 
 
 def test_driver_refuses_what_it_does_not_run(archives, tmp_path):
-    """What the port does not carry raises; the megastep
-    (train.steps_per_call=2) runs."""
-    with pytest.raises(NotImplementedError, match="pipe"):
+    """parallel.pipe=2 without a process group of two raises the ValueError
+    that names the torchrun launch; the megastep (train.steps_per_call=2)
+    runs."""
+    with pytest.raises(ValueError, match="torchrun --nproc-per-node 2"):
         driver.main(load_config("config", OVERRIDES + [
             f"data.data_dir={archives}", "device=cpu", "parallel.pipe=2"]))
     best = driver.main(load_config("config", OVERRIDES + [

@@ -439,8 +439,10 @@ def test_test_protocol_matches_jax(h36m_dir, tmp_path):
 def test_eval_only_driver_runs_on_the_cpu(h36m_dir, tmp_path, monkeypatch):
     """``main`` with run.train=false and device=cpu writes the table from
     the seeded init; without ``device`` it asks for the card (and raises
-    where there is none); what the driver does not port yet raises, and so
-    does an eval-only restore of a tag that is not there."""
+    where there is none); what the driver does not port yet raises, a
+    parallel setting without its process group raises the ValueError that
+    names the torchrun launch, and so does an eval-only restore of a tag
+    that is not there (FileNotFoundError)."""
     base = OVERRIDES + [f"data.data_dir={h36m_dir}", f"run.output_dir={tmp_path}",
                         "data.actions=walking", "run.train=false"]
     with monkeypatch.context() as m:
@@ -452,9 +454,11 @@ def test_eval_only_driver_runs_on_the_cpu(h36m_dir, tmp_path, monkeypatch):
     head, rows = _read_csv(tmp_path / "default" / "protocol_1_err.csv")
     assert head[:2] == ["act", "mpjpe"] and [r[0] for r in rows] == ["walking", "average"]
     assert np.isfinite(np.asarray([r[1:] for r in rows], float)).all()
-    for extra in ("run.viz=true", "parallel.pipe=2", "run.mlflow_on=true",
-                  "parallel.data=2"):
+    for extra in ("run.viz=true", "run.mlflow_on=true"):
         with pytest.raises(NotImplementedError):
+            main(load_config("config", base + [extra]))
+    for extra in ("parallel.pipe=2", "parallel.data=2"):
+        with pytest.raises(ValueError, match="torchrun --nproc-per-node 2"):
             main(load_config("config", base + [extra]))
     with pytest.raises(FileNotFoundError):  # eval-only restore of a missing tag
         main(load_config("config", base + ["run.checkpoint_params=/nowhere"]))

@@ -19,8 +19,10 @@ from manipose_tpu_torch import models as tm
 from manipose_tpu_torch.config import load_config
 from manipose_tpu_torch.drivers import instantiate_model
 from manipose_tpu_torch.geometry import h36m_skeleton_17 as t_skeleton
+from manipose_tpu_torch.parallel.mesh import mesh_from_config
 from manipose_tpu_torch.serving import Predictor
 from manipose_tpu_torch.weights import load_torch_checkpoint, state_dict_from_jax
+from torch_ranks import run_ranks
 
 # the JAX package's model-forward tolerance, at unit output scale: fp32
 # rounding grows with the outputs' magnitude (the muP readout doubles them)
@@ -145,14 +147,27 @@ def test_factory_init_is_seeded():
 
 @pytest.mark.parametrize("override", ["model.attn_impl=ring",
                                       "model.layout=joint_major"])
-def test_factory_refuses_unported_settings(override):
-    """Ring attention is not ported; joint-major is, and the factory refuses
-    only what the JAX package refuses with it: a fold-layout spatial kernel
+def test_factory_refuses_unported_settings(override, tmp_path):
+    """Ring attention builds, and needs parallel.model > 1 and the run's
+    mesh, whose process group has data x model ranks (here two gloo CPU
+    ranks build it with parallel.model=2 and run its forward), as the JAX
+    package needs a 'model' axis; joint-major builds, and the factory refuses only what the
+    JAX package refuses with it: a fold-layout spatial kernel
     (attn_impl=pallas)."""
     cfg = load_config("config", OVERRIDES + [override])
     if override == "model.attn_impl=ring":
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(ValueError, match="parallel.model > 1"):
             instantiate_model(cfg, t_skeleton())
+        two = load_config("config", OVERRIDES + [override, "parallel.model=2"])
+        with pytest.raises(ValueError, match="mesh_from_config"):
+            instantiate_model(two, t_skeleton())
+        with pytest.raises(ValueError, match="torchrun"):
+            mesh_from_config(two, "cpu")
+        run_ranks(2, "ring_factory", tmp_path, timeout=240)
+        got = torch.load(tmp_path / "results.pt", weights_only=False)
+        assert got["attn_impl"] == "ring" and got["ring_axis"] == "model"
+        assert got["temporal_ring"] and not got["spatial_ring"]
+        assert np.isfinite(got["poses"]).all() and got["poses"].shape[:2] == (2, 2)
         return
     model, _ = instantiate_model(cfg, t_skeleton())
     assert model.rotations_module.cfg.layout == "joint_major"

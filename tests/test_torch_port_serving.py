@@ -142,7 +142,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     logging and driver modules, the training slice's loop, checkpoint,
     init, muP and profiling modules, the 3DHP slice's data, driver,
     streaming and tools modules, the serving slice's quant module and
-    tools and the toy experiments' modules among them, and chip_smoke.py, import
+    tools, the toy experiments' modules, ``parallel`` (the mesh, the ring,
+    the pipeline, the flagship pipeline, the launch) and the toy figures
+    among them, and chip_smoke.py, import
     without loading jax, flax, optax, orbax or manipose_tpu (matched
     exactly: the port shares the prefix)."""
     code = """
@@ -160,7 +162,9 @@ walked = {"data.cameras", "data.h36m", "data.h36m_cameras", "data.native",
           "tools.make_synthetic_h36m", "tools.streaming_eval", "ops.quant",
           "tools.serve", "tools.predict", "tools.export_model", "toy.distributions",
           "toy.datasets", "toy.metrics", "toy.models", "toy.diffusion", "toy.trainer",
-          "toy.main"}
+          "toy.main", "parallel", "parallel.comm", "parallel.mesh",
+          "parallel.multihost", "parallel.pipeline", "parallel.ring_attention",
+          "parallel.flagship", "toy.plots", "toy.paper_figures"}
 missing = sorted(m for m in walked if "manipose_tpu_torch." + m not in sys.modules)
 bad = sorted(m for m in sys.modules
              if m in ("jax", "flax", "optax", "orbax", "manipose_tpu")

@@ -279,11 +279,15 @@ def test_toy_main_runs_on_the_cpu_and_matches_jax(tmp_path, scenario, arch):
 
 
 def test_toy_main_refuses_plots_and_3d_diffusion(tmp_path):
+    """run.plots=true draws the JAX main's two figures (valid PNGs beside
+    the metrics); the 3D diffusion baseline is refused, as in the JAX
+    package."""
     cfg = load_config("toy", _toy_overrides("easy", "mlp", tmp_path) + [
         "device=cpu", "run.plots=true", "train.epochs=1"])
-    with pytest.raises(NotImplementedError, match="plots.py"):
-        tmain.main(cfg)
+    tmain.main(cfg)
     assert (tmp_path / "default" / "metrics.txt").exists()
+    for name in ("predictions_plot.png", "training.png"):
+        assert (tmp_path / "default" / name).read_bytes()[:8] == b"\x89PNG\r\n\x1a\n"
     with pytest.raises(NotImplementedError, match="circle"):
         tmain.main(load_config("toy", _toy_overrides("torus-2Dto3D", "diffusion", tmp_path)
                                + ["device=cpu"]))
