@@ -219,6 +219,35 @@ package. Phases, each fatal on failure:
 43. figures - ``toy.paper_figures.train_figure_models`` (hard-2) on the
               card and on the CPU by phase 39's rules, then Figures 4 and 8
               where matplotlib imports (else reported as not drawn).
+44. viz     - on H36M-format npz files from ``run.seed`` (phases 12-15's),
+              the H36M driver with run.train=false run.test=false
+              run.viz=true at the flagship (fp32, TTA): S11, walking,
+              camera 0, 16 windows lifted on the card, K1, K3 and K5
+              launched (printed); the animation drawn where matplotlib
+              imports, else ``viz.driver.render_module`` must raise the
+              ImportError naming it, and the phase records the panels
+              instead of drawing them (reported as not drawn). Then
+              ``lift_for_viz`` on the card against the CPU on
+              VIZ_CPU_WINDOWS window(s) from the same seeded weights,
+              (N*L, J, 3) and (N*L, H, J, 4), within MODEL_TOL of the
+              magnitude; then the viz CLI (``tools.viz``) with rmcl_manifold
+              and mixste from the seeded init, lifted on the card.
+45. tools   - ``count_n_params`` (three counts); ``bench_eval`` and
+              ``bench_eval --int8`` (its JSON lines beside phases 3's and
+              29's frames/s, and which path ``quantize=True`` took);
+              ``bench_sustained --epochs 1`` (bf16, 40 videos, through
+              ``prefetch``) beside phase 9's blocked rate;
+              ``synthetic_overfit --small`` (eval MPJPE below the
+              predict-zero baseline); ``robustness_sweep`` on the npz files
+              (2 miss types x 2 rates, every MPJPE finite);
+              ``step_ablation`` (full, no_seg, no_decode, k1; bf16, B=16,
+              L=243: ms per step and marginals, after K1-K6 counted on
+              bf16 operands in ``full``); ``hp_search --driver toy`` (3
+              trials at phase 39's cut, then a second call that resumes
+              from the journal and runs none).
+46. mlflow  - the training driver with run.mlflow_on=true, one short epoch
+              (LOOP_OVERRIDES): no exception without mlflow, the history
+              written as metrics.csv.
 
 What one card cannot show (collectives between cards, scaling over
 cards, the pipeline's bubble) is not measured here. On a machine with N
@@ -3420,6 +3449,305 @@ def phase_rank_drivers(world: int, scratch: Path) -> dict:
     return counts
 
 
+# ---- viz, the run-the-model tools, MLflow (phases 44-46) --------------------
+
+# phase 44's lift on the card against the CPU: the first VIZ_CPU_WINDOWS
+# windows of the video (the CPU runs the flagship with TTA)
+VIZ_CPU_WINDOWS = 1
+# phase 45: the sweep's grid (2 miss types x 2 rates, and the clean row),
+# step_ablation's timed steps, hp_search's trials at phase 39's cut
+SWEEP_MISS_TYPES, SWEEP_RATES = ("random", "structured_joint"), ("0.1", "0.2")
+ABLATION_STEPS = 10
+HP_TRIALS = 3
+
+
+def matplotlib_imports() -> bool:
+    try:
+        import matplotlib  # noqa: F401
+    except ImportError:
+        return False
+    return True
+
+
+class RecordedRender:
+    """Stands in for ``viz.render`` where matplotlib does not import: each
+    drawing call keeps its arguments and draws nothing (reported as not
+    drawn)."""
+
+    def __init__(self):
+        self.calls = []
+
+    def _record(self, kind, *args, **kw):
+        self.calls.append((kind, args, kw))
+        return kw.get("output", "")
+
+    def render_animation(self, *args, **kw):
+        return self._record("animation", *args, **kw)
+
+    def render_frame_prediction(self, *args, **kw):
+        return self._record("frame", *args, **kw)
+
+
+def viz_config(data_dir: Path, extra=()):
+    """The flagship (``configs/config.yaml``) eval-free viz run on the
+    phases' npz files: S11, walking, camera 0, the animation cut to a few
+    frames where it is drawn."""
+    from manipose_tpu_torch.config import load_config
+
+    return load_config("config", [
+        f"data.data_dir={data_dir}", f"run.output_dir={data_dir / 'viz'}", "run.train=false",
+        "run.test=false", "run.viz=true", "viz.viz_subject=S11", "viz.viz_action=walking",
+        "viz.viz_camera=0", "viz.viz_limit=8", "viz.viz_size=2", "viz.extension=gif",
+        *extra])
+
+
+def phase_viz(data_dir: Path) -> dict:
+    """Phase 44. Returns the launch counts of the driver's run.viz=true.
+    Where matplotlib does not import, ``viz.driver.render_module`` must
+    raise the ImportError that names it; the phase then puts a
+    :class:`RecordedRender` in its place for its runs, and puts the real
+    one back after them."""
+    from manipose_tpu_torch.viz import driver as viz_driver
+
+    drawn = matplotlib_imports()
+    recorded, render_module = None, viz_driver.render_module
+    if not drawn:
+        try:
+            render_module()
+            require(False, "render_module imported without matplotlib")
+        except ImportError as e:
+            require("matplotlib" in str(e), f"the ImportError names matplotlib: {e}")
+        recorded = RecordedRender()
+        viz_driver.render_module = lambda: recorded
+    try:
+        return viz_phases(data_dir, drawn, recorded)
+    finally:
+        viz_driver.render_module = render_module
+
+
+def viz_phases(data_dir: Path, drawn: bool, recorded) -> dict:
+    from manipose_tpu_torch import ops
+    from manipose_tpu_torch.data import PoseSequenceDataset, SequenceLoader
+    from manipose_tpu_torch.drivers import h36m
+    from manipose_tpu_torch.tools import viz as viz_cli
+    from manipose_tpu_torch.viz import driver as viz_driver
+    from manipose_tpu_torch.viz.prepare import prep_data_for_viz
+
+    cfg = viz_config(data_dir)
+    l, n_hyp = cfg.data.seq_len, cfg.multi_hyp.n_hyp
+    n_frames = EVAL_FRAMES
+    n_batches = -(-(n_frames // l) // cfg.train.batch_size_test)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    require(h36m.main(cfg) is None, "run.viz=true without training returns None")
+    wall = time.perf_counter() - t0
+    counts = require_counts("float32", {k: 2 * n * n_batches for k, n in
+                                        LAUNCHES_PER_FORWARD.items()},
+                            f"viz driver (run.viz=true, {n_batches} batches, TTA)")
+    name = f"rmcl_manifold_hyps_S11_walking_0.{cfg.viz.extension}"
+    figure = Path(cfg.run.output_dir) / "figures" / name
+    if drawn:
+        require(figure.read_bytes()[:4] == b"GIF8", f"{figure} is no GIF")
+        what = f"drawn: {figure.name}"
+    else:
+        (kind, _, kw), = recorded.calls
+        poses = kw["poses"]
+        require(kind == "animation" and kw["output"] == str(figure), f"{kind} {kw['output']}")
+        require(poses["prediction"].shape == (n_frames, n_hyp, 17, 4)
+                and poses["Ground truth"].shape == (n_frames, 17, 3),
+                f"panels {[p.shape for p in poses.values()]}")
+        require(all(bool(np.isfinite(p).all()) for p in poses.values()), "panels not finite")
+        what = (f"not drawn (matplotlib does not import here; render_module raised the "
+                f"ImportError that names it): panels {[p.shape for p in poses.values()]} "
+                f"for {figure.name}")
+    print(f"viz driver (run.viz=true, flagship fp32, TTA): lifted {n_frames} frames on the "
+          f"card in {wall:.2f} s (main); figure {what}", flush=True)
+
+    # lift_for_viz on the card against the CPU, both layouts
+    keypoints, dataset = h36m.fetch_and_prepare_data(cfg)
+    loader = prep_data_for_viz(cfg, dataset, keypoints)[0]
+    first = next(iter(loader))
+    w = VIZ_CPU_WINDOWS
+    cut = SequenceLoader(PoseSequenceDataset(
+        [first.pose_3d[:w].reshape(-1, 17, 3)], [first.pose_2d[:w].reshape(-1, 17, 2)],
+        seq_len=l, drop_last=False), batch_size=w)
+    models = {d: eval_model(cfg, d) for d in ("cuda", "cpu")}
+    for multihyp in (False, True):
+        lifted = {d: viz_driver.lift_for_viz(m, cut, dataset.skeleton, cfg, True, multihyp)
+                  for d, m in models.items()}
+        want_shape = (w * l, n_hyp, 17, 4) if multihyp else (w * l, 17, 3)
+        require(lifted["cuda"].shape == lifted["cpu"].shape == want_shape,
+                f"lift shapes {lifted['cuda'].shape} {lifted['cpu'].shape}")
+        err = rel_err(lifted["cuda"], lifted["cpu"])
+        require(err <= MODEL_TOL, f"lift_for_viz card vs CPU ({multihyp=}): {err}")
+        print(f"lift_for_viz {'(N*L, H, J, 4)' if multihyp else '(N*L, J, 3)'} "
+              f"{want_shape}: card vs CPU {err:.3g} of the magnitude (tol {MODEL_TOL})",
+              flush=True)
+    del models
+
+    # the viz CLI: two archs from the seeded init, lifted on the card
+    cli_cfg = viz_config(data_dir, ["model.arch=rmcl_manifold,mixste",
+                                    "run.checkpoint_model=','"])
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = viz_cli.main(cli_cfg)
+    wall = time.perf_counter() - t0
+    cli_counts = ops.launch_counts()
+    on_fp32 = ops.launch_counts(torch.float32)
+    require(all(cli_counts[k] > 0 and on_fp32[k] == cli_counts[k]
+                for k in LAUNCHES_PER_FORWARD), f"viz CLI launches {cli_counts}")
+    require(all(cli_counts[k] == 0 for k in LAUNCHES_PER_TRAIN_STEP
+                if k not in LAUNCHES_PER_FORWARD), f"viz CLI launches {cli_counts}")
+    if drawn:
+        require(Path(out).read_bytes()[:4] == b"GIF8", f"{out} is no GIF")
+        what = f"drawn: {Path(out).name}"
+    else:
+        (_, _, kw), = recorded.calls[1:]
+        poses = kw["poses"]
+        require(list(poses) == ["MHMC", "MixSTE", "Ground truth"], f"panels {list(poses)}")
+        require(poses["MHMC"].shape == (n_frames, n_hyp, 17, 4)
+                and poses["MixSTE"].shape == (n_frames, 17, 3), "panel shapes")
+        require(all(bool(np.isfinite(p).all()) for p in poses.values()), "panels not finite")
+        what = f"not drawn (no matplotlib): panels {list(poses)} for {Path(out).name}"
+    print(f"viz CLI (rmcl_manifold,mixste, seeded init) on the card in {wall:.2f} s: "
+          f"launches {cli_counts}; {what}", flush=True)
+    return counts
+
+
+def phase_tools(data_dir: Path, serve_fps: float, int8_fps: float,
+                blocked_seq_s: float) -> dict:
+    """Phase 45. Returns the launch counts of step_ablation's ``full``."""
+    import contextlib
+    import io
+
+    from manipose_tpu_torch import ops
+    from manipose_tpu_torch.geometry import h36m_skeleton_17
+    from manipose_tpu_torch.models import ManifoldConfig
+    from manipose_tpu_torch.serving import INT8_MIN_SPEEDUP, Predictor
+    from manipose_tpu_torch.tools import (
+        bench_eval,
+        bench_sustained,
+        count_n_params,
+        hp_search,
+        robustness_sweep,
+        step_ablation,
+        synthetic_overfit,
+    )
+
+    def timed(label, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        print(f"  {label}: {time.perf_counter() - t0:.1f} s", flush=True)
+        return out
+
+    counts = timed("count_n_params", count_n_params.main, [])
+    require(all(n > 0 for n in counts.values()) and len(counts) == 3, f"counts {counts}")
+
+    fp32 = timed("bench_eval", bench_eval.main, [])
+    int8 = timed("bench_eval --int8", bench_eval.main, ["--int8"])
+    ratio = Predictor._int8_probe_cache["cuda"]
+    path = ("int8" if ratio >= INT8_MIN_SPEEDUP else
+            f"float (int8_speedup() {ratio:.4f} < {INT8_MIN_SPEEDUP})")
+    require(all(np.isfinite(r["value"]) and r["value"] > 0 for r in (fp32, int8)),
+            f"bench_eval {fp32} {int8}")
+    print(f"bench_eval: {fp32['value']} frames/s (phase 3's predict_video "
+          f"{serve_fps:.1f}); --int8 {int8['value']} frames/s, served on the {path} path "
+          f"(phase 29's forced int8 {int8_fps:.1f})", flush=True)
+
+    sustained = timed("bench_sustained", bench_sustained.main, ["--epochs", "1"])
+    require(sustained["n_sequences"] > 0 and np.isfinite(sustained["value"]),
+            f"bench_sustained {sustained}")
+    print(f"bench_sustained (bf16, 1 epoch of 40 videos, prefetch): {sustained['value']} "
+          f"sequences/s over {sustained['n_sequences']} (phase 9's blocked step "
+          f"{blocked_seq_s:.2f})", flush=True)
+
+    report = timed("synthetic_overfit --small", synthetic_overfit.main, ["--small"])
+    require(report["mpjpe_mm"] < report["zero_baseline_mm"],
+            f"synthetic_overfit {report}")
+    print(f"synthetic_overfit --small: eval MPJPE {report['mpjpe_mm']:.2f} mm against the "
+          f"predict-zero baseline {report['zero_baseline_mm']:.2f} (untrained "
+          f"{report['untrained_mpjpe_mm']:.2f}), oracle {report['oracle_mm']:.2f}", flush=True)
+
+    rows = timed("robustness_sweep", robustness_sweep.main, [
+        "--miss-types", *SWEEP_MISS_TYPES, "--miss-rates", *SWEEP_RATES,
+        "--out", str(data_dir / "sweep.csv"), f"data.data_dir={data_dir}",
+        "data.actions=walking"])
+    require(len(rows) == 1 + len(SWEEP_MISS_TYPES) * len(SWEEP_RATES)
+            and all(np.isfinite(v) for r in rows for k, v in r.items() if k.endswith("_mm")),
+            f"sweep rows {rows}")
+    print("robustness_sweep (flagship fp32, seeded init, S11 walking): " + "; ".join(
+        f"{r['miss_type']} {r['miss_rate']}: {r['mpjpe_mm']} mm (oracle "
+        f"{r['oracle_mpjpe_mm']})" for r in rows), flush=True)
+
+    skel = h36m_skeleton_17()
+    abl_cfg = ManifoldConfig(num_frame=243, n_hyp=5, dtype=torch.bfloat16)
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.normal(size=(TRAIN_BATCH, 243, 17, 2)).astype(np.float32)).cuda()
+    y = torch.from_numpy(
+        0.1 * rng.normal(size=(TRAIN_BATCH, 243, 17, 3)).astype(np.float32)).cuda()
+    ops.reset_launch_counts()
+    step_ablation.time_ablation("full", abl_cfg, skel, x, y, 1, torch.device("cuda"))
+    steps = step_ablation.WARMUP_STEPS + 1
+    full_counts = require_counts("bfloat16", {k: steps * n for k, n in
+                                              LAUNCHES_PER_TRAIN_STEP.items()},
+                                 f"step_ablation full ({steps} steps)")
+    del x, y
+    ablations = timed("step_ablation", step_ablation.main,
+                      ["--steps", str(ABLATION_STEPS)])
+    require(all(np.isfinite(r["ms_per_step"]) for r in ablations.values()),
+            f"ablations {ablations}")
+
+    journal = data_dir / "hp_search.jsonl"
+    argv = ["--driver", "toy", "--trials", str(HP_TRIALS), "--journal", str(journal),
+            "--space", "train.lr=loguniform:1e-4,1e-2", "--", *TOY_RUNS[0][1],
+            f"train.epochs={TOY_EPOCHS}", f"run.output_dir={data_dir / 'hp_search'}"]
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):  # each trial prints its config
+        best_params, best, history = hp_search.main(argv)
+        again = hp_search.main(argv)
+    print(f"  hp_search (twice): {time.perf_counter() - t0:.1f} s", flush=True)
+    require(len(history) == HP_TRIALS and best is not None and np.isfinite(best),
+            f"hp_search {best} {history}")
+    require(again[2] == history and len(journal.read_text().splitlines()) == HP_TRIALS,
+            "hp_search resumed from its journal without a new trial")
+    print(f"hp_search --driver toy ({TOY_RUNS[0][0]}, {TOY_EPOCHS} epochs, {HP_TRIALS} "
+          f"trials): best objective {best:.5f} at {best_params}; a second call resumed "
+          f"{len(again[2])} trials and ran none", flush=True)
+    return full_counts
+
+
+def phase_mlflow(data_dir: Path) -> None:
+    """Phase 46: the training driver with run.mlflow_on=true, one short
+    epoch (LOOP_OVERRIDES on LOOP_FRAMES-frame videos, MPJPE evaluated,
+    protocol off) on the card: no exception without mlflow, and the history
+    written as the run's metrics.csv."""
+    from manipose_tpu_torch.config import load_config
+    from manipose_tpu_torch.drivers import h36m
+
+    try:
+        import mlflow  # noqa: F401
+
+        has_mlflow = True
+    except ImportError:
+        has_mlflow = False
+    data_dir = data_dir / "mlflow"
+    data_dir.mkdir()
+    write_h36m(data_dir, 0, frames=LOOP_FRAMES, train_frames=LOOP_FRAMES,
+               s9_frames=LOOP_FRAMES)
+    cfg = load_config("config", [
+        f"data.data_dir={data_dir}", f"run.output_dir={data_dir / 'outputs'}",
+        "run.experiment=mlflow_on", "run.mlflow_on=true", "data.data=one",
+        f"data.actions={','.join(EVAL_ACTIONS.values())}", f"train.batch_size={TRAIN_BATCH}",
+        *LOOP_OVERRIDES, "train.mpjpe_epoch_interval=1"])
+    best = h36m.main(cfg)
+    history = (run_dir(cfg) / "metrics.csv").read_text().splitlines()
+    require(best is not None and np.isfinite(best) and len(history) >= 2
+            and "tr_loss" in history[0], f"mlflow_on run: {best}, {history[:2]}")
+    print(f"run.mlflow_on=true (mlflow {'installed' if has_mlflow else 'not installed'}): "
+          f"one epoch trained, best validation MPJPE {best:.4f} mm, metrics.csv "
+          f"{len(history) - 1} rows", flush=True)
+
+
 def rank_worker() -> int:
     """One rank of ``--ranks N`` (under torchrun, nccl, one card a rank):
     ring attention on a ring of every rank (phase 41's checks), each
@@ -3714,6 +4042,27 @@ def main() -> int:
     print(f"parallel phases: {time.perf_counter() - t0:.1f} s; "
           f"total {time.perf_counter() - t_start:.1f} s", flush=True)
 
+    # viz, the run-the-model tools, MLflow: phases 44-46
+    scratch = ROOT / "build" / "chip_smoke_tools"
+    shutil.rmtree(scratch, ignore_errors=True)
+    scratch.mkdir(parents=True)
+    t_new = time.perf_counter()
+    try:
+        write_h36m(scratch, eval_config("float32", scratch).run.seed)
+        t0 = time.perf_counter()
+        viz_counts = phase_viz(scratch)
+        print(f"viz phase: {time.perf_counter() - t0:.1f} s", flush=True)
+        t0 = time.perf_counter()
+        ablation_counts = phase_tools(scratch, fps, int8_fps["float32"], seq_s16)
+        print(f"tools phase: {time.perf_counter() - t0:.1f} s", flush=True)
+        t0 = time.perf_counter()
+        phase_mlflow(scratch)
+        print(f"mlflow phase: {time.perf_counter() - t0:.1f} s; phases 44-46 "
+              f"{time.perf_counter() - t_new:.1f} s; total "
+              f"{time.perf_counter() - t_start:.1f} s", flush=True)
+    finally:
+        shutil.rmtree(scratch, ignore_errors=True)
+
     kernels = []
     for name, meta in KERNELS.items():
         # this slice's main path is the bf16 training driver, which runs all
@@ -3737,6 +4086,7 @@ def main() -> int:
                    "train_step_joint_major_bf16": jm_train_counts["bfloat16"],
                    "train_step_remat": remat_counts["float32"],
                    "train_step_remat_bf16": remat_counts["bfloat16"],
+                   "viz": viz_counts, "step_ablation_full_bf16": ablation_counts,
                    **{f"megastep_{k}_replayed": v[4] for k, v in megastep.items()},
                    **{f"train_step_{k}_bf16": v for k, v in parallel_counts.items()}}
         variants = [dict(name=f"{name}_strided", layout="joint_major", route="cuda",

@@ -1,3 +1,3 @@
-from .core import CONFIG_ROOT, Config, load_config
+from .core import CONFIG_ROOT, Config, config_from_dict, load_config
 
-__all__ = ["CONFIG_ROOT", "Config", "load_config"]
+__all__ = ["CONFIG_ROOT", "Config", "config_from_dict", "load_config"]

@@ -13,6 +13,7 @@ the reference's config groups.
 
 from __future__ import annotations
 
+import copy
 import re
 from pathlib import Path
 from typing import Any, Optional, Sequence
@@ -64,6 +65,12 @@ def _parse_value(text: str) -> Any:
     if isinstance(value, str) and _BARE_EXP_FLOAT.match(value):
         return float(value)
     return value
+
+
+def config_from_dict(d: dict) -> Config:
+    """A Config holding a deep copy of ``d``: editing one never changes the
+    other."""
+    return _wrap(copy.deepcopy(_plain(d)))
 
 
 def _deep_update(base: dict, patch: dict) -> dict:

@@ -225,7 +225,8 @@ def main(cfg: Config, logger: Optional[MetricLogger] = None) -> Optional[float]:
     # parallel.pipe > 1: the GPipe-staged trunk, for training and the protocol
     net = maybe_pipelined_apply(model, cfg, mesh)
 
-    logger = logger or MetricLogger(mlflow_on=cfg.run.mlflow_on)
+    logger = logger or MetricLogger(mlflow_on=cfg.run.mlflow_on,
+                                    experiment=cfg.run.experiment)
     best_valid_mpjpe = None
     with rank_output_dir(output_dir) as out_dir:
         if cfg.run.train:

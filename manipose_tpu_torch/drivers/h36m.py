@@ -13,7 +13,9 @@ Run it as ``python -m manipose_tpu_torch.drivers.h36m data.data_dir=<dir>``
 (add ``device=cpu`` to run on the CPU, ``run.auto_resume=true`` to pick up
 a preempted run, ``run.train=false run.checkpoint_model=<.pth>`` or
 ``run.checkpoint_params=<run dir>/<tag>`` to test weights); the overrides
-are those of ``scripts/main_h36m.py``. ``run.viz=true`` raises.
+are those of ``scripts/main_h36m.py``. ``run.viz=true`` then lifts the
+``viz`` group's video and draws it into ``<run.output_dir>/figures``
+(``viz/driver.py``; the drawing needs matplotlib).
 ``parallel.data``, ``parallel.model``, ``parallel.pipe`` (the GPipe trunk,
 ``parallel.maybe_pipelined_apply``) and ``model.attn_impl=ring`` run under
 ``torchrun --nproc-per-node N`` (N = data x model x pipe; add
@@ -273,19 +275,14 @@ def run_test_protocol(
     return errs, head
 
 
-def _refuse_unported(cfg: Config) -> None:
-    if cfg.run.viz:
-        raise NotImplementedError("run.viz=true (rendering) is not ported yet")
-
-
 def main(cfg: Config, logger: Optional[MetricLogger] = None) -> Optional[float]:
     """The driver: data, the model (``run.checkpoint_model``, the seeded
     init, or with ``run.train=false`` a tag of a port run through
     ``run.checkpoint_params``) on ``cfg.device`` (``cuda`` unless set to
     ``cpu``), training with ``run.train=true``, then the test protocol on
-    the best weights. Returns the best validation MPJPE of the training
-    run, or None when nothing was trained."""
-    _refuse_unported(cfg)
+    the best weights, and with ``run.viz=true`` the rendering. Returns the
+    best validation MPJPE of the training run, or None when nothing was
+    trained."""
     device = resolve_device(cfg.get("device", "cuda"))
     mesh = mesh_from_config(cfg, device)  # the run's one mesh, or None
     if is_primary():
@@ -308,7 +305,8 @@ def main(cfg: Config, logger: Optional[MetricLogger] = None) -> Optional[float]:
     # parallel.pipe > 1: the GPipe-staged trunk, for training and the protocol
     net = maybe_pipelined_apply(model, cfg, mesh)
 
-    logger = logger or MetricLogger(mlflow_on=cfg.run.mlflow_on)
+    logger = logger or MetricLogger(mlflow_on=cfg.run.mlflow_on,
+                                    experiment=cfg.run.experiment)
     best_valid_mpjpe = None
     with rank_output_dir(output_dir) as out_dir:
         if cfg.run.train:
@@ -329,6 +327,14 @@ def main(cfg: Config, logger: Optional[MetricLogger] = None) -> Optional[float]:
         if cfg.run.test:
             run_test_protocol(net, cfg, dataset, keypoints, rmcl, out_dir,
                               actions=actions, logger=logger)
+
+        if cfg.run.viz:  # every rank lifts (collectives); one keeps the figure
+            from ..viz.driver import render_from_config
+
+            figures = Path(cfg.run.output_dir) / "figures"
+            render_from_config(cfg, net, dataset, keypoints, rmcl,
+                               figures_dir=figures if out_dir == output_dir
+                               else out_dir / "figures")
     return best_valid_mpjpe
 
 

@@ -3,8 +3,9 @@
 Port of ``manipose_tpu/utils/logging.py`` (``save_csv_log``,
 ``AverageMeter``, ``MetricLogger``), written with the ``csv`` module: the
 files are those pandas writes there (minimal quoting, ``\\n`` line ends, no
-index column). MLflow is not ported: ``MetricLogger(mlflow_on=True)``
-raises.
+index column). MLflow is optional, as there: ``MetricLogger(mlflow_on=True)``
+sends the metrics to MLflow as well when ``mlflow`` imports, and otherwise
+keeps them in its history alone, with ``mlflow_on`` read back False.
 """
 
 from __future__ import annotations
@@ -56,18 +57,43 @@ def save_csv_log(
 
 
 class MetricLogger:
-    """Metric sink: an in-memory history, saved as a CSV on request."""
+    """Metric sink: an in-memory history, saved as a CSV on request, and
+    MLflow (experiment ``experiment``, at ``tracking_uri`` when given) with
+    ``mlflow_on`` where it imports."""
 
-    def __init__(self, mlflow_on: bool = False):
-        if mlflow_on:
-            raise NotImplementedError(
-                "MLflow logging (run.mlflow_on=true) is not ported; the "
-                "metrics are kept in MetricLogger.history"
-            )
+    def __init__(self, mlflow_on: bool = False, experiment: str = "default",
+                 tracking_uri: Optional[str] = None):
         self.history = []
+        self.mlflow_on = mlflow_on
+        self._mlf = None
+        if mlflow_on:
+            try:
+                import mlflow
+
+                if tracking_uri:
+                    mlflow.set_tracking_uri(tracking_uri)
+                mlflow.set_experiment(experiment)
+                self._mlf = mlflow
+            except Exception:  # not installed, or no tracking server
+                self.mlflow_on = False
 
     def log(self, metrics: Dict[str, float], step: int) -> None:
         self.history.append({"step": step, **metrics})
+        if self._mlf is not None:
+            try:
+                self._mlf.log_metrics(
+                    {k: float(v) for k, v in metrics.items()}, step=step
+                )
+            except Exception:  # a non-numeric value, or the server went away
+                pass
+
+    def log_params(self, params: Dict[str, object]) -> None:
+        """Send run parameters to MLflow; without it, nothing."""
+        if self._mlf is not None:
+            try:
+                self._mlf.log_params(params)
+            except Exception:
+                pass
 
     def save_csv(self, output_dir, file_name: str = "metrics") -> Optional[str]:
         """The history as a CSV: one column per metric, in the order first

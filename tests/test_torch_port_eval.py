@@ -53,6 +53,7 @@ from manipose_tpu_torch import models as tm
 from manipose_tpu_torch.config import load_config
 from manipose_tpu_torch.data import Batch
 from manipose_tpu_torch.drivers.common import instantiate_model
+from manipose_tpu_torch.drivers import h36m as h36m_driver
 from manipose_tpu_torch.drivers.h36m import (
     fetch_and_prepare_data,
     main,
@@ -439,10 +440,11 @@ def test_test_protocol_matches_jax(h36m_dir, tmp_path):
 def test_eval_only_driver_runs_on_the_cpu(h36m_dir, tmp_path, monkeypatch):
     """``main`` with run.train=false and device=cpu writes the table from
     the seeded init; without ``device`` it asks for the card (and raises
-    where there is none); what the driver does not port yet raises, a
-    parallel setting without its process group raises the ValueError that
-    names the torchrun launch, and so does an eval-only restore of a tag
-    that is not there (FileNotFoundError)."""
+    where there is none); run.viz=true draws the figure and
+    run.mlflow_on=true falls back to the logger's history without mlflow;
+    a parallel setting without its process group raises the ValueError
+    that names the torchrun launch, and so does an eval-only restore of a
+    tag that is not there (FileNotFoundError)."""
     base = OVERRIDES + [f"data.data_dir={h36m_dir}", f"run.output_dir={tmp_path}",
                         "data.actions=walking", "run.train=false"]
     with monkeypatch.context() as m:
@@ -454,9 +456,25 @@ def test_eval_only_driver_runs_on_the_cpu(h36m_dir, tmp_path, monkeypatch):
     head, rows = _read_csv(tmp_path / "default" / "protocol_1_err.csv")
     assert head[:2] == ["act", "mpjpe"] and [r[0] for r in rows] == ["walking", "average"]
     assert np.isfinite(np.asarray([r[1:] for r in rows], float)).all()
-    for extra in ("run.viz=true", "run.mlflow_on=true"):
-        with pytest.raises(NotImplementedError):
-            main(load_config("config", base + [extra]))
+    assert main(load_config("config", base + [
+        "run.viz=true", "viz.viz_action=walking", "viz.viz_limit=2", "viz.viz_size=2",
+        "viz.extension=gif"])) is None
+    with open(tmp_path / "figures" / "rmcl_manifold_hyps_S11_walking_0.gif", "rb") as f:
+        assert f.read(4) == b"GIF8"
+    loggers = []
+
+    class Spy(MetricLogger):
+        def __init__(self, *args, **kw):
+            super().__init__(*args, **kw)
+            loggers.append((self, kw))
+
+    monkeypatch.setattr(h36m_driver, "MetricLogger", Spy)
+    assert main(load_config("config", base + ["run.mlflow_on=true"])) is None
+    (logger, kw), = loggers
+    assert kw == {"mlflow_on": True, "experiment": "default"} and logger.mlflow_on is False
+    assert [r["action"] for r in logger.history if "action" in r] == ["walking"]
+    head, rows = _read_csv(logger.save_csv(tmp_path, "history"))
+    assert "best_val_mpjpe" in head and len(rows) == 2
     for extra in ("parallel.pipe=2", "parallel.data=2"):
         with pytest.raises(ValueError, match="torchrun --nproc-per-node 2"):
             main(load_config("config", base + [extra]))

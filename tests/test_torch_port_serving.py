@@ -143,8 +143,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     init, muP and profiling modules, the 3DHP slice's data, driver,
     streaming and tools modules, the serving slice's quant module and
     tools, the toy experiments' modules, ``parallel`` (the mesh, the ring,
-    the pipeline, the flagship pipeline, the launch) and the toy figures
-    among them, and chip_smoke.py, import
+    the pipeline, the flagship pipeline, the launch), the toy figures,
+    ``viz``, seeding, TPE and the run-the-model tools among them, and
+    chip_smoke.py, import
     without loading jax, flax, optax, orbax or manipose_tpu (matched
     exactly: the port shares the prefix)."""
     code = """
@@ -164,7 +165,10 @@ walked = {"data.cameras", "data.h36m", "data.h36m_cameras", "data.native",
           "toy.datasets", "toy.metrics", "toy.models", "toy.diffusion", "toy.trainer",
           "toy.main", "parallel", "parallel.comm", "parallel.mesh",
           "parallel.multihost", "parallel.pipeline", "parallel.ring_attention",
-          "parallel.flagship", "toy.plots", "toy.paper_figures"}
+          "parallel.flagship", "toy.plots", "toy.paper_figures", "viz", "viz.driver",
+          "viz.prepare", "viz.render", "viz.video", "utils.seeding", "utils.tpe",
+          "tools.viz", "tools.count_n_params", "tools.bench_eval", "tools.bench_sustained",
+          "tools.robustness_sweep", "tools.step_ablation", "tools.hp_search"}
 missing = sorted(m for m in walked if "manipose_tpu_torch." + m not in sys.modules)
 bad = sorted(m for m in sys.modules
              if m in ("jax", "flax", "optax", "orbax", "manipose_tpu")
