@@ -248,6 +248,37 @@ package. Phases, each fatal on failure:
 46. mlflow  - the training driver with run.mlflow_on=true, one short epoch
               (LOOP_OVERRIDES): no exception without mlflow, the history
               written as metrics.csv.
+47. analysis - ``tools.eval_baselines`` on seeded (4, 243, 17, 3) dumps, on
+              the card and with ``--device cpu``: the H36M skeleton with
+              targets, then ``--skeleton=3dhp --pck`` under the three
+              alignments, every printed number within ANALYSIS_TOL relative;
+              then ``tools.plot_analysis`` on the fp32 eval run directory of
+              phases 12-15: the figures' data printed (sweep rows, the
+              spread matrix's shape and maximum, the scatter points), the
+              figures drawn where matplotlib imports, else each drawing must
+              raise the ImportError naming it (reported as not drawn). No
+              kernel launches.
+48. toy tables - ``tools.quantitative_comparison --setting toy2d`` and
+              ``toy3d`` on the card, cut to TABLE_SEEDS at phase 39's
+              TOY_EPOCHS, then ``tools.get_table_data`` over each setting's
+              six run directories: three rows with n = 2, every cell finite.
+              No kernel launches.
+49. muP     - ``tools.mup_coord_check`` at MUP_WIDTHS for MUP_STEPS steps on
+              the card and on the CPU from the same weights: step 0 within
+              MODEL_TOL of the magnitude, the later steps' gaps printed;
+              K3-K6 launched on fp32 operands, K1 and K2 not (L = 27); then
+              ``tools.mup_lr_transfer.lr_transfer`` at MUP_WIDTHS, 40 steps,
+              seeds (0, 1), under muP (transfer gap < 0.15, best-rate drift
+              <= 1: tests/test_mup.py's assertion) and under the standard
+              parametrization (its gap printed).
+50. fast    - ``model=fast`` (configs/model/fast.yaml: the segments branch
+              128 wide in 2 heads of 64) at the flagship: ``predict_video``
+              on 16 windows in fp32 and one bf16 train step at B = 16, K1-K6
+              launched with every attention at head dim 64 (no padding),
+              frames/s and sequences/s beside phases 3's and 9's; 2 windows
+              in fp32 on the card against the CPU within MODEL_TOL; then
+              ``tools.seg_heads_ab`` at its protocol scale cut to one seed
+              and SEG_AB_EPOCHS epochs: both arms finite.
 
 What one card cannot show (collectives between cards, scaling over
 cards, the pipeline's bubble) is not measured here. On a machine with N
@@ -3748,6 +3779,346 @@ def phase_mlflow(data_dir: Path) -> None:
           f"{len(history) - 1} rows", flush=True)
 
 
+# ---- the offline-analysis and muP tools, model=fast (phases 47-50) ---------
+
+# phase 47: eval_baselines on the card against the CPU, each printed number
+# relative (fp32 sums in another order on each side; a PCK moves by one
+# joint-frame in 16524, 6e-5 of it)
+ANALYSIS_TOL = 1e-4
+ANALYSIS_DUMP = (4, 243, 17, 3)
+ALIGNMENTS = ("none", "scale", "procrustes")
+# phase 48: the toy tables' seeds (the scripts run 42-46)
+TABLE_SEEDS = (42, 43)
+# phase 49: the widths of the coordinate check and the transfer sweep, the
+# check's steps, the sweep's steps and its limit (tests/test_mup.py)
+MUP_WIDTHS = (32, 64, 128)
+MUP_STEPS = 5
+MUP_TRANSFER_STEPS = 40
+MUP_GAP_LIMIT = 0.15
+# phase 50: model=fast's windows on the card against the CPU; the epochs of
+# seg_heads_ab's one seed
+FAST_CPU_WINDOWS = 2
+SEG_AB_EPOCHS = 3
+
+
+def printed_numbers(text: str) -> dict:
+    """{label: numbers} of a tool's ``label: value`` lines (a numpy array
+    may wrap lines)."""
+    entries, key = {}, None
+    for line in text.splitlines():
+        m = re.match(r"^([A-Za-z3][^:\[]*?):\s*(.*)$", line)
+        if m:
+            key = m.group(1)
+            entries[key] = m.group(2)
+        elif key is not None:
+            entries[key] += " " + line
+    num = r"[-+]?\d+(?:\.\d*)?(?:[eE][-+]?\d+)?|nan|inf"
+    return {k: [float(v) for v in re.findall(num, rest)] for k, rest in entries.items()}
+
+
+def printed_by(fn, argv) -> str:
+    """What ``fn(argv)`` prints."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        fn(argv)
+    return buf.getvalue()
+
+
+def require_no_launches(what: str) -> dict:
+    from manipose_tpu_torch import ops
+
+    counts = ops.launch_counts()
+    require(not any(counts.values()), f"{what} launched kernels: {counts}")
+    return counts
+
+
+def phase_analysis(data_dir: Path, run: Path) -> dict:
+    """Phase 47. ``run``: the fp32 eval run directory of phases 12-15.
+    Returns the launch counts (none)."""
+    from manipose_tpu_torch import ops
+    from manipose_tpu_torch.tools import eval_baselines, plot_analysis
+
+    rng = np.random.default_rng(47)
+    targets = rng.normal(scale=100, size=ANALYSIS_DUMP).astype(np.float32)
+    preds = targets + rng.normal(scale=40, size=ANALYSIS_DUMP).astype(np.float32)
+    np.save(data_dir / "preds.npy", preds)
+    np.save(data_dir / "targets.npy", targets)
+    paths = [str(data_dir / "preds.npy"), str(data_dir / "targets.npy")]
+    ops.reset_launch_counts()
+    cases = [("h36m", [])] + [(f"3dhp --pck --alignment={a}",
+                               ["--skeleton=3dhp", "--pck", f"--alignment={a}"])
+                              for a in ALIGNMENTS]
+    for label, flags in cases:
+        out = {dev: printed_numbers(printed_by(eval_baselines.main,
+                                               paths + flags + ["--device", dev]))
+               for dev in ("cuda", "cpu")}
+        card, cpu = out["cuda"], out["cpu"]
+        require(list(card) == list(cpu) and len(cpu) == (10 if "--pck" in flags else 8),
+                f"eval_baselines {label}: lines {list(card)} against {list(cpu)}")
+        worst = 0.0
+        for key, ref in cpu.items():
+            got, ref = np.asarray(card[key]), np.asarray(ref)
+            require(got.shape == ref.shape and bool(np.isfinite(got).all()),
+                    f"eval_baselines {label} {key}: {got} against {ref}")
+            err = float(np.max(np.abs(got - ref) / np.maximum(np.abs(ref), 1e-12)))
+            require(err <= ANALYSIS_TOL, f"eval_baselines {label} {key}: card {got} against "
+                                         f"the CPU's {ref} ({err} > {ANALYSIS_TOL})")
+            worst = max(worst, err)
+        print(f"eval_baselines {label} on {ANALYSIS_DUMP} dumps: {len(cpu)} lines, card "
+              f"against the CPU within {worst:.3g} relative; " + ", ".join(
+                  f"{k} {v[0]:.4f}" for k, v in card.items() if len(v) == 1), flush=True)
+
+    label = "flagship fp32 eval"
+    sweep = plot_analysis.sweep_rows([run], [5])  # the flagship's K
+    spread = plot_analysis.multimodality_data(run)
+    points = plot_analysis.consistency_points([run], [label])
+    bone_names, stretch = plot_analysis.max_stretch_bars(run)
+    bars = plot_analysis.comparison_rows([run], [label])
+    errs, _ = plot_analysis.seg_err_data(run)
+    matrix = spread["matrix"]
+    require(len(sweep) == 1 and "oracle" in sweep[0] and len(points) == 1,
+            f"sweep rows {sweep}, points {points}")
+    require(matrix.shape == (len(EVAL_ACTIONS), 17) and spread["actions"] is not None,
+            f"spread matrix {matrix.shape}, actions {spread['actions']}")
+    require(len(stretch) == 16 and len(bars) == 4 and errs.shape[1] == 16,
+            f"stretch {stretch.shape}, bars {list(bars)}, segment errors {errs.shape}")
+    values = [*(v for r in sweep for v in r.values()), *matrix.ravel(),
+              *spread["frame_spread"], *(v for p in points for v in p[1:]), *stretch,
+              *(v for _, rows in bars.values() for _, r in rows for v in r), *errs.ravel()]
+    require(bool(np.isfinite(values).all()), "the figures' data are finite")
+    print(f"plot_analysis on the {label} run: sweep rows {sweep}; spread matrix "
+          f"{matrix.shape} ({', '.join(spread['actions'])} x 17 joints), max "
+          f"{float(matrix.max()):.4f} mm, per-frame spread over {spread['frame_spread'].size} "
+          f"frames; MPJPE vs MPSCE points {points}; max stretch of {len(bone_names)} bones, "
+          f"largest {float(stretch.max()):.4f} mm; bars {', '.join(bars)}; "
+          f"{errs.shape[0]} segment-error rows", flush=True)
+    if matplotlib_imports():
+        plot_analysis.main([str(run), "--labels", "flagship", "--sweep-param", "K=5"])
+        drawn = sorted(p.name for p in run.glob("*.png"))
+        require(len(drawn) == 14, f"plot_analysis drew {drawn}")
+        print(f"plot_analysis drew {len(drawn)} figures", flush=True)
+    else:
+        for draw in (plot_analysis.plot_max_stretch, plot_analysis.inspect_multimodality,
+                     plot_analysis.plot_seg_err_histograms):
+            try:
+                draw(run)
+                require(False, f"{draw.__name__} drew without matplotlib")
+            except ImportError as e:
+                require("matplotlib" in str(e), f"the ImportError names matplotlib: {e}")
+        print("plot_analysis: matplotlib does not import, each drawing raised the "
+              "ImportError naming it; not drawn", flush=True)
+    return require_no_launches("the analysis tools")
+
+
+def phase_toy_tables(out_dir: Path) -> dict:
+    """Phase 48. Returns the launch counts (none)."""
+    import contextlib
+    import io
+
+    from manipose_tpu_torch import ops
+    from manipose_tpu_torch.tools import get_table_data, quantitative_comparison
+
+    ops.reset_launch_counts()
+    for setting in ("toy2d", "toy3d"):
+        root = out_dir / setting
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):  # each run prints its config
+            results = quantitative_comparison.main([
+                "--setting", setting, "--seeds", ",".join(map(str, TABLE_SEEDS)),
+                f"train.epochs={TOY_EPOCHS}", f"run.output_dir={root}"])
+        wall = time.perf_counter() - t0
+        require(len(results) == 3 * len(TABLE_SEEDS)
+                and all(v is not None and np.isfinite(v) for _, v in results),
+                f"{setting} runs {results}")
+        dirs = [str(root / name) for name, _ in results]
+        groups = {}
+        text = printed_by(lambda argv: groups.update(get_table_data.main(argv)), dirs)
+        require(sorted(groups) == sorted(f"{setting}_{a}" for a in quantitative_comparison.ARCHS)
+                and all(len(ms) == len(TABLE_SEEDS) for ms in groups.values()),
+                f"{setting} table groups {groups}")
+        require(all(np.isfinite(v) for ms in groups.values() for m in ms for v in m.values()),
+                f"{setting} table cells finite: {groups}")
+        require("nan" not in text and "inf" not in text, f"{setting} table:\n{text}")
+        print(f"toy table {setting} ({len(TABLE_SEEDS)} seeds x 3 archs, {TOY_EPOCHS} "
+              f"epochs, {wall:.1f} s on the card):\n{text}", flush=True)
+    return require_no_launches("the toy tables")
+
+
+def phase_mup() -> dict:
+    """Phase 49. Returns the launch counts of its card runs."""
+    from manipose_tpu_torch import ops
+    from manipose_tpu_torch.tools import mup_coord_check, mup_lr_transfer
+
+    base = MUP_WIDTHS[0]
+    keys = ("trunk_abs", "out_abs")
+    ops.reset_launch_counts()
+    for width in MUP_WIDTHS:
+        weights = mup_coord_check.build_model(width, base, True).state_dict()
+        t0 = time.perf_counter()
+        card = mup_coord_check.run(width, base, MUP_STEPS, state_dict=weights, device="cuda")
+        card_s = time.perf_counter() - t0
+        cpu = mup_coord_check.run(width, base, MUP_STEPS, state_dict=weights, device="cpu")
+        for key in keys:
+            got, ref = card[0][key], cpu[0][key]
+            require(np.isfinite(got) and abs(got - ref) <= MODEL_TOL * abs(ref),
+                    f"coord check width {width} step 0 {key}: card {got}, cpu {ref}")
+        require(all(np.isfinite(r[k]) for r in card for k in keys), f"coord check {card}")
+        gaps = [max(abs(c[k] - p[k]) / abs(p[k]) for k in keys) for c, p in zip(card, cpu)]
+        print(f"mup_coord_check width {width} ({MUP_STEPS} steps, {card_s:.2f} s on the "
+              f"card): trunk|a| " + " ".join(f"{r['trunk_abs']:.4f}" for r in card)
+              + ", out|a| " + " ".join(f"{r['out_abs']:.4f}" for r in card)
+              + "; card against the CPU by step (relative) "
+              + " ".join(f"{g:.2g}" for g in gaps), flush=True)
+
+    for mup in (True, False):
+        t0 = time.perf_counter()
+        res = mup_lr_transfer.lr_transfer(widths=MUP_WIDTHS, steps=MUP_TRANSFER_STEPS,
+                                          mup=mup, seeds=(0, 1), device="cuda")
+        wall = time.perf_counter() - t0
+        best = res["best_idx"]
+        drift = abs(best[min(best)] - best[max(best)])
+        require(all(np.isfinite(v) for c in res["curves"].values() for v in c),
+                f"transfer curves {res['curves']}")
+        if mup:
+            require(res["transfer_gap"] < MUP_GAP_LIMIT and drift <= 1,
+                    f"muP transfer gap {res['transfer_gap']} (< {MUP_GAP_LIMIT}), best "
+                    f"rates {best} (drift <= 1)")
+        print(f"lr_transfer {'muP' if mup else 'SP'} (widths {MUP_WIDTHS}, "
+              f"{MUP_TRANSFER_STEPS} steps, seeds 0 and 1, {len(res['lrs'])} rates, "
+              f"{wall:.1f} s): transfer gap {res['transfer_gap']:.4f}, best rate index "
+              f"{best} (drift {drift}); curves " + "; ".join(
+                  f"{w}: " + " ".join(f"{v:.4f}" for v in c) for w, c in res["curves"].items()),
+              flush=True)
+    counts, fp32 = ops.launch_counts(), ops.launch_counts(torch.float32)
+    require(counts == fp32, f"muP launches {counts}, on fp32 operands {fp32}")
+    require(counts["attention_dense"] == counts["attention_dense_bwd"] == 0
+            and all(counts[k] > 0 for k in ("attention_packed", "attention_packed_bwd",
+                                            "fused_mlp", "fused_mlp_bwd")),
+            f"muP launches (K3-K6 only at L <= 27): {counts}")
+    print(f"muP tools launches {counts} (all on fp32 operands)", flush=True)
+    return counts
+
+
+def phase_fast(out_dir: Path, serve_fps: float, blocked_seq_s: float) -> dict:
+    """Phase 50. Returns {path: launch counts}."""
+    import collections
+    import contextlib
+    import io
+
+    from manipose_tpu_torch import ops
+    from manipose_tpu_torch.config import load_config
+    from manipose_tpu_torch.ops import cuda_attention
+    from manipose_tpu_torch.serving import Predictor
+    from manipose_tpu_torch.tools import seg_heads_ab
+
+    cfg = load_config("config", ["model=fast"])
+    require(cfg.model.nheads_seg == 2 and cfg.model.channels_seg == 128,
+            f"model=fast: segments {cfg.model.channels_seg} wide in {cfg.model.nheads_seg} heads")
+    # every head dim that attention() sees, and so whether it pads one
+    seen = collections.Counter()
+    padded_head_dim = cuda_attention.padded_head_dim
+
+    def spy(d):
+        seen[d] += 1
+        return padded_head_dim(d)
+
+    counts = {}
+    cuda_attention.padded_head_dim = spy
+    try:
+        predictor = Predictor(cfg=cfg, batch_size=16, tta=True)
+        l = cfg.data.seq_len
+        video = np.random.default_rng(0).normal(size=(16 * l, 17, 2)).astype(np.float32)
+        predictor.predict_video(video)  # warm-up
+        seen.clear()
+        ops.reset_launch_counts()
+        poses, hyps, scores = predictor.predict_video(video, return_hypotheses=True)
+        counts["serve_fast"] = require_counts(
+            "float32", {k: 2 * n for k, n in LAUNCHES_PER_FORWARD.items()},
+            "model=fast fp32 serving (1 batch of 16 windows, TTA)")
+        require(set(seen) == {64}, f"model=fast serving head dims {dict(seen)}")
+        require(all(bool(np.isfinite(a).all()) for a in (poses, hyps, scores))
+                and poses.shape == video.shape[:2] + (3,), f"poses {poses.shape}")
+        serve_dims = dict(seen)
+        reps = 5
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            predictor.predict_video(video)
+        fps = video.shape[0] * reps / (time.perf_counter() - t0)
+
+        state, step = make_trainer(load_config("config", ["model=fast", "model.dtype=bfloat16"]),
+                                   "cuda")
+        x, y = (t.cuda() for t in flagship_batch(l, TRAIN_BATCH))
+        seen.clear()
+        ops.reset_launch_counts()
+        history = [step(state, x, y, TRAIN_LR)]
+        torch.cuda.synchronize()
+        counts["train_step_fast_bf16"] = require_counts(
+            "bfloat16", LAUNCHES_PER_TRAIN_STEP, "model=fast bf16 train step")
+        require(set(seen) == {64}, f"model=fast train step head dims {dict(seen)}")
+        train_dims = dict(seen)
+        history.append(step(state, x, y, TRAIN_LR))  # second warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(TRAIN_STEPS):
+            history.append(step(state, x, y, TRAIN_LR))
+        torch.cuda.synchronize()
+        seq_s = TRAIN_BATCH * TRAIN_STEPS / (time.perf_counter() - t0)
+        for i, metrics in enumerate(history):
+            require_finite(metrics, f"model=fast train step {i}")
+        del state, step, x, y
+    finally:
+        cuda_attention.padded_head_dim = padded_head_dim
+    print(f"model=fast (segments 128 wide, 2 heads of 64): predict_video {fps:.1f} frames/s "
+          f"(fp32, 16 windows, TTA, mean of {reps}; phase 3's flagship {serve_fps:.1f}); bf16 "
+          f"train step {seq_s:.2f} sequences/s (B={TRAIN_BATCH}, mean of {TRAIN_STEPS} after "
+          f"2 warm-ups; phase 9's flagship {blocked_seq_s:.2f}); head dims at attention(): "
+          f"serving {serve_dims}, train step {train_dims} (none padded)", flush=True)
+
+    weights = {k: v.cpu() for k, v in predictor.model.state_dict().items()}
+    del predictor
+    window = np.random.default_rng(1).normal(size=(FAST_CPU_WINDOWS * l, 17, 2))
+    window = window.astype(np.float32)
+    outs = {dev: Predictor(cfg=cfg, state_dict=weights, batch_size=FAST_CPU_WINDOWS,
+                           tta=False, device=dev).predict_video(window, return_hypotheses=True)
+            for dev in ("cuda", "cpu")}
+    errs = {}
+    for i, name in enumerate(("poses", "hyps", "scores")):
+        ref, got = outs["cpu"][i], outs["cuda"][i]
+        err = float(np.abs(ref - got).max())
+        tol = MODEL_TOL * max(1.0, float(np.abs(ref).max()))
+        require(err <= tol, f"model=fast cpu vs card {name}: {err} > {tol}")
+        errs[name] = (err, tol)
+    print(f"model=fast cpu vs card (fp32, {FAST_CPU_WINDOWS} windows, TTA off): "
+          + ", ".join(f"{k} err {e:.3g} (tol {t:.3g})" for k, (e, t) in errs.items()),
+          flush=True)
+
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    path = out_dir / "seg_heads_ab.json"
+    with contextlib.redirect_stdout(io.StringIO()):  # the loop's epoch lines
+        results = seg_heads_ab.main(["--seeds", "0", "--epochs", str(SEG_AB_EPOCHS),
+                                     "--json", str(path)])
+    wall = time.perf_counter() - t0
+    arms = [k for k in results if k != "protocol"]
+    require(arms == ["seg8", "seg2"] and path.exists(), f"seg_heads_ab arms {arms}")
+    require(all(np.isfinite(v) for a in arms for row in results[a] for v in row.values()),
+            f"seg_heads_ab results {results}")
+    counts["seg_heads_ab"] = ops.launch_counts()
+    require(counts["seg_heads_ab"]["attention_dense"] == 0
+            and all(counts["seg_heads_ab"][k] > 0 for k in ("attention_packed",
+                                                            "attention_packed_bwd",
+                                                            "fused_mlp", "fused_mlp_bwd")),
+            f"seg_heads_ab launches (K3-K6 at L = 27): {counts['seg_heads_ab']}")
+    print(f"seg_heads_ab (d=64, L=27, segments 16 wide, K=3; seed 0, {SEG_AB_EPOCHS} epochs "
+          f"an arm, {wall:.1f} s): " + "; ".join(
+              f"{a} " + ", ".join(f"{k} {v:.3f}" for k, v in results[a][0].items())
+              for a in arms) + f"; launches {counts['seg_heads_ab']}", flush=True)
+    return counts
+
+
 def rank_worker() -> int:
     """One rank of ``--ranks N`` (under torchrun, nccl, one card a rank):
     ring attention on a ring of every rank (phase 41's checks), each
@@ -3941,6 +4312,11 @@ def main() -> int:
             phase_eval_cpu_vs_card(dtype, scratch)
             print(f"eval {dtype} cpu-card phase: {time.perf_counter() - t0:.1f} s; "
                   f"total {time.perf_counter() - t_start:.1f} s", flush=True)
+        # phase 47's plot_analysis reads the fp32 eval run's artifacts
+        eval_run = ROOT / "build" / "chip_smoke_analysis" / "eval_float32"
+        shutil.rmtree(eval_run.parent, ignore_errors=True)
+        shutil.copytree(Path(eval_config("float32", scratch).run.output_dir) / "eval_float32",
+                        eval_run)
         driver_counts, driver_epochs = {}, {}
         for dtype in ("bfloat16", "float32"):
             t0 = time.perf_counter()
@@ -4063,6 +4439,27 @@ def main() -> int:
     finally:
         shutil.rmtree(scratch, ignore_errors=True)
 
+    # the offline-analysis and muP tools, model=fast: phases 47-50
+    scratch = eval_run.parent
+    t_new = time.perf_counter()
+    try:
+        t0 = time.perf_counter()
+        analysis_counts = phase_analysis(scratch, eval_run)
+        print(f"analysis phase: {time.perf_counter() - t0:.1f} s", flush=True)
+        t0 = time.perf_counter()
+        table_counts = phase_toy_tables(scratch)
+        print(f"toy tables phase: {time.perf_counter() - t0:.1f} s", flush=True)
+        t0 = time.perf_counter()
+        mup_counts = phase_mup()
+        print(f"muP phase: {time.perf_counter() - t0:.1f} s", flush=True)
+        t0 = time.perf_counter()
+        fast_counts = phase_fast(scratch, fps, seq_s16)
+        print(f"fast phase: {time.perf_counter() - t0:.1f} s; phases 47-50 "
+              f"{time.perf_counter() - t_new:.1f} s; total "
+              f"{time.perf_counter() - t_start:.1f} s", flush=True)
+    finally:
+        shutil.rmtree(scratch, ignore_errors=True)
+
     kernels = []
     for name, meta in KERNELS.items():
         # this slice's main path is the bf16 training driver, which runs all
@@ -4087,6 +4484,8 @@ def main() -> int:
                    "train_step_remat": remat_counts["float32"],
                    "train_step_remat_bf16": remat_counts["bfloat16"],
                    "viz": viz_counts, "step_ablation_full_bf16": ablation_counts,
+                   "analysis_tools": analysis_counts, "toy_tables": table_counts,
+                   "mup_tools": mup_counts, **fast_counts,
                    **{f"megastep_{k}_replayed": v[4] for k, v in megastep.items()},
                    **{f"train_step_{k}_bf16": v for k, v in parallel_counts.items()}}
         variants = [dict(name=f"{name}_strided", layout="joint_major", route="cuda",

@@ -29,7 +29,9 @@ distribution does.
 from __future__ import annotations
 
 import math
+import re
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -109,3 +111,52 @@ def init_from_config(model: nn.Module, cfg) -> nn.Module:
     if cfg.model.get("init", "flax") == "torch":
         return torch_default_init(model, cfg.run.seed)
     return flax_default_init(model, cfg.run.seed)
+
+
+# the flax scope path of each Linear of a MixSTE trunk (the port's names,
+# ``weights._trunk``'s map read backwards)
+_MIXSTE_PATHS = (
+    (r"Spatial_patch_to_embedding", ("spatial_embed",)),
+    (r"head\.1", ("head",)),
+    (r"(STE|TTE)blocks\.(\d+)\.(attn\.qkv|attn\.proj|mlp\.fc1|mlp\.fc2)", None),
+)
+
+
+def _mixste_path(name: str):
+    """The flax scope path of the Linear ``name`` of a MixSTE trunk."""
+    for pattern, path in _MIXSTE_PATHS:
+        m = re.fullmatch(pattern, name)
+        if m and path is not None:
+            return path
+        if m:
+            kind, i, sub = m.groups()
+            return (f"{kind.lower()}_block_{i}", *sub.split("."))
+    raise ValueError(f"no flax path for {name!r}: flax_init_from_key takes a MixSTE trunk")
+
+
+def flax_init_from_key(model: nn.Module, seed: int) -> nn.Module:
+    """A MixSTE trunk drawn as the JAX package's ``model.init(
+    jax.random.PRNGKey(seed), x)`` draws it: each kernel from flax's key for
+    its module path (``utils.jax_random.flax_param_key``) by lecun-normal's
+    truncated normal, biases and positional tables zero, LayerNorms ones
+    and zeros. The values are the JAX init's within float32 rounding, so a
+    port tool starts from its JAX counterpart's weights for one seed."""
+    from ..utils import jax_random
+
+    with torch.no_grad():
+        for name, mod in model.named_modules():
+            if isinstance(mod, nn.Linear):
+                fan_in = mod.in_features
+                std = np.float32(np.sqrt(np.float32(1.0 / fan_in))) / np.float32(_TRUNC_STD)
+                key = jax_random.flax_param_key(seed, _mixste_path(name))
+                kernel = jax_random.truncated_normal(key, -2.0, 2.0, (fan_in, mod.out_features))
+                mod.weight.copy_(torch.from_numpy((kernel * std).T.copy()))
+                if mod.bias is not None:
+                    mod.bias.zero_()
+            elif isinstance(mod, nn.LayerNorm) and mod.weight is not None:
+                mod.weight.fill_(1.0)
+                mod.bias.zero_()
+        for name, p in model.named_parameters():
+            if name.endswith("_pos_embed"):
+                p.zero_()
+    return model

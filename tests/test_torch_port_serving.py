@@ -144,7 +144,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     streaming and tools modules, the serving slice's quant module and
     tools, the toy experiments' modules, ``parallel`` (the mesh, the ring,
     the pipeline, the flagship pipeline, the launch), the toy figures,
-    ``viz``, seeding, TPE and the run-the-model tools among them, and
+    ``viz``, seeding, TPE, the run-the-model tools, the offline-analysis and
+    muP tools, ``seg_heads_ab`` and the toy tables' driver among them, and
     chip_smoke.py, import
     without loading jax, flax, optax, orbax or manipose_tpu (matched
     exactly: the port shares the prefix)."""
@@ -168,7 +169,10 @@ walked = {"data.cameras", "data.h36m", "data.h36m_cameras", "data.native",
           "parallel.flagship", "toy.plots", "toy.paper_figures", "viz", "viz.driver",
           "viz.prepare", "viz.render", "viz.video", "utils.seeding", "utils.tpe",
           "tools.viz", "tools.count_n_params", "tools.bench_eval", "tools.bench_sustained",
-          "tools.robustness_sweep", "tools.step_ablation", "tools.hp_search"}
+          "tools.robustness_sweep", "tools.step_ablation", "tools.hp_search",
+          "tools.eval_baselines", "tools.get_table_data", "tools.plot_analysis",
+          "tools.mup_coord_check", "tools.mup_lr_transfer", "tools.seg_heads_ab",
+          "tools.quantitative_comparison", "utils.jax_random"}
 missing = sorted(m for m in walked if "manipose_tpu_torch." + m not in sys.modules)
 bad = sorted(m for m in sys.modules
              if m in ("jax", "flax", "optax", "orbax", "manipose_tpu")
