@@ -7,6 +7,12 @@ one, and a background thread that assembles the next batches while the
 device computes. ``Batch.pin_memory`` makes a batch's page-locked copy
 (in that thread, when ``evaluate`` runs on the card) and
 ``Batch.to_device`` queues its copy to the card, asynchronously.
+
+Spans (``utils.profiling``): ``data.batch`` is one batch's assembly in
+``SequenceLoader``; ``data.produce`` is one item's production on the
+prefetch thread (the loader's batch and, where the iterable pins, the
+pin); ``data.wait`` is the consumer's wait for it; ``data.to_device`` is
+``Batch.to_device``.
 """
 
 from __future__ import annotations
@@ -19,6 +25,7 @@ from typing import Iterable, Iterator, Optional, Tuple
 import numpy as np
 import torch
 
+from ..utils import profiling
 from .windowing import PoseSequenceDataset
 
 
@@ -50,10 +57,11 @@ class Batch:
         before) with ``non_blocking=True``, so the copy is queued on the
         current stream and the host goes on; torch's pinned-memory
         allocator keeps the pinned copy until the transfer has run."""
-        if device.type == "cuda":
-            return tuple(t.to(device, non_blocking=True) for t in self.pin_memory().pinned)
-        return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device)
-                     for a in (self.pose_2d, self.pose_3d, self.valid))
+        with profiling.span("data.to_device"):
+            if device.type == "cuda":
+                return tuple(t.to(device, non_blocking=True) for t in self.pin_memory().pinned)
+            return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device)
+                         for a in (self.pose_2d, self.pose_3d, self.valid))
 
 
 class SequenceLoader:
@@ -98,7 +106,8 @@ class SequenceLoader:
             if n_pad > 0:
                 idx = np.concatenate([idx, np.repeat(idx[-1:], n_pad)])
                 valid[self.batch_size - n_pad:] = 0.0
-            pose_2d, pose_3d = self.dataset.get_batch(idx, rng)
+            with profiling.span("data.batch"):
+                pose_2d, pose_3d = self.dataset.get_batch(idx, rng)
             yield Batch(pose_2d=pose_2d, pose_3d=pose_3d, valid=valid)
         self._epoch += 1
 
@@ -107,7 +116,9 @@ def prefetch(iterable: Iterable, size: int = 2) -> Iterator:
     """Run an iterator in a background thread with a bounded queue, so that
     host batch assembly overlaps device compute. An exception in the
     producer is raised in the consumer. A consumer that stops early stops
-    the producer too: the thread gives up at its next put."""
+    the producer too: the thread gives up at its next put. Each item's
+    production and each wait for one is a span (``data.produce``,
+    ``data.wait``), the end of the iterable's included."""
     q: queue.Queue = queue.Queue(maxsize=size)
     sentinel = object()
     stop = threading.Event()
@@ -123,7 +134,12 @@ def prefetch(iterable: Iterable, size: int = 2) -> Iterator:
 
     def producer():
         try:
-            for item in iterable:
+            items = iter(iterable)
+            while True:
+                with profiling.span("data.produce"):
+                    item = next(items, sentinel)
+                if item is sentinel:
+                    break
                 if not put(item):
                     return
             put(sentinel)
@@ -134,7 +150,8 @@ def prefetch(iterable: Iterable, size: int = 2) -> Iterator:
     thread.start()
     try:
         while True:
-            item = q.get()
+            with profiling.span("data.wait"):
+                item = q.get()
             if item is sentinel:
                 break
             if isinstance(item, BaseException):

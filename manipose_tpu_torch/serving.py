@@ -12,6 +12,11 @@ Besides: int8 serving (``quantize``, ``ops/quant.py``), data-parallel
 serving over the local cards (``data_parallel``,
 :func:`data_parallel_forward`), and the forward as a ``torch.export``
 program (:meth:`Predictor.export_program`, :meth:`Predictor.load_program`).
+
+Spans (``utils.profiling``): ``serve.video`` is one ``predict_video``
+call (count ``frames``); ``serve.dispatch`` is one batch's start on the
+device (counts ``rows``, padding included, and ``valid``), in
+``predict_video`` and ``forward_windows`` alike.
 """
 
 from __future__ import annotations
@@ -36,6 +41,7 @@ from .geometry.skeleton import Skeleton
 from .models.rmcl import aggregate_hypotheses
 from .ops import quant
 from .train.checkpoint import tag_weights
+from .utils import profiling
 from .weights import load_torch_checkpoint
 
 # int8 serves only when the probe measures int8 GEMMs at least this much
@@ -331,28 +337,30 @@ class Predictor:
         return StreamingSession(self, stride=stride, lookahead=lookahead)
 
     # ------------------------------------------------------------------
-    def _dispatch(self, batch: np.ndarray, want_hyps: bool):
+    def _dispatch(self, batch: np.ndarray, want_hyps: bool, n_valid: int):
         """Start one batch on the device; returns what ``_harvest`` needs.
         On the card the input goes up from pinned memory and the results
         come back into pinned buffers, both asynchronously, so the device
-        runs while the host harvests the previous batch."""
-        x = torch.from_numpy(batch)
-        on_cuda = self.device.type == "cuda"
-        if on_cuda:
-            x = x.pin_memory()
-        x = x.to(self.device, non_blocking=True)
-        outs = self._forward(x)
-        if not want_hyps:
-            outs = outs[:1]
-        if not on_cuda:
-            return outs, None
-        host = []
-        for t in outs:
-            buf = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-            host.append(buf.copy_(t, non_blocking=True))
-        done = torch.cuda.Event()
-        done.record()
-        return host, done
+        runs while the host harvests the previous batch. ``n_valid``: the
+        batch's rows that are not padding."""
+        with profiling.span("serve.dispatch", rows=len(batch), valid=n_valid):
+            x = torch.from_numpy(batch)
+            on_cuda = self.device.type == "cuda"
+            if on_cuda:
+                x = x.pin_memory()
+            x = x.to(self.device, non_blocking=True)
+            outs = self._forward(x)
+            if not want_hyps:
+                outs = outs[:1]
+            if not on_cuda:
+                return outs, None
+            host = []
+            for t in outs:
+                buf = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                host.append(buf.copy_(t, non_blocking=True))
+            done = torch.cuda.Event()
+            done.record()
+            return host, done
 
     @staticmethod
     def _harvest(pending):
@@ -365,9 +373,9 @@ class Predictor:
     def forward_windows(self, windows: np.ndarray) -> np.ndarray:
         """The aggregated poses (W, L, J, 3) of a batch of windows (W, L, J,
         2), as ``predict_video`` computes each batch (TTA included)."""
+        windows = np.ascontiguousarray(windows, np.float32)
         with torch.inference_mode():
-            return self._harvest(self._dispatch(np.ascontiguousarray(windows, np.float32),
-                                                want_hyps=False))[0]
+            return self._harvest(self._dispatch(windows, False, len(windows)))[0]
 
     def predict_video(
         self,
@@ -395,64 +403,65 @@ class Predictor:
                 f"expected (N, {self.skeleton.num_joints}, 2) keypoints, got "
                 f"{keypoints_2d.shape}"
             )
-        seq_len = self.seq_len
-        if window_stride is not None:
-            lookahead = seq_len // 2
-            if not 1 <= window_stride <= seq_len - lookahead:
-                raise ValueError(
-                    f"window_stride={window_stride} must be in "
-                    f"[1, {seq_len - lookahead}]"
+        with profiling.span("serve.video", frames=n_frames):
+            seq_len = self.seq_len
+            if window_stride is not None:
+                lookahead = seq_len // 2
+                if not 1 <= window_stride <= seq_len - lookahead:
+                    raise ValueError(
+                        f"window_stride={window_stride} must be in "
+                        f"[1, {seq_len - lookahead}]"
+                    )
+                n_windows = (n_frames + window_stride - 1) // window_stride
+                # window k ends at frame (k+1)*S + lookahead - 1, indices
+                # clamped to the video; frames are read from the positions
+                # [L - lookahead - S, L - lookahead)
+                ends = (np.arange(n_windows, dtype=np.int64) + 1) * window_stride
+                ends += lookahead - 1
+                idx = np.clip(
+                    ends[:, None] + np.arange(-seq_len + 1, 1)[None, :],
+                    0, n_frames - 1,
                 )
-            n_windows = (n_frames + window_stride - 1) // window_stride
-            # window k ends at frame (k+1)*S + lookahead - 1, indices
-            # clamped to the video; frames are read from the positions
-            # [L - lookahead - S, L - lookahead)
-            ends = (np.arange(n_windows, dtype=np.int64) + 1) * window_stride
-            ends += lookahead - 1
-            idx = np.clip(
-                ends[:, None] + np.arange(-seq_len + 1, 1)[None, :],
-                0, n_frames - 1,
-            )
-            clips = _LazyWindows(keypoints_2d, idx)
-            emit_lo = seq_len - lookahead - window_stride
-            emit_hi = emit_lo + window_stride
-        else:
-            n_windows = max(1, (n_frames + seq_len - 1) // seq_len)
-            starts = np.arange(n_windows, dtype=np.int64) * seq_len
-            clips = gather_windows([keypoints_2d], np.zeros(n_windows, np.int64),
-                                   starts, seq_len)  # (W, L, J, 2)
-            emit_lo, emit_hi = 0, seq_len
+                clips = _LazyWindows(keypoints_2d, idx)
+                emit_lo = seq_len - lookahead - window_stride
+                emit_hi = emit_lo + window_stride
+            else:
+                n_windows = max(1, (n_frames + seq_len - 1) // seq_len)
+                starts = np.arange(n_windows, dtype=np.int64) * seq_len
+                clips = gather_windows([keypoints_2d], np.zeros(n_windows, np.int64),
+                                       starts, seq_len)  # (W, L, J, 2)
+                emit_lo, emit_hi = 0, seq_len
 
-        want_hyps = return_hypotheses and self.rmcl
-        outs, all_hyps, all_scores = [], [], []
+            want_hyps = return_hypotheses and self.rmcl
+            outs, all_hyps, all_scores = [], [], []
 
-        def harvest(pending, n_valid):
-            res = self._harvest(pending)
-            outs.append(res[0][:n_valid, emit_lo:emit_hi])
-            if want_hyps:
-                all_hyps.append(res[1][:n_valid])
-                all_scores.append(res[2][:n_valid])
+            def harvest(pending, n_valid):
+                res = self._harvest(pending)
+                outs.append(res[0][:n_valid, emit_lo:emit_hi])
+                if want_hyps:
+                    all_hyps.append(res[1][:n_valid])
+                    all_scores.append(res[2][:n_valid])
 
-        # depth-1 pipeline: start the next batch before harvesting the
-        # previous one, so the device computes while the host copies
-        with torch.inference_mode():
-            pending = None
-            for b0 in range(0, n_windows, self.batch_size):
-                batch = clips[b0 : b0 + self.batch_size]
-                n_valid = batch.shape[0]
-                if n_valid < self.batch_size:  # pad to the fixed batch
-                    pad = np.repeat(batch[-1:], self.batch_size - n_valid, axis=0)
-                    batch = np.concatenate([batch, pad], axis=0)
-                started = (self._dispatch(np.ascontiguousarray(batch), want_hyps),
-                           n_valid)
-                if pending is not None:
-                    harvest(*pending)
-                pending = started
-            harvest(*pending)
+            # depth-1 pipeline: start the next batch before harvesting the
+            # previous one, so the device computes while the host copies
+            with torch.inference_mode():
+                pending = None
+                for b0 in range(0, n_windows, self.batch_size):
+                    batch = clips[b0 : b0 + self.batch_size]
+                    n_valid = batch.shape[0]
+                    if n_valid < self.batch_size:  # pad to the fixed batch
+                        pad = np.repeat(batch[-1:], self.batch_size - n_valid, axis=0)
+                        batch = np.concatenate([batch, pad], axis=0)
+                    started = (self._dispatch(np.ascontiguousarray(batch), want_hyps,
+                                              n_valid), n_valid)
+                    if pending is not None:
+                        harvest(*pending)
+                    pending = started
+                harvest(*pending)
 
-        poses = np.concatenate(outs, axis=0).reshape(-1, j, 3)[:n_frames]
-        if return_hypotheses:
-            if not self.rmcl:
-                return poses, None, None
-            return poses, np.concatenate(all_hyps), np.concatenate(all_scores)
-        return poses
+            poses = np.concatenate(outs, axis=0).reshape(-1, j, 3)[:n_frames]
+            if return_hypotheses:
+                if not self.rmcl:
+                    return poses, None, None
+                return poses, np.concatenate(all_hyps), np.concatenate(all_scores)
+            return poses

@@ -86,6 +86,7 @@ from ..parallel.mesh import (
 )
 from ..parallel.multihost import is_primary
 from ..utils.logging import MetricLogger
+from ..utils.profiling import ThroughputMeter, trace
 from .checkpoint import (
     atomic_write_json,
     find_resume_state,
@@ -96,7 +97,6 @@ from .checkpoint import (
 )
 from .losses import LossConfig
 from .optim import make_scheduler, optimizer_from_config
-from .profiling import ThroughputMeter, trace
 from .step import (
     TrainState,
     make_eval_loss_step,

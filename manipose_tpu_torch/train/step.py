@@ -18,6 +18,11 @@ call, the metrics stacked (K,). On the card it is one ``torch.cuda.CUDAGraph``
 of the K steps, captured once per (K, batch shape, dtype) and replayed:
 the host launches one graph where K steps launched some 1500 kernels each.
 On the CPU it runs the K steps eagerly.
+
+The single step's spans (``utils.profiling``): ``step`` around the call,
+and inside it ``step.forward`` (the model and the loss), ``step.backward``
+and ``step.optimizer`` (the update). They time the host's enqueue of that
+work, not the device's.
 """
 
 from __future__ import annotations
@@ -32,6 +37,7 @@ from .. import ops
 from ..device import resolve_device
 from ..geometry.skeleton import Skeleton
 from ..models.mix_ste import set_drop_path_generator
+from ..utils import profiling
 from .losses import LossConfig, compute_loss
 from .optim import Optimizer
 
@@ -85,20 +91,25 @@ def make_train_step(
     """
 
     def loss_fn(pose_2d, pose_3d):
-        return compute_loss(model(pose_2d), pose_3d, loss_cfg, skeleton)
+        with profiling.span("step.forward"):
+            return compute_loss(model(pose_2d), pose_3d, loss_cfg, skeleton)
+
+    def backward(total):
+        with profiling.span("step.backward"):
+            total.backward()
 
     def accumulate_grads(pose_2d, pose_3d):
         b = pose_2d.shape[0]
         if accum_steps == 1 or b % accum_steps:
             total, terms = loss_fn(pose_2d, pose_3d)
-            total.backward()
+            backward(total)
             return total.detach(), {k: v.detach() for k, v in terms.items()}
         micro = b // accum_steps
         total, terms = None, None
         for i in range(accum_steps):
             rows = slice(i * micro, (i + 1) * micro)
             t, ts = loss_fn(pose_2d[rows], pose_3d[rows])
-            t.backward()  # gradients sum over microbatches
+            backward(t)  # gradients sum over microbatches
             ts = {k: v.detach() for k, v in ts.items()}
             if total is None:
                 total, terms = t.detach(), ts
@@ -115,17 +126,19 @@ def make_train_step(
              n_valid: Optional[int] = None) -> Metrics:
         if state.model is not model or state.optimizer is not optimizer:
             raise ValueError("the state holds another model or optimizer")
-        device = _device(model)
-        pose_2d = torch.as_tensor(pose_2d).to(device)
-        pose_3d = torch.as_tensor(pose_3d).to(device)
-        if n_valid is not None:
-            pose_2d, pose_3d = pose_2d[:n_valid], pose_3d[:n_valid]
-        model.train()
-        optimizer.zero_grad()
-        total, terms = accumulate_grads(pose_2d, pose_3d)
-        optimizer.step(lr)
-        state.step += 1
-        return {"loss": total, **terms}
+        with profiling.span("step"):
+            device = _device(model)
+            pose_2d = torch.as_tensor(pose_2d).to(device)
+            pose_3d = torch.as_tensor(pose_3d).to(device)
+            if n_valid is not None:
+                pose_2d, pose_3d = pose_2d[:n_valid], pose_3d[:n_valid]
+            model.train()
+            optimizer.zero_grad()
+            total, terms = accumulate_grads(pose_2d, pose_3d)
+            with profiling.span("step.optimizer"):
+                optimizer.step(lr)
+            state.step += 1
+            return {"loss": total, **terms}
 
     return step
 

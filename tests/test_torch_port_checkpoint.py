@@ -54,7 +54,7 @@ from manipose_tpu_torch.serving import Predictor
 from manipose_tpu_torch.train.checkpoint import find_resume_state, prune_resume_states
 from manipose_tpu_torch.train.loop import train
 from manipose_tpu_torch.train.mup import make_mup_optimizer, mup_lr_scales
-from manipose_tpu_torch.train.profiling import ThroughputMeter, trace
+from manipose_tpu_torch.utils.profiling import ThroughputMeter, trace
 from manipose_tpu_torch.weights import load_torch_checkpoint, state_dict_from_jax
 
 SMALL = [
@@ -270,7 +270,7 @@ def test_throughput_meter():
     """The first step (kernel builds, warm-up) is left out of the window;
     zero before a timed step; reset."""
     meter = ThroughputMeter()
-    assert meter.seq_per_sec == 0.0 and meter.ms_per_step == 0.0
+    assert meter.seq_per_sec == 0.0
     meter.step(16)
     time.sleep(0.05)  # must not be timed
     assert meter.seq_per_sec == 0.0
@@ -278,8 +278,7 @@ def test_throughput_meter():
     time.sleep(0.01)
     meter.step(16)
     time.sleep(0.01)
-    assert meter.seq_per_sec > 1000, meter.seq_per_sec
-    assert 5 < meter.ms_per_step < 25, meter.ms_per_step
+    assert 1000 < meter.seq_per_sec < 3200, meter.seq_per_sec
     meter.reset()
     assert meter.seq_per_sec == 0.0
 

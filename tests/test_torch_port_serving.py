@@ -158,7 +158,7 @@ import chip_smoke
 walked = {"data.cameras", "data.h36m", "data.h36m_cameras", "data.native",
           "data.pipeline", "data.quaternion", "data.windowing", "drivers.h36m",
           "eval.engine", "metrics.joint_errors", "metrics.pck", "utils.logging",
-          "train.checkpoint", "train.init", "train.loop", "train.mup", "train.profiling",
+          "train.checkpoint", "train.init", "train.loop", "train.mup", "utils.profiling",
           "data.chunked", "data.dhp3", "data.graph_utils", "drivers.dhp3", "streaming",
           "tools.synthetic_overfit", "tools.make_synthetic_3dhp",
           "tools.make_synthetic_h36m", "tools.streaming_eval", "ops.quant",
