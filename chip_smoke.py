@@ -26,7 +26,12 @@ package. Phases, each fatal on failure:
               library call computing the same function (the median of 5
               groups of 10 launches). Times are CUDA events around 10
               launches queued behind a sleep kernel, so the host's time
-              to launch is not counted.
+              to launch is not counted. Then K5's two fp32 kernels at
+              C = 512, H = 1024 (K5_PATH_ROWS): both timed at each M
+              beside the bound, the kernel ``cuda_mlp.takes_wgmma`` picks
+              no slower than the other; at K5_ACCURACY_ROWS each against
+              an fp64 MLP, wgmma within TOL and 1.25 x mma.sync's error,
+              and bit for bit the same on a second run.
 3. flagship - ``Predictor.predict_video`` at ``configs/config.yaml`` (rMCL,
               fp32, 16 windows of 243 frames, TTA on) with seeded random
               weights: output checks, the manifold invariant, the kernel
@@ -492,6 +497,17 @@ STREAM_ATTENTION_CASES = (
     ("attention_packed", "stream-27-seg-spatial", 27, 8, 16, 16),
 )
 # (trunk, rows, C, H)
+# K5's two fp32 kernels at C = 512: timed at one row tile, a streaming
+# push's rows (27 x 17), the 3DHP batch's, 16896, the lift's window
+# batch's and the train step's; their largest errors against fp64, each
+# held against the other's, at four row counts, one of them ragged
+K5_PATH_ROWS = (64, 459, 11475, 16896, 33048, 66096)
+K5_ACCURACY_ROWS = (16896, 33048, 66096, 66097)
+# K5's launches on wgmma per flagship forward: the rotations trunk's 16
+# MLPs (8 layers, C = 512) in fp32; the segments trunk's 4 (C = 128) and
+# every bf16 launch run the mma.sync kernel
+WGMMA_PER_FORWARD = {"float32": 16, "bfloat16": 0}
+
 STREAM_MLP_CASES = (
     ("stream-243-rotations", 243 * 17, 512, 1024),
     ("stream-243-segments", 243 * 16, 128, 256),
@@ -558,7 +574,7 @@ DEVICE_KERNELS = {
                             "attention_dense_bwd_dkv_kernel"),
     "attention_packed": ("attention_packed_kernel",),
     "attention_packed_bwd": ("attention_packed_bwd_kernel",),
-    "fused_mlp": ("fused_mlp_kernel",),
+    "fused_mlp": ("fused_mlp_kernel", "fused_mlp_kernel_sm90", "fused_mlp_kernel_split"),
     "fused_mlp_bwd": ("fused_mlp_bwd_rows_kernel", "fused_mlp_bwd_gemm_kernel",
                       "fused_mlp_bwd_reduce_kernel"),
 }
@@ -583,9 +599,13 @@ def ptxas_summary(log: str):
     kernel, spills = "?", ""
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '.*?\d([a-z_]+_kernel)I(\w*?)E+v", line)
+        plain = re.search(r"Compiling entry function '.*?\d([a-z_]+_kernel(?:_[a-z0-9]+)?)E",
+                          line)
         if m:
             targs = m.group(2).replace("13__nv_bfloat16", "bf16").replace("S1_", "bf16")
             kernel = f"{m.group(1)}<{targs.replace('Li', ',').replace('E', '')}>"
+        elif plain:  # not a template
+            kernel = plain.group(1)
         elif "spill" in line:
             spills = line.strip()
         elif "registers" in line:
@@ -721,19 +741,22 @@ def attention_case(kind, trunk, batch, heads, n, d, dtype, gen):
     )
 
 
+def mlp_args(gen, m, c, h):
+    """x (m, c) ~ N(0, 1) and torch-default-init weights, fp32 on the card."""
+    def uniform(shape, fan_in):
+        return (torch.rand(shape, generator=gen, device="cuda") * 2 - 1) / fan_in**0.5
+
+    x = torch.randn((m, c), generator=gen, device="cuda")
+    return x, uniform((h, c), c), uniform((h,), c), uniform((c, h), h), uniform((c,), h)
+
+
 def mlp_case(trunk, m, c, h, dtype, gen):
     """K5 at one shape, torch-default-init scaled weights."""
     import torch.nn.functional as F
 
     from manipose_tpu_torch.ops import cuda_mlp as cm
 
-    def uniform(shape, fan_in):
-        u = torch.rand(shape, generator=gen, device="cuda") * 2 - 1
-        return (u / fan_in**0.5).to(dtype)
-
-    x = torch.randn((m, c), generator=gen, device="cuda").to(dtype)
-    w1, b1 = uniform((h, c), c), uniform((h,), c)
-    w2, b2 = uniform((c, h), h), uniform((c,), h)
+    x, w1, b1, w2, b2 = (a.to(dtype) for a in mlp_args(gen, m, c, h))
     out = cm.fused_mlp(x, w1, b1, w2, b2)
     ref = cm.mlp_plain(x, w1, b1, w2, b2)
     torch.cuda.synchronize()
@@ -912,6 +935,89 @@ def phase_kernels():
     return cases
 
 
+def k5_launch(path: str, x, w1, b1, w2, b2) -> torch.Tensor:
+    """K5 in fp32 on the named one of its two kernels ("wgmma" or
+    "mma.sync"), whatever ``cuda_mlp.takes_wgmma`` would pick."""
+    from manipose_tpu_torch.ops import build
+
+    m, c = x.shape
+    h = w1.shape[0]
+    out = torch.empty_like(x)
+    lib = build.load("mlp")
+    stream = torch.cuda.current_stream().cuda_stream
+    args = (x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
+            out.data_ptr())
+    if path == "wgmma":
+        w1p = torch.empty((2 * h, c), device=x.device)
+        w2p = torch.empty((2 * c, h), device=x.device)
+        err = lib.mp_fused_mlp_sm90(*args, w1p.data_ptr(), w2p.data_ptr(), m, h,
+                                    x.device.index, stream)
+    else:
+        err = lib.mp_fused_mlp(*args, 0, m, c, h, x.device.index, stream)
+    build.check(lib, err, f"K5 on {path}")
+    return out
+
+
+def phase_k5_paths() -> list:
+    """K5's two fp32 kernels at the rotations trunk's widths: the path rule,
+    both kernels' times at K5_PATH_ROWS beside the bound, and their errors
+    against an fp64 MLP at K5_ACCURACY_ROWS, bit-for-bit repeats."""
+    import torch.nn.functional as F
+
+    from manipose_tpu_torch import ops
+    from manipose_tpu_torch.ops import cuda_mlp as cm
+
+    c, h = 512, 1024
+    require(cm.takes_wgmma(torch.float32, c, h), "fp32 C=512 takes the wgmma kernel")
+    picked, other = "wgmma", "mma.sync"
+    require(not cm.takes_wgmma(torch.bfloat16, c, h) and not cm.takes_wgmma(
+        torch.float32, 128, 256), "bf16 and C=128 take the mma.sync kernel")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    rows = []
+    for m in K5_PATH_ROWS + tuple(r for r in K5_ACCURACY_ROWS if r not in K5_PATH_ROWS):
+        x, w1, b1, w2, b2 = mlp_args(gen, m, c, h)
+        row = dict(m=m, picked=picked)
+        if m in K5_PATH_ROWS:
+            flops = 4.0 * m * c * h
+            row["bound_ms"], row["bound_by"] = bound_ms((2 * m * c + 2 * c * h + h + c) * 4,
+                                                        flops, torch.float32)
+            for path in (picked, other):
+                ms = time_ms(lambda: k5_launch(path, x, w1, b1, w2, b2))
+                row[f"{path}_ms"], row[f"{path}_tflops"] = ms, flops / ms * 1e-9
+            require(row[f"{picked}_ms"] <= row[f"{other}_ms"],
+                    f"K5 M={m}: the picked kernel is no slower ({row})")
+        if m in K5_ACCURACY_ROWS:
+            ref = F.linear(F.gelu(F.linear(x.double(), w1.double(), b1.double())),
+                           w2.double(), b2.double())
+            first = k5_launch("wgmma", x, w1, b1, w2, b2)
+            again = k5_launch("wgmma", x, w1, b1, w2, b2)
+            old = k5_launch("mma.sync", x, w1, b1, w2, b2)
+            torch.cuda.synchronize()
+            row["wgmma_err"] = (first.double() - ref).abs().max().item()
+            row["mma.sync_err"] = (old.double() - ref).abs().max().item()
+            row["bitwise_repeat"] = torch.equal(first, again)
+            tol = TOL[("mlp", torch.float32)]
+            require(row["wgmma_err"] <= tol and row["wgmma_err"] <= 1.25 * row["mma.sync_err"],
+                    f"K5 M={m}: wgmma error within {tol} and 1.25 x mma.sync's ({row})")
+            require(row["bitwise_repeat"], f"K5 M={m}: repeated runs agree bit for bit")
+        print("k5 path " + " ".join(f"{k}={v:.4g}" if isinstance(v, float) else f"{k}={v}"
+                                    for k, v in row.items()), flush=True)
+        rows.append(row)
+        del x, w1, b1, w2, b2
+    # through the wrapper: the counter shows the rule's pick
+    x, w1, b1, w2, b2 = mlp_args(gen, 459, c, h)
+    ops.reset_launch_counts()
+    cm.fused_mlp(x, w1, b1, w2, b2)
+    cm.fused_mlp(*(a.to(torch.bfloat16) for a in (x, w1, b1, w2, b2)))
+    torch.cuda.synchronize()
+    require(ops.wgmma_launches() == 1 and ops.wgmma_launches(torch.float32) == 1
+            and ops.launch_counts()["fused_mlp"] == 2,
+            f"K5's wgmma launches counted ({ops.wgmma_launches()})")
+    ops.reset_launch_counts()
+    torch.cuda.empty_cache()
+    return rows
+
+
 def bone_lengths(poses: np.ndarray, parents) -> np.ndarray:
     js = [i for i, p in enumerate(parents) if p >= 0]
     ps = [parents[i] for i in js]
@@ -921,14 +1027,19 @@ def bone_lengths(poses: np.ndarray, parents) -> np.ndarray:
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
-def require_counts(dtype: str, want: dict, what: str) -> dict:
+def require_counts(dtype: str, want: dict, what: str, wgmma=None) -> dict:
     """The launches since the last reset: ``want`` for each kernel, all of
-    them on ``dtype`` operands. Returns the counts."""
+    them on ``dtype`` operands, and ``wgmma`` of K5's on its wgmma kernel
+    where given. Returns the counts."""
     from manipose_tpu_torch import ops
 
     counts = ops.launch_counts()
     on_dtype = ops.launch_counts(DTYPES[dtype])
-    print(f"{what} launches {counts} ({dtype} operands: {on_dtype})")
+    print(f"{what} launches {counts} ({dtype} operands: {on_dtype}; K5 on wgmma "
+          f"{ops.wgmma_launches()})")
+    if wgmma is not None:
+        require(ops.wgmma_launches() == wgmma,
+                f"{what}: K5 on wgmma {ops.wgmma_launches()} times, want {wgmma}")
     for name in LAUNCHES_PER_TRAIN_STEP:
         n = want.get(name, 0)
         require(counts[name] == n, f"{what}: {name} launched {counts[name]}, want {n}")
@@ -955,7 +1066,8 @@ def phase_flagship(dtype: str = "float32"):
     n_batches = -(-n_windows // predictor.batch_size)
     counts = require_counts(
         dtype, {k: 2 * n * n_batches for k, n in LAUNCHES_PER_FORWARD.items()},
-        f"flagship {dtype} serving ({n_batches} window batch(es))")
+        f"flagship {dtype} serving ({n_batches} window batch(es))",
+        wgmma=2 * WGMMA_PER_FORWARD[dtype] * n_batches)
 
     n_hyp = cfg.multi_hyp.n_hyp
     require(poses.shape == (n_windows * l, 17, 3), f"poses shape {poses.shape}")
@@ -1102,7 +1214,8 @@ def phase_train(dtype: str = "float32"):
     ops.reset_launch_counts()
     history = [step(state, x, y, TRAIN_LR)]
     torch.cuda.synchronize()
-    counts = require_counts(dtype, LAUNCHES_PER_TRAIN_STEP, f"{dtype} train step")
+    counts = require_counts(dtype, LAUNCHES_PER_TRAIN_STEP, f"{dtype} train step",
+                            wgmma=WGMMA_PER_FORWARD[dtype])
     n_params = 0
     for name, p in state.model.named_parameters():
         require(p.grad is not None, f"{name} got no gradient")
@@ -4227,6 +4340,7 @@ def main() -> int:
 
     t0 = time.perf_counter()
     cases = phase_kernels()
+    k5_paths = phase_k5_paths()
     print(f"kernels phase: {time.perf_counter() - t0:.1f} s", flush=True)
 
     t0 = time.perf_counter()
@@ -4509,6 +4623,7 @@ def main() -> int:
             library_ms=head["library_ms"],
             timed_case=f"{head['trunk']} {head['dtype']} {head['shape']}",
             cases=cases[name], **({"variants": variants} if variants else {}),
+            **({"paths": k5_paths} if name == "fused_mlp" else {}),
         ))
     loop_seq = {d: ", ".join(f"{r['seq_per_sec']:.2f}" for r in rows)
                 for d, rows in driver_epochs.items()}

@@ -12,6 +12,10 @@ at its capture, where the wrappers count them; each replay launches them
 again without the wrappers. :func:`record_replay` counts a replay and adds
 its capture's launches to a second count (:func:`replayed_counts`), so the
 launches of a graph's calls are its capture's times its replays.
+
+K5 runs one of two kernels (``cuda_mlp.takes_wgmma``);
+:func:`wgmma_launches` counts the launches that took its wgmma kernel, and
+:func:`replayed_wgmma_launches` those that graph replays made.
 """
 
 from __future__ import annotations
@@ -34,8 +38,7 @@ GRAPH_REPLAYS = {"replays": 0}
 
 
 def _by_dtype(counts, dtype):
-    return {name: sum(by_dtype.values()) if dtype is None else by_dtype[dtype]
-            for name, by_dtype in counts.items()}
+    return {name: _of_dtype(by_dtype, dtype) for name, by_dtype in counts.items()}
 
 
 def launch_snapshot() -> Dict[str, Dict[torch.dtype, int]]:
@@ -51,20 +54,48 @@ def launches_since(snapshot) -> Dict[str, Dict[torch.dtype, int]]:
             for name, by_dtype in now.items()}
 
 
-def record_replay(captured) -> None:
+def wgmma_snapshot() -> Dict[torch.dtype, int]:
+    """A copy of K5's wgmma launches by operand dtype."""
+    return dict(cuda_mlp.WGMMA_LAUNCHES)
+
+
+def wgmma_since(snapshot) -> Dict[torch.dtype, int]:
+    """K5's wgmma launches by dtype since ``snapshot``."""
+    return {dt: n - snapshot[dt] for dt, n in cuda_mlp.WGMMA_LAUNCHES.items()}
+
+
+def record_replay(captured, wgmma=None) -> None:
     """Count one replay of a graph whose capture made the launches
-    ``captured`` (``launches_since`` around the capture)."""
+    ``captured`` (``launches_since`` around the capture), ``wgmma`` of
+    them K5 on wgmma (``wgmma_since``)."""
     GRAPH_REPLAYS["replays"] += 1
     for module in (cuda_attention, cuda_mlp):
         for name, by_dtype in module.REPLAYED.items():
             for dt in by_dtype:
                 by_dtype[dt] += captured.get(name, {}).get(dt, 0)
+    for dt, n in (wgmma or {}).items():
+        cuda_mlp.WGMMA_REPLAYED[dt] += n
 
 
 def replayed_counts(dtype: Optional[torch.dtype] = None) -> Dict[str, int]:
     """Launches made by graph replays since the last reset, by kernel (all
     of them, or those on ``dtype`` operands)."""
     return _by_dtype({**cuda_attention.REPLAYED, **cuda_mlp.REPLAYED}, dtype)
+
+
+def wgmma_launches(dtype: Optional[torch.dtype] = None) -> int:
+    """K5's launches on its wgmma kernel since the last reset (all, or on
+    ``dtype`` operands)."""
+    return _of_dtype(cuda_mlp.WGMMA_LAUNCHES, dtype)
+
+
+def replayed_wgmma_launches(dtype: Optional[torch.dtype] = None) -> int:
+    """K5's wgmma launches made by graph replays since the last reset."""
+    return _of_dtype(cuda_mlp.WGMMA_REPLAYED, dtype)
+
+
+def _of_dtype(by_dtype, dtype):
+    return sum(by_dtype.values()) if dtype is None else by_dtype[dtype]
 
 
 def reset_launch_counts() -> None:
@@ -74,3 +105,6 @@ def reset_launch_counts() -> None:
         for by_dtype in counts.values():
             for dtype in by_dtype:
                 by_dtype[dtype] = 0
+    for by_dtype in (cuda_mlp.WGMMA_LAUNCHES, cuda_mlp.WGMMA_REPLAYED):
+        for dtype in by_dtype:
+            by_dtype[dtype] = 0

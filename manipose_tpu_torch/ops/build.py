@@ -61,6 +61,8 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
     "mlp": {
         # x, w1, b1, w2, b2, out, dtype, M, C, H, device, stream
         "mp_fused_mlp": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+        # x, w1, b1, w2, b2, out, w1p, w2p (scratch), M, H, device, stream
+        "mp_fused_mlp_sm90": [_P] * 8 + [_I, _I, _I, _P],
         # x, g, w1, b1, w2, dx, da, h, colsum, part, grads, dtype, M, C,
         # H, S, device, stream
         "mp_fused_mlp_bwd": [_P] * 11 + [_I] * 6 + [_P],

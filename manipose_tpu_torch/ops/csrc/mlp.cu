@@ -4,31 +4,32 @@
 //
 // Replaces the TPU kernels of manipose_tpu/ops/pallas_mlp.py:
 //   fused_mlp_kernel         <- _forward / _fwd_kernel (pallas_mlp.py:83-88,
-//                               95-115)
+//                               95-115); for fp32 at C = 512,
+//                               fused_mlp_kernel_split, then _sm90
 //   fused_mlp_bwd_*_kernel   <- _backward / _bwd_kernel (pallas_mlp.py:123-169,
 //                               172-211)
 //
-// What bounds them on an H100. Every product runs on the tensor cores
-// through mma.sync (mma.cuh): bf16 in one m16n8k16 pass, fp32 as 3xTF32,
-// three m16n8k8 tf32 passes over operands split into big and small tf32
-// parts, which keeps fp32 accuracy. Against the data sheet (dense, 700 W)
-// that is 989 TFLOP/s in bf16 and 495 / 3 = 165 TFLOP/s for fp32 products;
-// mma.sync itself peaks lower on the card (probes/mma_rate.cu: 324 tf32 and
-// 649 bf16 TFLOP/s, so 108 for 3xTF32). At the flagship's rotations trunk
-// (M = 66096 rows, C = 512, H = 1024) the forward does 4*M*C*H = 138.6
-// GFLOP against 0.28 GB of device memory (3.35 TB/s) in fp32, so
-// operations bound it (0.84 ms); two plain GEMMs would also write and
-// re-read the (M, H) intermediate, 0.54 GB more. The backward does five
-// such products, 10*M*C*H = 346 GFLOP (2.1 ms). Between the two sits L2:
-// every 64-row block re-reads x and both weight matrices chunk by chunk,
-// 6.3 GB a forward launch in fp32. In fp32 the kernels issue more than the
-// tensor cores do: the operand splits, fragment loads and fp32 adds take
-// as many issue slots as the mma (probes/run_probes.py ablates each).
+// What bounds them on an H100. Every product runs on the tensor cores: bf16
+// in one pass, fp32 as 3xTF32, three tf32 passes over operands split into
+// big and small tf32 parts, which keeps fp32 accuracy. Against the data
+// sheet (dense, 700 W) that is 989 TFLOP/s in bf16 and 495 / 3 = 165
+// TFLOP/s for fp32 products; mma.sync (mma.cuh) peaks lower on the card
+// (probes/mma_rate.cu: 324 tf32 and 649 bf16 TFLOP/s, so 108 for 3xTF32),
+// wgmma does not. At the flagship's rotations trunk (M = 66096 rows, C =
+// 512, H = 1024) the forward does 4*M*C*H = 138.6 GFLOP against 0.28 GB
+// of device memory (3.35 TB/s) in fp32, so operations bound it (0.84 ms);
+// two plain GEMMs would also write and re-read the (M, H) intermediate,
+// 0.54 GB more. The backward does five such products, 10*M*C*H = 346
+// GFLOP (2.1 ms). Between the two sits L2: every 64-row tile re-reads x
+// and the weights chunk by chunk (6.3 GB a forward launch in the mma.sync
+// kernel, 9.3 GB with the wgmma kernel's split weights). In fp32 the
+// kernels issue more than the tensor cores do: the operand splits,
+// fragment loads and fp32 adds (probes/run_probes.py ablates each).
 //
-// Design. Every kernel runs 8 warps over a cp.async ring of 3 or 4 slots
-// (16-byte copies, no register staging) that holds operand tiles laid out
-// as the mma fragments read them (ldmatrix for k-contiguous tiles,
-// mma.cuh), so the next k-slices land while the current one is
+// Design of the mma.sync kernels. 8 warps over a cp.async ring of 3 or 4
+// slots (16-byte copies, no register staging) that holds operand tiles
+// laid out as the mma fragments read them (ldmatrix for k-contiguous
+// tiles, mma.cuh), so the next k-slices land while the current one is
 // multiplied. The ring runs over one flat schedule of stages per block,
 // so prefetch crosses from one product to the next and from one hidden
 // chunk to the next. The tensor cores' fp32 accumulation
@@ -36,9 +37,10 @@
 // accumulator runs over at most one stage (64 of k) or, for the (64, C)
 // accumulators, one k-step, and is then added into an fp32 sum.
 //
-// Forward (K5). The whole (64, C) fp32 output accumulator sits in mma
-// fragments over the 8 warps (each owns C/8 columns; 128 registers a
-// thread at C = 512). The block walks H in chunks of 64 hidden units: the
+// Forward (K5) on mma.sync, for bf16 and fp32's other widths. The whole
+// (64, C) fp32 output accumulator sits in mma fragments over the 8 warps
+// (each owns C/8 columns; 128 registers a thread at C = 512). The block
+// walks H in chunks of 64 hidden units: the
 // chunk of fc1 (x and W1 rows streamed as they lie in memory, both
 // k-contiguous; warps 2 x 4 over 32 x 16 tiles), bias and exact GELU in
 // registers, the chunk to shared memory once, split into the parts the
@@ -46,6 +48,49 @@
 // the chunk's fc2 into the accumulator, W2's rows streamed k-contiguous as
 // well. The (M, H) intermediate never reaches device memory. Rows past M
 // are zero-filled on load and masked on store, so any M is taken.
+//
+// Forward (K5) on wgmma, for fp32 at C = 512 and H a multiple of 128 (the
+// rotations trunk; cuda_mlp.takes_wgmma), at any M: one tile of 64 rows
+// takes half the mma.sync kernel's time. A persistent block an SM walks
+// the row tiles with three warpgroups. The producer (40 registers) keeps
+// TMA loads in flight, each into its own ring with full and empty
+// mbarriers: lane 0 of warp 0 loads x's boxes (64 rows x 32 k), lane 0 of
+// warp 1 + c the weight boxes of consumer c. The two consumers (232
+// registers each) take 128 hidden units at a time: consumer c computes
+// fc1 for units 64c.. (m64n64, K = 512 in 16 stages of 32), bias and
+// GELU, and writes them split into two tf32 planes in shared memory; once
+// both have (named barriers 1 and 2), consumer c computes fc2 for output
+// columns 256c.. over all 128 units, 32 units a stage: their fragments
+// loaded once, then four 64-column parts. Its registers: the (64, 256)
+// fp32 output sums 128, fc1's fp32 sum 32, the wgmma accumulator 32, A's
+// fragments 16 in fc1 (two k-steps in flight), 32 in fc2.
+// wgmma reads B from shared memory only, so the weights arrive split:
+// fused_mlp_kernel_split writes W1's and W2's big and small planes into
+// scratch once a launch (4 x 2 MB), which TMA loads in 128-byte swizzled
+// boxes, wgmma's layout. A comes from registers and is split there: x
+// from its raw box per k-step (so no split copy of x in shared memory and
+// no producer work on it: a first version split x once a stage in shared
+// memory, in three producer warps, and took 1.58 ms at M = 66096, the
+// split on the critical path), the GELU chunk from its planes (W2's
+// planes hold each 8 units in the order the chunk is stored). Each stage
+// (32 of k) runs in a fresh accumulator, small parts' products first, and
+// is added into the fp32 sum: one accumulator over K = 1024 is 1.85e-5
+// off fp64, one per 64 of k 1.46e-6, per 32 8.6e-7, an fp32 fmaf loop
+// 2.75e-6 (probes/accumulate.cu, inputs of both signs), and per 32 costs
+// no measured time. Shared memory: W rings 2 x 4 x 16 KB, x ring 4 x 8
+// KB, GELU planes 64 KB. Each output is summed in one fixed order, with
+// no atomics and no split of k: runs agree bit for bit. The tensor maps
+// are encoded on the host at each launch and passed as __grid_constant__
+// parameters, the scratch is the caller's, nothing synchronizes: a CUDA
+// graph captures the launch. At M = 66096 it takes 1.35-1.37 ms (101-103
+// TFLOP/s, 61 % of 165); with one tf32 pass 0.86, with no wgmma at all
+// 0.98, without the weights' or x's loads no faster (run_probes wgmma):
+// the consumers' own instructions (fragment loads, splits, the wait and
+// fp32 adds a stage, GELU) bound it, not the loads. Loading fc2's
+// fragments once for its four parts, not once a part, took 1.50 to 1.35
+// ms. Tried and slower: the consumers taking turns to issue (as
+// FlashAttention-3's do), 1.63-1.69 ms; two fc2 accumulators, 1.41 (it
+// spills); 240 registers a consumer, no change.
 //
 // Backward (K6). The TPU kernel sums dW and db over its sequential grid;
 // blocks on Hopper run in no order, so the sums over M take later passes.
@@ -63,17 +108,18 @@
 // it rounds where _bwd_kernel rounds: gelu(a), g and da before the
 // products; db1 sums the unrounded da.
 //
-// Not yet: wgmma and TMA. wgmma's tf32 path reads B from shared memory
-// only, so its split would have to be stored there, and its accumulators
-// leave no registers for the fp32 sum that the truncating accumulation
-// needs; the bf16 path moves to wgmma once bf16 compute is on the main
-// path. 128-row tiles over a 2-CTA cluster with TMA multicast would halve
-// the per-block accumulator and the L2 traffic.
+// Not yet: K6 on wgmma (its rows pass runs K5's fc1), bf16 on wgmma, and
+// a 2-CTA cluster with TMA multicast of the weight boxes, which would
+// halve their L2 reads (8 MB a 64-row tile; not the limit at present).
+
+#include <cudaTypedefs.h>
 
 #include <cmath>
+#include <mutex>
 
 #include "common.cuh"
 #include "mma.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
@@ -587,6 +633,396 @@ fused_mlp_bwd_reduce_kernel(const float* __restrict__ part,
   if (lane == 0) store1(out + (j < H ? hc + j : 2 * hc + j), t);
 }
 
+// ---- K5 on wgmma: fp32 at C = 512 (see the note at the top) ---------------
+
+namespace wg {
+
+constexpr int C = 512;
+constexpr int BM = 64;          // rows per tile
+constexpr int PAIR = 128;       // hidden units per pair: 64 per consumer warpgroup
+constexpr int KB = 32;          // k (or hidden units) per stage: one 128-byte row
+constexpr int THREADS = 384;    // a producer and two consumer warpgroups
+constexpr int WS = 4;           // W ring slots per consumer warpgroup
+constexpr int XS = 4;           // x ring slots
+constexpr int BOX = 8192;       // bytes of one 64 x 32 fp32 TMA box
+constexpr int W_SLOT = 2 * BOX;  // a W box pair: big and small parts
+constexpr int GELU_PLANE = BM * PAIR * 4;  // 32 KB: the pair's chunk, one part
+constexpr int OFF_W = 0;
+constexpr int OFF_X = OFF_W + 2 * WS * W_SLOT;
+constexpr int OFF_GELU = OFF_X + XS * BOX;
+constexpr int OFF_BAR = OFF_GELU + 2 * GELU_PLANE;
+constexpr int NBAR = 4 * WS + 2 * XS;
+constexpr int SMEM = OFF_BAR + 8 * NBAR + 1024;  // + the base's alignment to 1 KB
+static_assert(SMEM <= 232448, "shared memory");
+
+using namespace mp::wg;
+
+// A's fragment of one k-step in registers, split into its tf32 parts.
+struct Frag {
+  uint32_t big[4], small[4];
+};
+
+// k-step s of a stage's 3xTF32 products into d, small parts first: B a W
+// box pair (swizzled, a k-step 32 bytes along its rows), A's fragment
+// ``a``; the first of a stage starts the accumulator afresh.
+__device__ __forceinline__ void products(float (&d)[32], const Frag& a, uint32_t b_big,
+                                         int s) {
+  const uint64_t bb = desc_swizzled(b_big + 32 * s);
+  mma(d, a.small, bb, s == 0 ? 0 : 1);
+  mma(d, a.big, desc_swizzled(b_big + BOX + 32 * s), 1);
+  mma(d, a.big, bb, 1);
+}
+
+// One stage, 4 k-steps of 8, into the fresh accumulator d, A's fragments
+// from ``load(s, frag)``, two in flight at a time. Returns with the
+// products done.
+template <typename Load>
+__device__ __forceinline__ void stage(float (&d)[32], uint32_t b_big, Load load) {
+  Frag f[2];
+#pragma unroll
+  for (int s = 0; s < KB / 8; ++s) {
+    Frag& a = f[s & 1];
+    if (s >= 2) mma_wait<1>();  // the products of k-step s - 2 read a
+    load(s, a);
+    pin(a.big);
+    pin(a.small);
+    mma_fence();
+    products(d, a, b_big, s);
+    mma_commit();
+  }
+  mma_wait<0>();
+  pin(d);
+}
+
+// The same with all 4 k-steps of A in registers already.
+__device__ __forceinline__ void stage(float (&d)[32], uint32_t b_big, Frag (&a)[KB / 8]) {
+#pragma unroll
+  for (int s = 0; s < KB / 8; ++s) {
+    pin(a[s].big);
+    pin(a[s].small);
+  }
+  mma_fence();
+#pragma unroll
+  for (int s = 0; s < KB / 8; ++s) products(d, a[s], b_big, s);
+  mma_commit();
+  mma_wait<0>();
+  pin(d);
+}
+
+// A ring's slot and the parity of its current use.
+struct Ring {
+  int i = 0;
+  uint32_t phase = 0;
+  __device__ __forceinline__ void next(int slots) {
+    if (++i == slots) {
+      i = 0;
+      phase ^= 1;
+    }
+  }
+};
+
+// The producer: lane 0 of warp 0 loads x, lane 0 of warp 1 + c the
+// weights' planes of consumer warpgroup c, each into its own ring, in the
+// order the consumers read them. x and the planes stay in L2 between
+// the row tiles.
+__device__ __forceinline__ void produce(uint8_t* smem, uint64_t* w_full, uint64_t* w_empty,
+                                        uint64_t* x_full, uint64_t* x_empty,
+                                        const CUtensorMap* tx, const CUtensorMap* tw1,
+                                        const CUtensorMap* tw2, int tiles, int H) {
+  const int warp = threadIdx.x >> 5;
+  if ((threadIdx.x & 31) != 0 || warp > 2) return;
+  Ring r;
+  if (warp == 0) {
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x)
+      for (int n = 0; n < (H / PAIR) * (C / KB); ++n) {
+        bar_wait(&x_empty[r.i], r.phase ^ 1);
+        bar_expect(&x_full[r.i], BOX);
+        tma_load(smem + OFF_X + r.i * BOX, tx, (n % (C / KB)) * KB, tile * BM, &x_full[r.i]);
+        r.next(XS);
+      }
+    return;
+  }
+  const int c = warp - 1;
+  auto load = [&](const CUtensorMap* map, int k0, int row0, int plane_rows) {
+    bar_wait(&w_empty[c * WS + r.i], r.phase ^ 1);
+    uint64_t* full = &w_full[c * WS + r.i];
+    uint8_t* slot = smem + OFF_W + (c * WS + r.i) * W_SLOT;
+    bar_expect(full, W_SLOT);
+    tma_load(slot, map, k0, row0, full);
+    tma_load(slot + BOX, map, k0, plane_rows + row0, full);
+    r.next(WS);
+  };
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    for (int hp = 0; hp < H; hp += PAIR) {
+      for (int k0 = 0; k0 < C; k0 += KB) load(tw1, k0, hp + 64 * c, H);
+      for (int h0 = hp; h0 < hp + PAIR; h0 += KB)
+        for (int j = 0; j < 4; ++j) load(tw2, h0, 256 * c + 64 * j, C);
+    }
+  }
+}
+
+// Consumer warpgroup c (0, 1): fc1 of hidden units hp + 64c.. of each
+// pair, and fc2 into output columns 256c.. over the whole pair. Each
+// stage's products go into a fresh wgmma accumulator that is then added
+// into an fp32 sum: the accumulation truncates, so one accumulator covers
+// 32 of k (probes/accumulate.cu).
+__device__ __forceinline__ void consume(int c, uint8_t* smem, uint64_t* w_full,
+                                        uint64_t* w_empty, uint64_t* x_full,
+                                        uint64_t* x_empty, const float* __restrict__ b1,
+                                        const float* __restrict__ b2,
+                                        float* __restrict__ out, int tiles, int M, int H) {
+  const int lt = threadIdx.x - 128 * (c + 1);
+  const int wi = lt >> 5, lane = lt & 31, g = lane >> 2, t = lane & 3;
+  const int r0 = 16 * wi + g;  // this thread's fragment rows: r0, r0 + 8
+  const uint32_t base = sa(smem);
+  uint8_t* gelu = smem + OFF_GELU;
+  uint64_t* my_full = w_full + c * WS;
+  uint64_t* my_empty = w_empty + c * WS;
+  auto w_slot = [&](int i) { return base + OFF_W + (c * WS + i) * W_SLOT; };
+  auto release = [&](uint64_t* empty) {
+    if (lane == 0) bar_arrive(empty);
+  };
+  Ring xr, wr;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    float o[4][32];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 32; ++e) o[j][e] = 0.f;
+    for (int hp = 0; hp < H; hp += PAIR) {
+      // ---- fc1: s1 = x . W1[hp + 64c ..]^T. x's fragments come from the
+      // TMA box (row r at 128 r bytes, 16-byte chunk q at q ^ (r % 8)) and
+      // are split here; 8 rows of one chunk hit every bank once.
+      float s1[32], d[32];
+#pragma unroll
+      for (int e = 0; e < 32; ++e) s1[e] = d[e] = 0.f;
+#pragma unroll 1
+      for (int kb = 0; kb < C / KB; ++kb) {
+        bar_wait(&x_full[xr.i], xr.phase);
+        bar_wait(&my_full[wr.i], wr.phase);
+        const uint8_t* xs = smem + OFF_X + xr.i * BOX + r0 * 128 + 4 * t;
+        stage(d, w_slot(wr.i), [&](int s, Frag& a) {
+          const uint32_t w[4] = {
+              *reinterpret_cast<const uint32_t*>(xs + (((2 * s) ^ g) << 4)),
+              *reinterpret_cast<const uint32_t*>(xs + 1024 + (((2 * s) ^ g) << 4)),
+              *reinterpret_cast<const uint32_t*>(xs + (((2 * s + 1) ^ g) << 4)),
+              *reinterpret_cast<const uint32_t*>(xs + 1024 + (((2 * s + 1) ^ g) << 4))};
+          uint32_t p[2][4];
+          mp::Mma<float>::split(w, p);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            a.big[e] = p[0][e];
+            a.small[e] = p[1][e];
+          }
+        });
+        release(&x_empty[xr.i]);
+        release(&my_empty[wr.i]);
+#pragma unroll
+        for (int e = 0; e < 32; ++e) s1[e] += d[e];
+        xr.next(XS);
+        wr.next(WS);
+      }
+      // ---- bias and exact GELU, split into the two parts fc2 reads, once
+      // the other warpgroup is done with the previous pair's chunk. Hidden
+      // unit 8j + 2t + e of this warpgroup's 64 goes to k-step 8c + j, slot
+      // t + 4e (W2's planes hold the same order). A plane's k-step is 2 KB:
+      // slots 0-3 and 4-7 of rows 8i.. 8i + 7 at 1024 (slot / 4) + 128 i.
+      bar_sync(1, 256);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float2 bias = *reinterpret_cast<const float2*>(b1 + hp + 64 * c + 8 * j + 2 * t);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = r0 + 8 * h;
+          const uint32_t w[2] = {
+              __float_as_uint(gelu_exact(s1[4 * j + 2 * h] + bias.x)),
+              __float_as_uint(gelu_exact(s1[4 * j + 2 * h + 1] + bias.y))};
+          uint32_t p[2][2];
+          mp::Mma<float>::split(w, p);
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int off = (8 * c + j) * 2048 + e * 1024 + (r >> 3) * 128 + (r & 7) * 16 + t * 4;
+            *reinterpret_cast<uint32_t*>(gelu + off) = p[0][e];
+            *reinterpret_cast<uint32_t*>(gelu + GELU_PLANE + off) = p[1][e];
+          }
+        }
+      }
+      bar_sync(2, 256);
+      // ---- fc2: o[j] += gelu . W2[256c + 64j .., pair]^T, a stage of 32
+      // units at a time, its fragments loaded once for the four j
+      const uint8_t* ga = gelu + (wi * 2) * 128 + g * 16 + t * 4;  // rows r0, r0 + 8
+#pragma unroll 1
+      for (int hb = 0; hb < PAIR / KB; ++hb) {
+        Frag a[KB / 8];
+#pragma unroll
+        for (int s = 0; s < KB / 8; ++s)
+#pragma unroll
+          for (int q = 0; q < 2; ++q) {
+            uint32_t(&dst)[4] = q ? a[s].small : a[s].big;
+            const uint8_t* pl = ga + (4 * hb + s) * 2048 + q * GELU_PLANE;
+            dst[0] = *reinterpret_cast<const uint32_t*>(pl);
+            dst[1] = *reinterpret_cast<const uint32_t*>(pl + 128);
+            dst[2] = *reinterpret_cast<const uint32_t*>(pl + 1024);
+            dst[3] = *reinterpret_cast<const uint32_t*>(pl + 1024 + 128);
+          }
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          bar_wait(&my_full[wr.i], wr.phase);
+          stage(d, w_slot(wr.i), a);
+          release(&my_empty[wr.i]);
+#pragma unroll
+          for (int e = 0; e < 32; ++e) o[j][e] += d[e];
+          wr.next(WS);
+        }
+      }
+    }
+    // ---- + b2, rows < M to out
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        const int col = 256 * c + 64 * j + 8 * n + 2 * t;
+        const float2 bias = *reinterpret_cast<const float2*>(b2 + col);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = tile * BM + r0 + 8 * h;
+          if (r < M) {
+            mp::store2(out + static_cast<long long>(r) * C + col,
+                       o[j][4 * n + 2 * h] + bias.x, o[j][4 * n + 2 * h + 1] + bias.y);
+          }
+        }
+      }
+  }
+}
+
+}  // namespace wg
+
+__global__ void __launch_bounds__(wg::THREADS, 1)
+fused_mlp_kernel_sm90(const __grid_constant__ CUtensorMap tx,
+                      const __grid_constant__ CUtensorMap tw1,
+                      const __grid_constant__ CUtensorMap tw2, const float* __restrict__ b1,
+                      const float* __restrict__ b2, float* __restrict__ out, int M, int H) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (wg::sa(smem_raw) & 1023)) & 1023);
+  uint64_t* w_full = reinterpret_cast<uint64_t*>(smem + wg::OFF_BAR);
+  uint64_t* w_empty = w_full + 2 * wg::WS;
+  uint64_t* x_full = w_empty + 2 * wg::WS;
+  uint64_t* x_empty = x_full + wg::XS;
+  const int tiles = (M + wg::BM - 1) / wg::BM;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 2 * wg::WS; ++i) {
+      wg::bar_init(&w_full[i], 1);
+      wg::bar_init(&w_empty[i], 4);  // lane 0 of each of the consumer's warps
+    }
+    for (int i = 0; i < wg::XS; ++i) {
+      wg::bar_init(&x_full[i], 1);
+      wg::bar_init(&x_empty[i], 8);  // lane 0 of each consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (threadIdx.x < 128) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    wg::produce(smem, w_full, w_empty, x_full, x_empty, &tx, &tw1, &tw2, tiles, H);
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+    wg::consume(threadIdx.x < 256 ? 0 : 1, smem, w_full, w_empty, x_full, x_empty, b1, b2,
+                out, tiles, M, H);
+  }
+}
+
+// W1 (H, C) and W2 (C, H) split into big and small tf32 planes: w1p (2H, C)
+// holds W1's big parts in rows 0..H-1 and its small parts below them; w2p
+// (2C, H) likewise W2's, with the hidden units of each group of 8 in the
+// order the consumers store the GELU chunk: slot t + 4e holds unit 2t + e.
+__global__ void __launch_bounds__(256)
+fused_mlp_kernel_split(const float* __restrict__ w1, const float* __restrict__ w2,
+                       float* __restrict__ w1p, float* __restrict__ w2p, int H) {
+  constexpr int C = wg::C;
+  const long long n8 = static_cast<long long>(H) * C / 8;  // groups of 8 per matrix
+  for (long long i = blockIdx.x * 256LL + threadIdx.x; i < 2 * n8;
+       i += static_cast<long long>(gridDim.x) * 256) {
+    const bool second = i >= n8;
+    const long long at = 8 * (second ? i - n8 : i);
+    const float* src = (second ? w2 : w1) + at;
+    float* dst = (second ? w2p : w1p) + at;
+    const uint4 lo = *reinterpret_cast<const uint4*>(src);
+    const uint4 hi = *reinterpret_cast<const uint4*>(src + 4);
+    const uint32_t w[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+    uint32_t in[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) in[e] = second ? w[2 * (e & 3) + (e >> 2)] : w[e];
+    uint32_t p[2][8];
+    mp::Mma<float>::split(in, p);
+    const long long plane = static_cast<long long>(H) * C;
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      *reinterpret_cast<uint4*>(dst + q * plane) = make_uint4(p[q][0], p[q][1], p[q][2], p[q][3]);
+      *reinterpret_cast<uint4*>(dst + q * plane + 4) =
+          make_uint4(p[q][4], p[q][5], p[q][6], p[q][7]);
+    }
+  }
+}
+
+// cuTensorMapEncodeTiled from the CUDA driver, looked up once through the runtime
+// (the libraries link the runtime only).
+PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
+  static PFN_cuTensorMapEncodeTiled_v12000 fn = nullptr;
+  static std::once_flag once;
+  std::call_once(once, [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                         cudaEnableDefault, &found) == cudaSuccess &&
+        found == cudaDriverEntryPointSuccess) {
+      fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(p);
+    }
+  });
+  return fn;
+}
+
+// A row-major (rows, cols) fp32 matrix read in boxes of 64 rows x 32
+// columns (128 bytes, swizzled as wgmma reads them); rows past the end
+// read zeros.
+bool encode_map(CUtensorMap* map, const void* p, int rows, int cols) {
+  const auto encode = tensor_map_encoder();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * sizeof(float)};
+  const cuuint32_t box[2] = {wg::KB, wg::BM};
+  const cuuint32_t unit[2] = {1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<void*>(p), dims, strides,
+                box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+cudaError_t launch_sm90(const float* x, const float* w1, const float* b1, const float* w2,
+                        const float* b2, float* out, float* w1p, float* w2p, int M, int H,
+                        int device, cudaStream_t stream) {
+  constexpr int DEVICES = 16;
+  static int sms[DEVICES] = {};
+  int n_sm = device >= 0 && device < DEVICES ? sms[device] : 0;
+  if (n_sm == 0) {
+    cudaError_t err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, device);
+    if (err != cudaSuccess) return err;
+    if (device >= 0 && device < DEVICES) sms[device] = n_sm;
+  }
+  CUtensorMap tx, tw1, tw2;
+  if (!encode_map(&tx, x, M, wg::C) || !encode_map(&tw1, w1p, 2 * H, wg::C) ||
+      !encode_map(&tw2, w2p, 2 * wg::C, H)) {
+    return cudaErrorNotSupported;
+  }
+  fused_mlp_kernel_split<<<2 * n_sm, 256, 0, stream>>>(w1, w2, w1p, w2p, H);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  if ((err = mp::allow_smem(fused_mlp_kernel_sm90, wg::SMEM)) != cudaSuccess) return err;
+  const int tiles = (M + wg::BM - 1) / wg::BM;
+  fused_mlp_kernel_sm90<<<tiles < n_sm ? tiles : n_sm, wg::THREADS, wg::SMEM, stream>>>(
+      tx, tw1, tw2, b1, b2, out, M, H);
+  return cudaGetLastError();
+}
+
 using mp::allow_smem;
 
 template <typename T, int NJ>
@@ -702,5 +1138,21 @@ extern "C" int mp_fused_mlp_bwd(const void* x, const void* g, const void* w1,
     using T = decltype(tag);
     return launch_bwd<T, decltype(nj)::value>(x, g, w1, b1, w2, dx, da, h,
                                               colsum, part, grads, M, H, S, st);
+  });
+}
+
+// K5 on wgmma (fp32, C = 512, H a multiple of 128). Scratch from the
+// caller, 16-byte aligned: w1p (2H, 512) and w2p (1024, H) fp32, which the
+// launch fills with the weights' tf32 planes before the product.
+extern "C" int mp_fused_mlp_sm90(const void* x, const void* w1, const void* b1,
+                                 const void* w2, const void* b2, void* out, void* w1p,
+                                 void* w2p, int M, int H, int device, void* stream) {
+  if (M < 1 || H < wg::PAIR || H % wg::PAIR != 0) return cudaErrorInvalidValue;
+  return mp::on_device(device, [&] {
+    return launch_sm90(static_cast<const float*>(x), static_cast<const float*>(w1),
+                       static_cast<const float*>(b1), static_cast<const float*>(w2),
+                       static_cast<const float*>(b2), static_cast<float*>(out),
+                       static_cast<float*>(w1p), static_cast<float*>(w2p), M, H, device,
+                       static_cast<cudaStream_t>(stream));
   });
 }

@@ -5,9 +5,18 @@ PyTorch versions, the autograd Function and launch counters.
 gelu_exact(x W1^T + b1) W2^T + b2 with fp32 accumulation and the (M, H)
 intermediate kept on chip. ``fused_mlp_bwd`` (K6) is the ``custom_vjp``
 half ``_backward``. The kernels are in ``csrc/mlp.cu``: every product on
-the tensor cores (mma.sync), bf16 in one pass, fp32 as 3xTF32 within the
-JAX package's fp32 tolerances. Weights are in torch ``nn.Linear`` layout:
+the tensor cores, bf16 in one pass, fp32 as 3xTF32 within the JAX
+package's fp32 tolerances. Weights are in torch ``nn.Linear`` layout:
 w1 (H, C), w2 (C, H).
+
+K5 has two kernels and :func:`takes_wgmma` picks one from the operands'
+dtype and widths: fp32 at C = 512 with H a multiple of 128 (the rotations
+trunk) runs on wgmma fed by TMA (``fused_mlp_kernel_sm90``, after
+``fused_mlp_kernel_split`` writes the weights' tf32 planes into scratch);
+every other launch (bf16, the segments trunk's C = 128) runs the mma.sync
+kernel. The row count plays no part: on an H100 the wgmma kernel is the
+faster from one 64-row tile up (PERF.md, K5's rows). ``WGMMA_LAUNCHES``
+counts the launches that took wgmma, a part of ``LAUNCHES["fused_mlp"]``.
 
 ``fused_mlp`` is differentiable: when a gradient is wanted it runs
 :class:`FusedMLP`, which saves x, w1, b1 and w2 (as the JAX VJP does) and
@@ -47,11 +56,19 @@ WGRAD_TILE = 128
 WGRAD_BLOCKS = 512
 WGRAD_MIN_ROWS = 256
 
+# the widths K5's wgmma kernel takes: C, and H in multiples of
+WGMMA_CHANNELS = 512
+WGMMA_HIDDEN_TILE = 128
+
 # launches per kernel and operand dtype; reset by ``ops.reset_launch_counts``
 LAUNCHES = {name: dict.fromkeys(KERNEL_DTYPES, 0)
             for name in ("fused_mlp", "fused_mlp_bwd")}
 # launches made by CUDA-graph replays (``ops.record_replay``), likewise
 REPLAYED = {name: dict.fromkeys(KERNEL_DTYPES, 0) for name in LAUNCHES}
+# the launches of K5 that took the wgmma kernel, by operand dtype, and those
+# made by graph replays
+WGMMA_LAUNCHES = dict.fromkeys(KERNEL_DTYPES, 0)
+WGMMA_REPLAYED = dict.fromkeys(KERNEL_DTYPES, 0)
 
 
 def mlp_plain(x, w1, b1, w2, b2) -> torch.Tensor:
@@ -141,9 +158,17 @@ def _plain_or_raise(x) -> bool:
     return False
 
 
+def takes_wgmma(dtype: torch.dtype, c: int, h: int) -> bool:
+    """Whether K5 runs on wgmma for C channels of ``dtype`` and H hidden
+    units: fp32 at C = 512 with H a multiple of 128."""
+    return (dtype == torch.float32 and c == WGMMA_CHANNELS
+            and h % WGMMA_HIDDEN_TILE == 0)
+
+
 def mlp_forward(x, w1, b1, w2, b2) -> torch.Tensor:
-    """K5: x (M, C) -> gelu(x w1^T + b1) w2^T + b2, (M, C). Not
-    differentiable on the card: :func:`fused_mlp` is."""
+    """K5: x (M, C) -> gelu(x w1^T + b1) w2^T + b2, (M, C), on the kernel
+    :func:`takes_wgmma` picks. Not differentiable on the card:
+    :func:`fused_mlp` is."""
     if _plain_or_raise(x):
         return mlp_plain(x, w1, b1, w2, b2)
     _check(x, w1, b1, w2, b2)
@@ -153,15 +178,24 @@ def mlp_forward(x, w1, b1, w2, b2) -> torch.Tensor:
             "the MLP kernel is not differentiable on its own; call fused_mlp"
         )
     m, c = x.shape
+    h = w1.shape[0]
     out = torch.empty_like(x)
     lib = build.load("mlp")
-    err = lib.mp_fused_mlp(
-        x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
-        b2.data_ptr(), out.data_ptr(), KERNEL_DTYPES[x.dtype],
-        m, c, w1.shape[0], x.device.index,
-        torch.cuda.current_stream(x.device).cuda_stream,
-    )
-    build.check(lib, err, "mp_fused_mlp")
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    operands = (x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
+                b2.data_ptr(), out.data_ptr())
+    if takes_wgmma(x.dtype, c, h):
+        # the weights' big and small tf32 planes, written by the launch
+        w1p = torch.empty((2 * h, c), dtype=x.dtype, device=x.device)
+        w2p = torch.empty((2 * c, h), dtype=x.dtype, device=x.device)
+        err = lib.mp_fused_mlp_sm90(*operands, w1p.data_ptr(), w2p.data_ptr(),
+                                    m, h, x.device.index, stream)
+        build.check(lib, err, "mp_fused_mlp_sm90")
+        WGMMA_LAUNCHES[x.dtype] += 1
+    else:
+        err = lib.mp_fused_mlp(*operands, KERNEL_DTYPES[x.dtype], m, c, h,
+                               x.device.index, stream)
+        build.check(lib, err, "mp_fused_mlp")
     LAUNCHES["fused_mlp"][x.dtype] += 1
     return out
 

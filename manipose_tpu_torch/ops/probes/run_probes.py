@@ -9,13 +9,18 @@ builds into ``build/probes/`` and prints:
    operands (``mma_rate.cu``).
 2. ``accumulate``: the error of fp32 products on the tensor cores against
    fp64, for the accumulation schemes of ``accumulate.cu``.
-3. ``ablate``: K5 at the flagship's rotations-trunk shape (M 66096, C 512,
-   H 1024), fp32 and bf16, built from ``csrc/`` as it is and with one part
+3. ``ablate``: K5's mma.sync kernel at the flagship's rotations-trunk
+   shape (M 66096, C 512, H 1024), fp32 and bf16, built from ``csrc/`` as it is and with one part
    of the work taken out of a copy of the sources (the numbers of a variant
    are wrong by design; only its time is read): ``one_pass`` (one tf32
    pass instead of three), ``no_split`` (operands passed unsplit),
    ``no_copy`` (no cp.async copies), ``no_fc1`` and ``no_fc2`` (the
    products of one of K5's two GEMMs skipped).
+   ``wgmma`` (a section of its own): the same for K5's wgmma kernel
+   (fp32) at M 66096 and 33048: ``base``, ``one_pass`` (the big parts'
+   product alone), ``no_mma`` (no wgmma: the loads, the fragments'
+   splits and the waits alone), ``no_w_loads`` (no TMA load of the
+   weights' planes) and ``no_x_loads`` (none of x).
 4. ``k6``: the device time of each of K6's kernels at the same shape, from
    ``torch.profiler``.
 5. ``attention``: K1 and K2 at the flagship's shapes (rotations 272*8
@@ -105,6 +110,23 @@ def run_tool(name: str) -> None:
                    check=True)
     subprocess.run([str(exe)], check=True)
 
+
+_WG_PRODUCTS = ("  mma(d, a.small, bb, s == 0 ? 0 : 1);\n"
+                "  mma(d, a.big, desc_swizzled(b_big + BOX + 32 * s), 1);\n"
+                "  mma(d, a.big, bb, 1);")
+WGMMA_ABLATIONS = {
+    "base": [],
+    "one_pass": [("mlp.cu", _WG_PRODUCTS, "  mma(d, a.big, bb, s == 0 ? 0 : 1);", 1)],
+    "no_mma": [("mlp.cu", _WG_PRODUCTS, "  (void)bb;", 1)],
+    "no_w_loads": [("mlp.cu", "    bar_expect(full, W_SLOT);\n"
+                    "    tma_load(slot, map, k0, row0, full);\n"
+                    "    tma_load(slot + BOX, map, k0, plane_rows + row0, full);",
+                    "    bar_arrive(full);\n"
+                    "    (void)slot, (void)map, (void)k0, (void)row0, (void)plane_rows;", 1)],
+    "no_x_loads": [("mlp.cu", "        bar_expect(&x_full[r.i], BOX);\n"
+                    "        tma_load(smem + OFF_X + r.i * BOX, tx, (n % (C / KB)) * KB, "
+                    "tile * BM, &x_full[r.i]);", "        bar_arrive(&x_full[r.i]);", 1)],
+}
 
 _DENSE_SCORES = "for (int kk = 0; kk < G::KS; ++kk) {"
 _DENSE_ROWS = "for (int j = 0; j < TROWS / G::KK; ++j) {"
@@ -236,6 +258,29 @@ def ablate(libs: dict, gen) -> None:
 
             print(f"ablate K5 {str(dtype)[6:]:8s} {name:9s} {time_ms(run):.4f} ms",
                   flush=True)
+
+
+def ablate_wgmma(libs: dict, gen) -> None:
+    """K5's wgmma kernel and its ablations, fp32, at two row counts."""
+    m, c, h = SHAPE
+    for rows in (m, m // 2):
+        x, w1, b1, w2, b2 = operands(torch.float32, gen, (rows, c, h))
+        out = torch.empty_like(x)
+        w1p = torch.empty((2 * h, c), device="cuda")
+        w2p = torch.empty((2 * c, h), device="cuda")
+        stream = torch.cuda.current_stream().cuda_stream
+        for name, lib in libs.items():
+            def run():
+                err = lib.mp_fused_mlp_sm90(x.data_ptr(), w1.data_ptr(), b1.data_ptr(),
+                                            w2.data_ptr(), b2.data_ptr(), out.data_ptr(),
+                                            w1p.data_ptr(), w2p.data_ptr(), rows, h, 0,
+                                            stream)
+                if err:
+                    raise RuntimeError(f"ablation {name}: CUDA error {err}")
+
+            ms = time_ms(run)
+            print(f"ablate K5 wgmma M={rows} {name:10s} {ms:.4f} ms "
+                  f"({4.0 * rows * c * h / ms * 1e-9:.1f} TFLOP/s)", flush=True)
 
 
 def k6_kernels(gen) -> None:
@@ -512,7 +557,7 @@ def eval_pinning() -> None:
             Batch.pin_memory = pin
 
 
-SECTIONS = ("mma_rate", "accumulate", "ablate", "k6", "attention", "packed", "bf16",
+SECTIONS = ("mma_rate", "accumulate", "ablate", "wgmma", "k6", "attention", "packed", "bf16",
             "pinning")
 
 
@@ -536,6 +581,8 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     if "ablate" in sections:
         ablate(build_variants("mlp", MLP_ABLATIONS), gen)
+    if "wgmma" in sections:
+        ablate_wgmma(build_variants("mlp", WGMMA_ABLATIONS), gen)
     if "k6" in sections:
         k6_kernels(gen)
     if "attention" in sections:

@@ -146,7 +146,8 @@ def make_train_step(
 @dataclasses.dataclass
 class _Captured:
     """One captured megastep: its graph, its static inputs and metrics, the
-    launches its capture recorded, and the learning-rate tensors it reads."""
+    launches its capture recorded (``wgmma`` of them K5 on wgmma), and the
+    learning-rate tensors it reads."""
 
     graph: torch.cuda.CUDAGraph
     x: torch.Tensor
@@ -154,6 +155,7 @@ class _Captured:
     metrics: Metrics
     launches: dict
     lrs: tuple
+    wgmma: dict
 
 
 class MultiTrainStep:
@@ -200,7 +202,7 @@ class MultiTrainStep:
         captured.x.copy_(x_stack, non_blocking=True)
         captured.y.copy_(y_stack, non_blocking=True)
         captured.graph.replay()
-        ops.record_replay(captured.launches)
+        ops.record_replay(captured.launches, captured.wgmma)
         self.replays += 1
         state.step += self.n_steps
         # the graph writes the same buffers at every replay
@@ -244,13 +246,14 @@ class MultiTrainStep:
         opt.zero_grad()
         graph = torch.cuda.CUDAGraph()
         graph.register_generator_state(state.generator)
-        before = ops.launch_snapshot()
+        before, before_wgmma = ops.launch_snapshot(), ops.wgmma_snapshot()
         # thread-local capture: the prefetch thread may pin host memory meanwhile
         with torch.cuda.graph(graph, capture_error_mode="thread_local"):
             steps = [self._body(x[i], y[i]) for i in range(self.n_steps)]
             metrics = {k: torch.stack([m[k] for m in steps]) for k in steps[0]}
         self.captures += 1
-        return _Captured(graph, x, y, metrics, ops.launches_since(before), lrs)
+        return _Captured(graph, x, y, metrics, ops.launches_since(before), lrs,
+                         ops.wgmma_since(before_wgmma))
 
 
 def make_multi_train_step(

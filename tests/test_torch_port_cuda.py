@@ -157,6 +157,48 @@ def test_mlp_kernel_matches_float64(gen):
     assert (got - want).abs().max().item() <= 5e-5
 
 
+# K5's wgmma kernel (fp32, C = 512): at 16896 rows, the lift's window
+# batch's, the train step's, and one row past a tile
+WGMMA_ROWS = [16896, 33048, 66096, 66097]
+
+
+@pytest.mark.parametrize("m", WGMMA_ROWS)
+def test_wgmma_mlp_matches_float64(gen, m):
+    """K5 on wgmma (the launch the rule picks for fp32 at C = 512) against
+    the plain version in fp64 from the same inputs."""
+    args = _mlp_operands(gen, m, 512, 1024, torch.float32)
+    ops.reset_launch_counts()
+    got = fused_mlp(*args)
+    assert ops.wgmma_launches(torch.float32) == 1
+    want = mlp_plain(*(a.double() for a in args))
+    assert (got.double() - want).abs().max().item() <= TOL[torch.float32][1]
+
+
+def test_wgmma_mlp_is_deterministic(gen):
+    """No atomics and no split of k: two runs agree bit for bit."""
+    args = _mlp_operands(gen, 33048, 512, 1024, torch.float32)
+    assert torch.equal(fused_mlp(*args), fused_mlp(*args))
+
+
+def test_wgmma_mlp_replays_in_a_cuda_graph(gen):
+    """Captured in a CUDA graph (tensor maps as kernel parameters, the
+    weights' split and its scratch inside the capture), each replay gives
+    the eager result bit for bit, also after new inputs are copied in."""
+    args = _mlp_operands(gen, 4097, 512, 1024, torch.float32)
+    static = [a.clone() for a in args]
+    fused_mlp(*static)  # builds and warms up outside the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fused_mlp(*static)
+    for scale in (1.0, 0.5):
+        for dst, src in zip(static, args):
+            dst.copy_(src * scale)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, fused_mlp(*static))
+
+
 def test_kernels_refuse_what_they_do_not_take(gen):
     q, k, v = _qkv(gen, 2, 2, 17, 24, torch.float32, False)
     with pytest.raises(ValueError, match="head dim"):

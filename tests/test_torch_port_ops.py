@@ -31,12 +31,15 @@ from manipose_tpu_torch.ops.cuda_attention import (
     padded_head_dim,
     split_heads,
 )
+from manipose_tpu_torch.ops import cuda_mlp
 from manipose_tpu_torch.ops.cuda_mlp import (
     fused_mlp,
+    mlp_forward,
     mlp_plain,
     mlp_plain_bwd,
     padded_widths,
     round_to_tf32,
+    takes_wgmma,
 )
 
 # the shapes of tests/test_pallas_attention.py: (batch, heads, N, d)
@@ -327,6 +330,88 @@ def test_cpu_tensors_take_the_plain_path():
     }
     assert ops.launch_counts(torch.bfloat16) == ops.launch_counts(torch.float32) \
         == ops.launch_counts()
+
+
+# ---- K5's two kernels: which one a launch takes, and its count -----------
+
+@pytest.mark.parametrize("dtype,c,h,wgmma", [
+    (torch.float32, 512, 1024, True),  # the rotations trunk
+    (torch.float32, 512, 128, True),
+    (torch.float32, 512, 960, False),  # H not a multiple of 128
+    (torch.float32, 128, 256, False),  # the segments trunk
+    (torch.float32, 256, 512, False),
+    (torch.bfloat16, 512, 1024, False),
+])
+def test_k5_path_rule(dtype, c, h, wgmma):
+    """fp32 at C = 512 with H a multiple of 128 takes the wgmma kernel,
+    every other launch the mma.sync kernel."""
+    assert takes_wgmma(dtype, c, h) is wgmma
+
+
+class _FakeMlpLibrary:
+    """Stands in for the built library: records which entry point a launch
+    called and reports success."""
+
+    def __init__(self):
+        self.calls = []
+
+    def mp_fused_mlp(self, *args):
+        self.calls.append("mma.sync")
+        return 0
+
+    def mp_fused_mlp_sm90(self, *args):
+        self.calls.append("wgmma")
+        return 0
+
+
+@pytest.fixture
+def fake_card(monkeypatch):
+    """mlp_forward on CPU tensors as if they lay on a card: the launch goes
+    to a fake library."""
+    lib = _FakeMlpLibrary()
+    monkeypatch.setattr(cuda_mlp, "_plain_or_raise", lambda x: False)
+    monkeypatch.setattr(cuda_mlp, "_check", lambda *args: None)
+    monkeypatch.setattr(cuda_mlp.build, "load", lambda name: lib)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: type("S", (), {"cuda_stream": 0})())
+    ops.reset_launch_counts()
+    yield lib
+    ops.reset_launch_counts()
+
+
+@pytest.mark.parametrize("m", [1, 459, 4097])
+def test_k5_counts_its_wgmma_launches(fake_card, m):
+    """Each K5 launch counts in LAUNCHES["fused_mlp"]; those the rule sends
+    to wgmma count in its own per-dtype counter too, at any row count."""
+    def launch(c, h, dtype):
+        x = torch.zeros((m, c), dtype=dtype)
+        mlp_forward(x, torch.zeros((h, c), dtype=dtype), torch.zeros(h, dtype=dtype),
+                    torch.zeros((c, h), dtype=dtype), torch.zeros(c, dtype=dtype))
+
+    launch(512, 1024, torch.float32)
+    launch(128, 256, torch.float32)
+    launch(512, 1024, torch.bfloat16)
+    assert fake_card.calls == ["wgmma", "mma.sync", "mma.sync"]
+    assert ops.launch_counts()["fused_mlp"] == 3
+    assert ops.wgmma_launches() == ops.wgmma_launches(torch.float32) == 1
+    assert ops.wgmma_launches(torch.bfloat16) == 0
+
+
+def test_k5_wgmma_counter_replays_and_resets(fake_card):
+    """A graph replay adds its capture's wgmma launches to the replayed
+    count; the reset clears both counts."""
+    before = ops.wgmma_snapshot()
+    x = torch.zeros((64, 512))
+    mlp_forward(x, torch.zeros((1024, 512)), torch.zeros(1024), torch.zeros((512, 1024)),
+                torch.zeros(512))
+    captured = ops.wgmma_since(before)
+    assert captured == {torch.float32: 1, torch.bfloat16: 0}
+    ops.record_replay({}, captured)
+    ops.record_replay({}, captured)
+    assert ops.replayed_wgmma_launches() == ops.replayed_wgmma_launches(torch.float32) == 2
+    assert ops.replayed_counts()["fused_mlp"] == 0  # the replayed launches it was given
+    ops.reset_launch_counts()
+    assert ops.wgmma_launches() == ops.replayed_wgmma_launches() == 0
 
 
 # ---- shapes the kernels are not built for: zero-padded up ----------------
