@@ -1,8 +1,9 @@
 """The training cells' comparison with the reference.
 
 The program's first steps (fed by its own loader) are followed by the
-reference from the same weights, on the same rows and with drop-path
-masks drawn as the program draws them. Compared:
+reference (the configuration's architecture's ``train_steps``) from the
+same weights, on the same rows and with drop-path masks drawn as the
+program draws them. Compared:
 
 - ``loss_gap``: the first step's total loss, the relative gap;
 - ``grad_gap``: the first step's gradient of every leaf as Adam took it
@@ -31,7 +32,7 @@ from typing import Dict, List, Sequence, Tuple
 import numpy as np
 import torch
 
-from . import core, reference, weights
+from . import core, reference
 
 BETA1 = 0.9
 
@@ -108,7 +109,8 @@ def follow(ctx, fed: Sequence, drop_seeds: Sequence[int], tf32: bool = False,
     the first half of each rank's rows, ``no_exchange`` on rank 0's rows
     alone (its gradient never averaged with the others')."""
     device = ctx.device
-    p = weights.draw(ctx.config, ctx.seed, device)
+    arch = ctx.arch
+    p = arch.draw(ctx.config, ctx.seed, device)
     gens = [torch.Generator(device=device).manual_seed(int(s)) for s in drop_seeds]
     batches = [(torch.from_numpy(x).to(device), torch.from_numpy(y).to(device)) for x, y in fed]
     if fault == "half_batch":
@@ -119,17 +121,16 @@ def follow(ctx, fed: Sequence, drop_seeds: Sequence[int], tf32: bool = False,
         batches = [tuple(t.chunk(len(gens))[0] for t in b) for b in batches]
         gens = gens[:1]
     with reference.matmul_precision(tf32):
-        return reference.train_steps(p, ctx.config, batches, gens)
+        return arch.train_steps(p, ctx.config, batches, gens)
 
 
-def train_checks(ctx, fed: Sequence, program_losses: List[float], snapshots: dict,
-                 archive, drop_seeds: Sequence[int]) -> List[core.Check]:
-    """The comparisons above, of the program's losses and ``snapshots``
-    (``first_grads`` and the leaves ``after`` the steps) with the
-    reference's; ``archive``: the rows' source, None to skip that check."""
+def train_numbers(ctx, fed: Sequence, program_losses: List[float], snapshots: dict,
+                  drop_seeds: Sequence[int]) -> Dict[str, float]:
+    """Every number above but ``feed_rows_bad``, of the program's losses and
+    ``snapshots`` (``first_grads`` and the leaves ``after`` the steps)
+    against the reference's."""
     device = ctx.device
     cfg = ctx.config
-    limits = ctx.mix["limits"]
     ref = follow(ctx, fed, drop_seeds)
     gaps = [abs(a - b) / abs(b) for a, b in zip(program_losses, ref["losses"])]
     ref_grads = {k: v.cpu() for k, v in ref["first_grads"].items()}
@@ -138,18 +139,25 @@ def train_checks(ctx, fed: Sequence, program_losses: List[float], snapshots: dic
            for g in ref_grads.values()]
     floor = 1e-3 * float(np.median(rms))
     keep = {k: g.abs() >= floor for k, g in ref_grads.items()}
-    start = {k: v.cpu() for k, v in weights.draw(cfg, ctx.seed, device).items()}
+    start = {k: v.cpu() for k, v in ctx.arch.draw(cfg, ctx.seed, device).items()}
     program_change = {k: snapshots["after"][k] - start[k] for k in start if k in snapshots["after"]}
     ref_change = {k: v.cpu() for k, v in ref["change"].items()}
     change = _leaf_gaps(program_change, ref_change, keep)
     worst_change, change_leaf = _worst(change)
     print(f"train check: loss gaps by step {[float(g) for g in gaps]}; worst gradient leaf "
           f"{grad_leaf}; worst change leaf {change_leaf} {worst_change}", file=sys.stderr)
-    change_gap = float(np.median(list(change.values())))
-    out = [core.Check("loss_gap", gaps[0], limits["loss_gap"]),
-           core.Check("grad_gap", grad_gap, limits["grad_gap"]),
-           core.Check("change_gap", change_gap, limits["change_gap"])]
+    return {"loss_gap": gaps[0], "grad_gap": grad_gap,
+            "change_gap": float(np.median(list(change.values())))}
+
+
+def train_checks(ctx, fed: Sequence, program_losses: List[float], snapshots: dict,
+                 archive, drop_seeds: Sequence[int]) -> List[core.Check]:
+    """The numbers above, each with the mix's limit; ``archive``: the rows'
+    source, None to skip ``feed_rows_bad``."""
+    limits = ctx.mix["limits"]
+    numbers = train_numbers(ctx, fed, program_losses, snapshots, drop_seeds)
+    out = [core.Check(k, v, limits[k]) for k, v in numbers.items()]
     if archive is not None:
-        out.append(core.Check("feed_rows_bad", float(find_rows(fed, archive, cfg["skeleton"],
-                                                                device)), 0.0))
+        bad = find_rows(fed, archive, ctx.config["skeleton"], ctx.device)
+        out.append(core.Check("feed_rows_bad", float(bad), 0.0))
     return out

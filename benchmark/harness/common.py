@@ -10,7 +10,7 @@ from typing import List, Sequence
 import numpy as np
 import torch
 
-from . import reference, synth, weights
+from . import reference, synth
 
 
 def log(ctx, what: str) -> None:
@@ -21,14 +21,16 @@ def log(ctx, what: str) -> None:
 def check_port_config(ctx, port_cfg) -> None:
     """The port's Config has every size the configuration file states."""
     for group in ("model", "multi_hyp", "data"):
-        for key, want in ctx.config[group].items():
+        for key, want in ctx.config.get(group, {}).items():
             if key in port_cfg[group] and port_cfg[group][key] != want:
                 raise ValueError(f"{group}.{key}: the port runs {port_cfg[group][key]!r}, "
                                  f"configs/{ctx.config['name']}.json states {want!r}")
 
 
 def draw_weights(ctx):
-    return weights.draw(ctx.config, ctx.seed, ctx.device)
+    """The configuration's weights drawn from the run's seed, by its
+    architecture."""
+    return ctx.arch.draw(ctx.config, ctx.seed, ctx.device)
 
 
 def make_predictor(ctx, batch_size: int, tta: bool):
@@ -95,12 +97,13 @@ def pose_error(program: np.ndarray, ref: np.ndarray) -> float:
 def reference_lift(ctx, windows: np.ndarray, tta: bool, tf32: bool = False,
                    block: int = 16) -> np.ndarray:
     """The reference's served poses of (W, L, J, 2) windows, in blocks."""
+    arch = ctx.arch
     p = draw_weights(ctx)
     out = []
     with torch.no_grad(), reference.matmul_precision(tf32):
         for i in range(0, len(windows), block):
             x = torch.from_numpy(np.ascontiguousarray(windows[i:i + block])).to(ctx.device)
-            out.append(reference.lift_windows(p, ctx.config, x, tta).double().cpu().numpy())
+            out.append(arch.lift_windows(p, ctx.config, x, tta).double().cpu().numpy())
     return np.concatenate(out)
 
 

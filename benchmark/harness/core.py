@@ -7,6 +7,9 @@ the name that ``BENCHMARK.json`` or a mix gives:
 
 - ``configs/<config>.json``: the configuration as run (the port's config
   overrides, the sizes the reference reads, the skeleton, the camera);
+- ``archs/<model.arch>.py``: the configuration's architecture: its plain
+  reference, weights, loss, optimizer and yardstick (``archs/rmcl_manifold.py``
+  gives the interface);
 - ``mixes/<traffic>.json``: a traffic mix, ``{"driver": ..., params}``;
 - ``traffic/<driver>.py``: a traffic driver, ``run(ctx) -> Outcome``;
 - ``metrics/<metric>.py``: a per-layer metric's reader, ``read(run)``;
@@ -112,6 +115,10 @@ class Cell:
         return load_module(self.bench_dir / "traffic" / f"{self.mix['driver']}.py",
                            "bench_traffic_" + self.mix["driver"])
 
+    def arch(self):
+        name = self.config["model"]["arch"]
+        return load_module(self.bench_dir / "archs" / f"{name}.py", "bench_arch_" + name)
+
     def reader(self, metric: str) -> Callable:
         module = load_module(self.bench_dir / "metrics" / f"{metric}.py",
                              "bench_metric_" + metric.replace(".", "_").replace("-", "_"))
@@ -151,6 +158,10 @@ class Context:
     @property
     def mix(self) -> dict:
         return self.cell.mix
+
+    @property
+    def arch(self):
+        return self.cell.arch()
 
     def port_config(self, extra=()):
         """The port's Config for this configuration, seeded by the run."""

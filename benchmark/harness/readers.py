@@ -17,7 +17,8 @@ def mfu(run) -> Optional[float]:
     if not w.get("window_s"):
         return None
     cfg = run.config
-    flops = w["forward_windows"] * (3 if w["backward"] else 1) * yardstick.model_flops(cfg, 1)
+    per_window = run.cell.arch().model_flops(cfg, 1)
+    flops = w["forward_windows"] * (3 if w["backward"] else 1) * per_window
     peak = yardstick.PEAK_FLOPS[cfg["model"]["dtype"]] * w.get("chips", 1)
     return 100.0 * flops / w["window_s"] / peak
 
@@ -25,17 +26,18 @@ def mfu(run) -> Optional[float]:
 def kernel_roofline(run) -> Optional[float]:
     """The sum of the bound times of the traced window's kernel operations
     over the sum of their device times: operations and shapes from the
-    configuration and the traced work, device kernels mapped to
-    operations by ``kernels/*.json``. An operation no traced kernel maps
-    to is left out of both sums."""
+    configuration's architecture and the traced work, device kernels
+    mapped to operations by ``kernels/*.json``. An operation no traced
+    kernel maps to is left out of both sums."""
     trace = run.trace
     if trace is None or not run.work.get("traced_calls"):
         return None
     cfg = run.config
     dtype = cfg["model"]["dtype"]
+    arch = run.cell.arch()
     bound = {}
     for windows, count, backward in run.work["traced_calls"]:
-        for (op, shape), n in yardstick.kernel_ops(cfg, windows, backward).items():
+        for (op, shape), n in arch.kernel_ops(cfg, windows, backward).items():
             flops, n_bytes = yardstick.work(op, shape, dtype)
             bound[op] = bound.get(op, 0.0) + count * n * yardstick.bound_s(flops, n_bytes, dtype)
     classes = yardstick.kernel_classes(str(run.cell.bench_dir / "kernels"))

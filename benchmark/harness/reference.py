@@ -1,13 +1,14 @@
-"""Plain PyTorch reference of the rMCL manifold model, its loss and Adam.
+"""The plain PyTorch reference's shared pieces: the precision switch, the
+MixSTE lineage's blocks and trunk, stochastic depth as the program draws
+it, 6D rotations and forward kinematics, the mirror, the windows of a
+video and of a stream, the data-parallel stepping of training and Adam.
 
-Written from the model's published description (ManiPose, arXiv
-2312.06386: two MixSTE trunks, K scored hypotheses, forward kinematics on
-constant bone lengths) and the configuration file's sizes, for the
-benchmark's correctness check. It imports nothing of the measured
-program: it reads the weights as a plain state dict under the reference
+Each architecture's reference (``archs/<arch>.py``: its forward, served
+lift, loss, and an optimizer of its own where Adam is not it) is written from its published description and
+builds on these. None of it imports anything of the measured program: it
+reads the weights as a plain state dict under the reference
 implementation's parameter names, and works out again everything the
-program derives from them (folded head projections, T-pose offsets,
-drop-path masks, window gathering, the TTA flip).
+program derives from them.
 
 Everything is float32 and, unless ``tf32`` asks otherwise, runs with TF32
 off, so that a matrix product is a float32 product. The functions take
@@ -18,7 +19,7 @@ from __future__ import annotations
 
 import contextlib
 import math
-from typing import Dict, Iterator, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -42,35 +43,35 @@ def matmul_precision(tf32: bool) -> Iterator[None]:
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
 
 
-# ---- model ------------------------------------------------------------------
+# ---- blocks -----------------------------------------------------------------
 
-def _linear(p: Params, name: str, x: torch.Tensor) -> torch.Tensor:
+def linear(p: Params, name: str, x: torch.Tensor) -> torch.Tensor:
     return F.linear(x, p[name + ".weight"], p[name + ".bias"])
 
 
-def _norm(p: Params, name: str, x: torch.Tensor, eps: float) -> torch.Tensor:
+def layer_norm(p: Params, name: str, x: torch.Tensor, eps: float) -> torch.Tensor:
     return F.layer_norm(x, x.shape[-1:], p[name + ".weight"], p[name + ".bias"], eps)
 
 
-def _attention(p: Params, name: str, x: torch.Tensor, heads: int) -> torch.Tensor:
+def attention(p: Params, name: str, x: torch.Tensor, heads: int) -> torch.Tensor:
     b, n, c = x.shape
     d = c // heads
-    qkv = _linear(p, name + ".qkv", x).reshape(b, n, 3, heads, d).permute(2, 0, 3, 1, 4)
+    qkv = linear(p, name + ".qkv", x).reshape(b, n, 3, heads, d).permute(2, 0, 3, 1, 4)
     q, k, v = qkv[0], qkv[1], qkv[2]
     probs = torch.softmax(torch.matmul(q, k.transpose(-1, -2)) * d**-0.5, dim=-1)
     out = torch.matmul(probs, v).transpose(1, 2).reshape(b, n, c)
-    return _linear(p, name + ".proj", out)
+    return linear(p, name + ".proj", out)
 
 
-def _block(p: Params, name: str, x: torch.Tensor, heads: int,
-           masks: Optional[Tuple[torch.Tensor, torch.Tensor]], rate: float) -> torch.Tensor:
+def block(p: Params, name: str, x: torch.Tensor, heads: int,
+          masks: Optional[Tuple[torch.Tensor, torch.Tensor]], rate: float) -> torch.Tensor:
     """Pre-norm attention and MLP (exact GELU) with stochastic depth."""
-    h = _attention(p, name + ".attn", _norm(p, name + ".norm1", x, 1e-6), heads)
+    h = attention(p, name + ".attn", layer_norm(p, name + ".norm1", x, 1e-6), heads)
     if masks is not None:
         h = h * masks[0] / (1.0 - rate)
     x = x + h
-    h = _linear(p, name + ".mlp.fc2",
-                F.gelu(_linear(p, name + ".mlp.fc1", _norm(p, name + ".norm2", x, 1e-6))))
+    h = linear(p, name + ".mlp.fc2",
+               F.gelu(linear(p, name + ".mlp.fc1", layer_norm(p, name + ".norm2", x, 1e-6))))
     if masks is not None:
         h = h * masks[1] / (1.0 - rate)
     return x + h
@@ -78,8 +79,8 @@ def _block(p: Params, name: str, x: torch.Tensor, heads: int,
 
 class DropPathDraws:
     """Stochastic-depth masks as a training forward draws them: from one
-    generator on the device, per block in the order the blocks run
-    (rotations trunk, then segments trunk; in each, spatial block i, then
+    generator on the device, per block in the order the blocks run (trunk
+    by trunk as the model runs them; in each, spatial block i, then
     temporal block i), the attention branch's mask before the MLP's, one
     value a folded-batch row, none for a block whose rate is 0."""
 
@@ -97,8 +98,8 @@ class DropPathDraws:
                      < 1.0 - rate for _ in range(2))
 
 
-def _trunk(p: Params, pre: str, x: torch.Tensor, depth: int, heads: int,
-           draws: Optional[DropPathDraws]) -> torch.Tensor:
+def mixste_trunk(p: Params, pre: str, x: torch.Tensor, depth: int, heads: int,
+                 draws: Optional[DropPathDraws]) -> torch.Tensor:
     """MixSTE body on (B, L, J, C): spatial then temporal block per layer,
     each followed by its shared LayerNorm; the temporal positional table
     is added before the first temporal block."""
@@ -106,15 +107,17 @@ def _trunk(p: Params, pre: str, x: torch.Tensor, depth: int, heads: int,
     rates = draws.rates(depth) if draws is not None else [0.0] * depth
     for i in range(depth):
         masks = draws.draw(b * l, rates[i], x.device) if draws is not None else None
-        y = _block(p, f"{pre}STEblocks.{i}", x.reshape(b * l, j, c), heads, masks, rates[i])
-        x = _norm(p, pre + "Spatial_norm", y, 1e-6).reshape(b, l, j, c).transpose(1, 2)
+        y = block(p, f"{pre}STEblocks.{i}", x.reshape(b * l, j, c), heads, masks, rates[i])
+        x = layer_norm(p, pre + "Spatial_norm", y, 1e-6).reshape(b, l, j, c).transpose(1, 2)
         if i == 0:
             x = x + p[pre + "Temporal_pos_embed"]
         masks = draws.draw(b * j, rates[i], x.device) if draws is not None else None
-        y = _block(p, f"{pre}TTEblocks.{i}", x.reshape(b * j, l, c), heads, masks, rates[i])
-        x = _norm(p, pre + "Temporal_norm", y, 1e-6).reshape(b, j, l, c).transpose(1, 2)
+        y = block(p, f"{pre}TTEblocks.{i}", x.reshape(b * j, l, c), heads, masks, rates[i])
+        x = layer_norm(p, pre + "Temporal_norm", y, 1e-6).reshape(b, j, l, c).transpose(1, 2)
     return x
 
+
+# ---- geometry ---------------------------------------------------------------
 
 def rot6d_to_matrix(rep: torch.Tensor) -> torch.Tensor:
     """(..., 6) -> (..., 3, 3): Gram-Schmidt, columns (x, y, z); a vector
@@ -145,37 +148,6 @@ def forward_kinematics(rot: torch.Tensor, lengths: torch.Tensor, skeleton: dict)
     return torch.stack(pos, dim=-2)
 
 
-def forward(p: Params, cfg: dict, x: torch.Tensor,
-            draws: Optional[DropPathDraws] = None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(B, L, J, 2) keypoints -> (poses (B, K, L, J, 3), scores (B, K, L, 1))."""
-    m, skeleton = cfg["model"], cfg["skeleton"]
-    b, l, j, _ = x.shape
-    n_hyp = cfg["multi_hyp"]["n_hyp"]
-    # rotations branch: K heads of LayerNorm -> Linear(C, 6 + 1); the last
-    # channel of each joint feeds the head's score Linear(J, 1)
-    r = _linear(p, "rotations_module.Spatial_patch_to_embedding", x)
-    r = r + p["rotations_module.Spatial_pos_embed"]
-    feats = _trunk(p, "rotations_module.", r, m["layers"], m["nheads"], draws)
-    preds, logits = [], []
-    for h in range(n_hyp):
-        pre = f"rotations_module.head.{h}."
-        y = _linear(p, pre + "prediction_head", _norm(p, pre + "norm", feats, 1e-5))
-        preds.append(y[..., :-1])
-        logits.append(_linear(p, pre + "score_head", y[..., -1]))
-    rep = torch.stack(preds, dim=1)  # (B, K, L, J, 6)
-    scores = torch.softmax(torch.stack(logits, dim=1), dim=1)  # (B, K, L, 1)
-    # segments branch: joints -> per-bone tokens, a small trunk, one length
-    # a bone and frame, averaged over the frames
-    s = _linear(p, "segments_module.joints_to_segments_proj", x.reshape(b, l, j * 2))
-    n_bones = len(skeleton["parents"]) - 1
-    s = s.reshape(b, l, n_bones, m["channels_seg"]) + p["segments_module.Spatial_pos_embed"]
-    s = _trunk(p, "segments_module.", s, m["layers_seg"], m["nheads_seg"], draws)
-    s = _linear(p, "segments_module.head.1", _norm(p, "segments_module.head.0", s, 1e-5))
-    lengths = s.mean(dim=1)[:, None, None, :, 0]  # (B, 1, 1, S)
-    poses = forward_kinematics(rot6d_to_matrix(rep), lengths, skeleton)
-    return poses, scores
-
-
 def flip(poses: torch.Tensor, skeleton: dict) -> torch.Tensor:
     """Mirror: negate the first coordinate and swap left and right joints."""
     perm = list(range(len(skeleton["parents"])))
@@ -186,16 +158,7 @@ def flip(poses: torch.Tensor, skeleton: dict) -> torch.Tensor:
     return out
 
 
-def lift_windows(p: Params, cfg: dict, x: torch.Tensor, tta: bool = True) -> torch.Tensor:
-    """Served poses of (B, L, J, 2) windows: the score-weighted mean of the
-    hypotheses, averaged with the mirrored input's mirrored result."""
-    poses, scores = forward(p, cfg, x)
-    agg = torch.sum(poses * scores[..., None], dim=1)
-    if tta:
-        fp, fs = forward(p, cfg, flip(x, cfg["skeleton"]))
-        agg = (agg + flip(torch.sum(fp * fs[..., None], dim=1), cfg["skeleton"])) / 2
-    return agg
-
+# ---- windows ----------------------------------------------------------------
 
 def tile_video(video: np.ndarray, seq_len: int) -> np.ndarray:
     """(N, J, 2) -> (ceil(N / L), L, J, 2): windows at 0, L, 2L, ...; the
@@ -212,33 +175,7 @@ def stream_window(frames: np.ndarray, end: int, seq_len: int) -> np.ndarray:
     return frames[idx]
 
 
-# ---- loss and optimizer -----------------------------------------------------
-
-def loss_terms(poses: torch.Tensor, scores: torch.Tensor, target: torch.Tensor,
-               train: dict) -> Dict[str, torch.Tensor]:
-    """The rMCL training loss's terms. poses (B, K, L, J, 3), scores
-    (B, K, L, 1), target (B, L, J, 3). Winner-takes-all of the
-    joint-weighted MPJPE over the K hypotheses; the scores' binary cross
-    entropy (log clamped at -100) against the one-hot winners; the velocity
-    error and the weighted squared velocity of every hypothesis."""
-    w = torch.tensor(JOINT_WEIGHTS, dtype=poses.dtype, device=poses.device)
-    err = (w * torch.linalg.vector_norm(poses - target[:, None], dim=-1)).mean(dim=3)
-    wta, winner = torch.min(err, dim=1)  # (B, L)
-    terms = {"wloss": wta.mean()}
-    if train["rmcl_score_reg"] > 0:
-        onehot = F.one_hot(winner, poses.shape[1]).permute(0, 2, 1).to(scores.dtype)
-        s = scores[..., 0]
-        bce = -(onehot * torch.clamp(torch.log(s), min=-100.0)
-                + (1 - onehot) * torch.clamp(torch.log1p(-s), min=-100.0))
-        terms["score_reg"] = train["rmcl_score_reg"] * bce.mean()
-    vel = torch.diff(poses, dim=2)
-    if train["vel_loss"] > 0:
-        tvel = torch.diff(target, dim=1)[:, None]
-        terms["vloss"] = train["vel_loss"] * torch.linalg.vector_norm(vel - tvel, dim=-1).mean()
-    if train["smooth_reg"] > 0:
-        terms["sreg"] = train["smooth_reg"] * (w[:, None] * vel**2).mean()
-    return terms
-
+# ---- training ---------------------------------------------------------------
 
 class Adam:
     """Adam with the weight decay added to the gradient before the moments
@@ -268,35 +205,38 @@ class Adam:
         return taken
 
 
-def train_steps(p: Params, cfg: dict, batches: Sequence[Tuple[torch.Tensor, torch.Tensor]],
-                generators: Sequence[torch.Generator]) -> dict:
+def follow_steps(p: Params, batches: Sequence[Tuple[torch.Tensor, torch.Tensor]],
+                 generators: Sequence[torch.Generator], drop_path_rate: float,
+                 loss: Callable, optimizer: Callable) -> dict:
     """Follow the training steps on ``batches`` from the weights ``p``.
     With several ``generators`` each batch is split into as many equal
     parts in order, one a data-parallel rank: each part's loss and
     drop-path masks are its own (drawn from its rank's generator), and
-    the step takes the mean of their gradients and losses. Returns each
-    step's loss, the gradient of every leaf as Adam took it at the first
-    step, and the leaves' change."""
-    t = cfg["train"]
+    the step takes the mean of their gradients and losses.
+
+    ``loss(params, x, y, draws)``: a part's total loss; ``optimizer(params)``:
+    the architecture's optimizer, whose ``step(params, grads)`` returns the
+    gradients as its moments took them. Returns each step's loss, the
+    gradient of every leaf as the optimizer took it at the first step, and
+    the leaves' change."""
     start = {k: v.detach().clone() for k, v in p.items()}
     params = {k: v.detach().clone().requires_grad_(True) for k, v in p.items()}
-    opt = Adam(params, t["lr"], t["weight_decay"])
-    draws = [DropPathDraws(g, cfg["model"]["drop_path_rate"]) for g in generators]
+    opt = optimizer(params)
+    draws = [DropPathDraws(g, drop_path_rate) for g in generators]
     losses, first_grads = [], None
     for x, y in batches:
         grads = {k: torch.zeros_like(v) for k, v in params.items()}
-        loss = 0.0
+        total_loss = 0.0
         for d, xs, ys in zip(draws, x.chunk(len(draws)), y.chunk(len(draws))):
-            poses, scores = forward(params, cfg, xs, d)
-            total = sum(term for term in loss_terms(poses, scores, ys, t).values())
+            total = loss(params, xs, ys, d)
             for k, g in zip(params, torch.autograd.grad(total, list(params.values()))):
                 grads[k] += g / len(draws)
-            loss += float(total.detach()) / len(draws)
-            del poses, scores, total
+            total_loss += float(total.detach()) / len(draws)
+            del total
         taken = opt.step(params, grads)
         if first_grads is None:
             first_grads = taken
-        losses.append(loss)
+        losses.append(total_loss)
         del grads
     change = {k: (params[k].detach() - start[k]) for k in params}
     return {"losses": losses, "first_grads": first_grads, "change": change}

@@ -1,5 +1,6 @@
 """The benchmark's yardstick: peaks, each kernel operation's work from its
-shapes, and the model's FLOPs from the configuration's sizes.
+shapes, and the operations and FLOPs of the MixSTE lineage's trunks, from
+which each architecture (``archs/<arch>.py``) counts its model's.
 
 The operations and bytes of K1-K6 are frozen copies of the arithmetic of
 ``chip_smoke.py``'s ``bound_ms`` and its ``attention_case``,
@@ -54,24 +55,13 @@ def work(op: str, shape: Tuple[int, ...], dtype: str) -> Tuple[float, float]:
     raise ValueError(f"no work formula for operation {op!r}")
 
 
-def _trunks(cfg: dict, windows: int) -> List[dict]:
-    """Each trunk's tokens: rows of the spatial folds (windows * L) over
-    N_s tokens, of the temporal folds (windows * N_s) over L frames."""
-    m, seq_len = cfg["model"], cfg["data"]["seq_len"]
-    joints = len(cfg["skeleton"]["parents"])
-    return [
-        dict(c=m["channels"], heads=m["nheads"], depth=m["layers"], n=joints),
-        dict(c=m["channels_seg"], heads=m["nheads_seg"], depth=m["layers_seg"], n=joints - 1),
-    ], seq_len
-
-
-def kernel_ops(cfg: dict, windows: int, backward: bool) -> Dict[Tuple[str, tuple], int]:
-    """{(operation, shape): calls} of one forward of ``windows`` windows
-    (and its backward): per trunk and layer one spatial attention, one
-    temporal attention (per window when L <= 32, else dense) and one
-    fused MLP in each of the spatial and temporal blocks."""
-    trunks, seq_len = _trunks(cfg, windows)
-    ratio = cfg["model"].get("mlp_ratio", 2.0)
+def mixste_kernel_ops(trunks: List[dict], seq_len: int, windows: int,
+                      backward: bool, ratio: float) -> Dict[Tuple[str, tuple], int]:
+    """{(operation, shape): calls} of MixSTE trunks in one forward of
+    ``windows`` windows (and its backward): per trunk and layer one spatial
+    attention over its ``n`` tokens, one temporal attention (per window
+    when L <= 32, else dense) and one fused MLP in each of the spatial and
+    temporal blocks. A trunk: ``dict(c=width, heads=, depth=, n=tokens)``."""
     calls: Dict[Tuple[str, tuple], int] = {}
 
     def add(op, shape, n):
@@ -89,28 +79,15 @@ def kernel_ops(cfg: dict, windows: int, backward: bool) -> Dict[Tuple[str, tuple
     return calls
 
 
-def model_flops(cfg: dict, windows: int) -> float:
-    """Matrix-product FLOPs of one forward of ``windows`` windows: the
-    embeddings, every block's qkv, attention, projection and MLP, the K
-    heads and the segments head. Elementwise work is not counted."""
-    trunks, seq_len = _trunks(cfg, windows)
-    m = cfg["model"]
-    joints = len(cfg["skeleton"]["parents"])
-    ratio = m.get("mlp_ratio", 2.0)
+def mixste_flops(trunks: List[dict], seq_len: int, windows: int, ratio: float) -> float:
+    """Matrix-product FLOPs of MixSTE trunks in one forward of ``windows``
+    windows: every block's qkv, attention, projection and MLP."""
     total = 0.0
     for t in trunks:
         c, tokens = t["c"], windows * seq_len * t["n"]
         per_block = 2 * tokens * (3 * c * c + c * c + 2 * ratio * c * c)
         attn = 4 * tokens * c * (t["n"] + seq_len)  # a spatial and a temporal block
         total += 2 * t["depth"] * per_block + t["depth"] * attn
-    rot_tokens = windows * seq_len * joints
-    c, cs = m["channels"], m["channels_seg"]
-    n_hyp = cfg["multi_hyp"]["n_hyp"]
-    rot_dim = m["rot_dim"]
-    total += 2 * rot_tokens * 2 * c  # patch embedding
-    total += n_hyp * (2 * rot_tokens * c * (rot_dim + 1) + 2 * windows * seq_len * joints)
-    total += 2 * windows * seq_len * (2 * joints) * ((joints - 1) * cs)  # joints -> segments
-    total += 2 * windows * seq_len * (joints - 1) * cs  # segments head
     return total
 
 

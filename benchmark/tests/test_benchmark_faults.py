@@ -90,11 +90,8 @@ def test_half_of_the_batch_left_out_is_caught(monkeypatch):
 
 @pytest.mark.parametrize("config,traffic", CELLS)
 def test_the_tf32_control_fails_on_the_card(card, config, traffic):
-    import controls
-
     cell = tiny.cell(config, traffic)
-    fn = {"lift_videos": controls.lift, "stream_push": controls.stream,
-          "train_steps": controls.train}[cell.mix["driver"]]
-    numbers = fn(core.Context(cell, 2**31 + 101, 0.0, False, card, 0.0), "tf32")
+    numbers = cell.driver().control(core.Context(cell, 2**31 + 101, 0.0, False, card, 0.0),
+                                    "tf32")
     limits = cell.mix["limits"]
     assert any(v > limits[k] for k, v in numbers.items()), numbers

@@ -24,7 +24,7 @@ def test_guard_compares_top_level_names_whole():
 def test_the_yardstick_imports_nothing_of_the_program():
     code = ("import sys; sys.path[:0] = [{b!r}, {r!r}]\n"
             "import harness.reference, harness.synth, harness.weights, harness.yardstick, "
-            "harness.checks, harness.tracing, harness.readers\n"
+            "harness.checks, harness.tracing, harness.readers, archs.rmcl_manifold\n"
             "bad = sorted({{m.split('.')[0] for m in sys.modules}} & "
             "{{'manipose_tpu_torch', 'manipose_tpu', 'jax', 'jaxlib', 'flax'}})\n"
             "assert not bad, bad\n").format(b=os.path.join(ROOT, "benchmark"), r=ROOT)

@@ -96,6 +96,66 @@ def test_a_cell_is_added_by_adding_files(tmp_path):
     assert list(line)[-1] == "checks"
 
 
+def _files(bench):
+    return {p.relative_to(bench).as_posix(): p.read_bytes() for p in bench.rglob("*")
+            if p.is_file() and "__pycache__" not in p.parts}
+
+
+def test_a_configuration_of_another_architecture_is_added_by_adding_files(tmp_path, monkeypatch):
+    """The port's plain MixSTE (``tests/mixste_arch.py`` as ``archs/mixste.py``),
+    a configuration of it and two cells on the existing lift and training
+    mixes run to correct with no edit to any file the harness has; with
+    half of each batch left out, the training cell is not correct."""
+    bench = tmp_path / "benchmark"
+    shutil.copytree(ROOT / "benchmark", bench, ignore=shutil.ignore_patterns("__pycache__"))
+    had = _files(bench)
+    shutil.copy(bench / "tests" / "mixste_arch.py", bench / "archs" / "mixste.py")
+    cfg = json.loads((bench / "configs" / "manipose-h36m-243.json").read_text())
+    del cfg["multi_hyp"]
+    cfg.update(name="mixste-h36m-243", source="https://arxiv.org/abs/2203.09159",
+               overrides=cfg["overrides"] + ["model.arch=mixste"],
+               model=dict(arch="mixste", layers=8, channels=512, nheads=8, drop_path_rate=0.1,
+                          mlp_ratio=2.0, dtype="float32", layout="fold", mup=False))
+    (bench / "configs" / "mixste-h36m-243.json").write_text(json.dumps(cfg))
+    spec = json.loads(json.dumps(SPEC))
+    spec["configs"].append({"name": "mixste-h36m-243", "source": cfg["source"],
+                            "file": "benchmark/configs/mixste-h36m-243.json", "reduced": [],
+                            "why": "MixSTE alone: one trunk, one hypothesis"})
+    cells = {"mixste-lift-videos": ("lift-videos", "h36m-lift-videos"),
+             "mixste-train-b16": ("train-b16", "h36m-train-b16")}
+    for name, (traffic, like) in cells.items():
+        spec["workloads"].append({"name": name, "config": "mixste-h36m-243",
+                                  "traffic": traffic, "chips": 1, "why": f"{like} on MixSTE"})
+        for m in spec["end_to_end"] + spec["per_layer"]:
+            if like in m.get("workloads", []):
+                m["workloads"].append(name)
+    (tmp_path / "BENCHMARK.json").write_text(json.dumps(spec))
+    found = {n: core.Cell.find(n, root=tmp_path, bench_dir=bench) for n in cells}
+    assert all(c.arch().__file__ == str(bench / "archs" / "mixste.py") for c in found.values())
+    for name, cell in found.items():
+        line = tiny.run(tiny.tiny(cell))
+        assert line["correct"], (name, line["checks"])
+        assert line["failed"] == 0 and line["attempted"] > 0
+    from manipose_tpu_torch.train import step as step_mod
+
+    make = step_mod.make_train_step
+
+    def halved(*a, **k):
+        inner = make(*a, **k)
+
+        def step(state, x, y, lr, n_valid=None):
+            return inner(state, x[: len(x) // 2], y[: len(y) // 2], lr)
+
+        return step
+
+    monkeypatch.setattr(step_mod, "make_train_step", halved)
+    line = tiny.run(tiny.tiny(found["mixste-train-b16"]))
+    assert not line["correct"]
+    assert line["checks"]["loss_gap"]["value"] > line["checks"]["loss_gap"]["limit"]
+    now = _files(bench)
+    assert {k: now[k] for k in had} == had
+
+
 @pytest.mark.parametrize("name", sorted(p.stem for p in (ROOT / "benchmark" / "configs").glob("*.json")))
 def test_config_files_state_what_the_port_runs(name):
     from manipose_tpu_torch.config import load_config

@@ -7,7 +7,8 @@ import pytest
 import torch
 
 import tiny
-from harness import checks, core, reference, synth, weights
+from archs import rmcl_manifold
+from harness import checks, core, reference, synth
 
 
 @pytest.fixture(scope="module")
@@ -16,7 +17,7 @@ def h36m():
     cell = tiny.tiny(core.Cell.find("h36m-lift-videos"))
     cell.config["model"]["drop_path_rate"] = 0.1
     ctx = core.Context(cell, 2**31 + 5, 1.0, False, "cpu", 0.0)
-    return ctx, weights.draw(cell.config, ctx.seed, "cpu")
+    return ctx, rmcl_manifold.draw(cell.config, ctx.seed, "cpu")
 
 
 def _model(ctx, sd):
@@ -31,8 +32,8 @@ def test_weights_load_strictly_and_repeat_by_seed(h36m):
     ctx, sd = h36m
     model = _model(ctx, sd)
     assert set(model.state_dict()) == set(sd)
-    again = weights.draw(ctx.config, ctx.seed, "cpu")
-    other = weights.draw(ctx.config, ctx.seed + 1, "cpu")
+    again = rmcl_manifold.draw(ctx.config, ctx.seed, "cpu")
+    other = rmcl_manifold.draw(ctx.config, ctx.seed + 1, "cpu")
     assert all(torch.equal(sd[k], again[k]) for k in sd)
     assert not torch.equal(sd["rotations_module.STEblocks.0.attn.qkv.weight"],
                            other["rotations_module.STEblocks.0.attn.qkv.weight"])
@@ -46,7 +47,7 @@ def test_forward_matches_the_port(h36m):
     x = torch.from_numpy(x.reshape(3, 27, 17, 2))
     with torch.no_grad():
         poses, scores = model(x)
-        ref_poses, ref_scores = reference.forward(sd, ctx.config, x)
+        ref_poses, ref_scores = rmcl_manifold.forward(sd, ctx.config, x)
     assert torch.allclose(scores, ref_scores, atol=1e-6)
     assert (poses - ref_poses).abs().max() <= 1e-5 * ref_poses.abs().max()
 
@@ -61,14 +62,14 @@ def test_lift_and_stream_match_the_port(h36m):
                                     torch.Generator().manual_seed(2), "cpu"))[0][0]
     got = pred.predict_video(video)
     with torch.no_grad():
-        want = reference.lift_windows(sd, ctx.config, torch.from_numpy(
+        want = rmcl_manifold.lift_windows(sd, ctx.config, torch.from_numpy(
             reference.tile_video(video, 27))).reshape(-1, 17, 3)[:70].numpy()
     assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
     session = pred.stream(stride=1, lookahead=13)
     emitted = np.concatenate([session.push(f) for f in video[:40]])
     wins = np.stack([reference.stream_window(video, t + 13, 27) for t in range(len(emitted))])
     with torch.no_grad():
-        want = reference.lift_windows(sd, ctx.config, torch.from_numpy(wins))[:, 27 - 1 - 13]
+        want = rmcl_manifold.lift_windows(sd, ctx.config, torch.from_numpy(wins))[:, 27 - 1 - 13]
     assert np.abs(emitted - want.numpy()).max() <= 1e-5 * want.abs().max().item()
 
 
@@ -90,8 +91,8 @@ def test_training_steps_match_the_port(h36m):
     batches = [(torch.randn(3, 27, 17, 2, generator=g) * 0.3,
                 torch.randn(3, 27, 17, 3, generator=g) * 0.3) for _ in range(3)]
     losses = [float(step(state, x, y, 4e-5)["loss"]) for x, y in batches]
-    ref = reference.train_steps({k: v.clone() for k, v in sd.items()}, ctx.config, batches,
-                                [torch.Generator().manual_seed(99)])
+    ref = rmcl_manifold.train_steps({k: v.clone() for k, v in sd.items()}, ctx.config, batches,
+                                    [torch.Generator().manual_seed(99)])
     assert losses == pytest.approx(ref["losses"], rel=1e-5)
     # the harness's own measure: the worst leaf's gap of norms, over the
     # larger of its norm and the median leaf's (checks.py)

@@ -4,6 +4,7 @@ kernel launches a forward and a step make."""
 
 import pytest
 
+from archs import rmcl_manifold
 from harness import yardstick
 
 CFG_243 = {"model": dict(layers=8, channels=512, nheads=8, layers_seg=2, channels_seg=128,
@@ -42,9 +43,9 @@ def test_bound_times_match_the_kernel_table(op, shape, dtype, ms):
 def test_model_flops_of_a_flagship_window():
     # about 72.7 MFLOP a token (16 rotation blocks of 16 d^2 FLOPs a token,
     # attention, the segments trunk): 3.0e11 for one 243-frame window
-    flops = yardstick.model_flops(CFG_243, 1)
+    flops = rmcl_manifold.model_flops(CFG_243, 1)
     assert flops / (243 * 17) == pytest.approx(72.7e6, rel=0.03)
-    assert yardstick.model_flops(CFG_243, 8) == pytest.approx(8 * flops)
+    assert rmcl_manifold.model_flops(CFG_243, 8) == pytest.approx(8 * flops)
 
 
 @pytest.mark.parametrize("cfg,windows,backward,want", [
@@ -58,12 +59,12 @@ def test_model_flops_of_a_flagship_window():
 ])
 def test_kernel_ops_count_the_launches(cfg, windows, backward, want):
     got = {}
-    for (op, _), n in yardstick.kernel_ops(cfg, windows, backward).items():
+    for (op, _), n in rmcl_manifold.kernel_ops(cfg, windows, backward).items():
         got[op] = got.get(op, 0) + n
     assert got == want
 
 
 def test_kernel_ops_shapes_at_the_stream_window():
-    ops = yardstick.kernel_ops(CFG_27, 1, False)
+    ops = rmcl_manifold.kernel_ops(CFG_27, 1, False)
     assert ops[("fused_mlp", (459, 512, 1024))] == 16
     assert ops[("attention_packed", (17 * 8, 27, 64))] == 8

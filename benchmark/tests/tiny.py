@@ -1,20 +1,12 @@
 """A cell of the benchmark cut to a size the CPU runs in seconds: the same
-files, with the model's widths and depths and the mix's sizes cut."""
+files, with the model's widths and depths cut by its architecture's
+``TINY`` and the mix's sizes and window by its driver's ``TINY`` and
+``TINY_SEQ_LEN``."""
 
 import copy
 import time
 
 from harness import core
-
-TINY_MODEL = dict(layers=1, channels=32, nheads=2, layers_seg=1, channels_seg=16, nheads_seg=2)
-MIXES = {
-    "lift_videos": dict(batch_size=2, lengths={"min": 30, "max": 90, "count": 4}, videos=8,
-                        warm_videos=1, check_videos=2),
-    "stream_push": dict(frames=400, warm_pushes=6, check_frames=16, lookahead=4),
-    "train_steps": dict(batch_size=4, lengths={"min": 60, "max": 120, "count": 4},
-                        frames=30000, warm_steps=1),
-}
-SEQ_LEN = {"lift_videos": 27, "stream_push": 9, "train_steps": 27}
 
 
 def cell(config: str, traffic: str, name: str = "tiny") -> core.Cell:
@@ -27,15 +19,15 @@ def cell(config: str, traffic: str, name: str = "tiny") -> core.Cell:
 
 def tiny(cell: core.Cell) -> core.Cell:
     c = copy.deepcopy(cell)
-    driver = c.mix["driver"]
-    seq_len = SEQ_LEN[driver]
+    driver, arch = c.driver(), c.arch()
+    seq_len = driver.TINY_SEQ_LEN
     c.config["overrides"] = list(c.config["overrides"]) + [
-        f"model.{k}={v}" for k, v in TINY_MODEL.items()] + [
-        "multi_hyp.n_hyp=2", f"data.seq_len={seq_len}"]
-    c.config["model"].update(TINY_MODEL)
-    c.config["multi_hyp"]["n_hyp"] = 2
+        f"{group}.{k}={v}" for group, sizes in arch.TINY.items() for k, v in sizes.items()] + [
+        f"data.seq_len={seq_len}"]
+    for group, sizes in arch.TINY.items():
+        c.config.setdefault(group, {}).update(sizes)
     c.config["data"]["seq_len"] = seq_len
-    c.mix.update(MIXES[driver])
+    c.mix.update(copy.deepcopy(driver.TINY))
     if c.mix.get("ranks", 1) > 1:
         c.mix["ranks"] = 2
         c.mix["overrides"] = ["parallel.data=2", "parallel.mode=dp"]

@@ -14,6 +14,11 @@ import numpy as np
 
 from harness import common, core, reference, tracing
 
+# the mix's sizes and the window's length in the benchmark's tiny runs
+TINY = dict(batch_size=2, lengths={"min": 30, "max": 90, "count": 4}, videos=8, warm_videos=1,
+            check_videos=2)
+TINY_SEQ_LEN = 27
+
 
 def run(ctx) -> core.Outcome:
     mix = ctx.mix
@@ -88,3 +93,28 @@ def run(ctx) -> core.Outcome:
 
     return core.Outcome(setup_s, {"frames_per_s": frames / elapsed}, len(lifted), failed, work,
                         spans, check, result.get("trace"))
+
+
+def lift_inputs(ctx):
+    """The videos a lift run checks: the longest length and others."""
+    mix = ctx.mix
+    lengths = common.lengths_plan(mix["lengths"], mix["lengths"]["count"], ctx.seed)
+    longest = int(np.argmax(lengths))
+    picks = [longest] + [i for i in range(len(lengths)) if i != longest][:mix["check_videos"] - 1]
+    videos = [kp for kp, _ in common.make_videos(ctx, lengths)]
+    return [videos[i] for i in picks]
+
+
+def control(ctx, kind):
+    """The reference in TF32 standing in for the program (``controls.py``)."""
+    if kind != "tf32":
+        raise ValueError(f"no {kind} fault for a lift cell")
+    seq_len = ctx.config["data"]["seq_len"]
+    worst = 0.0
+    for video in lift_inputs(ctx):
+        wins = reference.tile_video(video, seq_len)
+        ref = common.reference_lift(ctx, wins, ctx.mix["tta"]).reshape(-1, *video.shape[1:-1], 3)
+        got = common.reference_lift(ctx, wins, ctx.mix["tta"], tf32=True)
+        got = got.reshape(ref.shape).astype(np.float32)
+        worst = max(worst, common.pose_error(got, ref[:len(got)]))
+    return {"pose_err": worst}

@@ -16,6 +16,10 @@ import numpy as np
 
 from harness import common, core, reference, tracing
 
+# the mix's sizes and the window's length in the benchmark's tiny runs
+TINY = dict(frames=400, warm_pushes=6, check_frames=16, lookahead=4)
+TINY_SEQ_LEN = 9
+
 
 def run(ctx) -> core.Outcome:
     mix = ctx.mix
@@ -93,3 +97,19 @@ def run(ctx) -> core.Outcome:
 
     return core.Outcome(setup_s, {"push_p95_ms": float(np.percentile(lat_ms, 95))}, pushed,
                         max(failed, 0), work, spans, check, result.get("trace"))
+
+
+def control(ctx, kind):
+    """The reference in TF32 standing in for the program (``controls.py``)."""
+    if kind != "tf32":
+        raise ValueError(f"no {kind} fault for a stream cell")
+    mix = ctx.mix
+    seq_len, lookahead = ctx.config["data"]["seq_len"], mix["lookahead"]
+    frames = common.make_videos(ctx, [mix["frames"]])[0][0]
+    n = mix["check_frames"]
+    picks = np.arange(n)  # the stream's start and what follows
+    wins = np.stack([reference.stream_window(frames, int(t) + lookahead, seq_len) for t in picks])
+    ref = common.reference_lift(ctx, wins, mix["tta"], block=64)[:, seq_len - 1 - lookahead]
+    got = common.reference_lift(ctx, wins, mix["tta"], tf32=True, block=64)
+    got = got[:, seq_len - 1 - lookahead].astype(np.float32)
+    return {"pose_err": common.pose_error(got, ref)}

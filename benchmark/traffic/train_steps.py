@@ -20,14 +20,18 @@ import time
 import numpy as np
 import torch
 
-from harness import checks, common, core, tracing
+from harness import checks, common, core, reference, tracing
+
+# the mix's sizes and the window's length in the benchmark's tiny runs
+TINY = dict(batch_size=4, lengths={"min": 60, "max": 120, "count": 4}, frames=30000,
+            warm_steps=1)
+TINY_SEQ_LEN = 27
 
 
 def build(ctx, batch_size: int, seed: int, mesh=None):
     """(state, step, batch iterator, learning rate) for this cell."""
     from manipose_tpu_torch.data import PoseSequenceDataset, SequenceLoader, prefetch
     from manipose_tpu_torch.drivers.common import instantiate_model
-    from manipose_tpu_torch.train.losses import LossConfig
     from manipose_tpu_torch.train.optim import optimizer_from_config
     from manipose_tpu_torch.train.step import TrainState, make_train_step
 
@@ -45,10 +49,7 @@ def build(ctx, batch_size: int, seed: int, mesh=None):
     if mesh is not None:
         optimizer.sharding = GradSync(model, optimizer.params)
     state = TrainState.create(model, optimizer, seed=seed, device=ctx.device)
-    t = cfg.train
-    loss_cfg = LossConfig(sq_loss=t.sq_loss, w_loss=t.w_loss, vel_loss=t.vel_loss,
-                          smooth_reg=t.smooth_reg, rmcl_score_reg=t.rmcl_score_reg,
-                          rigid_seg_reg=t.rigid_seg_reg, rmcl=rmcl)
+    loss_cfg = getattr(ctx.arch, "port_loss_config", port_loss_config)(cfg, rmcl)
     step = make_train_step(model, loss_cfg, skeleton, optimizer)
     archive = archive_videos(ctx)
     dataset = PoseSequenceDataset(
@@ -59,7 +60,18 @@ def build(ctx, batch_size: int, seed: int, mesh=None):
     loader = SequenceLoader(dataset, batch_size=batch_size, shuffle=True, seed=ctx.seed)
     on_card = ctx.device == "cuda"
     batches = prefetch((b.pin_memory() for b in loader) if on_card else loader)
-    return state, step, batches, float(t.lr), len(loader)
+    return state, step, batches, float(cfg.train.lr), len(loader)
+
+
+def port_loss_config(port_cfg, rmcl: bool):
+    """The program's loss settings, as ``train.loop.train`` builds them for
+    every model; an architecture module whose differ gives its own."""
+    from manipose_tpu_torch.train.losses import LossConfig
+
+    t = port_cfg.train
+    return LossConfig(sq_loss=t.sq_loss, w_loss=t.w_loss, vel_loss=t.vel_loss,
+                      smooth_reg=t.smooth_reg, rmcl_score_reg=t.rmcl_score_reg,
+                      rigid_seg_reg=t.rigid_seg_reg, rmcl=rmcl)
 
 
 def archive_videos(ctx):
@@ -162,7 +174,7 @@ def run(ctx) -> core.Outcome:
             "loader_wait_s": sum(b - a for a, b in waits),
             "traced_calls": [(batch_size // ctx.world, mix["trace_steps"] if ctx.trace else 0,
                               True)]}
-    seeds = [ctx.seed + 1_000_003 * r for r in range(ctx.world)]  # parallel.mesh.rank_seed
+    seeds = drop_seeds(ctx)
 
     def check():
         return checks.train_checks(ctx, fed, program_losses, snapshots, archive_videos(ctx),
@@ -170,3 +182,43 @@ def run(ctx) -> core.Outcome:
 
     return core.Outcome(setup_s, {"train_seq_per_s": steps * batch_size / elapsed},
                         len(losses), failed, work, spans, check, result.get("trace"), peak)
+
+
+def drop_seeds(ctx):
+    """Each data-parallel rank's drop-path seed, as the program seeds it
+    (``parallel.mesh.rank_seed``: the run's seed plus 1000003 a rank)."""
+    return [ctx.seed + 1_000_003 * r for r in range(int(ctx.mix.get("ranks", 1)))]
+
+
+def control(ctx, kind):
+    """The reference in TF32 (``tf32``), or on half of each batch
+    (``half_batch``), or on rank 0's rows alone (``no_exchange``), standing
+    in for the program (``controls.py``). Batches drawn as the loader draws
+    them (random windows of the archive, half of them flipped), then the
+    stand-in's steps against the reference's."""
+    mix = ctx.mix
+    seq_len, b = ctx.config["data"]["seq_len"], mix["batch_size"]
+    archive = archive_videos(ctx)
+    rng = np.random.default_rng([ctx.seed, 4])
+    fed = []
+    for _ in range(mix["checked_steps"]):
+        xs, ys = [], []
+        for _ in range(b):
+            kp, pose = archive[rng.integers(len(archive))]
+            s = rng.integers(len(kp) - seq_len)
+            x, y = torch.from_numpy(kp[s:s + seq_len]), torch.from_numpy(pose[s:s + seq_len])
+            if rng.uniform() < mix["flip_probability"]:
+                x, y = reference.flip(x, ctx.config["skeleton"]), reference.flip(y, ctx.config["skeleton"])
+            xs.append(x.numpy())
+            ys.append(y.numpy())
+        fed.append((np.stack(xs), np.stack(ys)))
+    seeds = drop_seeds(ctx)
+    stand_in = checks.follow(ctx, fed, seeds, tf32=kind == "tf32",
+                             fault="" if kind == "tf32" else kind)
+    start = {k: v.cpu() for k, v in common.draw_weights(ctx).items()}
+    snapshots = {"first_grads": {k: v.cpu() for k, v in stand_in["first_grads"].items()},
+                 "after": {k: start[k] + v.cpu() for k, v in stand_in["change"].items()}}
+    losses = stand_in["losses"]
+    del stand_in
+    torch.cuda.empty_cache()
+    return checks.train_numbers(ctx, fed, losses, snapshots, seeds)
