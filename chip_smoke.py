@@ -31,7 +31,13 @@ package. Phases, each fatal on failure:
               beside the bound, the kernel ``cuda_mlp.takes_wgmma`` picks
               no slower than the other; at K5_ACCURACY_ROWS each against
               an fp64 MLP, wgmma within TOL and 1.25 x mma.sync's error,
-              and bit for bit the same on a second run.
+              and bit for bit the same on a second run. Then the
+              DSTformer's stream fusion kernels (``ops/cuda_fusion.py``)
+              against ``fusion_plain`` and ``fusion_plain_bwd`` at the
+              benchmark's FUSION_ROWS x FUSION_CHANNELS in fp32 (FUSION_TOL),
+              the backward bit for bit the same on a second run, each
+              timed beside its bound, its plain version and the library
+              operations.
 3. flagship - ``Predictor.predict_video`` at ``configs/config.yaml`` (rMCL,
               fp32, 16 windows of 243 frames, TTA on) with seeded random
               weights: output checks, the manifold invariant, the kernel
@@ -284,6 +290,15 @@ package. Phases, each fatal on failure:
               in fp32 on the card against the CPU within MODEL_TOL; then
               ``tools.seg_heads_ab`` at its protocol scale cut to one seed
               and SEG_AB_EPOCHS epochs: both arms finite.
+51. dstformer - MotionBERT's DSTformer at the published sizes
+              (``model=dstformer train=motionbert_ft``, fp32) with seeded
+              weights, its fusions drawn away from 1/2: ``predict_video``
+              with flip TTA on DSTFORMER_WINDOWS windows, then one AdamW
+              step of the fine-tuning loss at that batch; K1-K6 and the
+              fusion kernels (``cuda_fusion.LAUNCHES``, zeroed before each)
+              launched as the depths and streams say, five ``model.fuse``
+              spans a forward of B*F*J rows, poses, losses and every
+              gradient finite; frames/s and sequences/s.
 
 What one card cannot show (collectives between cards, scaling over
 cards, the pipeline's bubble) is not measured here. On a machine with N
@@ -547,6 +562,7 @@ SERVE_WINDOWS, SERVE_WARM, SERVE_REQUESTS = 4, 2, 10
 
 ATTENTION_CU = "manipose_tpu_torch/ops/csrc/attention.cu"
 MLP_CU = "manipose_tpu_torch/ops/csrc/mlp.cu"
+FUSION_CU = "manipose_tpu_torch/ops/csrc/fusion.cu"
 KERNELS = {
     "attention_dense": dict(
         source=ATTENTION_CU, replaces="manipose_tpu/ops/pallas_attention.py:97",
@@ -567,6 +583,32 @@ KERNELS = {
         source=MLP_CU, replaces="manipose_tpu/ops/pallas_mlp.py:172",
     ),
 }
+# the DSTformer's stream fusion kernels, beyond the JAX package (which has
+# no DSTformer, so they replace no TPU kernel); their launches count in
+# cuda_fusion.LAUNCHES, not in ops.launch_counts()
+FUSION_KERNELS = {
+    "stream_fusion": dict(source=FUSION_CU, replaces=None),
+    "stream_fusion_bwd": dict(source=FUSION_CU, replaces=None),
+}
+# the fusion at the benchmark's mb-h36m-train-b32 shape: 32 windows of 243
+# frames x 17 joints, C = 512, fp32. Tolerances against the plain version on
+# the same inputs, relative to its largest magnitude (sums in another
+# order): out, alpha and the streams' gradients FUSION_TOL (a row's two
+# dot products of 2C terms); dW and db, sums over every row, FUSION_TOL x
+# sqrt(R / 1024). A kernel that drops one of the backward's 264 block
+# partials moves dW by about 1/sqrt(264) of itself, 500 times that.
+FUSION_ROWS = 32 * 243 * 17
+FUSION_CHANNELS = 512
+FUSION_TOL = 1e-5
+# the DSTformer at the published sizes: per forward 5 depths x 2 streams of
+# one temporal (K1) and one spatial (K3) attention and two MLPs (K5), and 5
+# fusions; DSTFORMER_WINDOWS windows of 243 frames a batch
+DSTFORMER_LAUNCHES_PER_FORWARD = {"attention_dense": 10, "attention_packed": 10,
+                                  "fused_mlp": 20}
+DSTFORMER_FUSIONS_PER_FORWARD = 5
+DSTFORMER_WINDOWS = 4
+DSTFORMER_LR = 5e-4  # configs/train/motionbert_ft.yaml
+
 # the device kernels (as compiled) that each wrapper launches
 DEVICE_KERNELS = {
     "attention_dense": ("attention_dense_kernel",),
@@ -577,6 +619,8 @@ DEVICE_KERNELS = {
     "fused_mlp": ("fused_mlp_kernel", "fused_mlp_kernel_sm90", "fused_mlp_kernel_split"),
     "fused_mlp_bwd": ("fused_mlp_bwd_rows_kernel", "fused_mlp_bwd_gemm_kernel",
                       "fused_mlp_bwd_reduce_kernel"),
+    "stream_fusion": ("stream_fusion_kernel",),
+    "stream_fusion_bwd": ("stream_fusion_bwd_rows_kernel", "stream_fusion_bwd_reduce_kernel"),
 }
 
 
@@ -634,8 +678,10 @@ def tensor_core_instructions(name: str) -> dict:
 
 def phase_build(build) -> None:
     """Every kernel built; each library's and each wrapper's device kernels'
-    tensor-core instructions (fatal where a library has none, or a
-    per-window attention kernel has none); K3's and K4's launch shapes."""
+    tensor-core instructions (fatal where a library of matrix products has
+    none, or a per-window attention kernel has none; the DSTformer's fusion
+    kernels are bound by bytes and take none); K3's and K4's launch
+    shapes."""
     from manipose_tpu_torch.ops import cuda_attention as ca
 
     t0 = time.perf_counter()
@@ -649,7 +695,8 @@ def phase_build(build) -> None:
         total = {op: sum(c[op] for c in by_function.values()) for op in ("HMMA", "HGMMA")}
         print(f"sass {name}: tensor-core instructions {sum(total.values())} "
               f"({', '.join(f'{k} {v}' for k, v in total.items())})", flush=True)
-        require(sum(total.values()) > 0, f"the {name} kernels run on the tensor cores")
+        if name != "fusion":
+            require(sum(total.values()) > 0, f"the {name} kernels run on the tensor cores")
         for ours, device_names in DEVICE_KERNELS.items():
             for device_name in device_names:
                 found = [c for f, c in by_function.items() if re.search(
@@ -1016,6 +1063,105 @@ def phase_k5_paths() -> list:
     ops.reset_launch_counts()
     torch.cuda.empty_cache()
     return rows
+
+
+def fusion_work(rows: int, c: int, backward: bool) -> tuple:
+    """(FLOPs, bytes) of one fusion launch over ``rows`` rows of ``c``
+    channels in fp32, each input byte read once and each output byte written
+    once: the forward two logits of 2C products a row and the blend, reading
+    x_st and x_ts, writing x and alpha; the backward two dot products with
+    dx a row, the streams' gradients and dW's sums, reading dx, x_st, x_ts
+    and alpha, writing dx_st and dx_ts; each reads W and b, and the backward
+    writes dW and db (``benchmark/archs/dstformer.py``'s ``fusion_work``,
+    one direction of one depth)."""
+    if backward:
+        return rows * (2 * 2 * c + 4 * c + 4 * c), 4 * (5 * rows * c + 2 * rows
+                                                        + 2 * (4 * c + 2))
+    return rows * (2 * 2 * 2 * c + 3 * c), 4 * (3 * rows * c + 2 * rows + 4 * c + 2)
+
+
+def phase_fusion_kernels() -> dict:
+    """Phase 2's stream fusion kernels at FUSION_ROWS x FUSION_CHANNELS:
+    out and alpha against ``fusion_plain``, dx_st, dx_ts, dW and db against
+    ``fusion_plain_bwd``, on the same card tensors; the backward bit for bit
+    the same on a second run; each direction timed beside its bound, its
+    plain version and the library operations (concatenation, Linear,
+    softmax and blend; autograd's backward of them). Returns {kernel:
+    [case]}."""
+    import torch.nn.functional as F
+
+    from manipose_tpu_torch.ops import cuda_fusion as cf
+
+    r, c = FUSION_ROWS, FUSION_CHANNELS
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    xs, xt, g = (torch.randn((r, c), generator=gen, device="cuda") for _ in range(3))
+    # logits of deviation about 1, so the alphas spread over (0, 1)
+    w = torch.randn((2, 2 * c), generator=gen, device="cuda") / (2 * c) ** 0.5
+    b = torch.randn((2,), generator=gen, device="cuda")
+
+    def gap(got, want) -> float:
+        return float((got.double() - want.double()).abs().max() / want.double().abs().max())
+
+    out, alpha = cf.fusion_forward(xs, xt, w, b)
+    want_out, want_alpha = cf.fusion_plain(xs, xt, w, b)
+    a0 = want_alpha[:, 0]
+    spread = float((a0 - 0.5).abs().mean())
+    require(spread > 0.1, f"the fusion case's alphas spread from 1/2 ({spread:.3g})")
+    fwd_errs = {"out": gap(out, want_out), "alpha": gap(alpha, want_alpha)}
+    got = cf.fusion_backward(g, xs, xt, alpha, w)
+    want = cf.fusion_plain_bwd(g, xs, xt, want_alpha, w)
+    sums = FUSION_TOL * max(1.0, (r / 1024) ** 0.5)
+    tols = {"out": FUSION_TOL, "alpha": FUSION_TOL, "dx_st": FUSION_TOL,
+            "dx_ts": FUSION_TOL, "dW": sums, "db": sums}
+    bwd_errs = {}
+    for name, x, y in zip(("dx_st", "dx_ts", "dW", "db"), got, want):
+        require(x.shape == y.shape, f"fusion {name} shape {tuple(x.shape)}, want {tuple(y.shape)}")
+        bwd_errs[name] = gap(x, y)
+    for name, err in {**fwd_errs, **bwd_errs}.items():
+        require(err <= tols[name], f"stream fusion {name} within {tols[name]:.3g} of the "
+                                   f"plain version ({err:.3g})")
+    again = cf.fusion_backward(g, xs, xt, alpha, w)
+    require(all(torch.equal(x, y) for x, y in zip(got, again)),
+            "the fusion backward is bit for bit the same on a second run")
+
+    def library_fwd():
+        a = torch.softmax(F.linear(torch.cat([xs, xt], -1), w, b), -1)
+        return a[:, :1] * xs + a[:, 1:] * xt
+
+    leaves = [t.clone().requires_grad_(True) for t in (xs, xt, w, b)]
+
+    def library_bwd():
+        a = torch.softmax(F.linear(torch.cat(leaves[:2], -1), leaves[2], leaves[3]), -1)
+        torch.autograd.grad(a[:, :1] * leaves[0] + a[:, 1:] * leaves[1], leaves, g)
+
+    cases = {}
+    for name, errs, run, plain, library, backward in (
+            ("stream_fusion", fwd_errs, lambda: cf.fusion_forward(xs, xt, w, b),
+             lambda: cf.fusion_plain(xs, xt, w, b), library_fwd, False),
+            ("stream_fusion_bwd", bwd_errs, lambda: cf.fusion_backward(g, xs, xt, alpha, w),
+             lambda: cf.fusion_plain_bwd(g, xs, xt, alpha, w), library_bwd, True)):
+        flops, n_bytes = fusion_work(r, c, backward)
+        ms = time_ms(run)
+        b_ms, b_by = bound_ms(n_bytes, flops, torch.float32)
+        cases[name] = [dict(
+            trunk="dstformer-b32", dtype="float32", shape=[r, c],
+            max_abs_err=max(errs.values()), errs=errs,
+            tol={k: tols[k] for k in errs}, ms=ms, tflops=flops / ms * 1e-9,
+            plain_ms=time_ms(plain), bound_ms=b_ms, bound_by=b_by,
+            roofline_pct=100 * b_ms / ms,
+            library_ms=median_ms(library),
+        )]
+    torch.cuda.empty_cache()
+    for name, rows in cases.items():
+        for k in rows:
+            print(f"kernel {name:20s} {k['trunk']:23s} {k['dtype']:8s} shape={k['shape']} "
+                  f"errs={json.dumps({e: float(f'{v:.3g}') for e, v in k['errs'].items()})} "
+                  f"ms={k['ms']:.4f} plain_ms={k['plain_ms']:.4f} "
+                  f"bound_ms={k['bound_ms']:.4f} ({k['bound_by']}; "
+                  f"{k['roofline_pct']:.1f} % of it) library_ms={k['library_ms']:.4f}"
+                  + (" (forward and backward)" if name.endswith("_bwd") else ""),
+                  flush=True)
+    return cases
 
 
 def bone_lengths(poses: np.ndarray, parents) -> np.ndarray:
@@ -4232,6 +4378,117 @@ def phase_fast(out_dir: Path, serve_fps: float, blocked_seq_s: float) -> dict:
     return counts
 
 
+def phase_dstformer() -> dict:
+    """Phase 51. Returns {path: launch counts}, K1-K6's from
+    ``ops.launch_counts()`` and the fusion kernels' from
+    ``cuda_fusion.LAUNCHES``."""
+    from manipose_tpu_torch import ops
+    from manipose_tpu_torch.config import load_config
+    from manipose_tpu_torch.drivers import instantiate_model
+    from manipose_tpu_torch.geometry import h36m_skeleton_17
+    from manipose_tpu_torch.ops import cuda_fusion
+    from manipose_tpu_torch.serving import Predictor
+    from manipose_tpu_torch.train import LossConfig, TrainState, make_train_step
+    from manipose_tpu_torch.train.optim import optimizer_from_config
+    from manipose_tpu_torch.utils import profiling
+
+    cfg = load_config("config", ["model=dstformer", "train=motionbert_ft"])
+    m, t = cfg.model, cfg.train
+    require(m.arch == "dstformer" and m.channels == 512 and m.layers == 5 and m.nheads == 8
+            and t.optimizer == "adamw", "model=dstformer train=motionbert_ft: the published "
+                                        "sizes and AdamW")
+    skeleton = h36m_skeleton_17()
+    model, rmcl = instantiate_model(cfg, skeleton)
+    require(not rmcl, "the DSTformer is single-hypothesis")
+    with torch.no_grad():  # fusions away from the published init's 1/2
+        gen = torch.Generator().manual_seed(0)
+        for fuse in model.ts_attn:
+            fuse.weight.copy_(torch.randn(fuse.weight.shape, generator=gen)
+                              * 0.5 / fuse.weight.shape[1] ** 0.5)
+    weights = {k: v.clone() for k, v in model.state_dict().items()}
+    del model
+    fusions = DSTFORMER_FUSIONS_PER_FORWARD
+
+    def fusion_counts(want: dict, what: str) -> dict:
+        got = dict(cuda_fusion.LAUNCHES)
+        require(got == want, f"{what}: fusion kernels launched {got}, want {want}")
+        return got
+
+    counts = {}
+    l, b = cfg.data.seq_len, DSTFORMER_WINDOWS
+    predictor = Predictor(cfg=cfg, state_dict=weights, batch_size=b, tta=True)
+    video = np.random.default_rng(0).normal(size=(b * l, 17, 2)).astype(np.float32)
+    predictor.predict_video(video)  # warm-up
+    ops.reset_launch_counts()
+    cuda_fusion.LAUNCHES.update(stream_fusion=0, stream_fusion_bwd=0)
+    profiling.reset()
+    poses = predictor.predict_video(video)
+    torch.cuda.synchronize()
+    counts["serve_dstformer"] = {
+        **require_counts("float32", {k: 2 * n for k, n in
+                                     DSTFORMER_LAUNCHES_PER_FORWARD.items()},
+                         f"DSTformer fp32 serving (1 batch of {b} windows, TTA)"),
+        **fusion_counts({"stream_fusion": 2 * fusions, "stream_fusion_bwd": 0},
+                        "DSTformer serving")}
+    spans = [sp for sp in profiling.spans() if sp.name == "model.fuse"]
+    require(len(spans) == 2 * fusions and all(sp.counts == {"rows": b * l * 17}
+                                              for sp in spans),
+            f"DSTformer serving: {len(spans)} model.fuse spans "
+            f"{[sp.counts for sp in spans]}, want {2 * fusions} of {b * l * 17} rows")
+    require(poses.shape == video.shape[:2] + (3,) and bool(np.isfinite(poses).all()),
+            f"DSTformer poses {poses.shape}, finite {bool(np.isfinite(poses).all())}")
+    reps = 5
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        predictor.predict_video(video)
+    fps = video.shape[0] * reps / (time.perf_counter() - t0)
+    del predictor
+
+    model, _ = instantiate_model(cfg, skeleton)
+    model.load_state_dict(weights, strict=True)
+    opt = optimizer_from_config(model, cfg)
+    require(type(opt.adam) is torch.optim.AdamW, f"train=motionbert_ft's optimizer {opt.adam}")
+    state = TrainState.create(model, opt, seed=cfg.run.seed, device="cuda")
+    step = make_train_step(model, LossConfig(
+        sq_loss=t.sq_loss, w_loss=t.w_loss, vel_loss=t.vel_loss, smooth_reg=t.smooth_reg,
+        rmcl_score_reg=t.rmcl_score_reg, rigid_seg_reg=t.rigid_seg_reg, rmcl=False,
+        nmpjpe=t.nmpjpe), skeleton, opt)
+    rng = np.random.default_rng(1)
+    x = torch.from_numpy(rng.normal(size=(b, l, 17, 2)).astype(np.float32)).cuda()
+    y = torch.from_numpy((0.3 * rng.normal(size=(b, l, 17, 3))).astype(np.float32)).cuda()
+    ops.reset_launch_counts()
+    cuda_fusion.LAUNCHES.update(stream_fusion=0, stream_fusion_bwd=0)
+    history = [step(state, x, y, DSTFORMER_LR)]
+    torch.cuda.synchronize()
+    per_forward = DSTFORMER_LAUNCHES_PER_FORWARD
+    counts["train_step_dstformer"] = {
+        **require_counts("float32", {**per_forward,
+                                     **{k + "_bwd": n for k, n in per_forward.items()}},
+                         f"DSTformer fp32 train step (B={b})"),
+        **fusion_counts({"stream_fusion": fusions, "stream_fusion_bwd": fusions},
+                        "DSTformer train step")}
+    for name, p in state.model.named_parameters():
+        require(p.grad is not None and bool(torch.isfinite(p.grad).all()),
+                f"DSTformer {name}'s gradient is finite")
+    history.append(step(state, x, y, DSTFORMER_LR))  # second warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_STEPS):
+        history.append(step(state, x, y, DSTFORMER_LR))
+    torch.cuda.synchronize()
+    seq_s = b * TRAIN_STEPS / (time.perf_counter() - t0)
+    for i, metrics in enumerate(history):
+        require_finite(metrics, f"DSTformer train step {i}")
+    del state, step, model, opt
+    torch.cuda.empty_cache()
+    losses = " ".join(f"{float(h['loss']):.5f}" for h in history)
+    print(f"dstformer (published sizes, fp32): predict_video {fps:.1f} frames/s ({b} windows, "
+          f"TTA, mean of {reps}); AdamW train step {seq_s:.2f} sequences/s (B={b}, mean of "
+          f"{TRAIN_STEPS} after 2 warm-ups); losses per step {losses}; launches "
+          f"{json.dumps(counts)}", flush=True)
+    return counts
+
+
 def rank_worker() -> int:
     """One rank of ``--ranks N`` (under torchrun, nccl, one card a rank):
     ring attention on a ring of every rank (phase 41's checks), each
@@ -4341,6 +4598,7 @@ def main() -> int:
     t0 = time.perf_counter()
     cases = phase_kernels()
     k5_paths = phase_k5_paths()
+    fusion_cases = phase_fusion_kernels()
     print(f"kernels phase: {time.perf_counter() - t0:.1f} s", flush=True)
 
     t0 = time.perf_counter()
@@ -4573,6 +4831,10 @@ def main() -> int:
               f"{time.perf_counter() - t_start:.1f} s", flush=True)
     finally:
         shutil.rmtree(scratch, ignore_errors=True)
+    t0 = time.perf_counter()
+    dst_counts = phase_dstformer()
+    print(f"dstformer phase: {time.perf_counter() - t0:.1f} s; total "
+          f"{time.perf_counter() - t_start:.1f} s", flush=True)
 
     kernels = []
     for name, meta in KERNELS.items():
@@ -4599,7 +4861,7 @@ def main() -> int:
                    "train_step_remat_bf16": remat_counts["bfloat16"],
                    "viz": viz_counts, "step_ablation_full_bf16": ablation_counts,
                    "analysis_tools": analysis_counts, "toy_tables": table_counts,
-                   "mup_tools": mup_counts, **fast_counts,
+                   "mup_tools": mup_counts, **fast_counts, **dst_counts,
                    **{f"megastep_{k}_replayed": v[4] for k, v in megastep.items()},
                    **{f"train_step_{k}_bf16": v for k, v in parallel_counts.items()}}
         variants = [dict(name=f"{name}_strided", layout="joint_major", route="cuda",
@@ -4624,6 +4886,18 @@ def main() -> int:
             timed_case=f"{head['trunk']} {head['dtype']} {head['shape']}",
             cases=cases[name], **({"variants": variants} if variants else {}),
             **({"paths": k5_paths} if name == "fused_mlp" else {}),
+        ))
+    for name, meta in FUSION_KERNELS.items():  # the DSTformer's, in fp32 only
+        head = fusion_cases[name][0]
+        kernels.append(dict(
+            name=name, route="cuda", **meta,
+            launches=dst_counts["train_step_dstformer"][name],
+            launches_by_path={path: c[name] for path, c in dst_counts.items()},
+            max_abs_err=head["max_abs_err"], ms=head["ms"], plain_ms=head["plain_ms"],
+            bound_ms=head["bound_ms"], bound_by=head["bound_by"],
+            library_ms=head["library_ms"],
+            timed_case=f"{head['trunk']} {head['dtype']} {head['shape']}",
+            cases=fusion_cases[name],
         ))
     loop_seq = {d: ", ".join(f"{r['seq_per_sec']:.2f}" for r in rows)
                 for d, rows in driver_epochs.items()}

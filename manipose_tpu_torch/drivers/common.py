@@ -2,8 +2,10 @@
 splits.
 
 Port of ``manipose_tpu/drivers/common.py``: ``instantiate_model`` for the
-three architectures, ``init_model_params``, ``get_subjects_and_actions``
-and ``create_loader``, and ``maybe_restore_eval_params``. Without weights
+three architectures and, beyond the JAX package, MotionBERT's DSTformer
+(``model=dstformer``, ``models/dstformer.py``), ``init_model_params``,
+``get_subjects_and_actions`` and ``create_loader``, and
+``maybe_restore_eval_params``. Without weights
 the model gets the init ``model.init`` names (flax's by default, torch's
 with ``model.init=torch``; ``train/init.py``) drawn from a
 ``torch.Generator`` seeded by ``cfg.run.seed``, so one seed gives the same
@@ -87,6 +89,12 @@ def instantiate_model(cfg: Config, skeleton: Skeleton, quant: bool = False, mesh
     layout = m.get("layout", "fold")
     attn_impl = m.get("attn_impl", "xla")
     remat = bool(m.get("remat", False))
+    if m.arch == "dstformer":
+        if quant or ring is not None or remat or layout != "fold" or m.drop_path_rate:
+            raise ValueError("model.arch=dstformer runs the fold layout in fp32 or bf16 "
+                             "without drop-path: no int8, ring attention, remat or "
+                             "joint-major layout")
+        return _dstformer(cfg, skeleton, dtype), False
     if m.arch == "mixste":
         model = MixSTE(
             MixSTEConfig(
@@ -137,10 +145,24 @@ def instantiate_model(cfg: Config, skeleton: Skeleton, quant: bool = False, mesh
             model, rmcl = RMCLManifoldMixSTE(manifold_cfg, skeleton), True
         else:
             raise ValueError(
-                "Only MixSTE, Manifold-MixSTE and RMCL-Manifold-MixSTE "
+                "Only MixSTE, Manifold-MixSTE, RMCL-Manifold-MixSTE and DSTformer "
                 f"implemented for now. Got option {m.arch}."
             )
     return init_from_config(model, cfg), rmcl
+
+
+def _dstformer(cfg: Config, skeleton: Skeleton, dtype: torch.dtype):
+    """MotionBERT's DSTformer (``model=dstformer``: ``layers`` is its depth,
+    ``channels`` its dim_feat), with MotionBERT's own init from
+    ``cfg.run.seed`` (``model.init`` is not read)."""
+    from ..models.dstformer import DSTformer, DSTformerConfig
+
+    m = cfg.model
+    model = DSTformer(DSTformerConfig(
+        num_joints=skeleton.num_joints, maxlen=m.get("maxlen", cfg.data.seq_len),
+        in_chans=m.get("in_chans", 3), embed_dim=m.channels, dim_rep=m.get("dim_rep", 512),
+        depth=m.layers, num_heads=m.nheads, mlp_ratio=m.get("mlp_ratio", 2.0), dtype=dtype))
+    return model.init_weights(cfg.run.seed)
 
 
 def init_model_params(model: nn.Module, cfg: Config) -> nn.Module:

@@ -69,6 +69,18 @@ def weighted_mse_loss(prediction, target, weights=None,
     return _sequential_mean(err, dims)
 
 
+def n_mpjpe(prediction, target) -> torch.Tensor:
+    """MotionBERT's scale-normalised MPJPE (``n_mpjpe`` of its
+    ``lib/model/loss.py``): in each (row, frame) the prediction is scaled by
+    the least-squares scale onto the target, mean_j <t, p> / mean_j |p|^2,
+    which is not detached, so the gradient flows through it; then the plain
+    MPJPE. Poses (B, L, J, 3)."""
+    norm_pred = torch.mean(torch.sum(prediction**2, dim=-1, keepdim=True), dim=-2, keepdim=True)
+    norm_tgt = torch.mean(torch.sum(target * prediction, dim=-1, keepdim=True), dim=-2,
+                          keepdim=True)
+    return weighted_mpjpe_loss(norm_tgt / norm_pred * prediction, target)
+
+
 def mean_velocity_error(predicted, target, axis: int = 1,
                         squared: bool = False) -> torch.Tensor:
     """Mean per-joint velocity error; a target without the hypothesis axis

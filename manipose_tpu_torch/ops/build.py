@@ -67,6 +67,13 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         # H, S, device, stream
         "mp_fused_mlp_bwd": [_P] * 11 + [_I] * 6 + [_P],
     },
+    "fusion": {
+        # x_st, x_ts, w, b, out, alpha, R, C, blocks, device, stream
+        "mp_stream_fusion": [_P] * 6 + [_I] * 4 + [_P],
+        # g, x_st, x_ts, alpha, w, dx_st, dx_ts, dw, db, part, R, C, blocks,
+        # device, stream
+        "mp_stream_fusion_bwd": [_P] * 10 + [_I] * 4 + [_P],
+    },
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -240,6 +240,7 @@ def train(
         rmcl_score_reg=cfg_train.rmcl_score_reg,
         rigid_seg_reg=cfg_train.rigid_seg_reg,
         rmcl=rmcl,
+        nmpjpe=float(cfg_train.get("nmpjpe", 0.0)),
     )
     train_step = make_train_step(model, loss_cfg, skeleton, state.optimizer)
     steps_per_call = int(cfg_train.get("steps_per_call", 1))

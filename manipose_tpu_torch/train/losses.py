@@ -20,6 +20,7 @@ from ..metrics.losses import (
     binary_cross_entropy,
     h36m_weights,
     mean_velocity_error,
+    n_mpjpe,
     one_hot_winners,
     weighted_mpjpe_loss,
     weighted_mse_loss,
@@ -38,6 +39,7 @@ class LossConfig:
     rmcl_score_reg: float = 0.1
     rigid_seg_reg: float = 0.0
     rmcl: bool = True  # the model emits (hypotheses, scores)
+    nmpjpe: float = 0.0  # MotionBERT's scale-normalised MPJPE (one hypothesis)
 
 
 def compute_loss(
@@ -53,6 +55,9 @@ def compute_loss(
     - wloss: weighted MPJPE/MSE, or its WTA form over hypotheses;
     - score_reg: beta-weighted BCE on the scores against the WTA winners
       (rMCL only);
+    - nmpjpe: MotionBERT's scale-normalised MPJPE (single-hypothesis models
+      only; with ``w_loss=false`` and ``vel_loss`` 20 the loss is
+      MotionBERT's MPJPE + 0.5 N-MPJPE + 20 velocity at ``nmpjpe`` 0.5);
     - vloss: velocity error (time axis 2 for rMCL, 1 otherwise);
     - sreg: smoothness regularization of the prediction;
     - rigid_seg_reg: the segment-length consistency penalty.
@@ -83,6 +88,10 @@ def compute_loss(
     else:
         loss_fn = weighted_mse_loss if cfg.sq_loss else weighted_mpjpe_loss
         terms["wloss"] = loss_fn(poses, target, weights=weights)
+    if cfg.nmpjpe > 0:
+        if cfg.rmcl:
+            raise ValueError("nmpjpe is a single-hypothesis loss; the rMCL model has K")
+        terms["nmpjpe"] = cfg.nmpjpe * n_mpjpe(poses, target)
 
     if cfg.vel_loss > 0:
         terms["vloss"] = cfg.vel_loss * mean_velocity_error(

@@ -3,7 +3,10 @@
 Port of ``manipose_tpu/train/optim.py``:
 - ``torch.optim.Adam(weight_decay=w)`` couples the decay into the gradient
   before the moment updates, as optax's ``add_decayed_weights`` followed
-  by ``scale_by_adam`` does (not AdamW);
+  by ``scale_by_adam`` does (not AdamW); ``train.optimizer=adamw`` (beyond
+  the JAX package, for MotionBERT's fine-tuning) takes
+  ``torch.optim.AdamW`` instead, whose decay multiplies the parameters by
+  1 - lr * w before the Adam update and never enters the moments;
 - ``grad_clip`` follows ``optax.clip_by_global_norm``: the gradients are
   scaled by max / |g| only when |g| >= max, with no epsilon on the norm;
 - ``skip_nonfinite`` follows ``optax.apply_if_finite``: a step whose
@@ -42,16 +45,19 @@ from ..parallel.mesh import local_part as _local
 
 
 class Optimizer:
-    """torch-semantics Adam with a per-step learning rate, global-norm
-    clipping and the non-finite-step guard of the JAX package. No path
-    waits on the device: :meth:`set_lr` (host) and :meth:`apply` (device
-    work only, capturable) make one :meth:`step`.
+    """torch-semantics Adam (or, with ``decoupled``, AdamW) with a per-step
+    learning rate, global-norm clipping and the non-finite-step guard of the
+    JAX package. No path waits on the device: :meth:`set_lr` (host) and
+    :meth:`apply` (device work only, capturable) make one :meth:`step`.
+    Either way the torch optimizer is ``self.adam``, with Adam's state keys
+    (``exp_avg``, ``exp_avg_sq``, ``step``).
     """
 
     def __init__(self, params: Iterable[torch.nn.Parameter],
                  weight_decay: float = 1e-6, grad_clip: float = 0.0,
                  skip_nonfinite: bool = False,
-                 lr_scales: Optional[Iterable[float]] = None):
+                 lr_scales: Optional[Iterable[float]] = None,
+                 decoupled: bool = False):
         params = list(params)
         scales = [1.0] * len(params) if lr_scales is None else list(lr_scales)
         if len(scales) != len(params):
@@ -64,7 +70,8 @@ class Optimizer:
             if p.requires_grad:
                 groups.setdefault(float(scale), []).append(p)
         self.params = [p for group in groups.values() for p in group]
-        self.adam = torch.optim.Adam(
+        kind = torch.optim.AdamW if decoupled else torch.optim.Adam
+        self.adam = kind(
             [{"params": group, "lr_scale": scale} for scale, group in groups.items()],
             lr=0.0, betas=(0.9, 0.999), eps=1e-8, weight_decay=weight_decay)
         self.grad_clip = grad_clip
@@ -203,32 +210,46 @@ class Optimizer:
 
 def make_optimizer(params: Iterable[torch.nn.Parameter],
                    weight_decay: float = 1e-6, grad_clip: float = 0.0,
-                   skip_nonfinite: bool = False) -> Optimizer:
-    """Adam whose learning rate is given at every step (the schedules run
-    on the host). ``grad_clip > 0`` clips by global norm; ``skip_nonfinite``
-    skips a step whose gradients are not all finite."""
-    return Optimizer(params, weight_decay, grad_clip, skip_nonfinite)
+                   skip_nonfinite: bool = False, decoupled: bool = False) -> Optimizer:
+    """Adam (AdamW with ``decoupled``) whose learning rate is given at every
+    step (the schedules run on the host). ``grad_clip > 0`` clips by global
+    norm; ``skip_nonfinite`` skips a step whose gradients are not all
+    finite."""
+    return Optimizer(params, weight_decay, grad_clip, skip_nonfinite, decoupled=decoupled)
+
+
+# train.optimizer -> whether its weight decay is decoupled
+OPTIMIZERS = {"adam": False, "adamw": True}
 
 
 def optimizer_from_config(model: torch.nn.Module, cfg) -> Optimizer:
     """The optimizer the JAX train loop builds from a Config
     (``manipose_tpu/train/loop.py:67-85``) for ``model``'s parameters:
-    weight decay 1e-6, ``train.grad_clip`` and ``train.skip_nonfinite``
-    (the guard for bf16 runs; off in ``configs/config.yaml``), and under
+    ``train.optimizer`` (``adam``, the JAX loop's and the default, or
+    ``adamw``), ``train.weight_decay`` (1e-6 unless set, the JAX loop's
+    fixed decay), ``train.grad_clip`` and ``train.skip_nonfinite`` (the
+    guard for bf16 runs; off in ``configs/config.yaml``), and under
     ``model.mup=true`` muP's per-parameter learning rates
-    (``train/mup.py``)."""
+    (``train/mup.py``, MuAdam's coupled decay: not with ``adamw``)."""
     t = cfg.train
+    kind = t.get("optimizer", "adam")
+    if kind not in OPTIMIZERS:
+        raise ValueError(f"train.optimizer={kind!r} is not one of {sorted(OPTIMIZERS)}")
+    mup = cfg.model.get("mup", False)
+    if mup and OPTIMIZERS[kind]:
+        raise ValueError("model.mup=true takes train.optimizer=adam (MuAdam), not adamw")
+    weight_decay = float(t.get("weight_decay", 1e-6))
     grad_clip = float(t.get("grad_clip", 0.0))
     skip_nonfinite = bool(t.get("skip_nonfinite", False))
-    if cfg.model.get("mup", False):
+    if mup:
         from .mup import make_mup_optimizer
 
         return make_mup_optimizer(
             model, width=cfg.model.channels,
-            base_width=cfg.model.get("mup_base_width", 64), weight_decay=1e-6,
+            base_width=cfg.model.get("mup_base_width", 64), weight_decay=weight_decay,
             grad_clip=grad_clip, skip_nonfinite=skip_nonfinite)
-    return make_optimizer(model.parameters(), weight_decay=1e-6, grad_clip=grad_clip,
-                          skip_nonfinite=skip_nonfinite)
+    return make_optimizer(model.parameters(), weight_decay=weight_decay, grad_clip=grad_clip,
+                          skip_nonfinite=skip_nonfinite, decoupled=OPTIMIZERS[kind])
 
 
 def lr_decay(step: int, lr: float, decay_step: int, gamma: float) -> float:
