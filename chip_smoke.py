@@ -31,7 +31,14 @@ package. Phases, each fatal on failure:
               beside the bound, the kernel ``cuda_mlp.takes_wgmma`` picks
               no slower than the other; at K5_ACCURACY_ROWS each against
               an fp64 MLP, wgmma within TOL and 1.25 x mma.sync's error,
-              and bit for bit the same on a second run. Then the
+              and bit for bit the same on a second run. Then K6's two
+              fp32 paths at C = 512, H = 1024 (K6_PATH_ROWS: the b16 and
+              the b32 train step's rows) the same way: both timed beside
+              the bound and the library's backward, the picked one no
+              slower, its five gradients against fp64 within GRAD_TOL
+              (dX, dW1 and dW2 also within 1.25 x mma.sync's error), bit
+              for bit on a second run.
+              Then the
               DSTformer's stream fusion kernels (``ops/cuda_fusion.py``)
               against ``fusion_plain`` and ``fusion_plain_bwd`` at the
               benchmark's FUSION_ROWS x FUSION_CHANNELS in fp32 (FUSION_TOL),
@@ -520,8 +527,12 @@ K5_PATH_ROWS = (64, 459, 11475, 16896, 33048, 66096)
 K5_ACCURACY_ROWS = (16896, 33048, 66096, 66097)
 # K5's launches on wgmma per flagship forward: the rotations trunk's 16
 # MLPs (8 layers, C = 512) in fp32; the segments trunk's 4 (C = 128) and
-# every bf16 launch run the mma.sync kernel
+# every bf16 launch run the mma.sync kernel. A train step's K6 launches
+# follow its K5 launches: 16 of its 20 on wgmma in fp32.
 WGMMA_PER_FORWARD = {"float32": 16, "bfloat16": 0}
+# K6's two fp32 paths at C = 512, H = 1024: the rows of the flagship's
+# B = 16 train step (16 x 243 x 17) and of the DSTformer's B = 32 one
+K6_PATH_ROWS = (66096, 132192)
 
 STREAM_MLP_CASES = (
     ("stream-243-rotations", 243 * 17, 512, 1024),
@@ -618,7 +629,9 @@ DEVICE_KERNELS = {
     "attention_packed_bwd": ("attention_packed_bwd_kernel",),
     "fused_mlp": ("fused_mlp_kernel", "fused_mlp_kernel_sm90", "fused_mlp_kernel_split"),
     "fused_mlp_bwd": ("fused_mlp_bwd_rows_kernel", "fused_mlp_bwd_gemm_kernel",
-                      "fused_mlp_bwd_reduce_kernel"),
+                      "fused_mlp_bwd_reduce_kernel", "fused_mlp_bwd_rows_kernel_split",
+                      "fused_mlp_bwd_rows_kernel_sm90", "fused_mlp_bwd_gemm_kernel_dx",
+                      "fused_mlp_bwd_gemm_kernel_dw", "fused_mlp_bwd_reduce_kernel_sm90"),
     "stream_fusion": ("stream_fusion_kernel",),
     "stream_fusion_bwd": ("stream_fusion_bwd_rows_kernel", "stream_fusion_bwd_reduce_kernel"),
 }
@@ -1065,6 +1078,110 @@ def phase_k5_paths() -> list:
     return rows
 
 
+def k6_launch(path: str, x, w1, b1, w2, g) -> tuple:
+    """K6 in fp32 on the named one of its two paths ("wgmma" or
+    "mma.sync"), whatever ``cuda_mlp.takes_wgmma`` would pick.
+    -> (dx, dw1, db1, dw2, db2)."""
+    from manipose_tpu_torch.ops import build
+    from manipose_tpu_torch.ops import cuda_mlp as cm
+
+    m, c = x.shape
+    h = w1.shape[0]
+    dx = torch.empty_like(x)
+    grads = torch.empty((2 * h * c + h + c,), device=x.device)
+    lib = build.load("mlp")
+    stream = torch.cuda.current_stream().cuda_stream
+    args = (x.data_ptr(), g.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
+            dx.data_ptr())
+    if path == "wgmma":
+        scratch, s = cm.wgmma_bwd_scratch(m, c, h, x.device)
+        err = lib.mp_fused_mlp_bwd_sm90(*args, *(t.data_ptr() for t in scratch),
+                                        grads.data_ptr(), m, h, s, x.device.index, stream)
+    else:
+        s = cm.wgrad_splits(m, c, h)
+        blocks = -(-m // cm.ROW_TILE)
+        da = torch.empty((m, h), device=x.device)
+        hh = torch.empty((m, h), device=x.device)
+        colsum = torch.empty((blocks, 2 * h + c), device=x.device)
+        part = torch.empty((s, 2 * h * c), device=x.device)
+        err = lib.mp_fused_mlp_bwd(*args, da.data_ptr(), hh.data_ptr(), colsum.data_ptr(),
+                                   part.data_ptr(), grads.data_ptr(), 0, m, c, h, s,
+                                   x.device.index, stream)
+    build.check(lib, err, f"K6 on {path}")
+    dw1, db1, dw2, db2 = torch.split(grads, [h * c, h, c * h, c])
+    return dx, dw1.view(h, c), db1, dw2.view(c, h), db2
+
+
+def phase_k6_paths() -> list:
+    """K6's two fp32 paths at the rotations trunk's widths: the path rule,
+    both paths' times at K6_PATH_ROWS beside the bound and the library's
+    backward, their five gradients' errors against fp64, bit-for-bit
+    repeats, and the wrapper's counts."""
+    import torch.nn.functional as F
+
+    from manipose_tpu_torch import ops
+    from manipose_tpu_torch.ops import cuda_mlp as cm
+
+    c, h = 512, 1024
+    picked, other = "wgmma", "mma.sync"
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    names = ("dx", "dw1", "db1", "dw2", "db2")
+    rows = []
+    for m in K6_PATH_ROWS:
+        x, w1, b1, w2, b2 = mlp_args(gen, m, c, h)
+        g = torch.randn((m, c), generator=gen, device="cuda")
+        flops = 10.0 * m * c * h
+        row = dict(m=m, picked=picked)
+        row["bound_ms"], row["bound_by"] = bound_ms((3 * m * c + 4 * c * h + 2 * h + c) * 4,
+                                                    flops, torch.float32)
+        for path in (picked, other):
+            ms = time_ms(lambda: k6_launch(path, x, w1, b1, w2, g))
+            row[f"{path}_ms"], row[f"{path}_tflops"] = ms, flops / ms * 1e-9
+        require(row[f"{picked}_ms"] <= row[f"{other}_ms"],
+                f"K6 M={m}: the picked path is no slower ({row})")
+        leaves = [t.detach().requires_grad_() for t in (x, w1, b1, w2, b2)]
+        lib_out = F.linear(F.gelu(F.linear(leaves[0], leaves[1], leaves[2])),
+                           leaves[3], leaves[4])
+        row["library_ms"] = median_ms(lambda: torch.autograd.grad(
+            lib_out, leaves, g, retain_graph=True))
+        del leaves, lib_out
+        first = k6_launch(picked, x, w1, b1, w2, g)
+        again = k6_launch(picked, x, w1, b1, w2, g)
+        old = k6_launch(other, x, w1, b1, w2, g)
+        ref = cm.mlp_plain_bwd(*(t.double() for t in (x, w1, b1, w2, g)))
+        torch.cuda.synchronize()
+        for name, a, b, o, r in zip(names, first, again, old, ref):
+            scale = max(1.0, r.abs().max().item())
+            row[f"{name}_err"] = (a.double() - r).abs().max().item() / scale
+            row[f"{name}_old_err"] = (o.double() - r).abs().max().item() / scale
+            require(row[f"{name}_err"] <= GRAD_TOL[torch.float32],
+                    f"K6 M={m} {name}: wgmma error within {GRAD_TOL[torch.float32]} ({row})")
+            # the products' accumulation schemes differ; db1 and db2 are fp32
+            # sums on both paths, in another order
+            require(name.startswith("db") or row[f"{name}_err"] <= 1.25 * row[f"{name}_old_err"],
+                    f"K6 M={m} {name}: wgmma error within 1.25 x mma.sync's ({row})")
+            require(torch.equal(a, b), f"K6 M={m} {name}: repeated runs agree bit for bit")
+        print("k6 path " + " ".join(f"{k}={v:.4g}" if isinstance(v, float) else f"{k}={v}"
+                                    for k, v in row.items()), flush=True)
+        rows.append(row)
+        del x, w1, b1, w2, b2, g, first, again, old, ref
+        torch.cuda.empty_cache()
+    # through the wrapper: the counter shows the rule's pick
+    x, w1, b1, w2, _ = mlp_args(gen, 459, c, h)
+    g = torch.randn((459, c), generator=gen, device="cuda")
+    ops.reset_launch_counts()
+    cm.fused_mlp_bwd(x, w1, b1, w2, g)
+    cm.fused_mlp_bwd(*(a.to(torch.bfloat16) for a in (x, w1, b1, w2, g)))
+    torch.cuda.synchronize()
+    require(ops.wgmma_launches(torch.float32, kernel="fused_mlp_bwd") == 1
+            and ops.wgmma_launches(kernel="fused_mlp_bwd") == 1
+            and ops.wgmma_launches() == 0 and ops.launch_counts()["fused_mlp_bwd"] == 2,
+            f"K6's wgmma launches counted ({ops.wgmma_launches(kernel='fused_mlp_bwd')})")
+    ops.reset_launch_counts()
+    torch.cuda.empty_cache()
+    return rows
+
+
 def fusion_work(rows: int, c: int, backward: bool) -> tuple:
     """(FLOPs, bytes) of one fusion launch over ``rows`` rows of ``c``
     channels in fp32, each input byte read once and each output byte written
@@ -1173,19 +1290,22 @@ def bone_lengths(poses: np.ndarray, parents) -> np.ndarray:
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
-def require_counts(dtype: str, want: dict, what: str, wgmma=None) -> dict:
+def require_counts(dtype: str, want: dict, what: str, wgmma=None, wgmma_bwd=None) -> dict:
     """The launches since the last reset: ``want`` for each kernel, all of
-    them on ``dtype`` operands, and ``wgmma`` of K5's on its wgmma kernel
-    where given. Returns the counts."""
+    them on ``dtype`` operands, and ``wgmma`` of K5's and ``wgmma_bwd`` of
+    K6's on wgmma where given. Returns the counts."""
     from manipose_tpu_torch import ops
 
     counts = ops.launch_counts()
     on_dtype = ops.launch_counts(DTYPES[dtype])
+    k6_wgmma = ops.wgmma_launches(kernel="fused_mlp_bwd")
     print(f"{what} launches {counts} ({dtype} operands: {on_dtype}; K5 on wgmma "
-          f"{ops.wgmma_launches()})")
+          f"{ops.wgmma_launches()}, K6 on wgmma {k6_wgmma})")
     if wgmma is not None:
         require(ops.wgmma_launches() == wgmma,
                 f"{what}: K5 on wgmma {ops.wgmma_launches()} times, want {wgmma}")
+    if wgmma_bwd is not None:
+        require(k6_wgmma == wgmma_bwd, f"{what}: K6 on wgmma {k6_wgmma} times, want {wgmma_bwd}")
     for name in LAUNCHES_PER_TRAIN_STEP:
         n = want.get(name, 0)
         require(counts[name] == n, f"{what}: {name} launched {counts[name]}, want {n}")
@@ -1361,7 +1481,8 @@ def phase_train(dtype: str = "float32"):
     history = [step(state, x, y, TRAIN_LR)]
     torch.cuda.synchronize()
     counts = require_counts(dtype, LAUNCHES_PER_TRAIN_STEP, f"{dtype} train step",
-                            wgmma=WGMMA_PER_FORWARD[dtype])
+                            wgmma=WGMMA_PER_FORWARD[dtype],
+                            wgmma_bwd=WGMMA_PER_FORWARD[dtype])
     n_params = 0
     for name, p in state.model.named_parameters():
         require(p.grad is not None, f"{name} got no gradient")
@@ -4464,7 +4585,8 @@ def phase_dstformer() -> dict:
     counts["train_step_dstformer"] = {
         **require_counts("float32", {**per_forward,
                                      **{k + "_bwd": n for k, n in per_forward.items()}},
-                         f"DSTformer fp32 train step (B={b})"),
+                         f"DSTformer fp32 train step (B={b})",
+                         wgmma=per_forward["fused_mlp"], wgmma_bwd=per_forward["fused_mlp"]),
         **fusion_counts({"stream_fusion": fusions, "stream_fusion_bwd": fusions},
                         "DSTformer train step")}
     for name, p in state.model.named_parameters():
@@ -4598,6 +4720,7 @@ def main() -> int:
     t0 = time.perf_counter()
     cases = phase_kernels()
     k5_paths = phase_k5_paths()
+    k6_paths = phase_k6_paths()
     fusion_cases = phase_fusion_kernels()
     print(f"kernels phase: {time.perf_counter() - t0:.1f} s", flush=True)
 
@@ -4885,7 +5008,8 @@ def main() -> int:
             library_ms=head["library_ms"],
             timed_case=f"{head['trunk']} {head['dtype']} {head['shape']}",
             cases=cases[name], **({"variants": variants} if variants else {}),
-            **({"paths": k5_paths} if name == "fused_mlp" else {}),
+            **({"paths": {"fused_mlp": k5_paths, "fused_mlp_bwd": k6_paths}[name]}
+               if name in ("fused_mlp", "fused_mlp_bwd") else {}),
         ))
     for name, meta in FUSION_KERNELS.items():  # the DSTformer's, in fp32 only
         head = fusion_cases[name][0]

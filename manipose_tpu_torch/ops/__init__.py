@@ -13,9 +13,10 @@ again without the wrappers. :func:`record_replay` counts a replay and adds
 its capture's launches to a second count (:func:`replayed_counts`), so the
 launches of a graph's calls are its capture's times its replays.
 
-K5 runs one of two kernels (``cuda_mlp.takes_wgmma``);
-:func:`wgmma_launches` counts the launches that took its wgmma kernel, and
-:func:`replayed_wgmma_launches` those that graph replays made.
+K5 and K6 each run on wgmma or on mma.sync (``cuda_mlp.takes_wgmma``);
+:func:`wgmma_launches` counts the launches that took wgmma (K5's, or K6's
+with ``kernel="fused_mlp_bwd"``), and :func:`replayed_wgmma_launches`
+those that graph replays made.
 """
 
 from __future__ import annotations
@@ -54,27 +55,33 @@ def launches_since(snapshot) -> Dict[str, Dict[torch.dtype, int]]:
             for name, by_dtype in now.items()}
 
 
-def wgmma_snapshot() -> Dict[torch.dtype, int]:
-    """A copy of K5's wgmma launches by operand dtype."""
-    return dict(cuda_mlp.WGMMA_LAUNCHES)
+# per kernel on wgmma: its launches and those made by graph replays
+_WGMMA = {"fused_mlp": (cuda_mlp.WGMMA_LAUNCHES, cuda_mlp.WGMMA_REPLAYED),
+          "fused_mlp_bwd": (cuda_mlp.WGMMA_BWD_LAUNCHES, cuda_mlp.WGMMA_BWD_REPLAYED)}
 
 
-def wgmma_since(snapshot) -> Dict[torch.dtype, int]:
-    """K5's wgmma launches by dtype since ``snapshot``."""
-    return {dt: n - snapshot[dt] for dt, n in cuda_mlp.WGMMA_LAUNCHES.items()}
+def wgmma_snapshot(kernel: str = "fused_mlp") -> Dict[torch.dtype, int]:
+    """A copy of K5's (or ``kernel``'s) wgmma launches by operand dtype."""
+    return dict(_WGMMA[kernel][0])
 
 
-def record_replay(captured, wgmma=None) -> None:
+def wgmma_since(snapshot, kernel: str = "fused_mlp") -> Dict[torch.dtype, int]:
+    """K5's (or ``kernel``'s) wgmma launches by dtype since ``snapshot``."""
+    return {dt: n - snapshot[dt] for dt, n in _WGMMA[kernel][0].items()}
+
+
+def record_replay(captured, wgmma=None, wgmma_bwd=None) -> None:
     """Count one replay of a graph whose capture made the launches
     ``captured`` (``launches_since`` around the capture), ``wgmma`` of
-    them K5 on wgmma (``wgmma_since``)."""
+    them K5 on wgmma and ``wgmma_bwd`` K6 on wgmma (``wgmma_since``)."""
     GRAPH_REPLAYS["replays"] += 1
     for module in (cuda_attention, cuda_mlp):
         for name, by_dtype in module.REPLAYED.items():
             for dt in by_dtype:
                 by_dtype[dt] += captured.get(name, {}).get(dt, 0)
-    for dt, n in (wgmma or {}).items():
-        cuda_mlp.WGMMA_REPLAYED[dt] += n
+    for kernel, launched in (("fused_mlp", wgmma), ("fused_mlp_bwd", wgmma_bwd)):
+        for dt, n in (launched or {}).items():
+            _WGMMA[kernel][1][dt] += n
 
 
 def replayed_counts(dtype: Optional[torch.dtype] = None) -> Dict[str, int]:
@@ -83,15 +90,17 @@ def replayed_counts(dtype: Optional[torch.dtype] = None) -> Dict[str, int]:
     return _by_dtype({**cuda_attention.REPLAYED, **cuda_mlp.REPLAYED}, dtype)
 
 
-def wgmma_launches(dtype: Optional[torch.dtype] = None) -> int:
-    """K5's launches on its wgmma kernel since the last reset (all, or on
-    ``dtype`` operands)."""
-    return _of_dtype(cuda_mlp.WGMMA_LAUNCHES, dtype)
+def wgmma_launches(dtype: Optional[torch.dtype] = None, kernel: str = "fused_mlp") -> int:
+    """K5's (or ``kernel``'s: "fused_mlp_bwd" for K6) launches on wgmma
+    since the last reset (all, or on ``dtype`` operands)."""
+    return _of_dtype(_WGMMA[kernel][0], dtype)
 
 
-def replayed_wgmma_launches(dtype: Optional[torch.dtype] = None) -> int:
-    """K5's wgmma launches made by graph replays since the last reset."""
-    return _of_dtype(cuda_mlp.WGMMA_REPLAYED, dtype)
+def replayed_wgmma_launches(dtype: Optional[torch.dtype] = None,
+                            kernel: str = "fused_mlp") -> int:
+    """K5's (or ``kernel``'s) wgmma launches made by graph replays since the
+    last reset."""
+    return _of_dtype(_WGMMA[kernel][1], dtype)
 
 
 def _of_dtype(by_dtype, dtype):
@@ -105,6 +114,7 @@ def reset_launch_counts() -> None:
         for by_dtype in counts.values():
             for dtype in by_dtype:
                 by_dtype[dtype] = 0
-    for by_dtype in (cuda_mlp.WGMMA_LAUNCHES, cuda_mlp.WGMMA_REPLAYED):
-        for dtype in by_dtype:
-            by_dtype[dtype] = 0
+    for counts in _WGMMA.values():
+        for by_dtype in counts:
+            for dtype in by_dtype:
+                by_dtype[dtype] = 0

@@ -66,6 +66,9 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         # x, g, w1, b1, w2, dx, da, h, colsum, part, grads, dtype, M, C,
         # H, S, device, stream
         "mp_fused_mlp_bwd": [_P] * 11 + [_I] * 6 + [_P],
+        # x, g, w1, b1, w2, dx, planes, wp, colsum, part, grads, M, H, S,
+        # device, stream
+        "mp_fused_mlp_bwd_sm90": [_P] * 11 + [_I] * 4 + [_P],
     },
     "fusion": {
         # x_st, x_ts, w, b, out, alpha, R, C, blocks, device, stream

@@ -7,7 +7,10 @@
 //                               95-115); for fp32 at C = 512,
 //                               fused_mlp_kernel_split, then _sm90
 //   fused_mlp_bwd_*_kernel   <- _backward / _bwd_kernel (pallas_mlp.py:123-169,
-//                               172-211)
+//                               172-211); for fp32 at C = 512,
+//                               fused_mlp_bwd_rows_kernel_split and _sm90,
+//                               fused_mlp_bwd_gemm_kernel_dx and _dw,
+//                               fused_mlp_bwd_reduce_kernel_sm90
 //
 // What bounds them on an H100. Every product runs on the tensor cores: bf16
 // in one pass, fp32 as 3xTF32, three tf32 passes over operands split into
@@ -92,8 +95,9 @@
 // FlashAttention-3's do), 1.63-1.69 ms; two fc2 accumulators, 1.41 (it
 // spills); 240 registers a consumer, no change.
 //
-// Backward (K6). The TPU kernel sums dW and db over its sequential grid;
-// blocks on Hopper run in no order, so the sums over M take later passes.
+// Backward (K6) on mma.sync, for bf16 and fp32's other widths. The TPU
+// kernel sums dW and db over its sequential grid; blocks on Hopper run in
+// no order, so the sums over M take later passes.
 // Pass 1 (rows), per 64-row block and chunk: recompute a (as the
 // forward), write gelu(a) to (M, H) scratch and keep gelu'(a) in
 // registers; dh = g W2[:, chunk] (W2 read k-major: a transposed operand);
@@ -108,12 +112,60 @@
 // it rounds where _bwd_kernel rounds: gelu(a), g and da before the
 // products; db1 sums the unrounded da.
 //
-// Not yet: K6 on wgmma (its rows pass runs K5's fc1), bf16 on wgmma, and
-// a 2-CTA cluster with TMA multicast of the weight boxes, which would
-// halve their L2 reads (8 MB a 64-row tile; not the limit at present).
+// Backward (K6) on wgmma, for the launches K5 sends to wgmma (fp32, C =
+// 512, H a multiple of 128; cuda_mlp.takes_wgmma), at any M: 3.16-3.23 ms
+// at M = 66096, the mma.sync kernels' 7.2-7.7 (65 % of the 2.10 ms bound,
+// 10 M C H at 165 TFLOP/s). wgmma reads a tf32 B from shared memory
+// k-major only (its transpose is for 16-bit types), and the weight sums
+// reduce over M, where x, g, da and gelu(a) all lie row-major; so pass 1
+// writes da and gelu(a) transposed, and x and g, the sums' other
+// operands, come through registers as A, which may take any layout.
+// fused_mlp_bwd_rows_kernel_split first writes the weights' tf32 planes
+// into scratch (W1 (2H, C), W2^T (2H, C), W1^T (2C, H); 12 MB).
+// Pass 1, fused_mlp_bwd_rows_kernel_sm90: K5's persistent layout (a TMA
+// producer warpgroup, full/empty mbarrier rings, two consumer warpgroups
+// of 64 hidden units of a 128-unit pair) over 128-row tiles, whose two
+// 64-row halves share each weight box (64-row tiles, reading 8 MB of
+// weight boxes a tile, took 1.69 ms). Per pair and half: a - b1 = x
+// W1[units]^T and dh = g W2[:, units] (m64n64, K = C in stages of 32, x's
+// and g's fragments split in registers from their swizzled boxes, W1's
+// and W2^T's planes as B), then gelu(a) and da = dh * gelu'(a) (one erf
+// for both), split into big and small tf32 planes and written to (4H, Mp)
+// scratch k-major (da^T, gelu(a)^T; 1.08 GB at M = 66096), and db1's
+// partial from the unrounded da; producer warp 3 writes db2's (g's column
+// sums). Pass 2, fused_mlp_bwd_gemm_kernel_dx and _dw: persistent blocks
+// of a producer and two consumer warpgroups over 256 x 128 output tiles,
+// each consumer 128 rows as two m64n128 halves that share the stage's B
+// (128 x 128 tiles took 0.57 and 1.19 ms), a TMA ring of 32-deep stages:
+// dX = da W1 (A: da^T's planes; B: W1^T's), and dW1^T = x^T da and dW2 =
+// g^T gelu(a) over S fixed slices of M into fp32 partials (A: x or g raw,
+// split in registers; B: da^T's or gelu(a)^T's planes). A's fragments
+// come from 32 x 32 boxes laid [k][r], its rows permuted so that a warp's
+// loads hit 32 banks. Pass 3, fused_mlp_bwd_reduce_kernel_sm90, adds the
+// partials and the column sums in a fixed order. Every stage's products
+// (small parts' first) go into a fresh accumulator added into an fp32
+// sum, as K5's: 32 of k an accumulator. No atomics and no split that
+// depends on the data: runs agree bit for bit; tail rows read TMA's zeros
+// and are masked on store; the tensor maps are encoded on the host and
+// passed as __grid_constant__, the scratch is the caller's, nothing
+// synchronizes, so a CUDA graph captures the launch.
+// What bounds it (run_probes k6wgmma, M = 66096): the rows pass takes 1.52
+// ms (91 TFLOP/s), 1.39 with no wgmma at all and 1.36 without its plane
+// stores: its consumers' own instructions (fragment loads and splits,
+// waits, fp32 adds, the epilogue) bound it, as K5's. The tile products
+// take 0.53 (dX) and 1.09 ms (dW), with one tf32 pass 0.36 and 0.53, with
+// no wgmma 0.31 and 0.57: the tensor cores bound them (dW at 127 TFLOP/s,
+// 77 % of 165).
+//
+// Not yet: bf16 on wgmma; the rows pass's epilogue overlapped with its
+// products (in the same consumer, one element a stage of the next pair,
+// it spilled and took 2.69 ms against 1.69); deeper x and g rings (6 or 8
+// slots), or both halves' products in flight at once (two accumulators),
+// changed nothing; a 2-CTA cluster with TMA multicast of the boxes.
 
 #include <cudaTypedefs.h>
 
+#include <algorithm>
 #include <cmath>
 #include <mutex>
 
@@ -964,6 +1016,557 @@ fused_mlp_kernel_split(const float* __restrict__ w1, const float* __restrict__ w
   }
 }
 
+// ---- K6 on wgmma: fp32 at C = 512 (see the note at the top) ---------------
+
+namespace wg6 {
+
+using namespace mp::wg;
+using wg::BOX;
+using wg::C;
+using wg::Frag;
+using wg::KB;
+using wg::PAIR;
+using wg::Ring;
+using wg::THREADS;
+using wg::W_SLOT;
+
+// Pass 1 (rows) takes 128-row tiles, two 64-row halves sharing each weight
+// box: x's and g's boxes (128 rows x 32 k) in one ring, the weights' planes
+// in a ring a consumer warpgroup, as K5's.
+constexpr int BM = 128;
+constexpr int X_BOX = 2 * BOX;
+constexpr int WS = 4;
+constexpr int XS = 4;
+constexpr int R_OFF_X = 2 * WS * W_SLOT;
+constexpr int R_OFF_BAR = R_OFF_X + XS * X_BOX;
+constexpr int R_SMEM = R_OFF_BAR + 8 * (4 * WS + 2 * XS) + 1024;
+static_assert(R_SMEM <= 232448, "shared memory");
+
+// The producer of pass 1: lane 0 of warp 0 loads x's 16 boxes, then g's,
+// for each pair of 64-unit chunks of each row tile; lane 0 of warp 1 + c
+// the planes of W1's and then W2^T's rows for consumer c's chunk. Warp 3
+// writes db2's partial of each row tile: g's column sums over its rows,
+// each in row order.
+__device__ __forceinline__ void rows_produce(uint8_t* smem, uint64_t* w_full, uint64_t* w_empty,
+                                             uint64_t* x_full, uint64_t* x_empty,
+                                             const CUtensorMap* tx, const CUtensorMap* tg,
+                                             const CUtensorMap* tw1, const CUtensorMap* tw2t,
+                                             const float* __restrict__ g,
+                                             float* __restrict__ colsum, int tiles, int M,
+                                             int H) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (warp == 3) {
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+      const int rows = min(BM, M - tile * BM);
+      const float* gt = g + static_cast<long long>(tile) * BM * C + lane;
+      float* cs = colsum + static_cast<long long>(tile) * (4 * H + C) + 4 * H + lane;
+#pragma unroll 1
+      for (int q = 0; q < C / 128; ++q) {  // 4 columns a lane at a time
+        float sum[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll 4
+        for (int r = 0; r < rows; ++r)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) sum[e] += gt[r * C + 128 * q + 32 * e];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) cs[128 * q + 32 * e] = sum[e];
+      }
+    }
+    return;
+  }
+  if (lane != 0) return;
+  Ring r;
+  if (warp == 0) {
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x)
+      for (int hp = 0; hp < H; hp += PAIR)
+        for (int n = 0; n < 2 * (C / KB); ++n) {
+          bar_wait(&x_empty[r.i], r.phase ^ 1);
+          bar_expect(&x_full[r.i], X_BOX);
+          tma_load(smem + R_OFF_X + r.i * X_BOX, n < C / KB ? tx : tg, (n % (C / KB)) * KB,
+                   tile * BM, &x_full[r.i]);
+          r.next(XS);
+        }
+    return;
+  }
+  const int c = warp - 1;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x)
+    for (int hp = 0; hp < H; hp += PAIR)
+      for (int n = 0; n < 2 * (C / KB); ++n) {
+        bar_wait(&w_empty[c * WS + r.i], r.phase ^ 1);
+        uint64_t* full = &w_full[c * WS + r.i];
+        uint8_t* slot = smem + (c * WS + r.i) * W_SLOT;
+        const CUtensorMap* map = n < C / KB ? tw1 : tw2t;
+        const int k0 = (n % (C / KB)) * KB, row0 = hp + 64 * c;
+        bar_expect(full, W_SLOT);
+        tma_load(slot, map, k0, row0, full);
+        tma_load(slot + BOX, map, k0, H + row0, full);
+        r.next(WS);
+      }
+}
+
+// Consumer warpgroup c (0, 1) of pass 1: for hidden units u0 = hp + 64c..
+// of each pair and both halves of the row tile, s1 = x W1[u0..]^T (a - b1)
+// and dh = g W2[:, u0..], each over C in 16 stages of 32 whose products go
+// into a fresh accumulator that is then added into the fp32 sum; then
+// gelu(a) and da = dh * gelu'(a), split into tf32 planes, to the (H, Mp)
+// planes k-major for pass 2, and db1's partial from the unrounded da.
+__device__ __forceinline__ void rows_consume(int c, uint8_t* smem, uint64_t* w_full,
+                                             uint64_t* w_empty, uint64_t* x_full,
+                                             uint64_t* x_empty, const float* __restrict__ b1,
+                                             float* __restrict__ planes,
+                                             float* __restrict__ colsum, int tiles, int M,
+                                             int Mp, int H) {
+  const int lt = threadIdx.x - 128 * (c + 1);
+  const int wi = lt >> 5, lane = lt & 31, g = lane >> 2, t = lane & 3;
+  const int r0 = 16 * wi + g;  // this thread's fragment rows: r0, r0 + 8 of each half
+  const uint32_t base = sa(smem);
+  uint64_t* my_full = w_full + c * WS;
+  uint64_t* my_empty = w_empty + c * WS;
+  const long long plane = static_cast<long long>(H) * Mp;
+  Ring xr, wr;
+  // sum[half] += the next 16 stages' products: A from the x (or g) box's
+  // half, split here as K5's fc1 splits x; B the consumer's W box pair
+  auto product = [&](float (&sum)[2][32]) {
+    float d[32];
+#pragma unroll 1
+    for (int kb = 0; kb < C / KB; ++kb) {
+      bar_wait(&x_full[xr.i], xr.phase);
+      bar_wait(&my_full[wr.i], wr.phase);
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const uint8_t* xs = smem + R_OFF_X + xr.i * X_BOX + half * BOX + r0 * 128 + 4 * t;
+        wg::stage(d, base + (c * WS + wr.i) * W_SLOT, [&](int s, Frag& a) {
+          const uint32_t w[4] = {
+              *reinterpret_cast<const uint32_t*>(xs + (((2 * s) ^ g) << 4)),
+              *reinterpret_cast<const uint32_t*>(xs + 1024 + (((2 * s) ^ g) << 4)),
+              *reinterpret_cast<const uint32_t*>(xs + (((2 * s + 1) ^ g) << 4)),
+              *reinterpret_cast<const uint32_t*>(xs + 1024 + (((2 * s + 1) ^ g) << 4))};
+          uint32_t p[2][4];
+          mp::Mma<float>::split(w, p);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            a.big[e] = p[0][e];
+            a.small[e] = p[1][e];
+          }
+        });
+#pragma unroll
+        for (int e = 0; e < 32; ++e) sum[half][e] += d[e];
+      }
+      if (lane == 0) {
+        bar_arrive(&x_empty[xr.i]);
+        bar_arrive(&my_empty[wr.i]);
+      }
+      xr.next(XS);
+      wr.next(WS);
+    }
+  };
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    float* cs = colsum + static_cast<long long>(tile) * (4 * H + C);
+    for (int hp = 0; hp < H; hp += PAIR) {
+      float s1[2][32], dh[2][32];
+#pragma unroll
+      for (int half = 0; half < 2; ++half)
+#pragma unroll
+        for (int e = 0; e < 32; ++e) s1[half][e] = dh[half][e] = 0.f;
+      product(s1);
+      product(dh);
+      // unit u0 + 8j + 2t + e, row 64 half + r0 + 8h: s1[half][4j + 2h + e].
+      // Rows past M read zeros of x and g: their da is 0, and gelu(a) is
+      // written 0.
+      const int u0 = hp + 64 * c;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float2 bias = *reinterpret_cast<const float2*>(b1 + u0 + 8 * j + 2 * t);
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int u = u0 + 8 * j + 2 * t + e;
+          float csum = 0.f;
+#pragma unroll
+          for (int half = 0; half < 2; ++half)
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int row = tile * BM + 64 * half + r0 + 8 * h;
+              const float a = s1[half][4 * j + 2 * h + e] + (e ? bias.y : bias.x);
+              // one erf for both: a * cdf is gelu_exact(a) bit for bit (the
+              // halving is exact)
+              const float cdf = 0.5f * (1.f + erff(a * 0.70710678118654752f));
+              const float da = dh[half][4 * j + 2 * h + e] *
+                               (cdf + a * 0.3989422804014327f * expf(-0.5f * a * a));
+              csum += da;
+              const uint32_t w[2] = {__float_as_uint(da),
+                                     __float_as_uint(row < M ? a * cdf : 0.f)};
+              uint32_t p[2][2];
+              mp::Mma<float>::split(w, p);
+              float* at = planes + static_cast<long long>(u) * Mp + row;
+              at[0] = __uint_as_float(p[0][0]);
+              at[plane] = __uint_as_float(p[1][0]);
+              at[2 * plane] = __uint_as_float(p[0][1]);
+              at[3 * plane] = __uint_as_float(p[1][1]);
+            }
+          // db1's partial of the warp's 32 rows
+#pragma unroll
+          for (int o = 4; o < 32; o <<= 1) csum += __shfl_xor_sync(0xffffffffu, csum, o);
+          if (g == 0) cs[wi * H + u] = csum;
+        }
+      }
+    }
+  }
+}
+
+// Pass 2: out (R, N) tiles of 256 x 128 = sum over k of A(r, k) B(n, k),
+// two consumer warpgroups of 128 rows each, as two 64-row halves that
+// share the stage's B, k in stages of 32. B arrives as big and small tf32
+// planes in 128 x 32 boxes; A in 32 x 32 boxes laid [k][r] (r contiguous),
+// as tf32 planes (PLANES) or raw and split in registers. Each half's stage
+// products go into a fresh 64 x 128 accumulator, small parts' first, then
+// into the half's fp32 sum.
+constexpr int TILE_ROWS = 256;
+constexpr int A_BOX = 4096;          // 32 x 32 fp32
+constexpr int B_PLANE = 16384;       // 128 x 32 fp32
+template <bool PLANES>
+struct Gemm {
+  static constexpr int A_HALF = (PLANES ? 4 : 2) * A_BOX;  // a half's A a stage
+  static constexpr int STAGE = 2 * B_PLANE + 4 * A_HALF;
+  static constexpr int STAGES = PLANES ? 2 : 3;
+  static constexpr int OFF_BAR = STAGES * STAGE;
+  static constexpr int SMEM = OFF_BAR + 16 * STAGES + 1024;
+  static_assert(SMEM <= 232448, "shared memory");
+};
+
+// One work item: out rows a0.. (A's inner coordinate), columns b0.. (B's
+// outer coordinate), k in [k_begin, k_end); a_rows and b_rows are where
+// the small planes start in the maps' outer coordinate.
+struct Work {
+  const CUtensorMap* a;
+  const CUtensorMap* b;
+  int a0, a_rows, b0, b_rows, k_begin, k_end;
+};
+
+__device__ __forceinline__ void products128(float (&d)[64], const Frag& a, uint32_t b_big,
+                                            int s) {
+  const uint64_t bb = desc_swizzled(b_big + 32 * s);
+  mma128(d, a.small, bb, s == 0 ? 0 : 1);
+  mma128(d, a.big, desc_swizzled(b_big + B_PLANE + 32 * s), 1);
+  mma128(d, a.big, bb, 1);
+}
+
+// wg::stage over the 64 x 128 tile.
+template <typename Load>
+__device__ __forceinline__ void stage128(float (&d)[64], uint32_t b_big, Load load) {
+  Frag f[2];
+#pragma unroll
+  for (int s = 0; s < KB / 8; ++s) {
+    Frag& a = f[s & 1];
+    if (s >= 2) mma_wait<1>();  // the products of k-step s - 2 read a
+    load(s, a);
+    pin(a.big);
+    pin(a.small);
+    mma_fence();
+    products128(d, a, b_big, s);
+    mma_commit();
+  }
+  mma_wait<0>();
+  pin(d);
+}
+
+// The whole of a pass-2 kernel: ``work(i)`` describes item i of ``items``;
+// ``store(i, sum, row0, row1)`` writes a half's fp32 sums, this thread's
+// rows being row0 and row1 of the tile's 256 (d's h = 0 and 1).
+template <bool PLANES, typename WorkOf, typename Store>
+__device__ __forceinline__ void gemm(int items, WorkOf work, Store store) {
+  using G = Gemm<PLANES>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (sa(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + G::OFF_BAR);
+  uint64_t* empty = full + G::STAGES;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < G::STAGES; ++i) {
+      bar_init(&full[i], 1);
+      bar_init(&empty[i], 8);  // lane 0 of each consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  Ring r;
+  if (threadIdx.x < 128) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (threadIdx.x != 0) return;
+    for (int i = blockIdx.x; i < items; i += gridDim.x) {
+      const Work w = work(i);
+      for (int k0 = w.k_begin; k0 < w.k_end; k0 += KB) {
+        bar_wait(&empty[r.i], r.phase ^ 1);
+        uint8_t* slot = smem + r.i * G::STAGE;
+        bar_expect(&full[r.i], G::STAGE);
+        tma_load(slot, w.b, k0, w.b0, &full[r.i]);
+        tma_load(slot + B_PLANE, w.b, k0, w.b_rows + w.b0, &full[r.i]);
+        for (int q = 0; q < TILE_ROWS / 32; ++q) {  // half q / 2, its rows 32 (q % 2)..
+          uint8_t* a = slot + 2 * B_PLANE + (q >> 1) * G::A_HALF + (q & 1) * A_BOX;
+          tma_load(a, w.a, w.a0 + 32 * q, k0, &full[r.i]);
+          if constexpr (PLANES) tma_load(a + 2 * A_BOX, w.a, w.a0 + 32 * q, w.a_rows + k0,
+                                         &full[r.i]);
+        }
+        r.next(G::STAGES);
+      }
+    }
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+  const int c = (threadIdx.x >> 7) - 1, lt = threadIdx.x & 127;
+  const int wi = lt >> 5, lane = lt & 31, g = lane >> 2, t = lane & 3;
+  // wgmma row 16 wi + 8 h + g reads A's row rho(h) of the half's 64, so
+  // that the 32 lanes of a fragment load hit 32 banks of the swizzled
+  // [k][r] boxes: 4 t x 8 g at chunks (4 (g / 4) + c') ^ t, words g % 4.
+  auto rho = [&](int h) {
+    return 32 * (wi >> 1) + 4 * (2 * (wi & 1) + h + 4 * (g >> 2)) + (g & 3);
+  };
+  int off[2][2];  // bytes of (row rho(h), k t + 4q) in its half's boxes
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      const int row = rho(h), k = t + 4 * q;
+      off[h][q] = (row >> 5) * A_BOX + k * 128 + ((((row & 31) >> 2) ^ k) << 4) + (row & 3) * 4;
+    }
+  const uint32_t base = sa(smem);
+  for (int i = blockIdx.x; i < items; i += gridDim.x) {
+    const Work w = work(i);
+    float sum[2][64], d[64];
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+      for (int e = 0; e < 64; ++e) sum[hf][e] = 0.f;
+#pragma unroll 1
+    for (int k0 = w.k_begin; k0 < w.k_end; k0 += KB) {
+      bar_wait(&full[r.i], r.phase);
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const uint8_t* as = smem + r.i * G::STAGE + 2 * B_PLANE + (2 * c + hf) * G::A_HALF;
+        stage128(d, base + r.i * G::STAGE, [&](int s, Frag& a) {
+          auto word = [&](int h, int q, int part) {
+            return *reinterpret_cast<const uint32_t*>(as + part * 2 * A_BOX + off[h][q] +
+                                                      1024 * s);
+          };
+          if constexpr (PLANES) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              a.big[e] = word(e & 1, e >> 1, 0);
+              a.small[e] = word(e & 1, e >> 1, 1);
+            }
+          } else {
+            const uint32_t raw[4] = {word(0, 0, 0), word(1, 0, 0), word(0, 1, 0),
+                                     word(1, 1, 0)};
+            uint32_t p[2][4];
+            mp::Mma<float>::split(raw, p);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              a.big[e] = p[0][e];
+              a.small[e] = p[1][e];
+            }
+          }
+        });
+#pragma unroll
+        for (int e = 0; e < 64; ++e) sum[hf][e] += d[e];
+      }
+      if (lane == 0) bar_arrive(&empty[r.i]);
+      r.next(G::STAGES);
+    }
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) store(i, sum[hf], 128 * c + 64 * hf + rho(0),
+                                         128 * c + 64 * hf + rho(1));
+  }
+}
+
+}  // namespace wg6
+
+__global__ void __launch_bounds__(wg6::THREADS, 1)
+fused_mlp_bwd_rows_kernel_sm90(const __grid_constant__ CUtensorMap tx,
+                               const __grid_constant__ CUtensorMap tg,
+                               const __grid_constant__ CUtensorMap tw1,
+                               const __grid_constant__ CUtensorMap tw2t,
+                               const float* __restrict__ g, const float* __restrict__ b1,
+                               float* __restrict__ planes, float* __restrict__ colsum, int M,
+                               int Mp, int H) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (wg::sa(smem_raw) & 1023)) & 1023);
+  uint64_t* w_full = reinterpret_cast<uint64_t*>(smem + wg6::R_OFF_BAR);
+  uint64_t* w_empty = w_full + 2 * wg6::WS;
+  uint64_t* x_full = w_empty + 2 * wg6::WS;
+  uint64_t* x_empty = x_full + wg6::XS;
+  const int tiles = Mp / wg6::BM;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 2 * wg6::WS; ++i) {
+      wg::bar_init(&w_full[i], 1);
+      wg::bar_init(&w_empty[i], 4);  // lane 0 of each of the consumer's warps
+    }
+    for (int i = 0; i < wg6::XS; ++i) {
+      wg::bar_init(&x_full[i], 1);
+      wg::bar_init(&x_empty[i], 8);  // lane 0 of each consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (threadIdx.x < 128) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    wg6::rows_produce(smem, w_full, w_empty, x_full, x_empty, &tx, &tg, &tw1, &tw2t, g,
+                      colsum, tiles, M, H);
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+    wg6::rows_consume(threadIdx.x < 256 ? 0 : 1, smem, w_full, w_empty, x_full, x_empty, b1,
+                      planes, colsum, tiles, M, Mp, H);
+  }
+}
+
+// dX = da W1: rows of M (256 a tile; the four column tiles of a row tile
+// one after another, sharing its da), k over H. A: da^T's planes (2H, Mp);
+// B: W1^T's (2C, H).
+__global__ void __launch_bounds__(wg6::THREADS, 1)
+fused_mlp_bwd_gemm_kernel_dx(const __grid_constant__ CUtensorMap tda,
+                             const __grid_constant__ CUtensorMap tw1t, float* __restrict__ dx,
+                             int M, int H) {
+  constexpr int C = wg6::C, NT = C / 128, TR = wg6::TILE_ROWS;
+  const int items = (M + TR - 1) / TR * NT;
+  wg6::gemm<true>(
+      items,
+      [&](int i) {
+        return wg6::Work{&tda, &tw1t, TR * (i / NT), H, 128 * (i % NT), C, 0, H};
+      },
+      [&](int i, const float(&sum)[64], int row0, int row1) {
+        const int t = threadIdx.x & 3;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int row = TR * (i / NT) + (h ? row1 : row0);
+          if (row >= M) continue;
+          float* out = dx + static_cast<long long>(row) * C + 128 * (i % NT) + 2 * t;
+#pragma unroll
+          for (int j = 0; j < 16; ++j) mp::store2(out + 8 * j, sum[4 * j + 2 * h],
+                                                   sum[4 * j + 2 * h + 1]);
+        }
+      });
+}
+
+// The weight sums' partials over S slices of M (kps rows each, the last
+// shorter): dW1^T = x^T da and dW2 = g^T gelu(a), (C, H) each, k over the
+// slice. A: x or g (M, C) raw; B: da^T's or gelu(a)^T's planes (2H, Mp).
+// Item i: dW1 for i < S * per, else dW2; then the slice, then the 256 x
+// 128 tile, so the items running together share their rows of M.
+// part[z] holds dW1 (H, C) (stored transposed), then dW2 (C, H).
+__global__ void __launch_bounds__(wg6::THREADS, 1)
+fused_mlp_bwd_gemm_kernel_dw(const __grid_constant__ CUtensorMap tx,
+                             const __grid_constant__ CUtensorMap tg,
+                             const __grid_constant__ CUtensorMap tda,
+                             const __grid_constant__ CUtensorMap th, float* __restrict__ part,
+                             int Mp, int H, int S, int kps) {
+  constexpr int C = wg6::C, TR = wg6::TILE_ROWS;
+  const int hn = H / 128, per = (C / TR) * hn;
+  const long long hc = static_cast<long long>(H) * C;
+  wg6::gemm<false>(
+      2 * S * per,
+      [&](int i) {
+        const bool second = i >= S * per;
+        const int z = (i / per) % S, tile = i % per;
+        return wg6::Work{second ? &tg : &tx, second ? &th : &tda, TR * (tile / hn), 0,
+                         128 * (tile % hn), H, z * kps, min(Mp, (z + 1) * kps)};
+      },
+      [&](int i, const float(&sum)[64], int row0, int row1) {
+        const bool second = i >= S * per;
+        const int z = (i / per) % S, tile = i % per, t = threadIdx.x & 3;
+        float* p = part + z * 2 * hc;
+        const int n0 = 128 * (tile % hn) + 2 * t;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int row = TR * (tile / hn) + (h ? row1 : row0);  // a channel of C
+#pragma unroll
+          for (int j = 0; j < 16; ++j) {
+            const int n = n0 + 8 * j;  // a hidden unit
+            if (second) {
+              mp::store2(p + hc + static_cast<long long>(row) * H + n, sum[4 * j + 2 * h],
+                         sum[4 * j + 2 * h + 1]);
+            } else {
+              p[static_cast<long long>(n) * C + row] = sum[4 * j + 2 * h];
+              p[static_cast<long long>(n + 1) * C + row] = sum[4 * j + 2 * h + 1];
+            }
+          }
+        }
+      });
+}
+
+// W1 (H, C) and W2 (C, H) split into big and small tf32 planes for K6's
+// wgmma path, into wp: W1 (2H, C) as it lies, W2^T (2H, C), W1^T (2C, H),
+// one of the three per blockIdx.y, through 32 x 32 tiles in shared memory.
+__global__ void __launch_bounds__(256)
+fused_mlp_bwd_rows_kernel_split(const float* __restrict__ w1, const float* __restrict__ w2,
+                                float* __restrict__ wp, int H) {
+  constexpr int C = wg::C;
+  __shared__ float tile[32][33];
+  const int which = blockIdx.y;
+  const int rows = which == 1 ? C : H, cols = which == 1 ? H : C;
+  const float* src = which == 1 ? w2 : w1;
+  const long long plane = static_cast<long long>(H) * C;
+  float* dst = wp + which * 2 * plane;
+  const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
+  const int n = (rows / 32) * (cols / 32);
+  for (int tl = blockIdx.x; tl < n; tl += gridDim.x) {
+    const int r0 = (tl / (cols / 32)) * 32, c0 = (tl % (cols / 32)) * 32;
+    __syncthreads();  // the previous tile's reads are done
+    for (int i = ty; i < 32; i += 8) {
+      tile[i][tx] = src[static_cast<long long>(r0 + i) * cols + c0 + tx];
+    }
+    __syncthreads();
+    for (int i = ty; i < 32; i += 8) {
+      const float v = which == 0 ? tile[i][tx] : tile[tx][i];
+      const long long at = which == 0 ? static_cast<long long>(r0 + i) * cols + c0 + tx
+                                      : static_cast<long long>(c0 + i) * rows + r0 + tx;
+      const uint32_t w[1] = {__float_as_uint(v)};
+      uint32_t p[2][1];
+      mp::Mma<float>::split(w, p);
+      dst[at] = __uint_as_float(p[0][0]);
+      dst[plane + at] = __uint_as_float(p[1][0]);
+    }
+  }
+}
+
+// Pass 3 of K6's wgmma path: grads = [dW1 (H, C) | db1 (H) | dW2 (C, H) |
+// db2 (C)]. The first 2 H C / 256 blocks: a thread per dW element sums the
+// S slices' partials in order. The others: 16 columns of db a block, thread
+// (q, j) summing the column sums of row tiles q, q + 16, ... in order (db1:
+// the four warps' partials of a tile), then thread j the 16 sums in order.
+__global__ void __launch_bounds__(256)
+fused_mlp_bwd_reduce_kernel_sm90(const float* __restrict__ part,
+                                 const float* __restrict__ colsum, float* __restrict__ out,
+                                 int S, int NB, int H) {
+  constexpr int C = wg::C;
+  const long long hc = static_cast<long long>(H) * C;
+  const int dw_blocks = static_cast<int>(2 * hc / 256);
+  if (static_cast<int>(blockIdx.x) < dw_blocks) {
+    const long long i = static_cast<long long>(blockIdx.x) * 256 + threadIdx.x;
+    float t = 0.f;
+    for (int s = 0; s < S; ++s) t += part[s * 2 * hc + i];
+    out[i < hc ? i : i + H] = t;
+    return;
+  }
+  __shared__ float sums[16][17];
+  const int q = threadIdx.x >> 4, jj = threadIdx.x & 15;
+  const int j = (blockIdx.x - dw_blocks) * 16 + jj;  // H + C is a multiple of 16
+  const long long pitch = 4 * H + C;
+  float t = 0.f;
+  for (int blk = q; blk < NB; blk += 16) {
+    const float* cs = colsum + blk * pitch;
+    if (j < H) {
+#pragma unroll
+      for (int w = 0; w < 4; ++w) t += cs[w * H + j];
+    } else {
+      t += cs[3 * H + j];  // db2's column j - H sits at 4 * H + (j - H)
+    }
+  }
+  sums[q][jj] = t;
+  __syncthreads();
+  if (q == 0) {
+    float u = 0.f;
+#pragma unroll
+    for (int r = 0; r < 16; ++r) u += sums[r][jj];
+    out[j < H ? hc + j : 2 * hc + j] = u;
+  }
+}
+
 // cuTensorMapEncodeTiled from the CUDA driver, looked up once through the runtime
 // (the libraries link the runtime only).
 PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
@@ -981,15 +1584,15 @@ PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
   return fn;
 }
 
-// A row-major (rows, cols) fp32 matrix read in boxes of 64 rows x 32
-// columns (128 bytes, swizzled as wgmma reads them); rows past the end
+// A row-major (rows, cols) fp32 matrix read in boxes of box_rows rows x
+// 32 columns (128 bytes, swizzled as wgmma reads them); rows past the end
 // read zeros.
-bool encode_map(CUtensorMap* map, const void* p, int rows, int cols) {
+bool encode_map(CUtensorMap* map, const void* p, int rows, int cols, int box_rows = wg::BM) {
   const auto encode = tensor_map_encoder();
   if (encode == nullptr) return false;
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
   const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * sizeof(float)};
-  const cuuint32_t box[2] = {wg::KB, wg::BM};
+  const cuuint32_t box[2] = {wg::KB, static_cast<cuuint32_t>(box_rows)};
   const cuuint32_t unit[2] = {1, 1};
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<void*>(p), dims, strides,
                 box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
@@ -997,17 +1600,25 @@ bool encode_map(CUtensorMap* map, const void* p, int rows, int cols) {
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+// The SMs of ``device``, asked once per device (a captured launch makes no
+// attribute call).
+cudaError_t sm_count(int device, int* n_sm) {
+  constexpr int DEVICES = 16;
+  static int sms[DEVICES] = {};
+  *n_sm = device >= 0 && device < DEVICES ? sms[device] : 0;
+  if (*n_sm == 0) {
+    cudaError_t err = cudaDeviceGetAttribute(n_sm, cudaDevAttrMultiProcessorCount, device);
+    if (err != cudaSuccess) return err;
+    if (device >= 0 && device < DEVICES) sms[device] = *n_sm;
+  }
+  return cudaSuccess;
+}
+
 cudaError_t launch_sm90(const float* x, const float* w1, const float* b1, const float* w2,
                         const float* b2, float* out, float* w1p, float* w2p, int M, int H,
                         int device, cudaStream_t stream) {
-  constexpr int DEVICES = 16;
-  static int sms[DEVICES] = {};
-  int n_sm = device >= 0 && device < DEVICES ? sms[device] : 0;
-  if (n_sm == 0) {
-    cudaError_t err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, device);
-    if (err != cudaSuccess) return err;
-    if (device >= 0 && device < DEVICES) sms[device] = n_sm;
-  }
+  int n_sm;
+  if (cudaError_t err = sm_count(device, &n_sm); err != cudaSuccess) return err;
   CUtensorMap tx, tw1, tw2;
   if (!encode_map(&tx, x, M, wg::C) || !encode_map(&tw1, w1p, 2 * H, wg::C) ||
       !encode_map(&tw2, w2p, 2 * wg::C, H)) {
@@ -1020,6 +1631,55 @@ cudaError_t launch_sm90(const float* x, const float* w1, const float* b1, const 
   const int tiles = (M + wg::BM - 1) / wg::BM;
   fused_mlp_kernel_sm90<<<tiles < n_sm ? tiles : n_sm, wg::THREADS, wg::SMEM, stream>>>(
       tx, tw1, tw2, b1, b2, out, M, H);
+  return cudaGetLastError();
+}
+
+// K6 on wgmma: the weights' planes, pass 1 (rows), dX, the weight sums'
+// partials over S slices of M, and their reduction.
+cudaError_t launch_bwd_sm90(const float* x, const float* g, const float* w1, const float* b1,
+                            const float* w2, float* dx, float* planes, float* wp,
+                            float* colsum, float* part, float* grads, int M, int H, int S,
+                            int device, cudaStream_t stream) {
+  constexpr int C = wg::C;
+  int n_sm;
+  if (cudaError_t err = sm_count(device, &n_sm); err != cudaSuccess) return err;
+  const int tiles = (M + wg6::BM - 1) / wg6::BM, Mp = tiles * wg6::BM;
+  const long long hc = static_cast<long long>(H) * C;
+  float* da_planes = planes;
+  float* h_planes = planes + 2LL * H * Mp;
+  CUtensorMap tx, tg, tw1, tw2t, tda_a, tw1t, tx_a, tg_a, tda_b, th_b;
+  if (!encode_map(&tx, x, M, C, wg6::BM) || !encode_map(&tg, g, M, C, wg6::BM) ||
+      !encode_map(&tw1, wp, 2 * H, C) || !encode_map(&tw2t, wp + 2 * hc, 2 * H, C) ||
+      !encode_map(&tda_a, da_planes, 2 * H, Mp, 32) ||
+      !encode_map(&tw1t, wp + 4 * hc, 2 * C, H, 128) || !encode_map(&tx_a, x, M, C, 32) ||
+      !encode_map(&tg_a, g, M, C, 32) || !encode_map(&tda_b, da_planes, 2 * H, Mp, 128) ||
+      !encode_map(&th_b, h_planes, 2 * H, Mp, 128)) {
+    return cudaErrorNotSupported;
+  }
+  cudaError_t err;
+  if ((err = mp::allow_smem(fused_mlp_bwd_rows_kernel_sm90, wg6::R_SMEM)) != cudaSuccess ||
+      (err = mp::allow_smem(fused_mlp_bwd_gemm_kernel_dx, wg6::Gemm<true>::SMEM)) !=
+          cudaSuccess ||
+      (err = mp::allow_smem(fused_mlp_bwd_gemm_kernel_dw, wg6::Gemm<false>::SMEM)) !=
+          cudaSuccess) {
+    return err;
+  }
+  fused_mlp_bwd_rows_kernel_split<<<dim3(2 * n_sm, 3), 256, 0, stream>>>(w1, w2, wp, H);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  fused_mlp_bwd_rows_kernel_sm90<<<std::min(tiles, n_sm), wg6::THREADS, wg6::R_SMEM, stream>>>(
+      tx, tg, tw1, tw2t, g, b1, planes, colsum, M, Mp, H);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  const int dx_items = (M + wg6::TILE_ROWS - 1) / wg6::TILE_ROWS * (C / 128);
+  fused_mlp_bwd_gemm_kernel_dx<<<std::min(dx_items, n_sm), wg6::THREADS, wg6::Gemm<true>::SMEM,
+                                 stream>>>(tda_a, tw1t, dx, M, H);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  const int dw_items = 2 * S * (C / wg6::TILE_ROWS) * (H / 128);
+  const int kps = ((Mp + S - 1) / S + wg::KB - 1) / wg::KB * wg::KB;
+  fused_mlp_bwd_gemm_kernel_dw<<<std::min(dw_items, n_sm), wg6::THREADS, wg6::Gemm<false>::SMEM,
+                                 stream>>>(tx_a, tg_a, tda_b, th_b, part, Mp, H, S, kps);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  fused_mlp_bwd_reduce_kernel_sm90<<<static_cast<unsigned>(2 * hc / 256 + (H + C) / 16), 256, 0,
+                                     stream>>>(part, colsum, grads, S, tiles, H);
   return cudaGetLastError();
 }
 
@@ -1154,5 +1814,25 @@ extern "C" int mp_fused_mlp_sm90(const void* x, const void* w1, const void* b1,
                        static_cast<const float*>(b2), static_cast<float*>(out),
                        static_cast<float*>(w1p), static_cast<float*>(w2p), M, H, device,
                        static_cast<cudaStream_t>(stream));
+  });
+}
+
+// K6 on wgmma (fp32, C = 512, H a multiple of 128). Scratch from the
+// caller, 16-byte aligned, with Mp = M rounded up to a multiple of 128:
+// planes (4H, Mp) fp32 (da^T's big and small tf32 planes, then gelu(a)^T's),
+// wp (6 H C) fp32 (the weights' planes), colsum (Mp / 128, 4H + 512) fp32,
+// part (S, 2 H 512) fp32. ``grads`` as for mp_fused_mlp_bwd.
+extern "C" int mp_fused_mlp_bwd_sm90(const void* x, const void* g, const void* w1,
+                                     const void* b1, const void* w2, void* dx, void* planes,
+                                     void* wp, float* colsum, float* part, void* grads, int M,
+                                     int H, int S, int device, void* stream) {
+  if (M < 1 || H < wg::PAIR || H % wg::PAIR != 0 || S < 1) return cudaErrorInvalidValue;
+  return mp::on_device(device, [&] {
+    return launch_bwd_sm90(static_cast<const float*>(x), static_cast<const float*>(g),
+                           static_cast<const float*>(w1), static_cast<const float*>(b1),
+                           static_cast<const float*>(w2), static_cast<float*>(dx),
+                           static_cast<float*>(planes), static_cast<float*>(wp), colsum, part,
+                           static_cast<float*>(grads), M, H, S, device,
+                           static_cast<cudaStream_t>(stream));
   });
 }

@@ -1,7 +1,8 @@
-// Hopper building blocks of K5's wgmma kernel (mlp.cu) and of the
-// accumulation probe (probes/accumulate.cu): mbarriers, TMA tile loads,
+// Hopper building blocks of K5's and K6's wgmma kernels (mlp.cu) and of
+// the accumulation probe (probes/accumulate.cu): mbarriers, TMA tile loads,
 // the fence between the generic and the async proxy, named barriers, and
-// the tf32 wgmma with its shared-memory descriptors. sm_90a only.
+// the tf32 wgmma (64 x 64 and 64 x 128 tiles) with its shared-memory
+// descriptors. sm_90a only.
 //
 // Operand layouts (K-major, 64 rows, fp32 read as tf32). "plain": 8 x
 // 16-byte core matrices, rows 16 bytes apart, 8-row groups 128 bytes
@@ -10,7 +11,8 @@
 // K5's GELU planes, which it reads back as register fragments).
 // "swizzled": TMA's 128-byte swizzle, rows 128 bytes apart (32 k), 8-row
 // groups 1024 bytes apart, 16-byte chunk q of row r at q ^ (r % 8); a
-// k-step is 32 bytes further along the row (K5's weight boxes).
+// k-step is 32 bytes further along the row (K5's and K6's weight boxes;
+// a box of 128 rows is 16 such 8-row groups).
 #pragma once
 
 #include <cuda.h>
@@ -118,6 +120,32 @@ __device__ __forceinline__ void mma(float (&d)[32], const uint32_t (&a)[4], uint
         "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
 }
+// The same over a 64 x 128 tile: B 128 x 8 from shared memory (a box of
+// 128 rows), d the warpgroup's 64 x 128 fp32 accumulator (64 a thread:
+// d[4j + 2h + e] is row 16w + g + 8h, column 8j + 2t + e).
+__device__ __forceinline__ void mma128(float (&d)[64], const uint32_t (&a)[4], uint64_t b,
+                                       int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
 // Keeps the compiler from moving writes of ``a`` past the fence below.
 template <int N>
 __device__ __forceinline__ void pin(uint32_t (&a)[N]) {
@@ -135,9 +163,10 @@ __device__ __forceinline__ void mma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 // Pins reads of the accumulator after the wait that completes it.
-__device__ __forceinline__ void pin(float (&d)[32]) {
+template <int N>
+__device__ __forceinline__ void pin(float (&d)[N]) {
 #pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 }  // namespace wg

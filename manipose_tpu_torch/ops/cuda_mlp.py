@@ -17,6 +17,11 @@ every other launch (bf16, the segments trunk's C = 128) runs the mma.sync
 kernel. The row count plays no part: on an H100 the wgmma kernel is the
 faster from one 64-row tile up (PERF.md, K5's rows). ``WGMMA_LAUNCHES``
 counts the launches that took wgmma, a part of ``LAUNCHES["fused_mlp"]``.
+K6 follows the same rule: the launches it takes run on wgmma fed by TMA
+(the rows pass ``fused_mlp_bwd_rows_kernel_sm90`` and the tile products
+``fused_mlp_bwd_gemm_kernel_dx`` and ``_dw``), every other launch on the
+mma.sync kernels; ``WGMMA_BWD_LAUNCHES`` counts the first, a part of
+``LAUNCHES["fused_mlp_bwd"]``.
 
 ``fused_mlp`` is differentiable: when a gradient is wanted it runs
 :class:`FusedMLP`, which saves x, w1, b1 and w2 (as the JAX VJP does) and
@@ -56,9 +61,15 @@ WGRAD_TILE = 128
 WGRAD_BLOCKS = 512
 WGRAD_MIN_ROWS = 256
 
-# the widths K5's wgmma kernel takes: C, and H in multiples of
+# the widths K5's and K6's wgmma kernels take: C, and H in multiples of
 WGMMA_CHANNELS = 512
 WGMMA_HIDDEN_TILE = 128
+# K6's wgmma path: its rows pass's tile of M, and about how many work
+# items (256 x 128 output tiles of dW1^T and dW2 and slices of M together;
+# one round of an H100's 132 SMs) it sums dW over
+WGMMA_ROW_TILE = 128
+WGMMA_WGRAD_TILE = (256, 128)
+WGMMA_WGRAD_ITEMS = 128
 
 # launches per kernel and operand dtype; reset by ``ops.reset_launch_counts``
 LAUNCHES = {name: dict.fromkeys(KERNEL_DTYPES, 0)
@@ -69,6 +80,9 @@ REPLAYED = {name: dict.fromkeys(KERNEL_DTYPES, 0) for name in LAUNCHES}
 # made by graph replays
 WGMMA_LAUNCHES = dict.fromkeys(KERNEL_DTYPES, 0)
 WGMMA_REPLAYED = dict.fromkeys(KERNEL_DTYPES, 0)
+# the same for K6
+WGMMA_BWD_LAUNCHES = dict.fromkeys(KERNEL_DTYPES, 0)
+WGMMA_BWD_REPLAYED = dict.fromkeys(KERNEL_DTYPES, 0)
 
 
 def mlp_plain(x, w1, b1, w2, b2) -> torch.Tensor:
@@ -159,8 +173,8 @@ def _plain_or_raise(x) -> bool:
 
 
 def takes_wgmma(dtype: torch.dtype, c: int, h: int) -> bool:
-    """Whether K5 runs on wgmma for C channels of ``dtype`` and H hidden
-    units: fp32 at C = 512 with H a multiple of 128."""
+    """Whether K5 and K6 run on wgmma for C channels of ``dtype`` and H
+    hidden units: fp32 at C = 512 with H a multiple of 128."""
     return (dtype == torch.float32 and c == WGMMA_CHANNELS
             and h % WGMMA_HIDDEN_TILE == 0)
 
@@ -219,8 +233,32 @@ def wgrad_splits(m: int, c: int, h: int) -> int:
     return max(1, min(-(-m // WGRAD_MIN_ROWS), -(-WGRAD_BLOCKS // tiles)))
 
 
+def wgmma_wgrad_splits(m: int, c: int, h: int) -> int:
+    """How many slices of M K6's wgmma path sums its weight gradients over:
+    about WGMMA_WGRAD_ITEMS items of WGMMA_WGRAD_TILE output tiles of dW1^T
+    and dW2 (C, H) and slices, each slice at least one 64-row tile (fixed
+    by the shapes)."""
+    per_slice = 2 * (c // WGMMA_WGRAD_TILE[0]) * (h // WGMMA_WGRAD_TILE[1])
+    return max(1, min(-(-m // ROW_TILE), WGMMA_WGRAD_ITEMS // per_slice))
+
+
+def wgmma_bwd_scratch(m: int, c: int, h: int, device):
+    """The scratch of K6's wgmma path and its slices of M: (planes, wp,
+    colsum, part), s. planes holds da^T's and gelu(a)^T's tf32 planes,
+    k-major for the weight sums, over M rounded up to a row tile; wp the
+    weights' planes."""
+    s = wgmma_wgrad_splits(m, c, h)
+    tiles = -(-m // WGMMA_ROW_TILE)
+    f32 = dict(dtype=torch.float32, device=device)
+    return (torch.empty((4 * h, tiles * WGMMA_ROW_TILE), **f32),
+            torch.empty((6 * h * c,), **f32),
+            torch.empty((tiles, 4 * h + c), **f32),
+            torch.empty((s, 2 * h * c), **f32)), s
+
+
 def fused_mlp_bwd(x, w1, b1, w2, g):
-    """K6: the gradient of K5 for the output gradient g (M, C).
+    """K6: the gradient of K5 for the output gradient g (M, C), on the
+    kernels :func:`takes_wgmma` picks.
     -> (dx, dw1, db1, dw2, db2), each of its operand's shape and dtype."""
     if _plain_or_raise(x):
         return mlp_plain_bwd(x, w1, b1, w2, g)
@@ -230,22 +268,29 @@ def fused_mlp_bwd(x, w1, b1, w2, g):
         raise ValueError("g must be a contiguous (M, C) tensor like x")
     m, c = x.shape
     h = w1.shape[0]
-    s = wgrad_splits(m, c, h)
-    blocks = -(-m // ROW_TILE)
     dx = torch.empty_like(x)
-    da = torch.empty((m, h), dtype=x.dtype, device=x.device)
-    hh = torch.empty((m, h), dtype=x.dtype, device=x.device)
-    colsum = torch.empty((blocks, 2 * h + c), dtype=torch.float32, device=x.device)
-    part = torch.empty((s, 2 * h * c), dtype=torch.float32, device=x.device)
     grads = torch.empty((2 * h * c + h + c,), dtype=x.dtype, device=x.device)
     lib = build.load("mlp")
-    err = lib.mp_fused_mlp_bwd(
-        x.data_ptr(), g.data_ptr(), w1.data_ptr(), b1.data_ptr(),
-        w2.data_ptr(), dx.data_ptr(), da.data_ptr(), hh.data_ptr(),
-        colsum.data_ptr(), part.data_ptr(), grads.data_ptr(), KERNEL_DTYPES[x.dtype], m, c, h, s,
-        x.device.index, torch.cuda.current_stream(x.device).cuda_stream,
-    )
-    build.check(lib, err, "mp_fused_mlp_bwd")
+    operands = (x.data_ptr(), g.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
+                dx.data_ptr())
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if takes_wgmma(x.dtype, c, h):
+        scratch, s = wgmma_bwd_scratch(m, c, h, x.device)
+        err = lib.mp_fused_mlp_bwd_sm90(*operands, *(t.data_ptr() for t in scratch),
+                                        grads.data_ptr(), m, h, s, x.device.index, stream)
+        build.check(lib, err, "mp_fused_mlp_bwd_sm90")
+        WGMMA_BWD_LAUNCHES[x.dtype] += 1
+    else:
+        s = wgrad_splits(m, c, h)
+        blocks = -(-m // ROW_TILE)
+        da = torch.empty((m, h), dtype=x.dtype, device=x.device)
+        hh = torch.empty((m, h), dtype=x.dtype, device=x.device)
+        colsum = torch.empty((blocks, 2 * h + c), dtype=torch.float32, device=x.device)
+        part = torch.empty((s, 2 * h * c), dtype=torch.float32, device=x.device)
+        err = lib.mp_fused_mlp_bwd(
+            *operands, da.data_ptr(), hh.data_ptr(), colsum.data_ptr(), part.data_ptr(),
+            grads.data_ptr(), KERNEL_DTYPES[x.dtype], m, c, h, s, x.device.index, stream)
+        build.check(lib, err, "mp_fused_mlp_bwd")
     LAUNCHES["fused_mlp_bwd"][x.dtype] += 1
     dw1, db1, dw2, db2 = torch.split(grads, [h * c, h, c * h, c])
     return dx, dw1.view(h, c), db1, dw2.view(c, h), db2

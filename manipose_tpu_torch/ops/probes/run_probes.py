@@ -23,6 +23,13 @@ builds into ``build/probes/`` and prints:
    weights' planes) and ``no_x_loads`` (none of x).
 4. ``k6``: the device time of each of K6's kernels at the same shape, from
    ``torch.profiler``.
+   ``k6wgmma`` (a section of its own): each kernel of K6's wgmma path
+   (fp32) at M 66096 and 132192, from ``torch.profiler``, built from
+   ``csrc/`` as it is and with one part of the work taken out:
+   ``no_stores`` (the rows pass writes no planes), ``no_dh`` (the rows
+   pass skips dh = g W2 and g's loads), ``one_pass`` (the big parts'
+   product alone, in the rows pass and the tile products) and ``no_mma``
+   (no wgmma at all).
 5. ``attention``: K1 and K2 at the flagship's shapes (rotations 272*8
    windows of 243 x 64, segments 256*8 of 243 x 16), fp32 and bf16, in
    turns, built from ``csrc/`` as it is (``base``, twice) and changed:
@@ -126,6 +133,25 @@ WGMMA_ABLATIONS = {
     "no_x_loads": [("mlp.cu", "        bar_expect(&x_full[r.i], BOX);\n"
                     "        tma_load(smem + OFF_X + r.i * BOX, tx, (n % (C / KB)) * KB, "
                     "tile * BM, &x_full[r.i]);", "        bar_arrive(&x_full[r.i]);", 1)],
+}
+
+_K6_PRODUCTS = ("  mma128(d, a.small, bb, s == 0 ? 0 : 1);\n"
+                "  mma128(d, a.big, desc_swizzled(b_big + B_PLANE + 32 * s), 1);\n"
+                "  mma128(d, a.big, bb, 1);")
+K6_WGMMA_ABLATIONS = {
+    "base": [],
+    "no_stores": [("mlp.cu", "              at[0] = __uint_as_float(p[0][0]);\n"
+                   "              at[plane] = __uint_as_float(p[1][0]);\n"
+                   "              at[2 * plane] = __uint_as_float(p[0][1]);\n"
+                   "              at[3 * plane] = __uint_as_float(p[1][1]);",
+                   "              (void)at;", 1)],
+    "no_dh": [("mlp.cu", "for (int n = 0; n < 2 * (C / KB); ++n) {",
+               "for (int n = 0; n < C / KB; ++n) {", 2),
+              ("mlp.cu", "      product(dh);\n", "", 1)],
+    "one_pass": [("mlp.cu", _WG_PRODUCTS, "  mma(d, a.big, bb, s == 0 ? 0 : 1);", 1),
+                 ("mlp.cu", _K6_PRODUCTS, "  mma128(d, a.big, bb, s == 0 ? 0 : 1);", 1)],
+    "no_mma": [("mlp.cu", _WG_PRODUCTS, "  (void)bb;", 1),
+               ("mlp.cu", _K6_PRODUCTS, "  (void)bb;", 1)],
 }
 
 _DENSE_SCORES = "for (int kk = 0; kk < G::KS; ++kk) {"
@@ -303,6 +329,45 @@ def k6_kernels(gen) -> None:
                 name = e.key.split("::")[-1].split("<")[0]
                 print(f"k6 {str(dtype)[6:]:8s} {name:30s} {e.count // reps} launches "
                       f"{e.self_device_time_total / 1e3 / reps:.4f} ms a call")
+
+
+def ablate_k6_wgmma(libs: dict, gen) -> None:
+    """Each kernel of K6's wgmma path, fp32, at two row counts, per variant
+    of the sources (device times from torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from ..cuda_mlp import wgmma_bwd_scratch
+
+    _, c, h = SHAPE
+    for rows in (SHAPE[0], 2 * SHAPE[0]):
+        x, w1, b1, w2, _ = operands(torch.float32, gen, (rows, c, h))
+        g = torch.randn(x.shape, generator=gen, device="cuda")
+        scratch, s = wgmma_bwd_scratch(rows, c, h, x.device)
+        dx = torch.empty_like(x)
+        grads = torch.empty((2 * h * c + h + c,), device="cuda")
+        stream = torch.cuda.current_stream().cuda_stream
+        for name, lib in libs.items():
+            def run():
+                err = lib.mp_fused_mlp_bwd_sm90(
+                    x.data_ptr(), g.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
+                    dx.data_ptr(), *(t.data_ptr() for t in scratch), grads.data_ptr(),
+                    rows, h, s, 0, stream)
+                if err:
+                    raise RuntimeError(f"ablation {name}: CUDA error {err}")
+
+            run()
+            torch.cuda.synchronize()
+            reps = 5
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(reps):
+                    run()
+                torch.cuda.synchronize()
+            times = {e.key.split("::")[-1].split("(")[0]: e.self_device_time_total / 1e3 / reps
+                     for e in prof.key_averages() if e.self_device_time_total > 0}
+            total = sum(times.values())
+            print(f"ablate K6 wgmma M={rows} {name:9s} {total:.4f} ms "
+                  f"({10.0 * rows * c * h / total * 1e-9:.1f} TFLOP/s): "
+                  + ", ".join(f"{k} {v:.4f}" for k, v in times.items()), flush=True)
 
 
 # (trunk, windows, heads, N, d) of the flagship's dense attention, B = 16
@@ -557,8 +622,8 @@ def eval_pinning() -> None:
             Batch.pin_memory = pin
 
 
-SECTIONS = ("mma_rate", "accumulate", "ablate", "wgmma", "k6", "attention", "packed", "bf16",
-            "pinning")
+SECTIONS = ("mma_rate", "accumulate", "ablate", "wgmma", "k6", "k6wgmma", "attention", "packed",
+            "bf16", "pinning")
 
 
 def main() -> int:
@@ -585,6 +650,8 @@ def main() -> int:
         ablate_wgmma(build_variants("mlp", WGMMA_ABLATIONS), gen)
     if "k6" in sections:
         k6_kernels(gen)
+    if "k6wgmma" in sections:
+        ablate_k6_wgmma(build_variants("mlp", K6_WGMMA_ABLATIONS), gen)
     if "attention" in sections:
         attention(build_variants("attention", ATTENTION_VARIANTS, args.against), gen)
     if "packed" in sections:

@@ -15,7 +15,9 @@ against the CPU, the int8 predictor on the card against the CPU, an
 exported program on the card, a data-parallel predictor on one card, K3/K4
 on the joint-major layout's strided windows, a joint-major model against
 the fold layout, the megastep's CUDA graph against single steps (with and
-without remat), and a remat step against the plain one.
+without remat), a remat step against the plain one, and K5's and K6's
+wgmma paths against fp64, run twice and replayed in a CUDA graph, with
+their launches counted.
 Marked ``cuda``; without a CUDA device every test skips. Run them on the
 card with ``python -m pytest tests/test_torch_port_cuda.py -q
 --noconftest``: tests/conftest.py sets up JAX for the rest of the suite,
@@ -493,6 +495,86 @@ def test_mlp_bwd_kernel_is_deterministic(gen):
     first = fused_mlp_bwd(x, w1, b1, w2, g)
     second = fused_mlp_bwd(x, w1, b1, w2, g)
     assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+# K6's wgmma path (fp32, C = 512): one tile, a ragged M, the 3DHP batch's
+# and the train step's rows at H = 1024, and the other hidden widths
+WGMMA_BWD_SHAPES = [(64, 1024), (1000, 1024), (11475, 1024), (66096, 1024), (3000, 512),
+                    (3000, 2048)]
+
+
+@pytest.mark.parametrize("m,hidden", WGMMA_BWD_SHAPES)
+def test_wgmma_mlp_bwd_matches_float64(gen, m, hidden):
+    """K6 on wgmma (the launch the rule picks for fp32 at C = 512): all five
+    gradients against the plain backward in fp64 from the same inputs,
+    within 5e-4 * max(1, |ref|max)."""
+    x, w1, b1, w2, _ = _mlp_operands(gen, m, 512, hidden, torch.float32)
+    g = torch.randn((m, 512), generator=gen, device="cuda")
+    ops.reset_launch_counts()
+    got = fused_mlp_bwd(x, w1, b1, w2, g)
+    assert ops.wgmma_launches(torch.float32, kernel="fused_mlp_bwd") == 1
+    assert ops.wgmma_launches() == 0
+    want = mlp_plain_bwd(*(t.double() for t in (x, w1, b1, w2, g)))
+    for name, a, r in zip(("dx", "dw1", "db1", "dw2", "db2"), got, want):
+        assert a.shape == r.shape and a.dtype == torch.float32, name
+        tol = 5e-4 * max(1.0, r.abs().max().item())
+        assert (a.double() - r).abs().max().item() <= tol, name
+
+
+def test_wgmma_mlp_bwd_is_deterministic(gen):
+    """No atomics and a split of M fixed by the shapes: two runs agree bit
+    for bit."""
+    x, w1, b1, w2, _ = _mlp_operands(gen, 33048, 512, 1024, torch.float32)
+    g = torch.randn((33048, 512), generator=gen, device="cuda")
+    first = fused_mlp_bwd(x, w1, b1, w2, g)
+    second = fused_mlp_bwd(x, w1, b1, w2, g)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def test_wgmma_mlp_bwd_replays_in_a_cuda_graph(gen):
+    """Captured in a CUDA graph (tensor maps as kernel parameters, the
+    weights' planes and the scratch inside the capture), each replay gives
+    the eager result bit for bit, also after new inputs are copied in; the
+    capture counts one wgmma launch and record_replay one per replay."""
+    x, w1, b1, w2, _ = _mlp_operands(gen, 4097, 512, 1024, torch.float32)
+    g = torch.randn((4097, 512), generator=gen, device="cuda")
+    args = (x, w1, b1, w2, g)
+    static = [a.clone() for a in args]
+    fused_mlp_bwd(*static)  # builds and warms up outside the capture
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    before = ops.wgmma_snapshot("fused_mlp_bwd")
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fused_mlp_bwd(*static)
+    captured = ops.wgmma_since(before, "fused_mlp_bwd")
+    assert captured == {torch.float32: 1, torch.bfloat16: 0}
+    for scale in (1.0, 0.5):
+        for dst, src in zip(static, args):
+            dst.copy_(src * scale)
+        graph.replay()
+        ops.record_replay({}, None, captured)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(out, fused_mlp_bwd(*static)))
+    assert ops.replayed_wgmma_launches(torch.float32, kernel="fused_mlp_bwd") == 2
+    assert ops.wgmma_launches(kernel="fused_mlp_bwd") == 3
+
+
+@pytest.mark.parametrize("c,hidden,dtype", [(512, 1024, torch.bfloat16),
+                                            (128, 256, torch.float32),
+                                            (128, 256, torch.bfloat16)])
+def test_mlp_bwd_keeps_mma_sync_off_the_rule(gen, c, hidden, dtype):
+    """bf16, and the segments trunk's C = 128, take the mma.sync K6: its
+    launch counts, K6's wgmma counter does not move."""
+    x, w1, b1, w2, _ = _mlp_operands(gen, 1000, c, hidden, dtype)
+    g = torch.randn((1000, c), generator=gen, device="cuda").to(dtype)
+    ops.reset_launch_counts()
+    got = fused_mlp_bwd(x, w1, b1, w2, g)
+    assert ops.launch_counts(dtype)["fused_mlp_bwd"] == 1
+    assert ops.wgmma_launches(kernel="fused_mlp_bwd") == 0
+    want = mlp_plain_bwd(x, w1, b1, w2, g)
+    for name, a, r in zip(("dx", "dw1", "db1", "dw2", "db2"), got, want):
+        assert _max_err(a, r) <= _grad_tol(r, dtype, relative=True), name
 
 
 def test_backward_kernels_refuse_what_they_do_not_take(gen):

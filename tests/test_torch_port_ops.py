@@ -32,14 +32,17 @@ from manipose_tpu_torch.ops.cuda_attention import (
     split_heads,
 )
 from manipose_tpu_torch.ops import cuda_mlp
+from manipose_tpu_torch.ops.probes import run_probes
 from manipose_tpu_torch.ops.cuda_mlp import (
     fused_mlp,
+    fused_mlp_bwd,
     mlp_forward,
     mlp_plain,
     mlp_plain_bwd,
     padded_widths,
     round_to_tf32,
     takes_wgmma,
+    wgmma_wgrad_splits,
 )
 
 # the shapes of tests/test_pallas_attention.py: (batch, heads, N, d)
@@ -363,11 +366,19 @@ class _FakeMlpLibrary:
         self.calls.append("wgmma")
         return 0
 
+    def mp_fused_mlp_bwd(self, *args):
+        self.calls.append("bwd mma.sync")
+        return 0
+
+    def mp_fused_mlp_bwd_sm90(self, *args):
+        self.calls.append("bwd wgmma")
+        return 0
+
 
 @pytest.fixture
 def fake_card(monkeypatch):
-    """mlp_forward on CPU tensors as if they lay on a card: the launch goes
-    to a fake library."""
+    """mlp_forward and fused_mlp_bwd on CPU tensors as if they lay on a
+    card: the launch goes to a fake library."""
     lib = _FakeMlpLibrary()
     monkeypatch.setattr(cuda_mlp, "_plain_or_raise", lambda x: False)
     monkeypatch.setattr(cuda_mlp, "_check", lambda *args: None)
@@ -412,6 +423,87 @@ def test_k5_wgmma_counter_replays_and_resets(fake_card):
     assert ops.replayed_counts()["fused_mlp"] == 0  # the replayed launches it was given
     ops.reset_launch_counts()
     assert ops.wgmma_launches() == ops.replayed_wgmma_launches() == 0
+
+
+# ---- K6's two paths: the same rule as K5's, and their count ---------------
+
+def _bwd_launch(m, c, h, dtype):
+    x = torch.zeros((m, c), dtype=dtype)
+    fused_mlp_bwd(x, torch.zeros((h, c), dtype=dtype), torch.zeros(h, dtype=dtype),
+                  torch.zeros((c, h), dtype=dtype), torch.zeros((m, c), dtype=dtype))
+
+
+@pytest.mark.parametrize("dtype,c,h,wgmma", [
+    (torch.float32, 512, 1024, True),  # the rotations trunk
+    (torch.float32, 512, 128, True),
+    (torch.float32, 512, 2048, True),
+    (torch.float32, 512, 960, False),  # H not a multiple of 128
+    (torch.float32, 128, 256, False),  # the segments trunk
+    (torch.float32, 256, 512, False),
+    (torch.bfloat16, 512, 1024, False),
+])
+def test_k6_path_rule(fake_card, dtype, c, h, wgmma):
+    """K6 takes wgmma exactly where K5 does: by the operands' dtype, C and
+    H; each launch counts in LAUNCHES["fused_mlp_bwd"], those on wgmma in
+    K6's own counter too, and K5's counter does not move."""
+    _bwd_launch(100, c, h, dtype)
+    assert fake_card.calls == ["bwd wgmma" if wgmma else "bwd mma.sync"]
+    assert takes_wgmma(dtype, c, h) is wgmma
+    assert ops.launch_counts(dtype)["fused_mlp_bwd"] == 1
+    assert ops.wgmma_launches(dtype, kernel="fused_mlp_bwd") == int(wgmma)
+    assert ops.wgmma_launches() == 0
+
+
+def test_k6_wgmma_counter_starts_at_zero_replays_and_resets(fake_card):
+    """K6's wgmma counter starts at zero, counts by dtype beside K5's, adds
+    a graph replay's captured launches to its replayed count, and the
+    reset clears both; ops.wgmma_launches keeps counting K5 alone."""
+    assert ops.wgmma_launches(kernel="fused_mlp_bwd") == 0
+    assert ops.replayed_wgmma_launches(kernel="fused_mlp_bwd") == 0
+    before, before_bwd = ops.wgmma_snapshot(), ops.wgmma_snapshot("fused_mlp_bwd")
+    _bwd_launch(64, 512, 1024, torch.float32)
+    _bwd_launch(64, 512, 1024, torch.float32)
+    _bwd_launch(64, 512, 1024, torch.bfloat16)
+    assert ops.wgmma_launches() == 0 and ops.wgmma_since(before) == {
+        torch.float32: 0, torch.bfloat16: 0}
+    captured = ops.wgmma_since(before_bwd, "fused_mlp_bwd")
+    assert captured == {torch.float32: 2, torch.bfloat16: 0}
+    assert ops.wgmma_launches(torch.float32, kernel="fused_mlp_bwd") == 2
+    ops.record_replay({}, ops.wgmma_since(before), captured)
+    assert ops.replayed_wgmma_launches(kernel="fused_mlp_bwd") == 2
+    assert ops.replayed_wgmma_launches() == 0
+    ops.reset_launch_counts()
+    assert ops.wgmma_launches(kernel="fused_mlp_bwd") == 0
+    assert ops.replayed_wgmma_launches(kernel="fused_mlp_bwd") == 0
+
+
+@pytest.mark.parametrize("m", [1, 64, 1000, 11475, 66096, 132192])
+@pytest.mark.parametrize("h", [512, 1024, 2048])
+def test_k6_wgmma_wgrad_splits(m, h):
+    """The slices of M K6's wgmma path sums dW over: fixed by the shapes,
+    at least one and at most one a 64-row tile, and about 128 work items
+    (one round of an H100's SMs) of 256 x 128 tiles of dW1^T and dW2 at
+    the trunk's row counts."""
+    s = wgmma_wgrad_splits(m, 512, h)
+    assert s == wgmma_wgrad_splits(m, 512, h)
+    assert 1 <= s <= -(-m // 64)
+    items = 2 * 2 * (h // 128) * s
+    assert items <= 128
+    if m >= 11475:
+        assert items == 128
+
+
+@pytest.mark.parametrize("group", ["MLP_ABLATIONS", "WGMMA_ABLATIONS", "K6_WGMMA_ABLATIONS",
+                                   "ATTENTION_VARIANTS", "PACKED_VARIANTS"])
+def test_probe_patch_points_are_in_the_sources(group):
+    """run_probes patches copies of the kernels' sources by text: every
+    patch point of every variant is in the sources as often as the variant
+    replaces it (a kernel rewritten without its patches fails here, not in
+    a call to the card)."""
+    for name, patches in getattr(run_probes, group).items():
+        for file, text, _, count in patches:
+            if text is not None:  # None: a probe source the variant includes
+                assert (build.CSRC / file).read_text().count(text) >= count, (name, file)
 
 
 # ---- shapes the kernels are not built for: zero-padded up ----------------
