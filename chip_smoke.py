@@ -302,7 +302,7 @@ package. Phases, each fatal on failure:
               weights, its fusions drawn away from 1/2: ``predict_video``
               with flip TTA on DSTFORMER_WINDOWS windows, then one AdamW
               step of the fine-tuning loss at that batch; K1-K6 and the
-              fusion kernels (``cuda_fusion.LAUNCHES``, zeroed before each)
+              fusion kernels (in ``ops.launch_counts()`` beside K1-K6)
               launched as the depths and streams say, five ``model.fuse``
               spans a forward of B*F*J rows, poses, losses and every
               gradient finite; frames/s and sequences/s.
@@ -571,35 +571,16 @@ EXPORT_TOL = 1e-5
 # predictor of that batch, SERVE_WARM untimed, then SERVE_REQUESTS timed
 SERVE_WINDOWS, SERVE_WARM, SERVE_REQUESTS = 4, 2, 10
 
-ATTENTION_CU = "manipose_tpu_torch/ops/csrc/attention.cu"
-MLP_CU = "manipose_tpu_torch/ops/csrc/mlp.cu"
-FUSION_CU = "manipose_tpu_torch/ops/csrc/fusion.cu"
-KERNELS = {
-    "attention_dense": dict(
-        source=ATTENTION_CU, replaces="manipose_tpu/ops/pallas_attention.py:97",
-    ),
-    "attention_dense_bwd": dict(
-        source=ATTENTION_CU, replaces="manipose_tpu/ops/pallas_attention.py:119",
-    ),
-    "attention_packed": dict(
-        source=ATTENTION_CU, replaces="manipose_tpu/ops/pallas_attention.py:224",
-    ),
-    "attention_packed_bwd": dict(
-        source=ATTENTION_CU, replaces="manipose_tpu/ops/pallas_attention.py:248",
-    ),
-    "fused_mlp": dict(
-        source=MLP_CU, replaces="manipose_tpu/ops/pallas_mlp.py:95",
-    ),
-    "fused_mlp_bwd": dict(
-        source=MLP_CU, replaces="manipose_tpu/ops/pallas_mlp.py:172",
-    ),
-}
-# the DSTformer's stream fusion kernels, beyond the JAX package (which has
-# no DSTformer, so they replace no TPU kernel); their launches count in
-# cuda_fusion.LAUNCHES, not in ops.launch_counts()
-FUSION_KERNELS = {
-    "stream_fusion": dict(source=FUSION_CU, replaces=None),
-    "stream_fusion_bwd": dict(source=FUSION_CU, replaces=None),
+# the TPU kernel each of K1-K6 replaces; the DSTformer's stream fusion
+# kernels replace none (the JAX package has no DSTformer). Each kernel's
+# library, paths and device kernels are ``ops.launches.KERNELS``.
+REPLACES = {
+    "attention_dense": "manipose_tpu/ops/pallas_attention.py:97",
+    "attention_dense_bwd": "manipose_tpu/ops/pallas_attention.py:119",
+    "attention_packed": "manipose_tpu/ops/pallas_attention.py:224",
+    "attention_packed_bwd": "manipose_tpu/ops/pallas_attention.py:248",
+    "fused_mlp": "manipose_tpu/ops/pallas_mlp.py:95",
+    "fused_mlp_bwd": "manipose_tpu/ops/pallas_mlp.py:172",
 }
 # the fusion at the benchmark's mb-h36m-train-b32 shape: 32 windows of 243
 # frames x 17 joints, C = 512, fp32. Tolerances against the plain version on
@@ -620,21 +601,15 @@ DSTFORMER_FUSIONS_PER_FORWARD = 5
 DSTFORMER_WINDOWS = 4
 DSTFORMER_LR = 5e-4  # configs/train/motionbert_ft.yaml
 
-# the device kernels (as compiled) that each wrapper launches
-DEVICE_KERNELS = {
-    "attention_dense": ("attention_dense_kernel",),
-    "attention_dense_bwd": ("attention_dense_bwd_dq_kernel",
-                            "attention_dense_bwd_dkv_kernel"),
-    "attention_packed": ("attention_packed_kernel",),
-    "attention_packed_bwd": ("attention_packed_bwd_kernel",),
-    "fused_mlp": ("fused_mlp_kernel", "fused_mlp_kernel_sm90", "fused_mlp_kernel_split"),
-    "fused_mlp_bwd": ("fused_mlp_bwd_rows_kernel", "fused_mlp_bwd_gemm_kernel",
-                      "fused_mlp_bwd_reduce_kernel", "fused_mlp_bwd_rows_kernel_split",
-                      "fused_mlp_bwd_rows_kernel_sm90", "fused_mlp_bwd_gemm_kernel_dx",
-                      "fused_mlp_bwd_gemm_kernel_dw", "fused_mlp_bwd_reduce_kernel_sm90"),
-    "stream_fusion": ("stream_fusion_kernel",),
-    "stream_fusion_bwd": ("stream_fusion_bwd_rows_kernel", "stream_fusion_bwd_reduce_kernel"),
-}
+def kernel_table() -> dict:
+    """{kernel: dict(source, replaces, device kernels of all its paths)}
+    from the port's inventory."""
+    from manipose_tpu_torch.ops import launches
+
+    return {name: dict(source=f"manipose_tpu_torch/ops/csrc/{k['library']}.cu",
+                       replaces=REPLACES.get(name),
+                       device=tuple(d for ds in k["paths"].values() for d in ds))
+            for name, k in launches.KERNELS.items()}
 
 
 def require(cond: bool, what: str) -> None:
@@ -710,8 +685,8 @@ def phase_build(build) -> None:
               f"({', '.join(f'{k} {v}' for k, v in total.items())})", flush=True)
         if name != "fusion":
             require(sum(total.values()) > 0, f"the {name} kernels run on the tensor cores")
-        for ours, device_names in DEVICE_KERNELS.items():
-            for device_name in device_names:
+        for ours, meta in kernel_table().items():
+            for device_name in meta["device"]:
                 found = [c for f, c in by_function.items() if re.search(
                     rf"\d{device_name}[IE]", f)]
                 if not found:
@@ -954,7 +929,7 @@ def phase_kernels():
     gen = torch.Generator(device="cuda").manual_seed(0)
     b, l, j, s = TRAIN_BATCH, 243, 17, 16
     b3, l3 = DHP3_BATCH, DHP3_SEQ_LEN
-    cases = {name: [] for name in KERNELS}
+    cases = {name: [] for name in REPLACES}
     for dtype in (torch.float32, torch.bfloat16):
         for kind in ("attention_dense", "attention_dense_bwd"):
             case = attention_case if kind == "attention_dense" else attention_bwd_case
@@ -995,29 +970,6 @@ def phase_kernels():
     return cases
 
 
-def k5_launch(path: str, x, w1, b1, w2, b2) -> torch.Tensor:
-    """K5 in fp32 on the named one of its two kernels ("wgmma" or
-    "mma.sync"), whatever ``cuda_mlp.takes_wgmma`` would pick."""
-    from manipose_tpu_torch.ops import build
-
-    m, c = x.shape
-    h = w1.shape[0]
-    out = torch.empty_like(x)
-    lib = build.load("mlp")
-    stream = torch.cuda.current_stream().cuda_stream
-    args = (x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
-            out.data_ptr())
-    if path == "wgmma":
-        w1p = torch.empty((2 * h, c), device=x.device)
-        w2p = torch.empty((2 * c, h), device=x.device)
-        err = lib.mp_fused_mlp_sm90(*args, w1p.data_ptr(), w2p.data_ptr(), m, h,
-                                    x.device.index, stream)
-    else:
-        err = lib.mp_fused_mlp(*args, 0, m, c, h, x.device.index, stream)
-    build.check(lib, err, f"K5 on {path}")
-    return out
-
-
 def phase_k5_paths() -> list:
     """K5's two fp32 kernels at the rotations trunk's widths: the path rule,
     both kernels' times at K5_PATH_ROWS beside the bound, and their errors
@@ -1042,16 +994,15 @@ def phase_k5_paths() -> list:
             row["bound_ms"], row["bound_by"] = bound_ms((2 * m * c + 2 * c * h + h + c) * 4,
                                                         flops, torch.float32)
             for path in (picked, other):
-                ms = time_ms(lambda: k5_launch(path, x, w1, b1, w2, b2))
+                ms = time_ms(lambda: cm.K5_LAUNCHERS[path](x, w1, b1, w2, b2))
                 row[f"{path}_ms"], row[f"{path}_tflops"] = ms, flops / ms * 1e-9
             require(row[f"{picked}_ms"] <= row[f"{other}_ms"],
                     f"K5 M={m}: the picked kernel is no slower ({row})")
         if m in K5_ACCURACY_ROWS:
             ref = F.linear(F.gelu(F.linear(x.double(), w1.double(), b1.double())),
                            w2.double(), b2.double())
-            first = k5_launch("wgmma", x, w1, b1, w2, b2)
-            again = k5_launch("wgmma", x, w1, b1, w2, b2)
-            old = k5_launch("mma.sync", x, w1, b1, w2, b2)
+            first, again, old = (cm.K5_LAUNCHERS[path](x, w1, b1, w2, b2)
+                                 for path in ("wgmma", "wgmma", "mma.sync"))
             torch.cuda.synchronize()
             row["wgmma_err"] = (first.double() - ref).abs().max().item()
             row["mma.sync_err"] = (old.double() - ref).abs().max().item()
@@ -1070,46 +1021,13 @@ def phase_k5_paths() -> list:
     cm.fused_mlp(x, w1, b1, w2, b2)
     cm.fused_mlp(*(a.to(torch.bfloat16) for a in (x, w1, b1, w2, b2)))
     torch.cuda.synchronize()
-    require(ops.wgmma_launches() == 1 and ops.wgmma_launches(torch.float32) == 1
+    on_wgmma = ops.launch_counts(path="wgmma")
+    require(on_wgmma["fused_mlp"] == ops.launch_counts(torch.float32, "wgmma")["fused_mlp"] == 1
             and ops.launch_counts()["fused_mlp"] == 2,
-            f"K5's wgmma launches counted ({ops.wgmma_launches()})")
+            f"K5's wgmma launches counted ({on_wgmma})")
     ops.reset_launch_counts()
     torch.cuda.empty_cache()
     return rows
-
-
-def k6_launch(path: str, x, w1, b1, w2, g) -> tuple:
-    """K6 in fp32 on the named one of its two paths ("wgmma" or
-    "mma.sync"), whatever ``cuda_mlp.takes_wgmma`` would pick.
-    -> (dx, dw1, db1, dw2, db2)."""
-    from manipose_tpu_torch.ops import build
-    from manipose_tpu_torch.ops import cuda_mlp as cm
-
-    m, c = x.shape
-    h = w1.shape[0]
-    dx = torch.empty_like(x)
-    grads = torch.empty((2 * h * c + h + c,), device=x.device)
-    lib = build.load("mlp")
-    stream = torch.cuda.current_stream().cuda_stream
-    args = (x.data_ptr(), g.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
-            dx.data_ptr())
-    if path == "wgmma":
-        scratch, s = cm.wgmma_bwd_scratch(m, c, h, x.device)
-        err = lib.mp_fused_mlp_bwd_sm90(*args, *(t.data_ptr() for t in scratch),
-                                        grads.data_ptr(), m, h, s, x.device.index, stream)
-    else:
-        s = cm.wgrad_splits(m, c, h)
-        blocks = -(-m // cm.ROW_TILE)
-        da = torch.empty((m, h), device=x.device)
-        hh = torch.empty((m, h), device=x.device)
-        colsum = torch.empty((blocks, 2 * h + c), device=x.device)
-        part = torch.empty((s, 2 * h * c), device=x.device)
-        err = lib.mp_fused_mlp_bwd(*args, da.data_ptr(), hh.data_ptr(), colsum.data_ptr(),
-                                   part.data_ptr(), grads.data_ptr(), 0, m, c, h, s,
-                                   x.device.index, stream)
-    build.check(lib, err, f"K6 on {path}")
-    dw1, db1, dw2, db2 = torch.split(grads, [h * c, h, c * h, c])
-    return dx, dw1.view(h, c), db1, dw2.view(c, h), db2
 
 
 def phase_k6_paths() -> list:
@@ -1135,7 +1053,7 @@ def phase_k6_paths() -> list:
         row["bound_ms"], row["bound_by"] = bound_ms((3 * m * c + 4 * c * h + 2 * h + c) * 4,
                                                     flops, torch.float32)
         for path in (picked, other):
-            ms = time_ms(lambda: k6_launch(path, x, w1, b1, w2, g))
+            ms = time_ms(lambda: cm.K6_LAUNCHERS[path](x, w1, b1, w2, g))
             row[f"{path}_ms"], row[f"{path}_tflops"] = ms, flops / ms * 1e-9
         require(row[f"{picked}_ms"] <= row[f"{other}_ms"],
                 f"K6 M={m}: the picked path is no slower ({row})")
@@ -1145,9 +1063,8 @@ def phase_k6_paths() -> list:
         row["library_ms"] = median_ms(lambda: torch.autograd.grad(
             lib_out, leaves, g, retain_graph=True))
         del leaves, lib_out
-        first = k6_launch(picked, x, w1, b1, w2, g)
-        again = k6_launch(picked, x, w1, b1, w2, g)
-        old = k6_launch(other, x, w1, b1, w2, g)
+        first, again, old = (cm.K6_LAUNCHERS[path](x, w1, b1, w2, g)
+                             for path in (picked, picked, other))
         ref = cm.mlp_plain_bwd(*(t.double() for t in (x, w1, b1, w2, g)))
         torch.cuda.synchronize()
         for name, a, b, o, r in zip(names, first, again, old, ref):
@@ -1173,10 +1090,11 @@ def phase_k6_paths() -> list:
     cm.fused_mlp_bwd(x, w1, b1, w2, g)
     cm.fused_mlp_bwd(*(a.to(torch.bfloat16) for a in (x, w1, b1, w2, g)))
     torch.cuda.synchronize()
-    require(ops.wgmma_launches(torch.float32, kernel="fused_mlp_bwd") == 1
-            and ops.wgmma_launches(kernel="fused_mlp_bwd") == 1
-            and ops.wgmma_launches() == 0 and ops.launch_counts()["fused_mlp_bwd"] == 2,
-            f"K6's wgmma launches counted ({ops.wgmma_launches(kernel='fused_mlp_bwd')})")
+    on_wgmma = ops.launch_counts(path="wgmma")
+    require(ops.launch_counts(torch.float32, "wgmma")["fused_mlp_bwd"] == 1
+            and on_wgmma["fused_mlp_bwd"] == 1 and on_wgmma["fused_mlp"] == 0
+            and ops.launch_counts()["fused_mlp_bwd"] == 2,
+            f"K6's wgmma launches counted ({on_wgmma})")
     ops.reset_launch_counts()
     torch.cuda.empty_cache()
     return rows
@@ -1290,27 +1208,26 @@ def bone_lengths(poses: np.ndarray, parents) -> np.ndarray:
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
-def require_counts(dtype: str, want: dict, what: str, wgmma=None, wgmma_bwd=None) -> dict:
-    """The launches since the last reset: ``want`` for each kernel, all of
-    them on ``dtype`` operands, and ``wgmma`` of K5's and ``wgmma_bwd`` of
-    K6's on wgmma where given. Returns the counts."""
+def require_counts(dtype: str, want: dict, what: str) -> dict:
+    """The launches since the last reset, all on ``dtype`` operands: of each
+    kernel ``want[kernel]`` (0 where not given), and ``want[kernel, path]``
+    on each path given. Returns the counts by kernel."""
     from manipose_tpu_torch import ops
 
     counts = ops.launch_counts()
     on_dtype = ops.launch_counts(DTYPES[dtype])
-    k6_wgmma = ops.wgmma_launches(kernel="fused_mlp_bwd")
-    print(f"{what} launches {counts} ({dtype} operands: {on_dtype}; K5 on wgmma "
-          f"{ops.wgmma_launches()}, K6 on wgmma {k6_wgmma})")
-    if wgmma is not None:
-        require(ops.wgmma_launches() == wgmma,
-                f"{what}: K5 on wgmma {ops.wgmma_launches()} times, want {wgmma}")
-    if wgmma_bwd is not None:
-        require(k6_wgmma == wgmma_bwd, f"{what}: K6 on wgmma {k6_wgmma} times, want {wgmma_bwd}")
-    for name in LAUNCHES_PER_TRAIN_STEP:
+    print(f"{what} launches {counts} ({dtype} operands: {on_dtype}; on wgmma: "
+          f"{ops.launch_counts(path='wgmma')})")
+    for name in counts:
         n = want.get(name, 0)
         require(counts[name] == n, f"{what}: {name} launched {counts[name]}, want {n}")
         require(on_dtype[name] == n, f"{what}: {name} launched {on_dtype[name]} "
                                      f"times on {dtype} operands, want {n}")
+    for key, n in want.items():
+        if isinstance(key, tuple):
+            name, path = key
+            got = ops.launch_counts(path=path)[name]
+            require(got == n, f"{what}: {name} on {path} {got} times, want {n}")
     return counts
 
 
@@ -1331,9 +1248,9 @@ def phase_flagship(dtype: str = "float32"):
     poses, hyps, scores = predictor.predict_video(video, return_hypotheses=True)
     n_batches = -(-n_windows // predictor.batch_size)
     counts = require_counts(
-        dtype, {k: 2 * n * n_batches for k, n in LAUNCHES_PER_FORWARD.items()},
-        f"flagship {dtype} serving ({n_batches} window batch(es))",
-        wgmma=2 * WGMMA_PER_FORWARD[dtype] * n_batches)
+        dtype, {**{k: 2 * n * n_batches for k, n in LAUNCHES_PER_FORWARD.items()},
+                ("fused_mlp", "wgmma"): 2 * WGMMA_PER_FORWARD[dtype] * n_batches},
+        f"flagship {dtype} serving ({n_batches} window batch(es))")
 
     n_hyp = cfg.multi_hyp.n_hyp
     require(poses.shape == (n_windows * l, 17, 3), f"poses shape {poses.shape}")
@@ -1480,9 +1397,10 @@ def phase_train(dtype: str = "float32"):
     ops.reset_launch_counts()
     history = [step(state, x, y, TRAIN_LR)]
     torch.cuda.synchronize()
-    counts = require_counts(dtype, LAUNCHES_PER_TRAIN_STEP, f"{dtype} train step",
-                            wgmma=WGMMA_PER_FORWARD[dtype],
-                            wgmma_bwd=WGMMA_PER_FORWARD[dtype])
+    counts = require_counts(dtype, {**LAUNCHES_PER_TRAIN_STEP,
+                                    ("fused_mlp", "wgmma"): WGMMA_PER_FORWARD[dtype],
+                                    ("fused_mlp_bwd", "wgmma"): WGMMA_PER_FORWARD[dtype]},
+                            f"{dtype} train step")
     n_params = 0
     for name, p in state.model.named_parameters():
         require(p.grad is not None, f"{name} got no gradient")
@@ -1960,7 +1878,7 @@ def phase_train_driver(dtype: str, data_dir: Path):
                               // TRAIN_BATCH)
     print(f"train driver {dtype} launches {counts} ({dtype} operands: {on_dtype}); "
           f"{steps} train steps")
-    for name in KERNELS:
+    for name in REPLACES:
         require(counts[name] > 0, f"train driver {dtype}: {name} launched")
         require(on_dtype[name] == counts[name],
                 f"train driver {dtype}: {name} launched {counts[name] - on_dtype[name]} "
@@ -2207,7 +2125,7 @@ def phase_dhp3_driver(dtype: str, data_dir: Path):
     counts, on_dtype = ops.launch_counts(), ops.launch_counts(DTYPES[dtype])
     print(f"3dhp driver {dtype} launches {counts} ({dtype} operands: {on_dtype}); "
           f"{steps} train steps of {DHP3_BATCH} windows of {DHP3_SEQ_LEN} frames")
-    for name in KERNELS:
+    for name in REPLACES:
         if name not in DHP3_LAUNCHES_PER_TRAIN_STEP:
             require(counts[name] == 0, f"3dhp driver {dtype}: {name} launched "
                                        f"{counts[name]} times at L = {DHP3_SEQ_LEN}")
@@ -2423,7 +2341,7 @@ def phase_stream():
             f"stream(stride={l}, lookahead=0) against predict_video: {err} > {tol}")
     print(f"stream: stride {l}, lookahead 0 against predict_video (flagship fp32, "
           f"{len(video)} frames): max err {err:.3g} (tol {tol:.3g})", flush=True)
-    counts = {name: 0 for name in KERNELS}
+    counts = dict.fromkeys(ops.launch_counts(), 0)
     for model in ("h36m", "3dhp"):
         for dtype in ("float32", "bfloat16"):
             pred = stream_predictor(model, dtype)
@@ -2780,8 +2698,8 @@ def phase_profile_l27(dtype: str) -> None:
 
 def kernel_group(name: str) -> str:
     """Coarse class of a device kernel, by its (mangled) name."""
-    for ours, device_names in DEVICE_KERNELS.items():
-        if any(n in name for n in device_names):
+    for ours, meta in kernel_table().items():
+        if any(n in name for n in meta["device"]):
             return ours
     low = name.lower()
     # nvjet_*: cuBLAS's own GEMM kernels, which it picks for bf16 on Hopper
@@ -3195,7 +3113,7 @@ def phase_megastep(label: str, overrides, batch: int, seq_len: int, k: int, call
     # the launches the capture recorded (the wrappers counted them there;
     # the warm-up step before it launched one step's worth eagerly)
     (graph,) = multi.graphs.values()
-    captured = {n: sum(by_dtype.values()) for n, by_dtype in graph.launches.items()}
+    captured = ops.by_kernel(graph.launches)
     require(torch.equal(state2.generator.get_state(), want_gen),
             f"{label}: the generator advanced as {k} single steps advance it")
     for key, v in got.items():
@@ -3212,7 +3130,7 @@ def phase_megastep(label: str, overrides, batch: int, seq_len: int, k: int, call
     torch.cuda.synchronize()
     require(not torch.equal(again["loss"], got["loss"]), f"{label}: new masks every replay")
     replayed = ops.replayed_counts()
-    require(ops.GRAPH_REPLAYS["replays"] == 2 and all(
+    require(ops.graph_replays() == 2 and all(
         replayed[n] == 2 * c for n, c in captured.items()),
         f"{label}: replayed launches {replayed} = 2 x captured {captured}")
     require(all(captured[n] > 0 for n in captured if n in LAUNCHES_PER_TRAIN_STEP
@@ -3267,7 +3185,7 @@ def phase_dhp3_megastep(data_dir: Path, single_epochs) -> None:
     ops.reset_launch_counts()
     dhp3.main(cfg, logger=logger)
     torch.cuda.synchronize()
-    replays = ops.GRAPH_REPLAYS["replays"]
+    replays = ops.graph_replays()
     require(replays > 0, "3dhp megastep driver: no graph replayed")
     losses = np.load(run_dir(cfg) / "train_loss.npy")
     require(losses.shape == (DRIVER_EPOCHS,) and bool(np.isfinite(losses).all()),
@@ -3825,7 +3743,7 @@ def phase_rank_drivers(world: int, scratch: Path) -> dict:
         torch.cuda.synchronize()
         main_s = time.perf_counter() - t0
         counts[label] = ops.launch_counts()
-        for name in KERNELS:
+        for name in REPLACES:
             if not (label == "ring" and name.startswith("attention_dense")):
                 require(counts[label][name] > 0, f"driver {label}: {name} launched")
         require(best is not None and bool(np.isfinite(best)), f"driver {label}: best {best}")
@@ -4500,14 +4418,11 @@ def phase_fast(out_dir: Path, serve_fps: float, blocked_seq_s: float) -> dict:
 
 
 def phase_dstformer() -> dict:
-    """Phase 51. Returns {path: launch counts}, K1-K6's from
-    ``ops.launch_counts()`` and the fusion kernels' from
-    ``cuda_fusion.LAUNCHES``."""
+    """Phase 51. Returns {path: launch counts}."""
     from manipose_tpu_torch import ops
     from manipose_tpu_torch.config import load_config
     from manipose_tpu_torch.drivers import instantiate_model
     from manipose_tpu_torch.geometry import h36m_skeleton_17
-    from manipose_tpu_torch.ops import cuda_fusion
     from manipose_tpu_torch.serving import Predictor
     from manipose_tpu_torch.train import LossConfig, TrainState, make_train_step
     from manipose_tpu_torch.train.optim import optimizer_from_config
@@ -4530,27 +4445,19 @@ def phase_dstformer() -> dict:
     del model
     fusions = DSTFORMER_FUSIONS_PER_FORWARD
 
-    def fusion_counts(want: dict, what: str) -> dict:
-        got = dict(cuda_fusion.LAUNCHES)
-        require(got == want, f"{what}: fusion kernels launched {got}, want {want}")
-        return got
-
     counts = {}
     l, b = cfg.data.seq_len, DSTFORMER_WINDOWS
     predictor = Predictor(cfg=cfg, state_dict=weights, batch_size=b, tta=True)
     video = np.random.default_rng(0).normal(size=(b * l, 17, 2)).astype(np.float32)
     predictor.predict_video(video)  # warm-up
     ops.reset_launch_counts()
-    cuda_fusion.LAUNCHES.update(stream_fusion=0, stream_fusion_bwd=0)
     profiling.reset()
     poses = predictor.predict_video(video)
     torch.cuda.synchronize()
-    counts["serve_dstformer"] = {
-        **require_counts("float32", {k: 2 * n for k, n in
-                                     DSTFORMER_LAUNCHES_PER_FORWARD.items()},
-                         f"DSTformer fp32 serving (1 batch of {b} windows, TTA)"),
-        **fusion_counts({"stream_fusion": 2 * fusions, "stream_fusion_bwd": 0},
-                        "DSTformer serving")}
+    counts["serve_dstformer"] = require_counts(
+        "float32", {**{k: 2 * n for k, n in DSTFORMER_LAUNCHES_PER_FORWARD.items()},
+                    "stream_fusion": 2 * fusions},
+        f"DSTformer fp32 serving (1 batch of {b} windows, TTA)")
     spans = [sp for sp in profiling.spans() if sp.name == "model.fuse"]
     require(len(spans) == 2 * fusions and all(sp.counts == {"rows": b * l * 17}
                                               for sp in spans),
@@ -4578,17 +4485,15 @@ def phase_dstformer() -> dict:
     x = torch.from_numpy(rng.normal(size=(b, l, 17, 2)).astype(np.float32)).cuda()
     y = torch.from_numpy((0.3 * rng.normal(size=(b, l, 17, 3))).astype(np.float32)).cuda()
     ops.reset_launch_counts()
-    cuda_fusion.LAUNCHES.update(stream_fusion=0, stream_fusion_bwd=0)
     history = [step(state, x, y, DSTFORMER_LR)]
     torch.cuda.synchronize()
     per_forward = DSTFORMER_LAUNCHES_PER_FORWARD
-    counts["train_step_dstformer"] = {
-        **require_counts("float32", {**per_forward,
-                                     **{k + "_bwd": n for k, n in per_forward.items()}},
-                         f"DSTformer fp32 train step (B={b})",
-                         wgmma=per_forward["fused_mlp"], wgmma_bwd=per_forward["fused_mlp"]),
-        **fusion_counts({"stream_fusion": fusions, "stream_fusion_bwd": fusions},
-                        "DSTformer train step")}
+    counts["train_step_dstformer"] = require_counts(
+        "float32", {**per_forward, **{k + "_bwd": n for k, n in per_forward.items()},
+                    ("fused_mlp", "wgmma"): per_forward["fused_mlp"],
+                    ("fused_mlp_bwd", "wgmma"): per_forward["fused_mlp"],
+                    "stream_fusion": fusions, "stream_fusion_bwd": fusions},
+        f"DSTformer fp32 train step (B={b})")
     for name, p in state.model.named_parameters():
         require(p.grad is not None and bool(torch.isfinite(p.grad).all()),
                 f"DSTformer {name}'s gradient is finite")
@@ -4959,8 +4864,9 @@ def main() -> int:
     print(f"dstformer phase: {time.perf_counter() - t0:.1f} s; total "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
 
-    kernels = []
-    for name, meta in KERNELS.items():
+    kernels, table = [], kernel_table()
+    for name in REPLACES:
+        meta = table[name]
         # this slice's main path is the bf16 training driver, which runs all
         # six kernels: each kernel's headline case is the rotations trunk in
         # bf16, its launches those of that run
@@ -5011,10 +4917,10 @@ def main() -> int:
             **({"paths": {"fused_mlp": k5_paths, "fused_mlp_bwd": k6_paths}[name]}
                if name in ("fused_mlp", "fused_mlp_bwd") else {}),
         ))
-    for name, meta in FUSION_KERNELS.items():  # the DSTformer's, in fp32 only
+    for name in (n for n in table if n not in REPLACES):  # the DSTformer's, in fp32 only
         head = fusion_cases[name][0]
         kernels.append(dict(
-            name=name, route="cuda", **meta,
+            name=name, route="cuda", **table[name],
             launches=dst_counts["train_step_dstformer"][name],
             launches_by_path={path: c[name] for path, c in dst_counts.items()},
             max_abs_err=head["max_abs_err"], ms=head["ms"], plain_ms=head["plain_ms"],

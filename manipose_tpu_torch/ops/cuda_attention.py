@@ -1,5 +1,5 @@
 """Attention kernels K1/K2 (dense) and K3/K4 (per-window, tiny N):
-wrappers, plain PyTorch versions, autograd Functions and launch counters.
+wrappers, plain PyTorch versions and autograd Functions.
 
 ``attention_dense`` replaces ``manipose_tpu/ops/pallas_attention.py::
 flash_attention`` (temporal layout, N = 243 frames) and
@@ -43,7 +43,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from . import build
+from . import build, launches
 
 KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # head dims the kernels are built for (8 is model=small's: 64 channels, 8
@@ -51,12 +51,15 @@ KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (8, 16, 32, 64)
 PACKED_MAX_N = 32
 
-# launches per kernel and operand dtype; reset by ``ops.reset_launch_counts``
-LAUNCHES = {name: dict.fromkeys(KERNEL_DTYPES, 0)
-            for name in ("attention_dense", "attention_packed",
-                         "attention_dense_bwd", "attention_packed_bwd")}
-# launches made by CUDA-graph replays (``ops.record_replay``), likewise
-REPLAYED = {name: dict.fromkeys(KERNEL_DTYPES, 0) for name in LAUNCHES}
+# every kernel here runs on mma.sync
+PATH = "mma.sync"
+launches.register("attention", {
+    "attention_dense": {PATH: ("attention_dense_kernel",)},
+    "attention_dense_bwd": {PATH: ("attention_dense_bwd_dq_kernel",
+                                   "attention_dense_bwd_dkv_kernel")},
+    "attention_packed": {PATH: ("attention_packed_kernel",)},
+    "attention_packed_bwd": {PATH: ("attention_packed_bwd_kernel",)},
+})
 
 
 def attention_plain(q, k, v, scale: float) -> torch.Tensor:
@@ -223,7 +226,7 @@ def attention_dense(q, k, v, scale: float, lse=None) -> torch.Tensor:
         b, h, n, d, *_strides(q), float(scale), q.device.index, _stream(q),
     )
     build.check(lib, err, "mp_attention_dense")
-    LAUNCHES["attention_dense"][q.dtype] += 1
+    launches.count("attention_dense", PATH, q.dtype)
     return out
 
 
@@ -247,7 +250,7 @@ def attention_packed(q, k, v, scale: float) -> torch.Tensor:
         *_window_strides(out), float(scale), q.device.index, _stream(q),
     )
     build.check(lib, err, "mp_attention_packed")
-    LAUNCHES["attention_packed"][q.dtype] += 1
+    launches.count("attention_packed", PATH, q.dtype)
     return out
 
 
@@ -275,7 +278,7 @@ def attention_dense_bwd(q, k, v, out, dout, lse, scale: float) -> torch.Tensor:
         q.device.index, _stream(q),
     )
     build.check(lib, err, "mp_attention_dense_bwd")
-    LAUNCHES["attention_dense_bwd"][q.dtype] += 1
+    launches.count("attention_dense_bwd", PATH, q.dtype)
     return dqkv
 
 
@@ -319,7 +322,7 @@ def attention_packed_bwd(q, k, v, dout, scale: float) -> torch.Tensor:
         *_window_strides(dq), float(scale), q.device.index, _stream(q),
     )
     build.check(lib, err, "mp_attention_packed_bwd")
-    LAUNCHES["attention_packed_bwd"][q.dtype] += 1
+    launches.count("attention_packed_bwd", PATH, q.dtype)
     return dqkv
 
 

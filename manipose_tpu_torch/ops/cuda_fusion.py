@@ -1,5 +1,5 @@
 """The learned stream fusion of MotionBERT's DSTformer: wrappers, plain
-PyTorch versions, the autograd Function and launch counters.
+PyTorch versions and the autograd Function.
 
 At each depth the DSTformer runs two streams from the same input, x_st
 (spatial then temporal) and x_ts (temporal then spatial), and joins them
@@ -15,16 +15,15 @@ kernels replace no TPU kernel.
 The forward also writes alpha (R, 2), which the backward reads. Because
 the softmax is over two, the logits' gradients are dl0 and -dl0 with
 dl0 = a0 a1 (dx.x_st - dx.x_ts), so the backward's dW and db are a row and
-its negation. ``LAUNCHES`` counts the launches of each direction (the
-backward's two kernels count once); it is not part of
-``ops.launch_counts``, which counts K1-K6.
+its negation. A launch of either direction counts once in ``launches``
+(the backward's two kernels together), on fp32 operands.
 """
 
 from __future__ import annotations
 
 import torch
 
-from . import build
+from . import build, launches
 
 ROWS_PER_BLOCK = 8  # one warp a row, 8 warps a block (csrc/fusion.cu)
 MAX_CHANNELS = 512
@@ -34,7 +33,13 @@ MAX_CHANNELS = 512
 FORWARD_BLOCKS = 132 * 8
 BACKWARD_BLOCKS = 132 * 2
 
-LAUNCHES = {"stream_fusion": 0, "stream_fusion_bwd": 0}
+# no tensor cores: the kernels are bound by bytes
+PATH = "simt"
+launches.register("fusion", {
+    "stream_fusion": {PATH: ("stream_fusion_kernel",)},
+    "stream_fusion_bwd": {PATH: ("stream_fusion_bwd_rows_kernel",
+                                 "stream_fusion_bwd_reduce_kernel")},
+})
 
 
 def fusion_plain(x_st, x_ts, weight, bias):
@@ -110,7 +115,7 @@ def fusion_forward(x_st, x_ts, weight, bias):
                                grid_blocks(r, FORWARD_BLOCKS), x_st.device.index,
                                torch.cuda.current_stream(x_st.device).cuda_stream)
     build.check(lib, err, "mp_stream_fusion")
-    LAUNCHES["stream_fusion"] += 1
+    launches.count("stream_fusion", PATH, torch.float32)
     return out, alpha
 
 
@@ -135,7 +140,7 @@ def fusion_backward(g, x_st, x_ts, alpha, weight):
                                    part.data_ptr(), r, c, blocks, x_st.device.index,
                                    torch.cuda.current_stream(x_st.device).cuda_stream)
     build.check(lib, err, "mp_stream_fusion_bwd")
-    LAUNCHES["stream_fusion_bwd"] += 1
+    launches.count("stream_fusion_bwd", PATH, torch.float32)
     return dx_st, dx_ts, dw, db
 
 

@@ -1,5 +1,5 @@
 """Fused MLP kernels K5 (forward) and K6 (backward): wrappers, plain
-PyTorch versions, the autograd Function and launch counters.
+PyTorch versions, the autograd Function and one launcher per path.
 
 ``fused_mlp`` replaces ``manipose_tpu/ops/pallas_mlp.py::fused_mlp``:
 gelu_exact(x W1^T + b1) W2^T + b2 with fp32 accumulation and the (M, H)
@@ -15,13 +15,17 @@ trunk) runs on wgmma fed by TMA (``fused_mlp_kernel_sm90``, after
 ``fused_mlp_kernel_split`` writes the weights' tf32 planes into scratch);
 every other launch (bf16, the segments trunk's C = 128) runs the mma.sync
 kernel. The row count plays no part: on an H100 the wgmma kernel is the
-faster from one 64-row tile up (PERF.md, K5's rows). ``WGMMA_LAUNCHES``
-counts the launches that took wgmma, a part of ``LAUNCHES["fused_mlp"]``.
-K6 follows the same rule: the launches it takes run on wgmma fed by TMA
-(the rows pass ``fused_mlp_bwd_rows_kernel_sm90`` and the tile products
+faster from one 64-row tile up (PERF.md, K5's rows). K6 follows the same
+rule: the launches it takes run on wgmma fed by TMA (the rows pass
+``fused_mlp_bwd_rows_kernel_sm90`` and the tile products
 ``fused_mlp_bwd_gemm_kernel_dx`` and ``_dw``), every other launch on the
-mma.sync kernels; ``WGMMA_BWD_LAUNCHES`` counts the first, a part of
-``LAUNCHES["fused_mlp_bwd"]``.
+mma.sync kernels.
+
+Each path has one launcher (``K5_LAUNCHERS``, ``K6_LAUNCHERS``): it holds
+the path's scratch, its entry point's arguments, the error check and the
+count in ``launches`` under the path's name, and takes the loaded library
+(the built one by default), so a caller can force a path or launch an
+ablated build of the sources.
 
 ``fused_mlp`` is differentiable: when a gradient is wanted it runs
 :class:`FusedMLP`, which saves x, w1, b1 and w2 (as the JAX VJP does) and
@@ -48,7 +52,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from . import build
+from . import build, launches
 
 KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 CHANNELS = (64, 128, 256, 512)
@@ -71,18 +75,16 @@ WGMMA_ROW_TILE = 128
 WGMMA_WGRAD_TILE = (256, 128)
 WGMMA_WGRAD_ITEMS = 128
 
-# launches per kernel and operand dtype; reset by ``ops.reset_launch_counts``
-LAUNCHES = {name: dict.fromkeys(KERNEL_DTYPES, 0)
-            for name in ("fused_mlp", "fused_mlp_bwd")}
-# launches made by CUDA-graph replays (``ops.record_replay``), likewise
-REPLAYED = {name: dict.fromkeys(KERNEL_DTYPES, 0) for name in LAUNCHES}
-# the launches of K5 that took the wgmma kernel, by operand dtype, and those
-# made by graph replays
-WGMMA_LAUNCHES = dict.fromkeys(KERNEL_DTYPES, 0)
-WGMMA_REPLAYED = dict.fromkeys(KERNEL_DTYPES, 0)
-# the same for K6
-WGMMA_BWD_LAUNCHES = dict.fromkeys(KERNEL_DTYPES, 0)
-WGMMA_BWD_REPLAYED = dict.fromkeys(KERNEL_DTYPES, 0)
+launches.register("mlp", {
+    "fused_mlp": {"wgmma": ("fused_mlp_kernel_split", "fused_mlp_kernel_sm90"),
+                  "mma.sync": ("fused_mlp_kernel",)},
+    "fused_mlp_bwd": {
+        "wgmma": ("fused_mlp_bwd_rows_kernel_split", "fused_mlp_bwd_rows_kernel_sm90",
+                  "fused_mlp_bwd_gemm_kernel_dx", "fused_mlp_bwd_gemm_kernel_dw",
+                  "fused_mlp_bwd_reduce_kernel_sm90"),
+        "mma.sync": ("fused_mlp_bwd_rows_kernel", "fused_mlp_bwd_gemm_kernel",
+                     "fused_mlp_bwd_reduce_kernel")},
+})
 
 
 def mlp_plain(x, w1, b1, w2, b2) -> torch.Tensor:
@@ -179,6 +181,44 @@ def takes_wgmma(dtype: torch.dtype, c: int, h: int) -> bool:
             and h % WGMMA_HIDDEN_TILE == 0)
 
 
+def _ptrs(*ts) -> tuple:
+    return tuple(t.data_ptr() for t in ts)
+
+
+def _launch(lib, entry: str, kernel: str, path: str, x, *args) -> None:
+    """Call ``entry`` of ``lib`` (the built library when None) with
+    ``args``, the device and the stream; check it and count the launch."""
+    lib = build.load("mlp") if lib is None else lib
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    build.check(lib, getattr(lib, entry)(*args, x.device.index, stream), entry)
+    launches.count(kernel, path, x.dtype)
+
+
+def _k5_wgmma(x, w1, b1, w2, b2, lib=None) -> torch.Tensor:
+    """K5 on wgmma (fp32, C = 512); the weights' big and small tf32 planes
+    are scratch the launch writes."""
+    m, c = x.shape
+    h = w1.shape[0]
+    out = torch.empty_like(x)
+    w1p = torch.empty((2 * h, c), dtype=x.dtype, device=x.device)
+    w2p = torch.empty((2 * c, h), dtype=x.dtype, device=x.device)
+    _launch(lib, "mp_fused_mlp_sm90", "fused_mlp", "wgmma", x,
+            *_ptrs(x, w1, b1, w2, b2, out, w1p, w2p), m, h)
+    return out
+
+
+def _k5_mma_sync(x, w1, b1, w2, b2, lib=None) -> torch.Tensor:
+    """K5 on mma.sync, any built width and dtype."""
+    m, c = x.shape
+    out = torch.empty_like(x)
+    _launch(lib, "mp_fused_mlp", "fused_mlp", "mma.sync", x,
+            *_ptrs(x, w1, b1, w2, b2, out), KERNEL_DTYPES[x.dtype], m, c, w1.shape[0])
+    return out
+
+
+K5_LAUNCHERS = {"wgmma": _k5_wgmma, "mma.sync": _k5_mma_sync}
+
+
 def mlp_forward(x, w1, b1, w2, b2) -> torch.Tensor:
     """K5: x (M, C) -> gelu(x w1^T + b1) w2^T + b2, (M, C), on the kernel
     :func:`takes_wgmma` picks. Not differentiable on the card:
@@ -191,27 +231,8 @@ def mlp_forward(x, w1, b1, w2, b2) -> torch.Tensor:
         raise RuntimeError(
             "the MLP kernel is not differentiable on its own; call fused_mlp"
         )
-    m, c = x.shape
-    h = w1.shape[0]
-    out = torch.empty_like(x)
-    lib = build.load("mlp")
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    operands = (x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
-                b2.data_ptr(), out.data_ptr())
-    if takes_wgmma(x.dtype, c, h):
-        # the weights' big and small tf32 planes, written by the launch
-        w1p = torch.empty((2 * h, c), dtype=x.dtype, device=x.device)
-        w2p = torch.empty((2 * c, h), dtype=x.dtype, device=x.device)
-        err = lib.mp_fused_mlp_sm90(*operands, w1p.data_ptr(), w2p.data_ptr(),
-                                    m, h, x.device.index, stream)
-        build.check(lib, err, "mp_fused_mlp_sm90")
-        WGMMA_LAUNCHES[x.dtype] += 1
-    else:
-        err = lib.mp_fused_mlp(*operands, KERNEL_DTYPES[x.dtype], m, c, h,
-                               x.device.index, stream)
-        build.check(lib, err, "mp_fused_mlp")
-    LAUNCHES["fused_mlp"][x.dtype] += 1
-    return out
+    launch = _k5_wgmma if takes_wgmma(x.dtype, x.shape[1], w1.shape[0]) else _k5_mma_sync
+    return launch(x, w1, b1, w2, b2)
 
 
 @torch.library.custom_op("manipose::mlp_forward", mutates_args=())
@@ -242,18 +263,49 @@ def wgmma_wgrad_splits(m: int, c: int, h: int) -> int:
     return max(1, min(-(-m // ROW_TILE), WGMMA_WGRAD_ITEMS // per_slice))
 
 
-def wgmma_bwd_scratch(m: int, c: int, h: int, device):
-    """The scratch of K6's wgmma path and its slices of M: (planes, wp,
-    colsum, part), s. planes holds da^T's and gelu(a)^T's tf32 planes,
-    k-major for the weight sums, over M rounded up to a row tile; wp the
-    weights' planes."""
+def _k6_launch(lib, entry: str, path: str, x, w1, b1, w2, g, scratch, *sizes):
+    """K6's ``entry`` with its ``scratch``. -> (dx, dw1, db1, dw2, db2)."""
+    c, h = x.shape[1], w1.shape[0]
+    dx = torch.empty_like(x)
+    grads = torch.empty((2 * h * c + h + c,), dtype=x.dtype, device=x.device)
+    _launch(lib, entry, "fused_mlp_bwd", path, x,
+            *_ptrs(x, g, w1, b1, w2, dx, *scratch, grads), *sizes)
+    dw1, db1, dw2, db2 = torch.split(grads, [h * c, h, c * h, c])
+    return dx, dw1.view(h, c), db1, dw2.view(c, h), db2
+
+
+def _k6_wgmma(x, w1, b1, w2, g, lib=None):
+    """K6 on wgmma (fp32, C = 512). Its scratch: da^T's and gelu(a)^T's tf32
+    planes, k-major for the weight sums, over M rounded up to a row tile;
+    the weights' planes; column sums; the weight sums' partials over
+    :func:`wgmma_wgrad_splits` slices of M."""
+    m, c = x.shape
+    h = w1.shape[0]
     s = wgmma_wgrad_splits(m, c, h)
     tiles = -(-m // WGMMA_ROW_TILE)
-    f32 = dict(dtype=torch.float32, device=device)
-    return (torch.empty((4 * h, tiles * WGMMA_ROW_TILE), **f32),
-            torch.empty((6 * h * c,), **f32),
-            torch.empty((tiles, 4 * h + c), **f32),
-            torch.empty((s, 2 * h * c), **f32)), s
+    f32 = dict(dtype=torch.float32, device=x.device)
+    scratch = (torch.empty((4 * h, tiles * WGMMA_ROW_TILE), **f32),
+               torch.empty((6 * h * c,), **f32), torch.empty((tiles, 4 * h + c), **f32),
+               torch.empty((s, 2 * h * c), **f32))
+    return _k6_launch(lib, "mp_fused_mlp_bwd_sm90", "wgmma", x, w1, b1, w2, g, scratch,
+                      m, h, s)
+
+
+def _k6_mma_sync(x, w1, b1, w2, g, lib=None):
+    """K6 on mma.sync, any built width and dtype."""
+    m, c = x.shape
+    h = w1.shape[0]
+    s = wgrad_splits(m, c, h)
+    f32 = dict(dtype=torch.float32, device=x.device)
+    scratch = (torch.empty((m, h), dtype=x.dtype, device=x.device),
+               torch.empty((m, h), dtype=x.dtype, device=x.device),
+               torch.empty((-(-m // ROW_TILE), 2 * h + c), **f32),
+               torch.empty((s, 2 * h * c), **f32))  # da, gelu(a), column sums, partials
+    return _k6_launch(lib, "mp_fused_mlp_bwd", "mma.sync", x, w1, b1, w2, g, scratch,
+                      KERNEL_DTYPES[x.dtype], m, c, h, s)
+
+
+K6_LAUNCHERS = {"wgmma": _k6_wgmma, "mma.sync": _k6_mma_sync}
 
 
 def fused_mlp_bwd(x, w1, b1, w2, g):
@@ -266,34 +318,8 @@ def fused_mlp_bwd(x, w1, b1, w2, g):
     if g.shape != x.shape or g.dtype != x.dtype or g.device != x.device \
             or not g.is_contiguous() or g.data_ptr() % 16:
         raise ValueError("g must be a contiguous (M, C) tensor like x")
-    m, c = x.shape
-    h = w1.shape[0]
-    dx = torch.empty_like(x)
-    grads = torch.empty((2 * h * c + h + c,), dtype=x.dtype, device=x.device)
-    lib = build.load("mlp")
-    operands = (x.data_ptr(), g.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
-                dx.data_ptr())
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    if takes_wgmma(x.dtype, c, h):
-        scratch, s = wgmma_bwd_scratch(m, c, h, x.device)
-        err = lib.mp_fused_mlp_bwd_sm90(*operands, *(t.data_ptr() for t in scratch),
-                                        grads.data_ptr(), m, h, s, x.device.index, stream)
-        build.check(lib, err, "mp_fused_mlp_bwd_sm90")
-        WGMMA_BWD_LAUNCHES[x.dtype] += 1
-    else:
-        s = wgrad_splits(m, c, h)
-        blocks = -(-m // ROW_TILE)
-        da = torch.empty((m, h), dtype=x.dtype, device=x.device)
-        hh = torch.empty((m, h), dtype=x.dtype, device=x.device)
-        colsum = torch.empty((blocks, 2 * h + c), dtype=torch.float32, device=x.device)
-        part = torch.empty((s, 2 * h * c), dtype=torch.float32, device=x.device)
-        err = lib.mp_fused_mlp_bwd(
-            *operands, da.data_ptr(), hh.data_ptr(), colsum.data_ptr(), part.data_ptr(),
-            grads.data_ptr(), KERNEL_DTYPES[x.dtype], m, c, h, s, x.device.index, stream)
-        build.check(lib, err, "mp_fused_mlp_bwd")
-    LAUNCHES["fused_mlp_bwd"][x.dtype] += 1
-    dw1, db1, dw2, db2 = torch.split(grads, [h * c, h, c * h, c])
-    return dx, dw1.view(h, c), db1, dw2.view(c, h), db2
+    launch = _k6_wgmma if takes_wgmma(x.dtype, x.shape[1], w1.shape[0]) else _k6_mma_sync
+    return launch(x, w1, b1, w2, g)
 
 
 class FusedMLP(torch.autograd.Function):

@@ -267,44 +267,24 @@ def device_ms(fn, reps: int = 20) -> float:
 
 
 def ablate(libs: dict, gen) -> None:
-    from ..cuda_mlp import KERNEL_DTYPES
+    from ..cuda_mlp import K5_LAUNCHERS
 
-    m, c, h = SHAPE
     for dtype in (torch.float32, torch.bfloat16):
-        x, w1, b1, w2, b2 = operands(dtype, gen)
-        out = torch.empty_like(x)
-        stream = torch.cuda.current_stream().cuda_stream
+        args = operands(dtype, gen)
         for name, lib in libs.items():
-            def run():
-                err = lib.mp_fused_mlp(x.data_ptr(), w1.data_ptr(), b1.data_ptr(),
-                                       w2.data_ptr(), b2.data_ptr(), out.data_ptr(),
-                                       KERNEL_DTYPES[dtype], m, c, h, 0, stream)
-                if err:
-                    raise RuntimeError(f"ablation {name}: CUDA error {err}")
-
-            print(f"ablate K5 {str(dtype)[6:]:8s} {name:9s} {time_ms(run):.4f} ms",
-                  flush=True)
+            ms = time_ms(lambda: K5_LAUNCHERS["mma.sync"](*args, lib=lib))
+            print(f"ablate K5 {str(dtype)[6:]:8s} {name:9s} {ms:.4f} ms", flush=True)
 
 
 def ablate_wgmma(libs: dict, gen) -> None:
     """K5's wgmma kernel and its ablations, fp32, at two row counts."""
+    from ..cuda_mlp import K5_LAUNCHERS
+
     m, c, h = SHAPE
     for rows in (m, m // 2):
-        x, w1, b1, w2, b2 = operands(torch.float32, gen, (rows, c, h))
-        out = torch.empty_like(x)
-        w1p = torch.empty((2 * h, c), device="cuda")
-        w2p = torch.empty((2 * c, h), device="cuda")
-        stream = torch.cuda.current_stream().cuda_stream
+        args = operands(torch.float32, gen, (rows, c, h))
         for name, lib in libs.items():
-            def run():
-                err = lib.mp_fused_mlp_sm90(x.data_ptr(), w1.data_ptr(), b1.data_ptr(),
-                                            w2.data_ptr(), b2.data_ptr(), out.data_ptr(),
-                                            w1p.data_ptr(), w2p.data_ptr(), rows, h, 0,
-                                            stream)
-                if err:
-                    raise RuntimeError(f"ablation {name}: CUDA error {err}")
-
-            ms = time_ms(run)
+            ms = time_ms(lambda: K5_LAUNCHERS["wgmma"](*args, lib=lib))
             print(f"ablate K5 wgmma M={rows} {name:10s} {ms:.4f} ms "
                   f"({4.0 * rows * c * h / ms * 1e-9:.1f} TFLOP/s)", flush=True)
 
@@ -336,24 +316,15 @@ def ablate_k6_wgmma(libs: dict, gen) -> None:
     of the sources (device times from torch.profiler)."""
     from torch.profiler import ProfilerActivity, profile
 
-    from ..cuda_mlp import wgmma_bwd_scratch
+    from ..cuda_mlp import K6_LAUNCHERS
 
     _, c, h = SHAPE
     for rows in (SHAPE[0], 2 * SHAPE[0]):
         x, w1, b1, w2, _ = operands(torch.float32, gen, (rows, c, h))
         g = torch.randn(x.shape, generator=gen, device="cuda")
-        scratch, s = wgmma_bwd_scratch(rows, c, h, x.device)
-        dx = torch.empty_like(x)
-        grads = torch.empty((2 * h * c + h + c,), device="cuda")
-        stream = torch.cuda.current_stream().cuda_stream
         for name, lib in libs.items():
             def run():
-                err = lib.mp_fused_mlp_bwd_sm90(
-                    x.data_ptr(), g.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
-                    dx.data_ptr(), *(t.data_ptr() for t in scratch), grads.data_ptr(),
-                    rows, h, s, 0, stream)
-                if err:
-                    raise RuntimeError(f"ablation {name}: CUDA error {err}")
+                K6_LAUNCHERS["wgmma"](x, w1, b1, w2, g, lib=lib)
 
             run()
             torch.cuda.synchronize()

@@ -146,8 +146,8 @@ def make_train_step(
 @dataclasses.dataclass
 class _Captured:
     """One captured megastep: its graph, its static inputs and metrics, the
-    launches its capture recorded (``wgmma`` of them K5 on wgmma,
-    ``wgmma_bwd`` K6 on wgmma), and the learning-rate tensors it reads."""
+    launches its capture recorded (``ops.launches_since``), and the
+    learning-rate tensors it reads."""
 
     graph: torch.cuda.CUDAGraph
     x: torch.Tensor
@@ -155,8 +155,6 @@ class _Captured:
     metrics: Metrics
     launches: dict
     lrs: tuple
-    wgmma: dict
-    wgmma_bwd: dict
 
 
 class MultiTrainStep:
@@ -203,7 +201,7 @@ class MultiTrainStep:
         captured.x.copy_(x_stack, non_blocking=True)
         captured.y.copy_(y_stack, non_blocking=True)
         captured.graph.replay()
-        ops.record_replay(captured.launches, captured.wgmma, captured.wgmma_bwd)
+        ops.record_replay(captured.launches)
         self.replays += 1
         state.step += self.n_steps
         # the graph writes the same buffers at every replay
@@ -247,16 +245,13 @@ class MultiTrainStep:
         opt.zero_grad()
         graph = torch.cuda.CUDAGraph()
         graph.register_generator_state(state.generator)
-        before, before_wgmma = ops.launch_snapshot(), ops.wgmma_snapshot()
-        before_wgmma_bwd = ops.wgmma_snapshot("fused_mlp_bwd")
+        before = ops.launch_snapshot()
         # thread-local capture: the prefetch thread may pin host memory meanwhile
         with torch.cuda.graph(graph, capture_error_mode="thread_local"):
             steps = [self._body(x[i], y[i]) for i in range(self.n_steps)]
             metrics = {k: torch.stack([m[k] for m in steps]) for k in steps[0]}
         self.captures += 1
-        return _Captured(graph, x, y, metrics, ops.launches_since(before), lrs,
-                         ops.wgmma_since(before_wgmma),
-                         ops.wgmma_since(before_wgmma_bwd, "fused_mlp_bwd"))
+        return _Captured(graph, x, y, metrics, ops.launches_since(before), lrs)
 
 
 def make_multi_train_step(

@@ -50,6 +50,7 @@ from manipose_tpu_torch.ops.cuda_attention import (
     attention_plain_bwd,
     packed_launch_shape,
 )
+from manipose_tpu_torch.ops import launches
 from manipose_tpu_torch.ops.cuda_attention import merge_heads, split_heads
 from manipose_tpu_torch.ops.cuda_mlp import (
     fused_mlp,
@@ -171,7 +172,7 @@ def test_wgmma_mlp_matches_float64(gen, m):
     args = _mlp_operands(gen, m, 512, 1024, torch.float32)
     ops.reset_launch_counts()
     got = fused_mlp(*args)
-    assert ops.wgmma_launches(torch.float32) == 1
+    assert ops.launch_counts(torch.float32, "wgmma")["fused_mlp"] == 1
     want = mlp_plain(*(a.double() for a in args))
     assert (got.double() - want).abs().max().item() <= TOL[torch.float32][1]
 
@@ -235,6 +236,9 @@ def test_kernels_refuse_what_they_do_not_take(gen):
 OVERRIDES = ["model=small", "model.layers=2", "model.layers_seg=1",
              "multi_hyp.n_hyp=2"]
 PER_FORWARD = {"attention_dense": 3, "attention_packed": 3, "fused_mlp": 6}
+# every kernel of the port's inventory (the DSTformer's fusion among them),
+# none launched
+NONE = dict.fromkeys(launches.KERNELS, 0)
 
 
 def test_predictor_on_card_matches_cpu(gen):
@@ -249,7 +253,7 @@ def test_predictor_on_card_matches_cpu(gen):
     got = card.predict_video(video, return_hypotheses=True)
     n_batches = 2  # 3 windows of 243 frames in batches of 2
     assert ops.launch_counts() == {
-        **{name: 0 for name in PER_BACKWARD},
+        **NONE,
         **{name: 2 * n * n_batches for name, n in PER_FORWARD.items()},
     }
     want = cpu.predict_video(video, return_hypotheses=True)
@@ -499,11 +503,11 @@ def test_mlp_bwd_kernel_is_deterministic(gen):
 
 # K6's wgmma path (fp32, C = 512): one tile, a ragged M, the 3DHP batch's
 # and the train step's rows at H = 1024, and the other hidden widths
-WGMMA_BWD_SHAPES = [(64, 1024), (1000, 1024), (11475, 1024), (66096, 1024), (3000, 512),
+K6_WGMMA_SHAPES = [(64, 1024), (1000, 1024), (11475, 1024), (66096, 1024), (3000, 512),
                     (3000, 2048)]
 
 
-@pytest.mark.parametrize("m,hidden", WGMMA_BWD_SHAPES)
+@pytest.mark.parametrize("m,hidden", K6_WGMMA_SHAPES)
 def test_wgmma_mlp_bwd_matches_float64(gen, m, hidden):
     """K6 on wgmma (the launch the rule picks for fp32 at C = 512): all five
     gradients against the plain backward in fp64 from the same inputs,
@@ -512,8 +516,8 @@ def test_wgmma_mlp_bwd_matches_float64(gen, m, hidden):
     g = torch.randn((m, 512), generator=gen, device="cuda")
     ops.reset_launch_counts()
     got = fused_mlp_bwd(x, w1, b1, w2, g)
-    assert ops.wgmma_launches(torch.float32, kernel="fused_mlp_bwd") == 1
-    assert ops.wgmma_launches() == 0
+    assert ops.launch_counts(torch.float32, "wgmma")["fused_mlp_bwd"] == 1
+    assert ops.launch_counts(path="wgmma")["fused_mlp"] == 0
     want = mlp_plain_bwd(*(t.double() for t in (x, w1, b1, w2, g)))
     for name, a, r in zip(("dx", "dw1", "db1", "dw2", "db2"), got, want):
         assert a.shape == r.shape and a.dtype == torch.float32, name
@@ -543,21 +547,21 @@ def test_wgmma_mlp_bwd_replays_in_a_cuda_graph(gen):
     fused_mlp_bwd(*static)  # builds and warms up outside the capture
     torch.cuda.synchronize()
     ops.reset_launch_counts()
-    before = ops.wgmma_snapshot("fused_mlp_bwd")
+    before = ops.launch_snapshot()
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         out = fused_mlp_bwd(*static)
-    captured = ops.wgmma_since(before, "fused_mlp_bwd")
-    assert captured == {torch.float32: 1, torch.bfloat16: 0}
+    captured = ops.launches_since(before)
+    assert captured == {("fused_mlp_bwd", "wgmma", torch.float32): 1}
     for scale in (1.0, 0.5):
         for dst, src in zip(static, args):
             dst.copy_(src * scale)
         graph.replay()
-        ops.record_replay({}, None, captured)
+        ops.record_replay(captured)
         torch.cuda.synchronize()
         assert all(torch.equal(a, b) for a, b in zip(out, fused_mlp_bwd(*static)))
-    assert ops.replayed_wgmma_launches(torch.float32, kernel="fused_mlp_bwd") == 2
-    assert ops.wgmma_launches(kernel="fused_mlp_bwd") == 3
+    assert ops.replayed_counts(torch.float32, "wgmma")["fused_mlp_bwd"] == 2
+    assert ops.launch_counts(path="wgmma")["fused_mlp_bwd"] == 3
 
 
 @pytest.mark.parametrize("c,hidden,dtype", [(512, 1024, torch.bfloat16),
@@ -571,7 +575,7 @@ def test_mlp_bwd_keeps_mma_sync_off_the_rule(gen, c, hidden, dtype):
     ops.reset_launch_counts()
     got = fused_mlp_bwd(x, w1, b1, w2, g)
     assert ops.launch_counts(dtype)["fused_mlp_bwd"] == 1
-    assert ops.wgmma_launches(kernel="fused_mlp_bwd") == 0
+    assert ops.launch_counts(path="wgmma")["fused_mlp_bwd"] == 0
     want = mlp_plain_bwd(x, w1, b1, w2, g)
     for name, a, r in zip(("dx", "dw1", "db1", "dw2", "db2"), got, want):
         assert _max_err(a, r) <= _grad_tol(r, dtype, relative=True), name
@@ -724,7 +728,7 @@ def test_train_step_on_card_matches_cpu(gen):
         ops.reset_launch_counts()
         metrics[device] = {k: v.item() for k, v in step(state, x, y, 4e-5).items()}
         if device == "cuda":
-            assert ops.launch_counts() == {**PER_FORWARD, **PER_BACKWARD}
+            assert ops.launch_counts() == {**NONE, **PER_FORWARD, **PER_BACKWARD}
         grads[device] = {n: p.grad.cpu() for n, p in model.named_parameters()}
     for k, want in metrics["cpu"].items():
         assert abs(metrics["cuda"][k] - want) <= 5e-5 * max(1.0, abs(want)), k
@@ -796,7 +800,7 @@ def test_bf16_train_step_on_card_matches_cpu(gen):
                            make_train_step(model, LossConfig(), h36m_skeleton_17(),
                                            opt)(state, x, y, 4e-5).items()}
         if device == "cuda":
-            assert ops.launch_counts(torch.bfloat16) == {**PER_FORWARD, **PER_BACKWARD}
+            assert ops.launch_counts(torch.bfloat16) == {**NONE, **PER_FORWARD, **PER_BACKWARD}
             assert not any(ops.launch_counts(torch.float32).values())
             for name, p in model.named_parameters():
                 assert p.grad.dtype == torch.float32 and torch.isfinite(p.grad).all(), name
@@ -822,7 +826,7 @@ def test_bf16_flagship_forward_on_card_matches_cpu(gen):
     ops.reset_launch_counts()
     got = card.predict_video(window, return_hypotheses=True)
     assert ops.launch_counts(torch.bfloat16) == {
-        **{name: 0 for name in PER_BACKWARD},
+        **NONE,
         "attention_dense": 10, "attention_packed": 10, "fused_mlp": 20,
     }
     assert not any(ops.launch_counts(torch.float32).values())
@@ -905,7 +909,7 @@ def test_evaluate_on_card_matches_cpu(gen):
         ops.reset_launch_counts()
         results[device] = evaluate(model.to(device), batches, skeleton, EvalConfig())
     assert ops.launch_counts() == {
-        **{name: 0 for name in PER_BACKWARD},
+        **NONE,
         **{name: 2 * n * len(batches) for name, n in PER_FORWARD.items()},
     }
     got, want = results["cuda"], results["cpu"]
@@ -1060,7 +1064,7 @@ def test_3dhp_protocol_on_card_matches_cpu(gen, tmp_path):
                                             tmp_path / device)
     n_batches = len(create_loader(dataset, cfg, train=False))
     assert ops.launch_counts() == {
-        **{name: 0 for name in PER_BACKWARD}, "attention_dense": 0,
+        **NONE,
         "attention_packed": 2 * 6 * n_batches, "fused_mlp": 2 * 6 * n_batches}
     frames = len(create_loader(dataset, cfg, train=False).dataset) * 27
     for k, w in metrics["cpu"].items():
@@ -1123,7 +1127,7 @@ def test_int8_predictor_on_card_matches_cpu(gen):
         h.remove()
     n_batches = 1  # 2 windows of 243 frames
     assert ops.launch_counts() == {
-        **{name: 0 for name in PER_BACKWARD}, "fused_mlp": 0,
+        **NONE,
         "attention_dense": 2 * 3 * n_batches, "attention_packed": 2 * 3 * n_batches}
     cpu_layers = dict(cpu.model.named_modules())
     assert len(seen) == 2 * len(layers)  # TTA: each layer twice
@@ -1154,7 +1158,7 @@ def test_exported_program_on_card_launches_the_kernels(gen):
         ops.reset_launch_counts()
         got = program(x)
         assert ops.launch_counts() == {
-            **{name: 0 for name in PER_BACKWARD},
+            **NONE,
             **{name: 2 * n for name, n in PER_FORWARD.items()}}
         for g, w in zip(got, want):
             torch.testing.assert_close(g, w, rtol=0,
@@ -1238,7 +1242,7 @@ def test_joint_major_model_on_card_matches_fold(gen):
             fwd = model(x)
         ops.reset_launch_counts()
         metrics = make_train_step(model, LossConfig(), skeleton, opt)(state, x, y, 4e-5)
-        assert ops.launch_counts() == {**PER_FORWARD, **PER_BACKWARD}
+        assert ops.launch_counts() == {**NONE, **PER_FORWARD, **PER_BACKWARD}
         runs[layout] = (fwd, metrics, {n: p.detach().clone() for n, p in
                                        model.named_parameters()})
     (f_fwd, f_m, f_w), (j_fwd, j_m, j_w) = runs["fold"], runs["joint_major"]
@@ -1292,12 +1296,12 @@ def test_megastep_graph_matches_single_steps(gen, remat):
     assert multi.captures == 1 and multi.replays == 1 and state2.step == k_steps
     # the wrappers counted one eager warm-up step, then the K captured steps
     (graph,) = multi.graphs.values()
-    captured = {n: sum(by_dtype.values()) for n, by_dtype in graph.launches.items()}
-    per_step = {**{n: c * (2 if remat else 1) for n, c in PER_FORWARD.items()},
+    captured = ops.by_kernel(graph.launches)
+    per_step = {**NONE, **{n: c * (2 if remat else 1) for n, c in PER_FORWARD.items()},
                 **PER_BACKWARD}
     assert captured == {n: k_steps * c for n, c in per_step.items()}
     assert ops.launch_counts() == {n: (k_steps + 1) * c for n, c in per_step.items()}
-    assert ops.replayed_counts() == captured and ops.GRAPH_REPLAYS["replays"] == 1
+    assert ops.replayed_counts() == captured and ops.graph_replays() == 1
     assert torch.equal(state2.generator.get_state(), want_gen)
     for key, v in got.items():
         assert v.shape == (k_steps,)
@@ -1310,7 +1314,7 @@ def test_megastep_graph_matches_single_steps(gen, remat):
     # a second replay: new masks, so new losses on the same batches
     again = multi(state2, xs, ys, lr)
     assert multi.captures == 1 and multi.replays == 2
-    assert ops.GRAPH_REPLAYS["replays"] == 2
+    assert ops.graph_replays() == 2
     assert ops.replayed_counts() == {n: 2 * c for n, c in captured.items()}
     assert not torch.equal(again["loss"], got["loss"])
     # a new batch shape captures anew

@@ -64,7 +64,7 @@ SHAPES = [(r, c) for r in (1, 7, 9, 2113, 8449, 132192) for c in (512, 132)] + [
 def test_fusion_kernels_match_plain(gen, r, c):
     xs, xt, w, b = _operands(gen, r, c)
     g = torch.randn((r, c), generator=gen, device="cuda")
-    cuda_fusion.LAUNCHES.update(stream_fusion=0, stream_fusion_bwd=0)
+    ops.reset_launch_counts()
     out, alpha = cuda_fusion.fusion_forward(xs, xt, w, b)
     want_out, want_alpha = cuda_fusion.fusion_plain(xs, xt, w, b)
     assert _gap(out, want_out) <= 1e-5 and _gap(alpha, want_alpha) <= 1e-5
@@ -73,7 +73,8 @@ def test_fusion_kernels_match_plain(gen, r, c):
     sums = 1e-5 * max(1.0, (r / 1024) ** 0.5)
     for x, y, tol in zip(got, want, (1e-5, 1e-5, sums, sums)):
         assert x.shape == y.shape and _gap(x, y) <= tol
-    assert cuda_fusion.LAUNCHES == {"stream_fusion": 1, "stream_fusion_bwd": 1}
+    assert ops.launch_counts(torch.float32, cuda_fusion.PATH) == {
+        **dict.fromkeys(ops.launch_counts(), 0), "stream_fusion": 1, "stream_fusion_bwd": 1}
 
 
 def test_fusion_backward_is_deterministic(gen):
@@ -138,14 +139,13 @@ def test_dstformer_train_step_on_card_matches_cpu(gen):
         step = make_train_step(model, LossConfig(w_loss=False, vel_loss=20.0, smooth_reg=0.0,
                                                  rmcl=False, nmpjpe=0.5), skeleton, opt)
         ops.reset_launch_counts()
-        cuda_fusion.LAUNCHES.update(stream_fusion=0, stream_fusion_bwd=0)
         metrics[device] = {k: v.item() for k, v in step(state, x, y, 5e-4).items()}
         if device == "cuda":
             per_stream = {"attention_dense": 2, "attention_packed": 2, "fused_mlp": 4}
             want = {k: 2 * n for k, n in per_stream.items()}
             want.update({k + "_bwd": n for k, n in want.items()})
-            assert ops.launch_counts() == want
-            assert cuda_fusion.LAUNCHES == {"stream_fusion": 2, "stream_fusion_bwd": 2}
+            want.update(stream_fusion=2, stream_fusion_bwd=2)
+            assert ops.launch_counts() == ops.launch_counts(torch.float32) == want
         grads[device] = {n: p.grad.cpu() for n, p in model.named_parameters()}
     for k, want in metrics["cpu"].items():
         assert abs(metrics["cuda"][k] - want) <= 5e-5 * max(1.0, abs(want)), k

@@ -31,7 +31,7 @@ from manipose_tpu_torch.ops.cuda_attention import (
     padded_head_dim,
     split_heads,
 )
-from manipose_tpu_torch.ops import cuda_mlp
+from manipose_tpu_torch.ops import cuda_fusion, cuda_mlp, launches
 from manipose_tpu_torch.ops.probes import run_probes
 from manipose_tpu_torch.ops.cuda_mlp import (
     fused_mlp,
@@ -330,6 +330,7 @@ def test_cpu_tensors_take_the_plain_path():
     assert ops.launch_counts() == {
         "attention_dense": 0, "attention_packed": 0, "attention_dense_bwd": 0,
         "attention_packed_bwd": 0, "fused_mlp": 0, "fused_mlp_bwd": 0,
+        "stream_fusion": 0, "stream_fusion_bwd": 0,
     }
     assert ops.launch_counts(torch.bfloat16) == ops.launch_counts(torch.float32) \
         == ops.launch_counts()
@@ -351,8 +352,8 @@ def test_k5_path_rule(dtype, c, h, wgmma):
     assert takes_wgmma(dtype, c, h) is wgmma
 
 
-class _FakeMlpLibrary:
-    """Stands in for the built library: records which entry point a launch
+class _FakeLibrary:
+    """Stands in for the built libraries: records which entry point a launch
     called and reports success."""
 
     def __init__(self):
@@ -374,15 +375,24 @@ class _FakeMlpLibrary:
         self.calls.append("bwd wgmma")
         return 0
 
+    def mp_stream_fusion(self, *args):
+        self.calls.append("fusion")
+        return 0
+
+    def mp_stream_fusion_bwd(self, *args):
+        self.calls.append("fusion bwd")
+        return 0
+
 
 @pytest.fixture
 def fake_card(monkeypatch):
-    """mlp_forward and fused_mlp_bwd on CPU tensors as if they lay on a
-    card: the launch goes to a fake library."""
-    lib = _FakeMlpLibrary()
-    monkeypatch.setattr(cuda_mlp, "_plain_or_raise", lambda x: False)
-    monkeypatch.setattr(cuda_mlp, "_check", lambda *args: None)
-    monkeypatch.setattr(cuda_mlp.build, "load", lambda name: lib)
+    """mlp_forward, fused_mlp_bwd and the fusion's wrappers on CPU tensors
+    as if they lay on a card: the launch goes to a fake library."""
+    lib = _FakeLibrary()
+    for module in (cuda_mlp, cuda_fusion):
+        monkeypatch.setattr(module, "_plain_or_raise", lambda x: False)
+        monkeypatch.setattr(module, "_check", lambda *args: None)
+    monkeypatch.setattr(build, "load", lambda name: lib)
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda device=None: type("S", (), {"cuda_stream": 0})())
     ops.reset_launch_counts()
@@ -390,39 +400,26 @@ def fake_card(monkeypatch):
     ops.reset_launch_counts()
 
 
+def _k5_launch(m, c, h, dtype):
+    x = torch.zeros((m, c), dtype=dtype)
+    mlp_forward(x, torch.zeros((h, c), dtype=dtype), torch.zeros(h, dtype=dtype),
+                torch.zeros((c, h), dtype=dtype), torch.zeros(c, dtype=dtype))
+
+
 @pytest.mark.parametrize("m", [1, 459, 4097])
 def test_k5_counts_its_wgmma_launches(fake_card, m):
-    """Each K5 launch counts in LAUNCHES["fused_mlp"]; those the rule sends
-    to wgmma count in its own per-dtype counter too, at any row count."""
-    def launch(c, h, dtype):
-        x = torch.zeros((m, c), dtype=dtype)
-        mlp_forward(x, torch.zeros((h, c), dtype=dtype), torch.zeros(h, dtype=dtype),
-                    torch.zeros((c, h), dtype=dtype), torch.zeros(c, dtype=dtype))
-
-    launch(512, 1024, torch.float32)
-    launch(128, 256, torch.float32)
-    launch(512, 1024, torch.bfloat16)
+    """Each K5 launch counts once in the ledger, under the path the rule
+    sent it to, at any row count."""
+    _k5_launch(m, 512, 1024, torch.float32)
+    _k5_launch(m, 128, 256, torch.float32)
+    _k5_launch(m, 512, 1024, torch.bfloat16)
     assert fake_card.calls == ["wgmma", "mma.sync", "mma.sync"]
     assert ops.launch_counts()["fused_mlp"] == 3
-    assert ops.wgmma_launches() == ops.wgmma_launches(torch.float32) == 1
-    assert ops.wgmma_launches(torch.bfloat16) == 0
-
-
-def test_k5_wgmma_counter_replays_and_resets(fake_card):
-    """A graph replay adds its capture's wgmma launches to the replayed
-    count; the reset clears both counts."""
-    before = ops.wgmma_snapshot()
-    x = torch.zeros((64, 512))
-    mlp_forward(x, torch.zeros((1024, 512)), torch.zeros(1024), torch.zeros((512, 1024)),
-                torch.zeros(512))
-    captured = ops.wgmma_since(before)
-    assert captured == {torch.float32: 1, torch.bfloat16: 0}
-    ops.record_replay({}, captured)
-    ops.record_replay({}, captured)
-    assert ops.replayed_wgmma_launches() == ops.replayed_wgmma_launches(torch.float32) == 2
-    assert ops.replayed_counts()["fused_mlp"] == 0  # the replayed launches it was given
-    ops.reset_launch_counts()
-    assert ops.wgmma_launches() == ops.replayed_wgmma_launches() == 0
+    assert ops.launch_counts(path="wgmma")["fused_mlp"] == 1
+    assert ops.launch_counts(torch.float32, "wgmma")["fused_mlp"] == 1
+    assert ops.launch_counts(torch.bfloat16, "wgmma")["fused_mlp"] == 0
+    assert ops.launch_counts(torch.float32, "mma.sync")["fused_mlp"] == 1
+    assert ops.launch_counts(torch.bfloat16, "mma.sync")["fused_mlp"] == 1
 
 
 # ---- K6's two paths: the same rule as K5's, and their count ---------------
@@ -431,6 +428,37 @@ def _bwd_launch(m, c, h, dtype):
     x = torch.zeros((m, c), dtype=dtype)
     fused_mlp_bwd(x, torch.zeros((h, c), dtype=dtype), torch.zeros(h, dtype=dtype),
                   torch.zeros((c, h), dtype=dtype), torch.zeros((m, c), dtype=dtype))
+
+
+@pytest.mark.parametrize("kernel,launch", [("fused_mlp", _k5_launch),
+                                           ("fused_mlp_bwd", _bwd_launch)])
+def test_wgmma_counter_starts_at_zero_replays_and_resets(fake_card, kernel, launch):
+    """K5's (or K6's) wgmma launches start at zero and count by dtype in the
+    ledger, apart from the other kernel's; a graph replay adds its
+    capture's launches to the replayed count, and the reset clears both."""
+    other = {"fused_mlp": "fused_mlp_bwd", "fused_mlp_bwd": "fused_mlp"}[kernel]
+    assert ops.launch_counts(path="wgmma")[kernel] == 0
+    assert ops.replayed_counts(path="wgmma")[kernel] == 0
+    before = ops.launch_snapshot()
+    launch(64, 512, 1024, torch.float32)
+    launch(64, 512, 1024, torch.float32)
+    launch(64, 512, 1024, torch.bfloat16)
+    captured = ops.launches_since(before)
+    assert captured == {(kernel, "wgmma", torch.float32): 2,
+                        (kernel, "mma.sync", torch.bfloat16): 1}
+    assert ops.launch_counts(torch.float32, "wgmma")[kernel] == 2
+    assert ops.launch_counts(path="wgmma")[other] == 0
+    ops.record_replay(captured)
+    ops.record_replay(captured)
+    assert ops.replayed_counts(path="wgmma")[kernel] == 4
+    assert ops.replayed_counts(torch.float32, "wgmma")[kernel] == 4
+    assert ops.replayed_counts(path="mma.sync")[kernel] == 2
+    assert ops.replayed_counts()[other] == 0
+    assert ops.launch_counts()[kernel] == 3  # replays do not count as launches
+    ops.reset_launch_counts()
+    assert ops.launch_counts(path="wgmma")[kernel] == 0
+    assert ops.replayed_counts(path="wgmma")[kernel] == 0
+    assert ops.graph_replays() == 0
 
 
 @pytest.mark.parametrize("dtype,c,h,wgmma", [
@@ -444,37 +472,94 @@ def _bwd_launch(m, c, h, dtype):
 ])
 def test_k6_path_rule(fake_card, dtype, c, h, wgmma):
     """K6 takes wgmma exactly where K5 does: by the operands' dtype, C and
-    H; each launch counts in LAUNCHES["fused_mlp_bwd"], those on wgmma in
-    K6's own counter too, and K5's counter does not move."""
+    H; each launch counts once in the ledger under its path, and K5's
+    count does not move."""
     _bwd_launch(100, c, h, dtype)
-    assert fake_card.calls == ["bwd wgmma" if wgmma else "bwd mma.sync"]
+    path = "wgmma" if wgmma else "mma.sync"
+    assert fake_card.calls == ["bwd " + path]
     assert takes_wgmma(dtype, c, h) is wgmma
     assert ops.launch_counts(dtype)["fused_mlp_bwd"] == 1
-    assert ops.wgmma_launches(dtype, kernel="fused_mlp_bwd") == int(wgmma)
-    assert ops.wgmma_launches() == 0
+    assert ops.launch_counts(dtype, path)["fused_mlp_bwd"] == 1
+    assert ops.launch_counts(path="wgmma")["fused_mlp_bwd"] == int(wgmma)
+    assert ops.launch_counts()["fused_mlp"] == 0
 
 
-def test_k6_wgmma_counter_starts_at_zero_replays_and_resets(fake_card):
-    """K6's wgmma counter starts at zero, counts by dtype beside K5's, adds
-    a graph replay's captured launches to its replayed count, and the
-    reset clears both; ops.wgmma_launches keeps counting K5 alone."""
-    assert ops.wgmma_launches(kernel="fused_mlp_bwd") == 0
-    assert ops.replayed_wgmma_launches(kernel="fused_mlp_bwd") == 0
-    before, before_bwd = ops.wgmma_snapshot(), ops.wgmma_snapshot("fused_mlp_bwd")
-    _bwd_launch(64, 512, 1024, torch.float32)
-    _bwd_launch(64, 512, 1024, torch.float32)
-    _bwd_launch(64, 512, 1024, torch.bfloat16)
-    assert ops.wgmma_launches() == 0 and ops.wgmma_since(before) == {
-        torch.float32: 0, torch.bfloat16: 0}
-    captured = ops.wgmma_since(before_bwd, "fused_mlp_bwd")
-    assert captured == {torch.float32: 2, torch.bfloat16: 0}
-    assert ops.wgmma_launches(torch.float32, kernel="fused_mlp_bwd") == 2
-    ops.record_replay({}, ops.wgmma_since(before), captured)
-    assert ops.replayed_wgmma_launches(kernel="fused_mlp_bwd") == 2
-    assert ops.replayed_wgmma_launches() == 0
+def _fusion_operands(r=6, c=8):
+    return (torch.zeros((r, c)), torch.zeros((r, c)), torch.zeros((2, 2 * c)),
+            torch.zeros(2))
+
+
+def test_fusion_counts_in_the_ledger(fake_card):
+    """The stream fusion's launches count in ops.launch_counts beside
+    K1-K6, on fp32 operands and its one path, the backward's two kernels
+    once."""
+    x_st, x_ts, w, b = _fusion_operands()
+    cuda_fusion.fusion_forward(x_st, x_ts, w, b)
+    cuda_fusion.fusion_backward(torch.zeros_like(x_st), x_st, x_ts, torch.zeros((6, 2)), w)
+    assert fake_card.calls == ["fusion", "fusion bwd"]
+    want = dict.fromkeys(ops.launch_counts(), 0)
+    want.update(stream_fusion=1, stream_fusion_bwd=1)
+    assert ops.launch_counts() == ops.launch_counts(torch.float32) == want
+    assert ops.launch_counts(path=cuda_fusion.PATH) == want
+    assert not any(ops.launch_counts(torch.bfloat16).values())
+    assert set(launches.KERNELS["stream_fusion"]["paths"]) == {cuda_fusion.PATH}
+
+
+def test_record_replay_adds_every_kernel_its_capture_holds(fake_card):
+    """A capture's launches (launches_since a snapshot) hold every kernel
+    and path it launched, the fusion and both of K5's and K6's paths
+    included; each record_replay adds all of them to the replayed count."""
+    x_st, x_ts, w, b = _fusion_operands()
+    _k5_launch(8, 512, 1024, torch.float32)  # before the capture
+    before = ops.launch_snapshot()
+    _k5_launch(8, 512, 1024, torch.float32)
+    _k5_launch(8, 128, 256, torch.float32)
+    _bwd_launch(8, 512, 1024, torch.float32)
+    _bwd_launch(8, 512, 1024, torch.bfloat16)
+    cuda_fusion.fusion_forward(x_st, x_ts, w, b)
+    cuda_fusion.fusion_backward(torch.zeros_like(x_st), x_st, x_ts, torch.zeros((6, 2)), w)
+    captured = ops.launches_since(before)
+    assert captured == {
+        ("fused_mlp", "wgmma", torch.float32): 1,
+        ("fused_mlp", "mma.sync", torch.float32): 1,
+        ("fused_mlp_bwd", "wgmma", torch.float32): 1,
+        ("fused_mlp_bwd", "mma.sync", torch.bfloat16): 1,
+        ("stream_fusion", "simt", torch.float32): 1,
+        ("stream_fusion_bwd", "simt", torch.float32): 1,
+    }
+    for _ in range(3):
+        ops.record_replay(captured)
+    assert ops.graph_replays() == 3
+    assert ops.replayed_counts() == {n: 3 * c for n, c in ops.by_kernel(captured).items()}
+    assert ops.replayed_counts() == {**dict.fromkeys(launches.KERNELS, 0), "fused_mlp": 6,
+                                     "fused_mlp_bwd": 6, "stream_fusion": 3,
+                                     "stream_fusion_bwd": 3}
+    assert ops.replayed_counts(path="wgmma") == {**dict.fromkeys(launches.KERNELS, 0),
+                                                 "fused_mlp": 3, "fused_mlp_bwd": 3}
+    assert ops.replayed_counts(torch.bfloat16)["fused_mlp_bwd"] == 3
+    assert ops.launch_counts()["fused_mlp"] == 3
+
+
+def test_a_new_kernel_counts_without_an_edit_to_ops():
+    """A kernel the inventory does not list yet counts through
+    launches.count alone: ops.launch_counts, the snapshots, replays and the
+    reset all take it."""
     ops.reset_launch_counts()
-    assert ops.wgmma_launches(kernel="fused_mlp_bwd") == 0
-    assert ops.replayed_wgmma_launches(kernel="fused_mlp_bwd") == 0
+    before = ops.launch_snapshot()
+    try:
+        launches.count("qkv_gemm", "wgmma", torch.float32)
+        launches.count("qkv_gemm", "wgmma", torch.float32)
+        assert ops.launch_counts()["qkv_gemm"] == 2
+        assert ops.launch_counts(torch.float32, "wgmma")["qkv_gemm"] == 2
+        assert ops.launch_counts(torch.bfloat16)["qkv_gemm"] == 0
+        assert "qkv_gemm" not in launches.KERNELS
+        captured = ops.launches_since(before)
+        assert captured == {("qkv_gemm", "wgmma", torch.float32): 2}
+        ops.record_replay(captured)
+        assert ops.replayed_counts(path="wgmma")["qkv_gemm"] == 2
+    finally:
+        ops.reset_launch_counts()
+    assert "qkv_gemm" not in ops.launch_counts()
 
 
 @pytest.mark.parametrize("m", [1, 64, 1000, 11475, 66096, 132192])
