@@ -37,7 +37,16 @@ package. Phases, each fatal on failure:
               the bound and the library's backward, the picked one no
               slower, its five gradients against fp64 within GRAD_TOL
               (dX, dW1 and dW2 also within 1.25 x mma.sync's error), bit
-              for bit on a second run.
+              for bit on a second run. Then the fp32 linear
+              (``ops.cuda_linear``) at the trunks' qkv and proj
+              (LINEAR_CASES): the rule on every shape, each of its three
+              products (forward, dX, dW with db) timed beside the library's
+              fp32 product and the bound at 165 TFLOP/s, each faster than
+              the library's at LINEAR_BEATS_ROWS, its errors against fp64
+              (the output within TOL, the gradients within GRAD_TOL), bit
+              for bit on a second run; and K5's and K6's wgmma times at
+              66,096 rows within K5_K6_SLACK of where they stood before the
+              linear shared K6's tile products (K5_K6_MS).
               Then the
               DSTformer's stream fusion kernels (``ops/cuda_fusion.py``)
               against ``fusion_plain`` and ``fusion_plain_bwd`` at the
@@ -533,6 +542,32 @@ WGMMA_PER_FORWARD = {"float32": 16, "bfloat16": 0}
 # K6's two fp32 paths at C = 512, H = 1024: the rows of the flagship's
 # B = 16 train step (16 x 243 x 17) and of the DSTformer's B = 32 one
 K6_PATH_ROWS = (66096, 132192)
+# K5's and K6's wgmma times (ms) at 66,096 rows before K6's tile products
+# moved into wgmma.cuh's gemm, which the fp32 linear shares (PERF.md §6),
+# and how far above them a run may read (clocks differ between cards and
+# calls)
+K5_K6_MS = {"fused_mlp": (1.343, 1.346), "fused_mlp_bwd": (3.198, 3.229)}
+K5_K6_SLACK = 1.10
+
+# The fp32 linear (ops.cuda_linear) per forward: (on wgmma, on the library).
+# The flagship's 43 Dense calls: the 40 qkv and proj (the rotations
+# trunk's 16 attention layers at C = 512, the segments trunk's 4 at C =
+# 128) on wgmma at the batches run here (cuda_linear.min_rows: one window
+# of 243 frames and up at C = 512, five at C = 128), the patch and
+# joint-to-segment embeddings and the segments head on the library. The DSTformer's 43:
+# its 40 qkv and proj and pre_logits on wgmma, its embedding and head on
+# the library. Under int8 serving only the 3 float Dense calls count. A
+# train step's backward launches linear_bwd once a wgmma forward; bf16
+# compute launches none (the library's bf16 GEMMs).
+LINEAR_PER_FORWARD = {"flagship": (40, 3), "dstformer": (41, 2), "int8": (0, 3)}
+# the linear's products at the cells' shapes: (label, M, N, K) for qkv and
+# proj of the lift's batch of 8 windows, the b16 step and the DSTformer's
+# b32 step, and the segments trunk's at the b16 step; each product beats
+# the library's at LINEAR_BEATS_ROWS rows
+LINEAR_CASES = tuple((f"{layer}-{m}", m, n, 512) for m in (33048, 66096, 132192)
+                     for layer, n in (("qkv", 1536), ("proj", 512))) + (
+    ("segments-qkv-62208", 62208, 384, 128), ("segments-proj-62208", 62208, 128, 128))
+LINEAR_BEATS_ROWS = (66096, 132192)
 
 STREAM_MLP_CASES = (
     ("stream-243-rotations", 243 * 17, 512, 1024),
@@ -1100,6 +1135,107 @@ def phase_k6_paths() -> list:
     return rows
 
 
+def linear_parts_ms(x, w, b, g, reps: int = 5) -> dict:
+    """Device ms a call of each of the linear's three products with the
+    split pass that feeds it, from torch.profiler's kernel events in launch
+    order: fwd (W's planes, the product), dx (W^T's planes, the product),
+    dw (x^T's planes, the product, the reduce of the partials and db)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from manipose_tpu_torch.ops import cuda_linear as cl
+
+    def run():
+        cl.linear_forward(x, w, b)
+        cl.linear_backward(x, w, g)
+
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            run()
+        torch.cuda.synchronize()
+    events = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA
+                     and "linear_" in e.name), key=lambda e: e.time_range.start)
+    order = ("split", "fwd", "split", "split", "dx", "dw", "reduce")
+    parts = ("fwd", "fwd", "dx", "dw", "dx", "dw", "dw")
+    require(len(events) == reps * len(order) and all(
+        f"linear_{o}_kernel" in e.name for i, e in enumerate(events)
+        for o in [order[i % len(order)]]), f"the linear's launches {[e.name for e in events]}")
+    out = dict.fromkeys(("fwd", "dx", "dw"), 0.0)
+    for i, e in enumerate(events):
+        out[parts[i % len(order)]] += e.time_range.elapsed_us() / 1e3 / reps
+    return out
+
+
+def phase_linear_paths(k5_paths, k6_paths) -> list:
+    """The fp32 linear at LINEAR_CASES: the rule, each product timed beside
+    the library's fp32 product (TF32 off: FFMA) and the bound at 165
+    TFLOP/s, each faster than the library's at LINEAR_BEATS_ROWS; errors
+    against fp64; bit for bit on a second run. Then K5's and K6's wgmma
+    times at 66,096 rows against K5_K6_MS."""
+    import torch.nn.functional as F
+
+    from manipose_tpu_torch.ops import cuda_linear as cl
+
+    require(not torch.backends.cuda.matmul.allow_tf32, "the library's fp32 GEMMs run in fp32")
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    rows = []
+    for label, m, n, k in LINEAR_CASES:
+        x = torch.randn((m, k), generator=gen, device="cuda")
+        w = (torch.rand((n, k), generator=gen, device="cuda") * 2 - 1) / k**0.5
+        b = (torch.rand((n,), generator=gen, device="cuda") * 2 - 1) / k**0.5
+        g = torch.randn((m, n), generator=gen, device="cuda")
+        require(cl.takes_wgmma(x, w), f"linear {label}: the rule takes the kernels")
+        flops = 2.0 * m * n * k
+        row = dict(case=label, m=m, n=n, k=k,
+                   bound_ms=bound_ms(4 * (m * k + n * k + m * n), flops, torch.float32)[0])
+        ours = linear_parts_ms(x, w, b, g)
+        library = {"fwd": median_ms(lambda: F.linear(x, w, b)),
+                   "dx": median_ms(lambda: torch.matmul(g, w)),
+                   "dw": median_ms(lambda: (torch.matmul(g.t(), x), g.sum(0)))}
+        for part in ("fwd", "dx", "dw"):
+            row[f"{part}_ms"], row[f"lib_{part}_ms"] = ours[part], library[part]
+            row[f"{part}_tflops"] = flops / ours[part] * 1e-9
+            row[f"lib_{part}_tflops"] = flops / library[part] * 1e-9
+            if m in LINEAR_BEATS_ROWS:
+                require(ours[part] < library[part],
+                        f"linear {label} {part}: {ours[part]:.4f} ms against the "
+                        f"library's {library[part]:.4f}")
+        y, grads = cl.linear_forward(x, w, b), cl.linear_backward(x, w, g)
+        y2, grads2 = cl.linear_forward(x, w, b), cl.linear_backward(x, w, g)
+        xd, wd, gd = x.double(), w.double(), g.double()
+        want = (F.linear(xd, wd, b.double()), gd @ wd, gd.t() @ xd, gd.sum(0))
+        torch.cuda.synchronize()
+        for name, a, r in zip(("y", "dx", "dw", "db"), (y, *grads), want):
+            err = (a.double() - r).abs().max().item()
+            tol = TOL[("mlp", torch.float32)] if name == "y" else grad_tol(
+                r, torch.float32, relative=True)
+            row[f"{name}_err"] = err
+            require(err <= tol, f"linear {label} {name}: error {err} > {tol}")
+        row["bitwise_repeat"] = torch.equal(y, y2) and all(
+            torch.equal(a, c) for a, c in zip(grads, grads2))
+        require(row["bitwise_repeat"], f"linear {label}: repeated runs agree bit for bit")
+        print("linear path " + " ".join(f"{key}={v:.4g}" if isinstance(v, float)
+                                        else f"{key}={v}" for key, v in row.items()),
+              flush=True)
+        rows.append(row)
+        del x, w, b, g, y, grads, y2, grads2, xd, wd, gd, want
+        torch.cuda.empty_cache()
+    x = torch.zeros((459, 512), device="cuda")
+    require(not cl.takes_wgmma(x, torch.zeros((1536, 512), device="cuda"))
+            and not cl.takes_wgmma(x.bfloat16().repeat(20, 1),
+                                   torch.zeros((1536, 512), device="cuda").bfloat16()),
+            "a one-window stream and bf16 stay on the library")
+    for name, paths in (("fused_mlp", k5_paths), ("fused_mlp_bwd", k6_paths)):
+        ms = next(r["wgmma_ms"] for r in paths if r["m"] == 66096)
+        low, high = K5_K6_MS[name]
+        print(f"{name} wgmma at 66096 rows: {ms:.4f} ms (before: {low}-{high})", flush=True)
+        require(ms <= K5_K6_SLACK * high, f"{name} wgmma {ms:.4f} ms within "
+                                          f"{K5_K6_SLACK} x {high}")
+    return rows
+
+
 def fusion_work(rows: int, c: int, backward: bool) -> tuple:
     """(FLOPs, bytes) of one fusion launch over ``rows`` rows of ``c``
     channels in fp32, each input byte read once and each output byte written
@@ -1231,6 +1367,20 @@ def require_counts(dtype: str, want: dict, what: str) -> dict:
     return counts
 
 
+def linear_want(dtype: str, forwards: int, model: str = "flagship",
+                backward: bool = False) -> dict:
+    """The linear's launches in ``forwards`` forwards of ``model`` (and the
+    one backward of a train step), keyed as require_counts takes them; none
+    under bf16 compute."""
+    if dtype != "float32":
+        return {}
+    wgmma, library = LINEAR_PER_FORWARD[model]
+    want = {"linear": forwards * (wgmma + library), ("linear", "wgmma"): forwards * wgmma}
+    if backward:
+        want.update({"linear_bwd": wgmma, ("linear_bwd", "wgmma"): wgmma})
+    return want
+
+
 def phase_flagship(dtype: str = "float32"):
     from manipose_tpu_torch import ops
     from manipose_tpu_torch.config import load_config
@@ -1249,7 +1399,8 @@ def phase_flagship(dtype: str = "float32"):
     n_batches = -(-n_windows // predictor.batch_size)
     counts = require_counts(
         dtype, {**{k: 2 * n * n_batches for k, n in LAUNCHES_PER_FORWARD.items()},
-                ("fused_mlp", "wgmma"): 2 * WGMMA_PER_FORWARD[dtype] * n_batches},
+                ("fused_mlp", "wgmma"): 2 * WGMMA_PER_FORWARD[dtype] * n_batches,
+                **linear_want(dtype, 2 * n_batches)},
         f"flagship {dtype} serving ({n_batches} window batch(es))")
 
     n_hyp = cfg.multi_hyp.n_hyp
@@ -1399,7 +1550,8 @@ def phase_train(dtype: str = "float32"):
     torch.cuda.synchronize()
     counts = require_counts(dtype, {**LAUNCHES_PER_TRAIN_STEP,
                                     ("fused_mlp", "wgmma"): WGMMA_PER_FORWARD[dtype],
-                                    ("fused_mlp_bwd", "wgmma"): WGMMA_PER_FORWARD[dtype]},
+                                    ("fused_mlp_bwd", "wgmma"): WGMMA_PER_FORWARD[dtype],
+                                    **linear_want(dtype, 1, backward=True)},
                             f"{dtype} train step")
     n_params = 0
     for name, p in state.model.named_parameters():
@@ -1683,7 +1835,8 @@ def phase_eval(dtype: str, data_dir: Path):
     per_action = -(-4 * (EVAL_FRAMES // cfg.data.seq_len) // cfg.train.batch_size_test)
     n_batches = len(EVAL_ACTIONS) * per_action
     counts = require_counts(
-        dtype, {k: 2 * n * n_batches for k, n in LAUNCHES_PER_FORWARD.items()},
+        dtype, {**{k: 2 * n * n_batches for k, n in LAUNCHES_PER_FORWARD.items()},
+                **linear_want(dtype, 2 * n_batches)},
         f"eval {dtype} ({n_batches} batches of {cfg.train.batch_size_test}, TTA)")
 
     timed = [r for r in logger.history if "eval_seconds" in r]
@@ -2444,7 +2597,8 @@ def phase_int8_serving(dtype: str):
     pred.predict_video(video)  # warm-up
     ops.reset_launch_counts()
     poses, hyps, scores = pred.predict_video(video, return_hypotheses=True)
-    counts = require_counts(dtype, {k: 2 * n for k, n in INT8_LAUNCHES_PER_FORWARD.items()},
+    counts = require_counts(dtype, {**{k: 2 * n for k, n in INT8_LAUNCHES_PER_FORWARD.items()},
+                                    **linear_want(dtype, 2, "int8")},
                             f"int8 {dtype} serving (1 window batch)")
     for name, a in (("poses", poses), ("hyps", hyps), ("scores", scores)):
         require(bool(np.isfinite(a).all()), f"int8 {dtype} {name} not finite")
@@ -2510,7 +2664,8 @@ def phase_data_parallel(plain):
     want = plain.predict_video(video, return_hypotheses=True)
     ops.reset_launch_counts()
     got = dp.predict_video(video, return_hypotheses=True)
-    counts = require_counts("float32", {k: 2 * n for k, n in LAUNCHES_PER_FORWARD.items()},
+    counts = require_counts("float32", {**{k: 2 * n for k, n in LAUNCHES_PER_FORWARD.items()},
+                                        **linear_want("float32", 2)},
                             "data-parallel serving (1 card, 1 window batch)")
     for name, g, w in zip(("poses", "hyps", "scores"), got, want):
         require(bool(np.array_equal(g, w)), f"data-parallel {name} equal to plain")
@@ -2558,7 +2713,12 @@ def phase_export(plain):
             tol = EXPORT_TOL * max(1.0, float(w.abs().max()))
             require(g.shape == w.shape and err <= tol,
                     f"exported program {name} at batch {b}: {err} > {tol}")
-    counts = require_counts("float32", {k: 2 * n for k, n in LAUNCHES_PER_FORWARD.items()},
+    # the program records the linear's operator where the rule takes the
+    # kernels at every batch (the rotations trunk's qkv and proj: 4131 rows
+    # a window), the library's product elsewhere, which counts nothing
+    rot = 32  # the rotations trunk's 16 attention layers' qkv and proj
+    counts = require_counts("float32", {**{k: 2 * n for k, n in LAUNCHES_PER_FORWARD.items()},
+                                        "linear": 2 * rot, ("linear", "wgmma"): 2 * rot},
                             "exported program (batch 16)")
 
     def fps(fn) -> float:
@@ -2909,7 +3069,8 @@ def phase_joint_major_serving(dtype: str, fold_predictor):
     jm.predict_video(video)
     ops.reset_launch_counts()
     got = jm.predict_video(video, return_hypotheses=True)
-    counts = require_counts(dtype, {k: 2 * n for k, n in LAUNCHES_PER_FORWARD.items()},
+    counts = require_counts(dtype, {**{k: 2 * n for k, n in LAUNCHES_PER_FORWARD.items()},
+                                    **linear_want(dtype, 2)},
                             f"joint-major {dtype} serving (1 window batch)")
     want = fold_predictor.predict_video(video, return_hypotheses=True)
     errs = []
@@ -2983,7 +3144,9 @@ def phase_joint_major_train(dtype: str, fold_seq_s: float, weights):
     ops.reset_launch_counts()
     require_finite(step(state, x, y, TRAIN_LR), "joint-major train step")
     torch.cuda.synchronize()
-    counts = require_counts(dtype, LAUNCHES_PER_TRAIN_STEP, f"joint-major {dtype} train step")
+    counts = require_counts(dtype, {**LAUNCHES_PER_TRAIN_STEP,
+                                    **linear_want(dtype, 1, backward=True)},
+                            f"joint-major {dtype} train step")
     seq_s = timed_steps(step, state, x, y, 5)
     del state, step
     torch.cuda.empty_cache()
@@ -3870,8 +4033,9 @@ def viz_phases(data_dir: Path, drawn: bool, recorded) -> dict:
     t0 = time.perf_counter()
     require(h36m.main(cfg) is None, "run.viz=true without training returns None")
     wall = time.perf_counter() - t0
-    counts = require_counts("float32", {k: 2 * n * n_batches for k, n in
-                                        LAUNCHES_PER_FORWARD.items()},
+    counts = require_counts("float32", {**{k: 2 * n * n_batches for k, n in
+                                           LAUNCHES_PER_FORWARD.items()},
+                                        **linear_want("float32", 2 * n_batches)},
                             f"viz driver (run.viz=true, {n_batches} batches, TTA)")
     name = f"rmcl_manifold_hyps_S11_walking_0.{cfg.viz.extension}"
     figure = Path(cfg.run.output_dir) / "figures" / name
@@ -4334,7 +4498,8 @@ def phase_fast(out_dir: Path, serve_fps: float, blocked_seq_s: float) -> dict:
         ops.reset_launch_counts()
         poses, hyps, scores = predictor.predict_video(video, return_hypotheses=True)
         counts["serve_fast"] = require_counts(
-            "float32", {k: 2 * n for k, n in LAUNCHES_PER_FORWARD.items()},
+            "float32", {**{k: 2 * n for k, n in LAUNCHES_PER_FORWARD.items()},
+                        **linear_want("float32", 2)},
             "model=fast fp32 serving (1 batch of 16 windows, TTA)")
         require(set(seen) == {64}, f"model=fast serving head dims {dict(seen)}")
         require(all(bool(np.isfinite(a).all()) for a in (poses, hyps, scores))
@@ -4456,7 +4621,7 @@ def phase_dstformer() -> dict:
     torch.cuda.synchronize()
     counts["serve_dstformer"] = require_counts(
         "float32", {**{k: 2 * n for k, n in DSTFORMER_LAUNCHES_PER_FORWARD.items()},
-                    "stream_fusion": 2 * fusions},
+                    "stream_fusion": 2 * fusions, **linear_want("float32", 2, "dstformer")},
         f"DSTformer fp32 serving (1 batch of {b} windows, TTA)")
     spans = [sp for sp in profiling.spans() if sp.name == "model.fuse"]
     require(len(spans) == 2 * fusions and all(sp.counts == {"rows": b * l * 17}
@@ -4492,7 +4657,8 @@ def phase_dstformer() -> dict:
         "float32", {**per_forward, **{k + "_bwd": n for k, n in per_forward.items()},
                     ("fused_mlp", "wgmma"): per_forward["fused_mlp"],
                     ("fused_mlp_bwd", "wgmma"): per_forward["fused_mlp"],
-                    "stream_fusion": fusions, "stream_fusion_bwd": fusions},
+                    "stream_fusion": fusions, "stream_fusion_bwd": fusions,
+                    **linear_want("float32", 1, "dstformer", backward=True)},
         f"DSTformer fp32 train step (B={b})")
     for name, p in state.model.named_parameters():
         require(p.grad is not None and bool(torch.isfinite(p.grad).all()),
@@ -4626,6 +4792,7 @@ def main() -> int:
     cases = phase_kernels()
     k5_paths = phase_k5_paths()
     k6_paths = phase_k6_paths()
+    linear_paths = phase_linear_paths(k5_paths, k6_paths)
     fusion_cases = phase_fusion_kernels()
     print(f"kernels phase: {time.perf_counter() - t0:.1f} s", flush=True)
 
@@ -4917,7 +5084,18 @@ def main() -> int:
             **({"paths": {"fused_mlp": k5_paths, "fused_mlp_bwd": k6_paths}[name]}
                if name in ("fused_mlp", "fused_mlp_bwd") else {}),
         ))
-    for name in (n for n in table if n not in REPLACES):  # the DSTformer's, in fp32 only
+    for name in ("linear", "linear_bwd"):  # no TPU kernel: the JAX package's Dense is XLA's dot
+        head = next(r for r in linear_paths if r["m"] == 66096 and r["n"] == 1536)
+        part = "fwd" if name == "linear" else "dw"
+        kernels.append(dict(
+            name=name, route="cuda", **table[name],
+            launches=train_counts[name],
+            launches_by_path={"serve": counts[name], "train_step": train_counts[name],
+                              **{path: c[name] for path, c in dst_counts.items()}},
+            ms=head[f"{part}_ms"], bound_ms=head["bound_ms"],
+            library_ms=head[f"lib_{part}_ms"],
+            timed_case=f"{head['case']} float32 {part}", cases=linear_paths))
+    for name in (n for n in table if n in fusion_cases):  # the DSTformer's, in fp32 only
         head = fusion_cases[name][0]
         kernels.append(dict(
             name=name, route="cuda", **table[name],

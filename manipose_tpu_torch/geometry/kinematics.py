@@ -23,6 +23,7 @@ import functools
 
 import numpy as np
 import torch
+from torch._subclasses.fake_tensor import unset_fake_temporarily
 
 from .rotations import compose_rotations, rotate_vectors
 from .skeleton import Skeleton
@@ -46,8 +47,10 @@ def _t_pose_on(skeleton: Skeleton, device: torch.device) -> torch.Tensor:
     """The skeleton's (J, 3) T-pose operators on ``device``, copied there
     once: a step makes no host-to-device copy (and can be captured in a
     CUDA graph, where a copy from pageable memory is refused). Made outside
-    inference mode, so that autograd may save it whoever asked first."""
-    with torch.inference_mode(False):
+    inference mode, so that autograd may save it whoever asked first, and
+    outside fake mode, so that a first call under ``torch.export``'s
+    tracing caches a real tensor, not its fake one."""
+    with torch.inference_mode(False), unset_fake_temporarily():
         return torch.as_tensor(skeleton.t_pose_array(), device=device)
 
 
@@ -82,7 +85,7 @@ def _ancestry_on(skeleton: Skeleton, device: torch.device) -> torch.Tensor:
         while a != 0:
             ancestry[j, a] = 1.0
             a = skeleton.parents[a]
-    with torch.inference_mode(False):
+    with torch.inference_mode(False), unset_fake_temporarily():
         return torch.as_tensor(ancestry, device=device)
 
 

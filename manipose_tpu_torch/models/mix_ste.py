@@ -75,6 +75,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import multi_head_attention
+from ..ops.cuda_linear import linear
 from ..ops.cuda_mlp import fused_mlp
 from ..ops.quant import QuantLinear
 from ..parallel.comm import copy_to_group, reduce_from_group
@@ -122,7 +123,10 @@ class MixSTEConfig:
 class Dense(nn.Linear):
     """``nn.Linear`` (same parameters and state-dict names) that computes
     as ``flax.linen.Dense(dtype=compute_dtype)``: input, weight and bias
-    cast to ``compute_dtype``, the output in it."""
+    cast to ``compute_dtype``, the output in it. The product is
+    ``ops.cuda_linear.linear``: on the card, fp32 at widths it takes (the
+    C = 512 trunks' qkv and proj) runs its wgmma kernels, the rest
+    ``F.linear``."""
 
     def __init__(self, in_features: int, out_features: int, bias: bool = True,
                  compute_dtype: torch.dtype = torch.float32):
@@ -132,7 +136,7 @@ class Dense(nn.Linear):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
         bias = None if self.bias is None else self.bias.to(dt)
-        return F.linear(x.to(dt), self.weight.to(dt), bias)
+        return linear(x.to(dt), self.weight.to(dt), bias)
 
 
 class LayerNorm(nn.LayerNorm):

@@ -70,6 +70,13 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         # device, stream
         "mp_fused_mlp_bwd_sm90": [_P] * 11 + [_I] * 4 + [_P],
     },
+    "linear": {
+        # x, w, b, y, wp (scratch), M, N, K, device, stream
+        "mp_linear": [_P] * 5 + [_I] * 4 + [_P],
+        # x, w, g, dx, dw, db, wtp, xtp, part, dbp (scratch), M, N, K, S,
+        # device, stream
+        "mp_linear_bwd": [_P] * 10 + [_I] * 5 + [_P],
+    },
     "fusion": {
         # x_st, x_ts, w, b, out, alpha, R, C, blocks, device, stream
         "mp_stream_fusion": [_P] * 6 + [_I] * 4 + [_P],

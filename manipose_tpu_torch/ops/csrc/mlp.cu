@@ -133,7 +133,8 @@
 // for both), split into big and small tf32 planes and written to (4H, Mp)
 // scratch k-major (da^T, gelu(a)^T; 1.08 GB at M = 66096), and db1's
 // partial from the unrounded da; producer warp 3 writes db2's (g's column
-// sums). Pass 2, fused_mlp_bwd_gemm_kernel_dx and _dw: persistent blocks
+// sums). Pass 2, fused_mlp_bwd_gemm_kernel_dx and _dw (wgmma.cuh's gemm,
+// which linear.cu's fp32 linear shares): persistent blocks
 // of a producer and two consumer warpgroups over 256 x 128 output tiles,
 // each consumer 128 rows as two m64n128 halves that share the stage's B
 // (128 x 128 tiles took 0.57 and 1.19 ms), a TMA ring of 32-deep stages:
@@ -163,11 +164,8 @@
 // slots), or both halves' products in flight at once (two accumulators),
 // changed nothing; a 2-CTA cluster with TMA multicast of the boxes.
 
-#include <cudaTypedefs.h>
-
 #include <algorithm>
 #include <cmath>
-#include <mutex>
 
 #include "common.cuh"
 #include "mma.cuh"
@@ -692,8 +690,8 @@ namespace wg {
 constexpr int C = 512;
 constexpr int BM = 64;          // rows per tile
 constexpr int PAIR = 128;       // hidden units per pair: 64 per consumer warpgroup
-constexpr int KB = 32;          // k (or hidden units) per stage: one 128-byte row
-constexpr int THREADS = 384;    // a producer and two consumer warpgroups
+using mp::wg::KB;               // k (or hidden units) per stage: one 128-byte row
+using mp::wg::THREADS;          // a producer and two consumer warpgroups
 constexpr int WS = 4;           // W ring slots per consumer warpgroup
 constexpr int XS = 4;           // x ring slots
 constexpr int BOX = 8192;       // bytes of one 64 x 32 fp32 TMA box
@@ -708,11 +706,6 @@ constexpr int SMEM = OFF_BAR + 8 * NBAR + 1024;  // + the base's alignment to 1 
 static_assert(SMEM <= 232448, "shared memory");
 
 using namespace mp::wg;
-
-// A's fragment of one k-step in registers, split into its tf32 parts.
-struct Frag {
-  uint32_t big[4], small[4];
-};
 
 // k-step s of a stage's 3xTF32 products into d, small parts first: B a W
 // box pair (swizzled, a k-step 32 bytes along its rows), A's fragment
@@ -760,18 +753,6 @@ __device__ __forceinline__ void stage(float (&d)[32], uint32_t b_big, Frag (&a)[
   mma_wait<0>();
   pin(d);
 }
-
-// A ring's slot and the parity of its current use.
-struct Ring {
-  int i = 0;
-  uint32_t phase = 0;
-  __device__ __forceinline__ void next(int slots) {
-    if (++i == slots) {
-      i = 0;
-      phase ^= 1;
-    }
-  }
-};
 
 // The producer: lane 0 of warp 0 loads x, lane 0 of warp 1 + c the
 // weights' planes of consumer warpgroup c, each into its own ring, in the
@@ -1212,169 +1193,6 @@ __device__ __forceinline__ void rows_consume(int c, uint8_t* smem, uint64_t* w_f
   }
 }
 
-// Pass 2: out (R, N) tiles of 256 x 128 = sum over k of A(r, k) B(n, k),
-// two consumer warpgroups of 128 rows each, as two 64-row halves that
-// share the stage's B, k in stages of 32. B arrives as big and small tf32
-// planes in 128 x 32 boxes; A in 32 x 32 boxes laid [k][r] (r contiguous),
-// as tf32 planes (PLANES) or raw and split in registers. Each half's stage
-// products go into a fresh 64 x 128 accumulator, small parts' first, then
-// into the half's fp32 sum.
-constexpr int TILE_ROWS = 256;
-constexpr int A_BOX = 4096;          // 32 x 32 fp32
-constexpr int B_PLANE = 16384;       // 128 x 32 fp32
-template <bool PLANES>
-struct Gemm {
-  static constexpr int A_HALF = (PLANES ? 4 : 2) * A_BOX;  // a half's A a stage
-  static constexpr int STAGE = 2 * B_PLANE + 4 * A_HALF;
-  static constexpr int STAGES = PLANES ? 2 : 3;
-  static constexpr int OFF_BAR = STAGES * STAGE;
-  static constexpr int SMEM = OFF_BAR + 16 * STAGES + 1024;
-  static_assert(SMEM <= 232448, "shared memory");
-};
-
-// One work item: out rows a0.. (A's inner coordinate), columns b0.. (B's
-// outer coordinate), k in [k_begin, k_end); a_rows and b_rows are where
-// the small planes start in the maps' outer coordinate.
-struct Work {
-  const CUtensorMap* a;
-  const CUtensorMap* b;
-  int a0, a_rows, b0, b_rows, k_begin, k_end;
-};
-
-__device__ __forceinline__ void products128(float (&d)[64], const Frag& a, uint32_t b_big,
-                                            int s) {
-  const uint64_t bb = desc_swizzled(b_big + 32 * s);
-  mma128(d, a.small, bb, s == 0 ? 0 : 1);
-  mma128(d, a.big, desc_swizzled(b_big + B_PLANE + 32 * s), 1);
-  mma128(d, a.big, bb, 1);
-}
-
-// wg::stage over the 64 x 128 tile.
-template <typename Load>
-__device__ __forceinline__ void stage128(float (&d)[64], uint32_t b_big, Load load) {
-  Frag f[2];
-#pragma unroll
-  for (int s = 0; s < KB / 8; ++s) {
-    Frag& a = f[s & 1];
-    if (s >= 2) mma_wait<1>();  // the products of k-step s - 2 read a
-    load(s, a);
-    pin(a.big);
-    pin(a.small);
-    mma_fence();
-    products128(d, a, b_big, s);
-    mma_commit();
-  }
-  mma_wait<0>();
-  pin(d);
-}
-
-// The whole of a pass-2 kernel: ``work(i)`` describes item i of ``items``;
-// ``store(i, sum, row0, row1)`` writes a half's fp32 sums, this thread's
-// rows being row0 and row1 of the tile's 256 (d's h = 0 and 1).
-template <bool PLANES, typename WorkOf, typename Store>
-__device__ __forceinline__ void gemm(int items, WorkOf work, Store store) {
-  using G = Gemm<PLANES>;
-  extern __shared__ uint8_t smem_raw[];
-  uint8_t* smem = smem_raw + ((1024 - (sa(smem_raw) & 1023)) & 1023);
-  uint64_t* full = reinterpret_cast<uint64_t*>(smem + G::OFF_BAR);
-  uint64_t* empty = full + G::STAGES;
-  if (threadIdx.x == 0) {
-    for (int i = 0; i < G::STAGES; ++i) {
-      bar_init(&full[i], 1);
-      bar_init(&empty[i], 8);  // lane 0 of each consumer warp
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  __syncthreads();
-  Ring r;
-  if (threadIdx.x < 128) {
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
-    if (threadIdx.x != 0) return;
-    for (int i = blockIdx.x; i < items; i += gridDim.x) {
-      const Work w = work(i);
-      for (int k0 = w.k_begin; k0 < w.k_end; k0 += KB) {
-        bar_wait(&empty[r.i], r.phase ^ 1);
-        uint8_t* slot = smem + r.i * G::STAGE;
-        bar_expect(&full[r.i], G::STAGE);
-        tma_load(slot, w.b, k0, w.b0, &full[r.i]);
-        tma_load(slot + B_PLANE, w.b, k0, w.b_rows + w.b0, &full[r.i]);
-        for (int q = 0; q < TILE_ROWS / 32; ++q) {  // half q / 2, its rows 32 (q % 2)..
-          uint8_t* a = slot + 2 * B_PLANE + (q >> 1) * G::A_HALF + (q & 1) * A_BOX;
-          tma_load(a, w.a, w.a0 + 32 * q, k0, &full[r.i]);
-          if constexpr (PLANES) tma_load(a + 2 * A_BOX, w.a, w.a0 + 32 * q, w.a_rows + k0,
-                                         &full[r.i]);
-        }
-        r.next(G::STAGES);
-      }
-    }
-    return;
-  }
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
-  const int c = (threadIdx.x >> 7) - 1, lt = threadIdx.x & 127;
-  const int wi = lt >> 5, lane = lt & 31, g = lane >> 2, t = lane & 3;
-  // wgmma row 16 wi + 8 h + g reads A's row rho(h) of the half's 64, so
-  // that the 32 lanes of a fragment load hit 32 banks of the swizzled
-  // [k][r] boxes: 4 t x 8 g at chunks (4 (g / 4) + c') ^ t, words g % 4.
-  auto rho = [&](int h) {
-    return 32 * (wi >> 1) + 4 * (2 * (wi & 1) + h + 4 * (g >> 2)) + (g & 3);
-  };
-  int off[2][2];  // bytes of (row rho(h), k t + 4q) in its half's boxes
-#pragma unroll
-  for (int h = 0; h < 2; ++h)
-#pragma unroll
-    for (int q = 0; q < 2; ++q) {
-      const int row = rho(h), k = t + 4 * q;
-      off[h][q] = (row >> 5) * A_BOX + k * 128 + ((((row & 31) >> 2) ^ k) << 4) + (row & 3) * 4;
-    }
-  const uint32_t base = sa(smem);
-  for (int i = blockIdx.x; i < items; i += gridDim.x) {
-    const Work w = work(i);
-    float sum[2][64], d[64];
-#pragma unroll
-    for (int hf = 0; hf < 2; ++hf)
-#pragma unroll
-      for (int e = 0; e < 64; ++e) sum[hf][e] = 0.f;
-#pragma unroll 1
-    for (int k0 = w.k_begin; k0 < w.k_end; k0 += KB) {
-      bar_wait(&full[r.i], r.phase);
-#pragma unroll
-      for (int hf = 0; hf < 2; ++hf) {
-        const uint8_t* as = smem + r.i * G::STAGE + 2 * B_PLANE + (2 * c + hf) * G::A_HALF;
-        stage128(d, base + r.i * G::STAGE, [&](int s, Frag& a) {
-          auto word = [&](int h, int q, int part) {
-            return *reinterpret_cast<const uint32_t*>(as + part * 2 * A_BOX + off[h][q] +
-                                                      1024 * s);
-          };
-          if constexpr (PLANES) {
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-              a.big[e] = word(e & 1, e >> 1, 0);
-              a.small[e] = word(e & 1, e >> 1, 1);
-            }
-          } else {
-            const uint32_t raw[4] = {word(0, 0, 0), word(1, 0, 0), word(0, 1, 0),
-                                     word(1, 1, 0)};
-            uint32_t p[2][4];
-            mp::Mma<float>::split(raw, p);
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-              a.big[e] = p[0][e];
-              a.small[e] = p[1][e];
-            }
-          }
-        });
-#pragma unroll
-        for (int e = 0; e < 64; ++e) sum[hf][e] += d[e];
-      }
-      if (lane == 0) bar_arrive(&empty[r.i]);
-      r.next(G::STAGES);
-    }
-#pragma unroll
-    for (int hf = 0; hf < 2; ++hf) store(i, sum[hf], 128 * c + 64 * hf + rho(0),
-                                         128 * c + 64 * hf + rho(1));
-  }
-}
-
 }  // namespace wg6
 
 __global__ void __launch_bounds__(wg6::THREADS, 1)
@@ -1422,12 +1240,12 @@ __global__ void __launch_bounds__(wg6::THREADS, 1)
 fused_mlp_bwd_gemm_kernel_dx(const __grid_constant__ CUtensorMap tda,
                              const __grid_constant__ CUtensorMap tw1t, float* __restrict__ dx,
                              int M, int H) {
-  constexpr int C = wg6::C, NT = C / 128, TR = wg6::TILE_ROWS;
+  constexpr int C = wg6::C, NT = C / 128, TR = mp::wg::TILE_ROWS;
   const int items = (M + TR - 1) / TR * NT;
-  wg6::gemm<true>(
+  mp::wg::gemm<mp::wg::A_PLANES>(
       items,
       [&](int i) {
-        return wg6::Work{&tda, &tw1t, TR * (i / NT), H, 128 * (i % NT), C, 0, H};
+        return mp::wg::Work{&tda, &tw1t, TR * (i / NT), H, 128 * (i % NT), C, 0, H};
       },
       [&](int i, const float(&sum)[64], int row0, int row1) {
         const int t = threadIdx.x & 3;
@@ -1455,15 +1273,15 @@ fused_mlp_bwd_gemm_kernel_dw(const __grid_constant__ CUtensorMap tx,
                              const __grid_constant__ CUtensorMap tda,
                              const __grid_constant__ CUtensorMap th, float* __restrict__ part,
                              int Mp, int H, int S, int kps) {
-  constexpr int C = wg6::C, TR = wg6::TILE_ROWS;
+  constexpr int C = wg6::C, TR = mp::wg::TILE_ROWS;
   const int hn = H / 128, per = (C / TR) * hn;
   const long long hc = static_cast<long long>(H) * C;
-  wg6::gemm<false>(
+  mp::wg::gemm<mp::wg::A_RAW>(
       2 * S * per,
       [&](int i) {
         const bool second = i >= S * per;
         const int z = (i / per) % S, tile = i % per;
-        return wg6::Work{second ? &tg : &tx, second ? &th : &tda, TR * (tile / hn), 0,
+        return mp::wg::Work{second ? &tg : &tx, second ? &th : &tda, TR * (tile / hn), 0,
                          128 * (tile % hn), H, z * kps, min(Mp, (z + 1) * kps)};
       },
       [&](int i, const float(&sum)[64], int row0, int row1) {
@@ -1567,52 +1385,8 @@ fused_mlp_bwd_reduce_kernel_sm90(const float* __restrict__ part,
   }
 }
 
-// cuTensorMapEncodeTiled from the CUDA driver, looked up once through the runtime
-// (the libraries link the runtime only).
-PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
-  static PFN_cuTensorMapEncodeTiled_v12000 fn = nullptr;
-  static std::once_flag once;
-  std::call_once(once, [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                         cudaEnableDefault, &found) == cudaSuccess &&
-        found == cudaDriverEntryPointSuccess) {
-      fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(p);
-    }
-  });
-  return fn;
-}
-
-// A row-major (rows, cols) fp32 matrix read in boxes of box_rows rows x
-// 32 columns (128 bytes, swizzled as wgmma reads them); rows past the end
-// read zeros.
-bool encode_map(CUtensorMap* map, const void* p, int rows, int cols, int box_rows = wg::BM) {
-  const auto encode = tensor_map_encoder();
-  if (encode == nullptr) return false;
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * sizeof(float)};
-  const cuuint32_t box[2] = {wg::KB, static_cast<cuuint32_t>(box_rows)};
-  const cuuint32_t unit[2] = {1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<void*>(p), dims, strides,
-                box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
-// The SMs of ``device``, asked once per device (a captured launch makes no
-// attribute call).
-cudaError_t sm_count(int device, int* n_sm) {
-  constexpr int DEVICES = 16;
-  static int sms[DEVICES] = {};
-  *n_sm = device >= 0 && device < DEVICES ? sms[device] : 0;
-  if (*n_sm == 0) {
-    cudaError_t err = cudaDeviceGetAttribute(n_sm, cudaDevAttrMultiProcessorCount, device);
-    if (err != cudaSuccess) return err;
-    if (device >= 0 && device < DEVICES) sms[device] = *n_sm;
-  }
-  return cudaSuccess;
-}
+using mp::encode_map;
+using mp::sm_count;
 
 cudaError_t launch_sm90(const float* x, const float* w1, const float* b1, const float* w2,
                         const float* b2, float* out, float* w1p, float* w2p, int M, int H,
@@ -1656,12 +1430,12 @@ cudaError_t launch_bwd_sm90(const float* x, const float* g, const float* w1, con
       !encode_map(&th_b, h_planes, 2 * H, Mp, 128)) {
     return cudaErrorNotSupported;
   }
+  using DX = mp::wg::Gemm<mp::wg::A_PLANES>;
+  using DW = mp::wg::Gemm<mp::wg::A_RAW>;
   cudaError_t err;
   if ((err = mp::allow_smem(fused_mlp_bwd_rows_kernel_sm90, wg6::R_SMEM)) != cudaSuccess ||
-      (err = mp::allow_smem(fused_mlp_bwd_gemm_kernel_dx, wg6::Gemm<true>::SMEM)) !=
-          cudaSuccess ||
-      (err = mp::allow_smem(fused_mlp_bwd_gemm_kernel_dw, wg6::Gemm<false>::SMEM)) !=
-          cudaSuccess) {
+      (err = mp::allow_smem(fused_mlp_bwd_gemm_kernel_dx, DX::SMEM)) != cudaSuccess ||
+      (err = mp::allow_smem(fused_mlp_bwd_gemm_kernel_dw, DW::SMEM)) != cudaSuccess) {
     return err;
   }
   fused_mlp_bwd_rows_kernel_split<<<dim3(2 * n_sm, 3), 256, 0, stream>>>(w1, w2, wp, H);
@@ -1669,14 +1443,15 @@ cudaError_t launch_bwd_sm90(const float* x, const float* g, const float* w1, con
   fused_mlp_bwd_rows_kernel_sm90<<<std::min(tiles, n_sm), wg6::THREADS, wg6::R_SMEM, stream>>>(
       tx, tg, tw1, tw2t, g, b1, planes, colsum, M, Mp, H);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  const int dx_items = (M + wg6::TILE_ROWS - 1) / wg6::TILE_ROWS * (C / 128);
-  fused_mlp_bwd_gemm_kernel_dx<<<std::min(dx_items, n_sm), wg6::THREADS, wg6::Gemm<true>::SMEM,
-                                 stream>>>(tda_a, tw1t, dx, M, H);
+  constexpr int TR = mp::wg::TILE_ROWS;
+  const int dx_items = (M + TR - 1) / TR * (C / 128);
+  fused_mlp_bwd_gemm_kernel_dx<<<std::min(dx_items, n_sm), wg6::THREADS, DX::SMEM, stream>>>(
+      tda_a, tw1t, dx, M, H);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  const int dw_items = 2 * S * (C / wg6::TILE_ROWS) * (H / 128);
+  const int dw_items = 2 * S * (C / TR) * (H / 128);
   const int kps = ((Mp + S - 1) / S + wg::KB - 1) / wg::KB * wg::KB;
-  fused_mlp_bwd_gemm_kernel_dw<<<std::min(dw_items, n_sm), wg6::THREADS, wg6::Gemm<false>::SMEM,
-                                 stream>>>(tx_a, tg_a, tda_b, th_b, part, Mp, H, S, kps);
+  fused_mlp_bwd_gemm_kernel_dw<<<std::min(dw_items, n_sm), wg6::THREADS, DW::SMEM, stream>>>(
+      tx_a, tg_a, tda_b, th_b, part, Mp, H, S, kps);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   fused_mlp_bwd_reduce_kernel_sm90<<<static_cast<unsigned>(2 * hc / 256 + (H + C) / 16), 256, 0,
                                      stream>>>(part, colsum, grads, S, tiles, H);

@@ -30,6 +30,15 @@ builds into ``build/probes/`` and prints:
    pass skips dh = g W2 and g's loads), ``one_pass`` (the big parts'
    product alone, in the rows pass and the tile products) and ``no_mma``
    (no wgmma at all).
+   ``linear`` (a section of its own): each kernel of the fp32 linear
+   (``cuda_linear``: the forward, dX and dW products, the split and
+   transpose passes, the reduce) at the trunks' qkv and proj (K 512, N
+   1536 and 512) at M 66096 and 132192, from ``torch.profiler``, built
+   from ``csrc/`` as it is and with one part of the work taken out:
+   ``one_pass`` (the big parts' product alone), ``no_mma`` (no wgmma:
+   the loads, the splits in registers and the waits alone) and
+   ``no_split`` (no split or transpose pass: the products read planes
+   left as they were).
 5. ``attention``: K1 and K2 at the flagship's shapes (rotations 272*8
    windows of 243 x 64, segments 256*8 of 243 x 16), fp32 and bf16, in
    turns, built from ``csrc/`` as it is (``base``, twice) and changed:
@@ -149,9 +158,18 @@ K6_WGMMA_ABLATIONS = {
                "for (int n = 0; n < C / KB; ++n) {", 2),
               ("mlp.cu", "      product(dh);\n", "", 1)],
     "one_pass": [("mlp.cu", _WG_PRODUCTS, "  mma(d, a.big, bb, s == 0 ? 0 : 1);", 1),
-                 ("mlp.cu", _K6_PRODUCTS, "  mma128(d, a.big, bb, s == 0 ? 0 : 1);", 1)],
+                 ("wgmma.cuh", _K6_PRODUCTS, "  mma128(d, a.big, bb, s == 0 ? 0 : 1);", 1)],
     "no_mma": [("mlp.cu", _WG_PRODUCTS, "  (void)bb;", 1),
-               ("mlp.cu", _K6_PRODUCTS, "  (void)bb;", 1)],
+               ("wgmma.cuh", _K6_PRODUCTS, "  (void)bb;", 1)],
+}
+# the fp32 linear's products (wgmma.cuh's gemm, shared with K6's tile
+# products) and its split and transpose passes
+LINEAR_ABLATIONS = {
+    "base": [],
+    "one_pass": K6_WGMMA_ABLATIONS["one_pass"][1:],
+    "no_mma": K6_WGMMA_ABLATIONS["no_mma"][1:],
+    "no_split": [("linear.cu", "  linear_split_kernel<<<", "  if (false) linear_split_kernel<<<",
+                  3)],
 }
 
 _DENSE_SCORES = "for (int kk = 0; kk < G::KS; ++kk) {"
@@ -339,6 +357,46 @@ def ablate_k6_wgmma(libs: dict, gen) -> None:
             print(f"ablate K6 wgmma M={rows} {name:9s} {total:.4f} ms "
                   f"({10.0 * rows * c * h / total * 1e-9:.1f} TFLOP/s): "
                   + ", ".join(f"{k} {v:.4f}" for k, v in times.items()), flush=True)
+
+
+def ablate_linear(libs: dict, gen) -> None:
+    """Each kernel of the fp32 linear's forward and backward at the trunks'
+    qkv and proj, per variant of the sources (device times from
+    torch.profiler; the split kernel's time is that of all three of its
+    launches), with each product's TFLOP/s."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from ..cuda_linear import linear_backward, linear_forward
+
+    k = SHAPE[1]
+    for rows in (SHAPE[0], 2 * SHAPE[0]):
+        for n in (3 * k, k):
+            x = torch.randn((rows, k), generator=gen, device="cuda")
+            w = (torch.rand((n, k), generator=gen, device="cuda") * 2 - 1) / k**0.5
+            b = torch.zeros(n, device="cuda")
+            g = torch.randn((rows, n), generator=gen, device="cuda")
+            flops = 2.0 * rows * n * k
+            for name, lib in libs.items():
+                def run():
+                    linear_forward(x, w, b, lib=lib)
+                    linear_backward(x, w, g, lib=lib)
+
+                run()
+                torch.cuda.synchronize()
+                reps = 5
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    for _ in range(reps):
+                        run()
+                    torch.cuda.synchronize()
+                times = {e.key.split("::")[-1].split("(")[0]:
+                         e.self_device_time_total / 1e3 / reps
+                         for e in prof.key_averages() if e.self_device_time_total > 0}
+                products = ", ".join(
+                    f"{kn[7:-7]} {flops / times[kn] * 1e-9:.1f} TFLOP/s" for kn in
+                    ("linear_fwd_kernel", "linear_dx_kernel", "linear_dw_kernel") if kn in times)
+                print(f"ablate linear M={rows} N={n} K={k} {name:9s} "
+                      f"{sum(times.values()):.4f} ms ({products}): "
+                      + ", ".join(f"{kn} {v:.4f}" for kn, v in times.items()), flush=True)
 
 
 # (trunk, windows, heads, N, d) of the flagship's dense attention, B = 16
@@ -593,8 +651,8 @@ def eval_pinning() -> None:
             Batch.pin_memory = pin
 
 
-SECTIONS = ("mma_rate", "accumulate", "ablate", "wgmma", "k6", "k6wgmma", "attention", "packed",
-            "bf16", "pinning")
+SECTIONS = ("mma_rate", "accumulate", "ablate", "wgmma", "k6", "k6wgmma", "linear", "attention",
+            "packed", "bf16", "pinning")
 
 
 def main() -> int:
@@ -623,6 +681,8 @@ def main() -> int:
         k6_kernels(gen)
     if "k6wgmma" in sections:
         ablate_k6_wgmma(build_variants("mlp", K6_WGMMA_ABLATIONS), gen)
+    if "linear" in sections:
+        ablate_linear(build_variants("linear", LINEAR_ABLATIONS), gen)
     if "attention" in sections:
         attention(build_variants("attention", ATTENTION_VARIANTS, args.against), gen)
     if "packed" in sections:

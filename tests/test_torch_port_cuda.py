@@ -17,7 +17,9 @@ on the joint-major layout's strided windows, a joint-major model against
 the fold layout, the megastep's CUDA graph against single steps (with and
 without remat), a remat step against the plain one, and K5's and K6's
 wgmma paths against fp64, run twice and replayed in a CUDA graph, with
-their launches counted.
+their launches counted, and the fp32 linear (``ops.cuda_linear``) against
+the library's fp32 product at the trunks' shapes, run twice, under
+autograd and replayed in a CUDA graph.
 Marked ``cuda``; without a CUDA device every test skips. Run them on the
 card with ``python -m pytest tests/test_torch_port_cuda.py -q
 --noconftest``: tests/conftest.py sets up JAX for the rest of the suite,
@@ -50,7 +52,7 @@ from manipose_tpu_torch.ops.cuda_attention import (
     attention_plain_bwd,
     packed_launch_shape,
 )
-from manipose_tpu_torch.ops import launches
+from manipose_tpu_torch.ops import cuda_linear, launches
 from manipose_tpu_torch.ops.cuda_attention import merge_heads, split_heads
 from manipose_tpu_torch.ops.cuda_mlp import (
     fused_mlp,
@@ -236,6 +238,12 @@ def test_kernels_refuse_what_they_do_not_take(gen):
 OVERRIDES = ["model=small", "model.layers=2", "model.layers_seg=1",
              "multi_hyp.n_hyp=2"]
 PER_FORWARD = {"attention_dense": 3, "attention_packed": 3, "fused_mlp": 6}
+# and per fp32 forward 15 Dense calls (ops.cuda_linear), all on the library
+# at 64 channels: the 2 + 1 blocks' 6 attention layers' qkv and proj, the
+# patch and joint-to-segment embeddings and the segments head
+LINEAR = {"linear": 15}
+# of them inside the blocks (which remat runs again in the backward)
+LINEAR_IN_BLOCKS = 12
 # every kernel of the port's inventory (the DSTformer's fusion among them),
 # none launched
 NONE = dict.fromkeys(launches.KERNELS, 0)
@@ -254,7 +262,7 @@ def test_predictor_on_card_matches_cpu(gen):
     n_batches = 2  # 3 windows of 243 frames in batches of 2
     assert ops.launch_counts() == {
         **NONE,
-        **{name: 2 * n * n_batches for name, n in PER_FORWARD.items()},
+        **{name: 2 * n * n_batches for name, n in {**PER_FORWARD, **LINEAR}.items()},
     }
     want = cpu.predict_video(video, return_hypotheses=True)
     for g, w in zip(got, want):
@@ -728,7 +736,7 @@ def test_train_step_on_card_matches_cpu(gen):
         ops.reset_launch_counts()
         metrics[device] = {k: v.item() for k, v in step(state, x, y, 4e-5).items()}
         if device == "cuda":
-            assert ops.launch_counts() == {**NONE, **PER_FORWARD, **PER_BACKWARD}
+            assert ops.launch_counts() == {**NONE, **PER_FORWARD, **PER_BACKWARD, **LINEAR}
         grads[device] = {n: p.grad.cpu() for n, p in model.named_parameters()}
     for k, want in metrics["cpu"].items():
         assert abs(metrics["cuda"][k] - want) <= 5e-5 * max(1.0, abs(want)), k
@@ -910,7 +918,7 @@ def test_evaluate_on_card_matches_cpu(gen):
         results[device] = evaluate(model.to(device), batches, skeleton, EvalConfig())
     assert ops.launch_counts() == {
         **NONE,
-        **{name: 2 * n * len(batches) for name, n in PER_FORWARD.items()},
+        **{name: 2 * n * len(batches) for name, n in {**PER_FORWARD, **LINEAR}.items()},
     }
     got, want = results["cuda"], results["cpu"]
     for g_list, w_list in ((got[0], want[0]), (got[5], want[5])):
@@ -1065,7 +1073,8 @@ def test_3dhp_protocol_on_card_matches_cpu(gen, tmp_path):
     n_batches = len(create_loader(dataset, cfg, train=False))
     assert ops.launch_counts() == {
         **NONE,
-        "attention_packed": 2 * 6 * n_batches, "fused_mlp": 2 * 6 * n_batches}
+        "attention_packed": 2 * 6 * n_batches, "fused_mlp": 2 * 6 * n_batches,
+        "linear": 2 * LINEAR["linear"] * n_batches}
     frames = len(create_loader(dataset, cfg, train=False).dataset) * 27
     for k, w in metrics["cpu"].items():
         g = metrics["cuda"][k]
@@ -1126,9 +1135,11 @@ def test_int8_predictor_on_card_matches_cpu(gen):
     for h in hooks:
         h.remove()
     n_batches = 1  # 2 windows of 243 frames
+    # the Dense calls that stay float: the embeddings and the segments head
     assert ops.launch_counts() == {
         **NONE,
-        "attention_dense": 2 * 3 * n_batches, "attention_packed": 2 * 3 * n_batches}
+        "attention_dense": 2 * 3 * n_batches, "attention_packed": 2 * 3 * n_batches,
+        "linear": 2 * 3 * n_batches}
     cpu_layers = dict(cpu.model.named_modules())
     assert len(seen) == 2 * len(layers)  # TTA: each layer twice
     for name, x, out in seen:
@@ -1242,7 +1253,7 @@ def test_joint_major_model_on_card_matches_fold(gen):
             fwd = model(x)
         ops.reset_launch_counts()
         metrics = make_train_step(model, LossConfig(), skeleton, opt)(state, x, y, 4e-5)
-        assert ops.launch_counts() == {**NONE, **PER_FORWARD, **PER_BACKWARD}
+        assert ops.launch_counts() == {**NONE, **PER_FORWARD, **PER_BACKWARD, **LINEAR}
         runs[layout] = (fwd, metrics, {n: p.detach().clone() for n, p in
                                        model.named_parameters()})
     (f_fwd, f_m, f_w), (j_fwd, j_m, j_w) = runs["fold"], runs["joint_major"]
@@ -1298,7 +1309,7 @@ def test_megastep_graph_matches_single_steps(gen, remat):
     (graph,) = multi.graphs.values()
     captured = ops.by_kernel(graph.launches)
     per_step = {**NONE, **{n: c * (2 if remat else 1) for n, c in PER_FORWARD.items()},
-                **PER_BACKWARD}
+                **PER_BACKWARD, "linear": LINEAR["linear"] + (LINEAR_IN_BLOCKS if remat else 0)}
     assert captured == {n: k_steps * c for n, c in per_step.items()}
     assert ops.launch_counts() == {n: (k_steps + 1) * c for n, c in per_step.items()}
     assert ops.replayed_counts() == captured and ops.graph_replays() == 1
@@ -1353,3 +1364,148 @@ def test_remat_step_on_card_matches_plain(gen, dtype):
     assert abs(l1 - l0) <= 5e-5 * max(1.0, abs(l0))
     for n, g in g0.items():
         assert _max_err(g1[n], g) <= tol * max(1.0, g.abs().max().item()), n
+
+
+# ---- the fp32 linear (ops.cuda_linear) ------------------------------------
+
+def _linear_operands(gen, m, n, k):
+    x = torch.randn((m, k), generator=gen, device="cuda")
+    w = (torch.rand((n, k), generator=gen, device="cuda") * 2 - 1) / k**0.5
+    b = (torch.rand((n,), generator=gen, device="cuda") * 2 - 1) / k**0.5
+    g = torch.randn((m, n), generator=gen, device="cuda")
+    return x, w, b, g
+
+
+def _linear_plain(x, w, b, g):
+    """The plain fp32 version on the card (the library, TF32 off): y, dX,
+    dW, db."""
+    assert not torch.backends.cuda.matmul.allow_tf32
+    return torch.nn.functional.linear(x, w, b), g @ w, g.t() @ x, g.sum(0)
+
+
+def _linear_errors(got, want, names=("y", "dx", "dw", "db")):
+    """Each of y, dX, dW, db against the plain version: y within 5e-5 (the
+    JAX package's fp32 MLP tolerance), the gradients within 5e-4 *
+    max(1, |ref|max)."""
+    for name, a, r in zip(names, got, want):
+        assert a.shape == r.shape and a.dtype == torch.float32, name
+        tol = 5e-5 if name == "y" else 5e-4 * max(1.0, r.abs().max().item())
+        assert (a - r).abs().max().item() <= tol, name
+
+
+# the trunks' rows: the lift's batch of 8 windows, the b16 step, one row
+# past it, the DSTformer's b32 step; qkv's N = 1536 and proj's 512 at K = 512
+@pytest.mark.parametrize("m", [33048, 66096, 66097, 132192])
+@pytest.mark.parametrize("n", [1536, 512])
+def test_linear_kernels_match_plain(gen, m, n):
+    """The linear's kernels (forward, dX, dW, db) against the plain fp32
+    version (F.linear and its gradient through the library, TF32 off), and
+    bit for bit on a second run."""
+    x, w, b, g = _linear_operands(gen, m, n, 512)
+    ops.reset_launch_counts()
+    y = cuda_linear.linear_forward(x, w, b)
+    grads = cuda_linear.linear_backward(x, w, g)
+    assert ops.launch_counts(torch.float32, "wgmma") == {
+        **NONE, "linear": 1, "linear_bwd": 1}
+    _linear_errors((y, *grads), _linear_plain(x, w, b, g))
+    assert torch.equal(y, cuda_linear.linear_forward(x, w, b))
+    assert all(torch.equal(a, c) for a, c in zip(grads, cuda_linear.linear_backward(x, w, g)))
+
+
+# around the crossovers (cuda_linear.min_rows: 4096 rows at K = 512, 16,384
+# at K = 128) at qkv's and proj's widths and the segments trunk's; one tile
+# of rows; a ragged last tile
+@pytest.mark.parametrize("m", [1, 255, 4095, 4096, 4131, 16383, 16384])
+@pytest.mark.parametrize("n,k", [(1536, 512), (512, 512), (384, 128), (128, 128)])
+def test_linear_matches_plain_around_the_crossover(gen, m, n, k):
+    """linear() under autograd on both sides of the crossover: the path the
+    rule picks (counted in the ledger), its output and its three gradients
+    against the plain version, with and without a bias; the kernels also
+    below the crossover, where the rule leaves the product to the
+    library."""
+    x, w, b, g = _linear_operands(gen, m, n, k)
+    want = _linear_plain(x, w, b, g)
+    on_wgmma = m >= cuda_linear.min_rows(k)
+    for bias in (b, None):
+        leaves = [t.detach().clone().requires_grad_() for t in (x, w, bias) if t is not None]
+        ops.reset_launch_counts()
+        y = cuda_linear.linear(*leaves)
+        y.backward(g)
+        assert ops.launch_counts(torch.float32, "wgmma")["linear"] == int(on_wgmma)
+        assert ops.launch_counts(torch.float32, "library")["linear"] == int(not on_wgmma)
+        assert ops.launch_counts(torch.float32, "wgmma")["linear_bwd"] == int(on_wgmma)
+        plain = want if bias is not None else _linear_plain(x, w, None, g)
+        _linear_errors([y.detach()] + [t.grad for t in leaves], plain)
+    got = (cuda_linear.linear_forward(x, w, b), *cuda_linear.linear_backward(x, w, g))
+    _linear_errors(got, want)
+
+
+def test_linear_takes_views_and_batched_rows(gen):
+    """x as a strided view (a column slice) with rows over two leading
+    dims: linear() gives the plain version's output and gradients (the
+    kernels read a contiguous copy of the slice), the slice's gradient
+    lands in its columns alone."""
+    big = torch.randn((2, 4131, 640), generator=gen, device="cuda").requires_grad_()
+    x = big[..., 64:576]
+    w = (torch.randn((1536, 512), generator=gen, device="cuda") / 512**0.5).requires_grad_()
+    g = torch.randn((2, 4131, 1536), generator=gen, device="cuda")
+    ops.reset_launch_counts()
+    y = cuda_linear.linear(x, w)
+    y.backward(g)
+    assert ops.launch_counts(torch.float32, "wgmma")["linear"] == 1
+    xd, wd = x.detach(), w.detach()
+    _linear_errors((y.detach(), big.grad[..., 64:576], w.grad),
+                   (torch.nn.functional.linear(xd, wd), g @ wd,
+                    g.reshape(-1, 1536).t() @ xd.reshape(-1, 512)))
+    assert not big.grad[..., :64].any() and not big.grad[..., 576:].any()
+
+
+def test_linear_replays_in_a_cuda_graph(gen):
+    """Captured in a CUDA graph (tensor maps as kernel parameters, the
+    planes and partials inside the capture), each replay gives the eager
+    result bit for bit, also after new inputs are copied in; the capture
+    counts one launch of each, record_replay one per replay."""
+    x, w, b, g = _linear_operands(gen, 8262, 1536, 512)
+    args = (x, w, b, g)
+    static = [a.clone() for a in args]
+
+    def run(x, w, b, g):
+        return (cuda_linear.linear_forward(x, w, b), *cuda_linear.linear_backward(x, w, g))
+
+    run(*static)  # builds and warms up outside the capture
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    before = ops.launch_snapshot()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = run(*static)
+    captured = ops.launches_since(before)
+    assert captured == {("linear", "wgmma", torch.float32): 1,
+                        ("linear_bwd", "wgmma", torch.float32): 1}
+    for scale in (1.0, 0.5):
+        for dst, src in zip(static, args):
+            dst.copy_(src * scale)
+        graph.replay()
+        ops.record_replay(captured)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, c) for a, c in zip(out, run(*static)))
+    assert ops.replayed_counts(torch.float32, "wgmma")["linear_bwd"] == 2
+
+
+def test_linear_leaves_bf16_to_the_library(gen):
+    """bf16 operands (bf16 compute) take F.linear and count nothing; a Dense
+    of the model at C = 512 in fp32 takes the kernels and counts one."""
+    from manipose_tpu_torch.models.mix_ste import Dense
+
+    x, w, b, _ = _linear_operands(gen, 4131, 1536, 512)
+    ops.reset_launch_counts()
+    got = cuda_linear.linear(x.bfloat16(), w.bfloat16(), b.bfloat16())
+    assert torch.equal(got, torch.nn.functional.linear(x.bfloat16(), w.bfloat16(),
+                                                       b.bfloat16()))
+    assert not any(ops.launch_counts().values())
+    dense = Dense(512, 1536).cuda()
+    with torch.no_grad():
+        y = dense(x.reshape(1, 4131, 512))
+    assert ops.launch_counts(torch.float32, "wgmma") == {**NONE, "linear": 1}
+    ref = torch.nn.functional.linear(x, dense.weight, dense.bias)
+    assert (y.reshape(4131, 1536) - ref).abs().max().item() <= 5e-5

@@ -145,6 +145,10 @@ def test_dstformer_train_step_on_card_matches_cpu(gen):
             want = {k: 2 * n for k, n in per_stream.items()}
             want.update({k + "_bwd": n for k, n in want.items()})
             want.update(stream_fusion=2, stream_fusion_bwd=2)
+            # 19 Dense calls, all on the library at 64 channels (ops.cuda_linear):
+            # the embedding, 2 depths x 2 streams x 2 attention layers' qkv and
+            # proj, pre_logits and the head
+            want.update(linear=19, linear_bwd=0)
             assert ops.launch_counts() == ops.launch_counts(torch.float32) == want
         grads[device] = {n: p.grad.cpu() for n, p in model.named_parameters()}
     for k, want in metrics["cpu"].items():

@@ -31,7 +31,7 @@ from manipose_tpu_torch.ops.cuda_attention import (
     padded_head_dim,
     split_heads,
 )
-from manipose_tpu_torch.ops import cuda_fusion, cuda_mlp, launches
+from manipose_tpu_torch.ops import cuda_fusion, cuda_linear, cuda_mlp, launches
 from manipose_tpu_torch.ops.probes import run_probes
 from manipose_tpu_torch.ops.cuda_mlp import (
     fused_mlp,
@@ -330,7 +330,7 @@ def test_cpu_tensors_take_the_plain_path():
     assert ops.launch_counts() == {
         "attention_dense": 0, "attention_packed": 0, "attention_dense_bwd": 0,
         "attention_packed_bwd": 0, "fused_mlp": 0, "fused_mlp_bwd": 0,
-        "stream_fusion": 0, "stream_fusion_bwd": 0,
+        "stream_fusion": 0, "stream_fusion_bwd": 0, "linear": 0, "linear_bwd": 0,
     }
     assert ops.launch_counts(torch.bfloat16) == ops.launch_counts(torch.float32) \
         == ops.launch_counts()
@@ -579,7 +579,8 @@ def test_k6_wgmma_wgrad_splits(m, h):
 
 
 @pytest.mark.parametrize("group", ["MLP_ABLATIONS", "WGMMA_ABLATIONS", "K6_WGMMA_ABLATIONS",
-                                   "ATTENTION_VARIANTS", "PACKED_VARIANTS"])
+                                   "ATTENTION_VARIANTS", "PACKED_VARIANTS",
+                                   "LINEAR_ABLATIONS"])
 def test_probe_patch_points_are_in_the_sources(group):
     """run_probes patches copies of the kernels' sources by text: every
     patch point of every variant is in the sources as often as the variant
@@ -688,3 +689,257 @@ def test_bf16_p_in_two_parts_is_as_accurate_as_fp32():
     plain = err(p @ v.float())
     assert err(hi.float() @ v.float() + lo.float() @ v.float()) <= 1.05 * plain + 1e-6
     assert err(hi.float() @ v.float()) > 1.2 * plain
+
+
+# ---- the fp32 linear (ops.cuda_linear): plain path, rule, ledger ----------
+
+def _linear_leaves(m, k, n, bias, seed=0):
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randn((3, m, k), generator=gen)
+    w = torch.randn((n, k), generator=gen) / k**0.5
+    b = torch.randn((n,), generator=gen) if bias else None
+    return [None if t is None else t.requires_grad_() for t in (x, w, b)]
+
+
+@pytest.mark.parametrize("bias", [True, False])
+@pytest.mark.parametrize("m,k,n", [(5, 512, 1536), (7, 128, 384), (4, 2, 512)])
+def test_linear_plain_path_is_f_linear(m, k, n, bias):
+    """On the CPU, cuda_linear.linear is F.linear: its output and the
+    gradients of x, W and b, bit for bit, with and without a bias, and
+    it launches nothing."""
+    ops.reset_launch_counts()
+    leaves = _linear_leaves(m, k, n, bias)
+    want_leaves = [None if t is None else t.detach().clone().requires_grad_() for t in leaves]
+    g = torch.randn((3, m, n), generator=torch.Generator().manual_seed(1))
+    got = cuda_linear.linear(*leaves)
+    want = torch.nn.functional.linear(*want_leaves)
+    assert torch.equal(got, want)
+    got.backward(g)
+    want.backward(g)
+    for a, b in zip(leaves, want_leaves):
+        if a is not None:
+            assert torch.equal(a.grad, b.grad)
+    assert not any(ops.launch_counts().values())
+
+
+def _model_dense(overrides):
+    from manipose_tpu_torch.config import load_config
+    from manipose_tpu_torch.drivers import instantiate_model
+    from manipose_tpu_torch.geometry import h36m_skeleton_17
+    from manipose_tpu_torch.models.mix_ste import Dense
+
+    model, _ = instantiate_model(load_config("config", overrides), h36m_skeleton_17())
+    return {name: m for name, m in model.named_modules() if isinstance(m, Dense)}
+
+
+def _rows(name, batch, frames, joints=17, bones=16):
+    """The rows a Dense of the flagship or the DSTformer takes in a batch of
+    ``batch`` windows: a joint or a bone per frame, one row per frame for
+    the segments branch's joint-to-segment embedding."""
+    if name.endswith("joints_to_segments_proj"):
+        return batch * frames
+    return batch * frames * (bones if name.startswith("segments_module") else joints)
+
+
+# the attention's two products: Attention.qkv and .proj (the DSTformer's
+# attn_s and attn_t too)
+_QKV_PROJ = (".qkv", ".proj")
+
+
+def _expected_path(name, rows, k, dtype):
+    """qkv and proj at C = 512 (the flagship's rotations trunk, both
+    streams of the DSTformer) and the DSTformer's pre_logits on wgmma; the
+    segments trunk's C = 128 qkv and proj at and above their crossover; the
+    embeddings and heads, bf16 and rows under the crossover on the
+    library."""
+    wide = name.endswith(_QKV_PROJ) or name == "pre_logits.fc"
+    return dtype == torch.float32 and wide and rows >= cuda_linear.min_rows(k)
+
+
+# (overrides, windows a batch, frames): the flagship's b16 step and lift
+# batch, the 3DHP model's batch of 25 at L = 27 and a one-window stream, the
+# DSTformer's b32 step
+_PATH_CASES = [([], 16, 243), ([], 8, 243), (["data=mpi_inf_3dhp"], 25, 27),
+               (["data=mpi_inf_3dhp"], 1, 27), (["model=dstformer", "train=motionbert_ft"], 32, 243)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("overrides,batch,frames", _PATH_CASES)
+def test_linear_path_rule_for_every_dense(overrides, batch, frames, dtype):
+    """takes_wgmma on every Dense of the flagship, 3DHP and DSTformer models
+    at their cells' rows (fake CUDA tensors, so that the rule reads only
+    what a card's operands would show): the C = 512 qkv and proj and the
+    DSTformer's pre_logits on wgmma; the C = 128 segments trunk wherever its
+    rows reach the crossover; every embedding and head, every bf16 call and
+    a one-window stream (459 rows) on the library."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    dense = _model_dense(overrides)
+    assert dense
+    picked = {}
+    with FakeTensorMode():
+        for name, m in dense.items():
+            rows = _rows(name, batch, frames)
+            x = torch.empty((rows, m.in_features), dtype=dtype, device="cuda")
+            w = torch.empty((m.out_features, m.in_features), dtype=dtype, device="cuda")
+            picked[name] = cuda_linear.takes_wgmma(x, w)
+            assert picked[name] is _expected_path(name, rows, m.in_features, dtype), (name, rows)
+    wide = [n for n in dense if n.endswith(_QKV_PROJ)]
+    assert len(wide) == 40 and sum(picked[n] for n in wide) == (0 if dtype == torch.bfloat16
+                                                                else sum(
+        _rows(n, batch, frames) >= cuda_linear.min_rows(dense[n].in_features) for n in wide))
+    if dtype == torch.float32 and (batch, frames) in ((16, 243), (32, 243)):
+        assert all(picked[n] for n in wide)  # the training cells: every qkv and proj
+    if (batch, frames) == (1, 27):
+        assert not any(picked.values())  # a one-window stream stays on the library
+
+
+def test_linear_rule_reads_the_operands():
+    """The rule reads the operands alone: fp32 on one CUDA device, K and N
+    multiples of 128, M from the crossover up (4096 rows at K = 512, 16,384
+    at K = 128); a CPU tensor takes F.linear."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    m = cuda_linear.MIN_ROWS
+    assert cuda_linear.min_rows(512) == m == 4096 and cuda_linear.min_rows(128) == 4 * m
+    with FakeTensorMode():
+        def rule(rows, k, n, dtype=torch.float32, x_device="cuda", w_device="cuda"):
+            x = torch.empty((rows, k), dtype=dtype, device=x_device)
+            return cuda_linear.takes_wgmma(x, torch.empty((n, k), dtype=dtype, device=w_device))
+
+        assert rule(m, 512, 1536) and rule(4 * m, 128, 128) and rule(2 * m, 256, 640)
+        assert not rule(m - 1, 512, 1536) and not rule(4 * m - 1, 128, 384)
+        assert not rule(m, 512, 3) and not rule(m, 2, 512) and not rule(m, 512, 1000)
+        assert not rule(m, 512, 1536, torch.bfloat16) and not rule(m, 512, 1536, torch.float16)
+        assert not rule(m, 512, 1536, x_device="cpu", w_device="cpu")
+        x3 = torch.empty((2, m, 512), device="cuda")  # rows are all but the last dim
+        assert cuda_linear.takes_wgmma(x3, torch.empty((512, 512), device="cuda"))
+
+
+def test_linear_kernels_are_listed_under_names_of_their_own():
+    """launches.KERNELS lists the linear's device kernels, each a kernel of
+    csrc/linear.cu, all named linear_..., and none holds a pattern by which
+    benchmark/kernels/*.json counts K1-K6 or the fusion (else
+    kernel_roofline would count them as those kernels)."""
+    import json
+
+    root = build.CSRC.parents[2]
+    patterns = [p for f in sorted((root / "benchmark" / "kernels").glob("*.json"))
+                for p in json.loads(f.read_text())["patterns"]]
+    assert patterns
+    source = (build.CSRC / "linear.cu").read_text()
+    names = set()
+    for kernel in ("linear", "linear_bwd"):
+        entry = launches.KERNELS[kernel]
+        assert entry["library"] == "linear" and "wgmma" in entry["paths"]
+        names.update(entry["paths"]["wgmma"])
+    assert launches.KERNELS["linear"]["paths"]["library"] == ()
+    assert names == {"linear_split_kernel", "linear_fwd_kernel", "linear_dx_kernel",
+                     "linear_dw_kernel", "linear_reduce_kernel"}
+    for name in names:
+        assert name.startswith("linear_") and f"\n{name}(" in source, name
+        assert not any(p in name for p in patterns), name
+
+
+@pytest.mark.parametrize("overrides", [[], ["model=dstformer", "train=motionbert_ft"]])
+def test_dense_state_dict_names_are_nn_linear_names(overrides):
+    """Dense keeps nn.Linear's parameters and state-dict names: every Dense
+    of the flagship and the DSTformer holds weight (and bias) as an
+    nn.Linear of its widths does, and loads one's state dict strictly."""
+    from torch import nn
+
+    for name, m in _model_dense(overrides).items():
+        plain = nn.Linear(m.in_features, m.out_features, bias=m.bias is not None)
+        assert list(m.state_dict()) == list(plain.state_dict()), name
+        m.load_state_dict(plain.state_dict(), strict=True)
+
+
+class _FakeLinearLibrary:
+    def __init__(self):
+        self.calls = []
+
+    def mp_linear(self, *args):
+        self.calls.append(("fwd",) + args[5:8])
+        return 0
+
+    def mp_linear_bwd(self, *args):
+        self.calls.append(("bwd",) + args[10:14])
+        return 0
+
+
+def test_linear_counts_its_launches_by_path(monkeypatch):
+    """Each fp32 call counts once under ``linear``: on ``wgmma`` where the
+    rule takes it (and its backward once under ``linear_bwd``), on
+    ``library`` where it leaves it to F.linear; bf16 calls count nothing.
+    ops.launch_counts(torch.float32, "wgmma")["linear"] over all fp32 calls
+    is the share the kernels took."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    lib = _FakeLinearLibrary()
+    monkeypatch.setattr(build, "load", lambda name: lib)
+    monkeypatch.setattr(cuda_linear, "_check", lambda *args, **kw: None)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: type("S", (), {"cuda_stream": 0})())
+    ops.reset_launch_counts()
+    try:
+        # the kernels' path on CPU tensors, as if on a card
+        rule = cuda_linear.takes_wgmma
+        monkeypatch.setattr(cuda_linear, "takes_wgmma",
+                            lambda x, w: w.shape[0] % 128 == 0 and w.shape[1] % 128 == 0)
+        x, w, b = _linear_leaves(4, 512, 1536, True)
+        cuda_linear.linear(x, w, b).sum().backward()
+        with torch.no_grad():
+            cuda_linear.linear(x, w)  # the operator, no gradient
+        assert lib.calls == [("fwd", 12, 1536, 512), ("bwd", 12, 1536, 512, 1),
+                             ("fwd", 12, 1536, 512)]
+        monkeypatch.setattr(cuda_linear, "takes_wgmma", rule)
+        # the library's path: fp32 on a (fake) card below the crossover
+        with FakeTensorMode():
+            for dtype in (torch.float32, torch.bfloat16):
+                cuda_linear.linear(torch.empty((459, 512), dtype=dtype, device="cuda"),
+                                   torch.empty((1536, 512), dtype=dtype, device="cuda"))
+        assert ops.launch_counts(torch.float32, "wgmma")["linear"] == 2
+        assert ops.launch_counts(torch.float32, "wgmma")["linear_bwd"] == 1
+        assert ops.launch_counts(torch.float32, "library")["linear"] == 1
+        assert ops.launch_counts(torch.float32)["linear"] == 3
+        assert not any(ops.launch_counts(torch.bfloat16).values())
+    finally:
+        ops.reset_launch_counts()
+
+
+@pytest.mark.parametrize("m", [1, 459, 4096, 33048, 66096, 132192])
+@pytest.mark.parametrize("n,k", [(1536, 512), (512, 512), (384, 128)])
+def test_linear_wgrad_splits(m, n, k):
+    """The slices of M the dW kernel sums over: fixed by the shapes, at
+    least one and each at least WGRAD_MIN_ROWS rows where M allows, and at
+    most WGRAD_ITEMS work items of 256 x 128 tiles of dW and slices (two
+    rounds of an H100's SMs), filling them at the cells' rows."""
+    s = cuda_linear.wgrad_splits(m, n, k)
+    assert s == cuda_linear.wgrad_splits(m, n, k) and s >= 1
+    assert s <= max(1, -(-m // cuda_linear.WGRAD_MIN_ROWS))
+    per_slice = -(-n // 256) * (k // 128)
+    assert s * per_slice <= max(per_slice, cuda_linear.WGRAD_ITEMS)
+    if m >= 66096:
+        assert s * per_slice > cuda_linear.WGRAD_ITEMS - per_slice
+
+
+def test_linear_launchers_refuse_what_the_kernels_do_not_take():
+    """The launchers check the operands before any pointer reaches the
+    library: CPU or bf16 operands, K or N off the tiles, mismatched shapes."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    def empty(*shape, dtype=torch.float32, device="cuda"):
+        return torch.empty(shape, dtype=dtype, device=device)
+
+    with FakeTensorMode():
+        x, w = empty(64, 512), empty(512, 512)
+        for args in ((empty(64, 512, device="cpu"), empty(512, 512, device="cpu")),
+                     (empty(64, 512, dtype=torch.bfloat16), empty(512, 512, dtype=torch.bfloat16)),
+                     (empty(64, 100), empty(512, 100)), (x, empty(200, 512)),
+                     (x, empty(512, 384))):
+            with pytest.raises(ValueError):
+                cuda_linear.linear_forward(*args, None)
+        with pytest.raises(ValueError, match="b"):
+            cuda_linear.linear_forward(x, w, empty(256))
+        with pytest.raises(ValueError, match="g"):
+            cuda_linear.linear_backward(x, w, empty(64, 256))
